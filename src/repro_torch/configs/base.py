@@ -1,0 +1,54 @@
+"""Model configuration (dense family) and the architecture registry.
+
+Counterpart of ``repro/configs/base.py``, cut to the fields the dense
+serving path reads: RMSNorm, SwiGLU MLP, RoPE, GQA, no biases, untied head.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_smoke_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # only "dense" is ported
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-5
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+ARCH_IDS = ["llama3_8b"]
+
+
+def _module(arch: str):
+    arch = arch.replace("-", "_").replace(".", "p")
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    return _module(arch).SMOKE_CONFIG

@@ -1,0 +1,55 @@
+"""Convert the reference's quantized parameter tree into the port's.
+
+The input is ``LM.quantize`` output of the JAX package with every leaf
+turned into a numpy array by the caller (``np.asarray``); this module never
+sees a JAX type. Block leaves carry a leading layer axis there and become
+a list of per-layer dicts here, so both packages compute the same thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.layers.common import resolve_device
+
+__all__ = ["params_from_jax", "to_torch"]
+
+
+def to_torch(a, device="cuda") -> torch.Tensor:
+    """numpy array → tensor on ``device``; bfloat16 arrays (ml_dtypes)
+    keep their bits."""
+    device = resolve_device(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def params_from_jax(tree: dict, device="cuda") -> dict:
+    """Reference quantized params (numpy leaves, stacked ``blocks``) →
+    the port's params (tensors on ``device``, ``blocks`` a list). A
+    CUDA device without a card raises; pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
+    out = {k: _tree(v, lambda a: to_torch(a, device))
+           for k, v in tree.items() if k != "blocks"}
+    stacked = tree["blocks"]
+    num_layers = len(next(iter(_leaves(stacked))))
+    out["blocks"] = [_tree(stacked, lambda a, i=i: to_torch(a[i], device))
+                     for i in range(num_layers)]
+    return out
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    else:
+        yield x

@@ -1,0 +1,128 @@
+"""Low-bit quantization primitives (W4 / A4 / A8), byte-compatible with
+``repro/core/quantizer.py``.
+
+* INT4 values live in [-8, 7] and are stored biased by +8 as unsigned
+  nibbles, two per uint8 byte, in the blocked "location switch" layout:
+  within each block of ``block_size`` elements byte ``j`` holds element
+  ``j`` (low nibble) and ``j + block_size/2`` (high nibble).
+* INT8 values live in [-128, 127] as plain int8.
+* Scales are float32, one per (row, 128-block) for activations and one
+  per (128-block, output column) for weights.
+
+Rounding is half-to-even (``torch.round``) and every division is IEEE
+float32, so codes and scales match the reference bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INT4_MIN, INT4_MAX, INT4_BIAS = -8, 7, 8
+INT8_MIN, INT8_MAX = -128, 127
+
+__all__ = [
+    "INT4_MIN", "INT4_MAX", "INT4_BIAS",
+    "absmax_scale", "quantize_int4", "quantize_int8",
+    "pack_int4_interleaved", "unpack_int4_interleaved",
+    "quantize_weight_int4", "dequantize_weight_int4",
+    "quantize_act_groupwise",
+]
+
+
+def absmax_scale(x: torch.Tensor, dim, bits: int) -> torch.Tensor:
+    """Symmetric scale s.t. absmax maps to the max quant level."""
+    amax = torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-8)
+    # divide by a tensor: PyTorch on the card turns division by a Python
+    # scalar into a multiply by its rounded reciprocal, which is not the
+    # IEEE quotient the reference (and the CUDA kernel) computes
+    qmax = amax.new_full((), float(2 ** (bits - 1) - 1))
+    return (amax / qmax).to(torch.float32)
+
+
+def quantize_int4(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int4 quantization → int8 tensor of values in [-8, 7]."""
+    return torch.clamp(torch.round(x / scale), INT4_MIN, INT4_MAX).to(
+        torch.int8)
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), INT8_MIN, INT8_MAX).to(
+        torch.int8)
+
+
+def pack_int4_interleaved(q: torch.Tensor, dim: int = 0,
+                          block_size: int | None = None) -> torch.Tensor:
+    """int8 values in [-8, 7] → biased nibbles packed in the blocked
+    location-switch layout along ``dim`` (whole axis if no block size)."""
+    dim = dim % q.ndim
+    k = q.shape[dim]
+    bs = k if block_size is None else block_size
+    if bs % 2 or k % bs:
+        raise ValueError(f"axis length {k} must tile into even blocks of {bs}")
+    biased = (q.to(torch.int32) + INT4_BIAS).to(torch.uint8)
+    moved = biased.movedim(dim, 0)
+    nb = k // bs
+    moved = moved.reshape(nb, bs, *moved.shape[1:])
+    packed = moved[:, : bs // 2] | (moved[:, bs // 2:] << 4)
+    packed = packed.reshape(nb * (bs // 2), *packed.shape[2:])
+    return packed.movedim(0, dim).contiguous()
+
+
+def unpack_int4_interleaved(packed: torch.Tensor, dim: int = 0,
+                            block_size: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_interleaved` → int8 values in [-8, 7]."""
+    dim = dim % packed.ndim
+    kp = packed.shape[dim]
+    bsh = kp if block_size is None else block_size // 2
+    if kp % bsh:
+        raise ValueError(f"packed axis {kp} must tile into blocks of {bsh}")
+    moved = packed.movedim(dim, 0)
+    nb = kp // bsh
+    moved = moved.reshape(nb, bsh, *moved.shape[1:])
+    lo = (moved & 0x0F).to(torch.int8) - INT4_BIAS
+    hi = (moved >> 4).to(torch.int8) - INT4_BIAS
+    out = torch.cat([lo, hi], dim=1).reshape(nb * bsh * 2, *moved.shape[2:])
+    return out.movedim(0, dim).contiguous()
+
+
+def quantize_weight_int4(w: torch.Tensor, group_size: int = 128):
+    """[K, N] weight → (packed uint8 [K/2, N], scale f32 [K/g, N]).
+
+    One scale per (K-group of ``group_size``, output column); the packing
+    blocks match the groups, so a GEMM K step never splits a byte."""
+    if w.ndim != 2:
+        raise ValueError(f"expected [K, N] weight, got {tuple(w.shape)}")
+    k, n = w.shape
+    if k % group_size:
+        raise ValueError(f"K={k} not divisible by group_size={group_size}")
+    wg = w.reshape(k // group_size, group_size, n)
+    scale = absmax_scale(wg, dim=1, bits=4)
+    q = quantize_int4(wg, scale).reshape(k, n)
+    packed = pack_int4_interleaved(q, dim=0, block_size=group_size)
+    return packed, scale[:, 0, :].contiguous()
+
+
+def dequantize_weight_int4(packed: torch.Tensor, scale: torch.Tensor,
+                           group_size: int = 128) -> torch.Tensor:
+    """Packed [K/2, N] + scale [K/g, N] → f32 [K, N]."""
+    q = unpack_int4_interleaved(packed, dim=0, block_size=group_size)
+    k, n = q.shape
+    q = q.to(torch.float32).reshape(k // group_size, group_size, n)
+    return (q * scale[:, None, :]).reshape(k, n)
+
+
+def quantize_act_groupwise(x: torch.Tensor, block_size: int = 128,
+                           bits: int = 4):
+    """[M, K] activations → (q int8 [M, K], scale f32 [M, K/block])."""
+    m, k = x.shape
+    if k % block_size:
+        raise ValueError(f"K={k} not divisible by block={block_size}")
+    xb = x.reshape(m, k // block_size, block_size)
+    scale = absmax_scale(xb, dim=2, bits=bits)
+    if bits == 4:
+        q = quantize_int4(xb, scale)
+    elif bits == 8:
+        q = quantize_int8(xb, scale)
+    else:
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    return q.reshape(m, k), scale[:, :, 0]

@@ -1,0 +1,107 @@
+"""Public wrappers around the ported kernels (``repro/kernels/ops.py``).
+
+Every op takes ``impl`` ∈ {"auto", "cuda", "ref"}:
+
+* ``auto`` — a CUDA tensor launches the kernel, a CPU tensor takes the
+  plain version;
+* ``cuda`` — the kernel; a CPU tensor raises;
+* ``ref``  — the plain version, on whatever device the tensor is.
+
+A kernel that fails to build or launch raises; nothing falls back.
+
+Shape policy: ``[..., K]`` activations are flattened to ``[M, K]`` and the
+result reshaped back. Unlike the Pallas wrappers, nothing is padded to a
+tile multiple: the CUDA kernels mask their ragged edge themselves.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import act_quant as AQ
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import w4ax_matmul as WK
+
+BLOCK_K = WK.BLOCK_K
+
+__all__ = ["act_quant", "w4ax_matmul", "paged_kv4_prefill_attention_wq",
+           "combine_plan", "use_kernel", "KERNELS"]
+
+# every kernel wrapper of the ported path, by the name its launch count is
+# reported under
+KERNELS = {
+    "act_quant_int4": AQ.act_quant_int4,
+    "act_quant_int8": AQ.act_quant_int8,
+    "w4a4_matmul": WK.w4a4_matmul,
+    "w4a8_matmul": WK.w4a8_matmul,
+    "paged_kv4_prefill_attention_wq": PA.paged_kv4_partials,
+}
+combine_plan = PA.combine_plan
+
+
+def use_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Resolve ``impl`` for a tensor: True → launch the CUDA kernel."""
+    if impl == "auto":
+        return t.is_cuda
+    if impl == "cuda":
+        if not t.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors; this one lies "
+                             f"on {t.device}")
+        return True
+    if impl == "ref":
+        return False
+    raise ValueError(f"impl must be auto|cuda|ref, got {impl!r}")
+
+
+def act_quant(x: torch.Tensor, *, bits: int = 4, impl: str = "auto"):
+    """[..., K] float → (payload, scales [..., K/128]); bits=4 gives
+    packed uint8 [..., K/2], bits=8 int8 [..., K]. The input is upcast to
+    f32 first, as the reference does."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    if use_kernel(impl, x2):
+        kern = AQ.act_quant_int4 if bits == 4 else AQ.act_quant_int8
+        payload, scale = kern(x2)
+    else:
+        payload, scale = AQ.act_quant_ref(x2, block_size=BLOCK_K, bits=bits)
+    return (payload.reshape(*lead, payload.shape[-1]),
+            scale.reshape(*lead, k // BLOCK_K))
+
+
+def w4ax_matmul(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, *,
+                impl: str = "auto") -> torch.Tensor:
+    """Mixed-precision W4Ax GEMM under the split schedule: dequant(a) @
+    dequant(w) → [..., N] f32."""
+    lead = a4_packed.shape[:-1]
+    m = math.prod(lead) if lead else 1
+    n = w_packed.shape[1]
+    a4p = a4_packed.reshape(m, a4_packed.shape[-1])
+    a4s = a4_scale.reshape(m, a4_scale.shape[-1])
+    a8q = a8_q.reshape(m, a8_q.shape[-1])
+    a8s = a8_scale.reshape(m, a8_scale.shape[-1])
+    if use_kernel(impl, a4p):
+        out = WK.w4ax_matmul_split(a4p, a4s, a8q, a8s, w_packed, w_scale)
+    else:
+        nb4 = a4s.shape[1] if a4p.shape[1] else 0
+        k4p = nb4 * WK.PACKED_BLOCK
+        out = WK.w4ax_matmul_ref(a4p, a4s, a8q, a8s,
+                                 w_packed[:k4p], w_scale[:nb4],
+                                 w_packed[k4p:], w_scale[nb4:])
+    return out.reshape(*lead, n)
+
+
+def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
+                                   v_pool, v_scale, v_zero, work_items, *,
+                                   plan=None,
+                                   impl: str = "auto") -> torch.Tensor:
+    """Work-queue chunked-prefill attention over int4 paged history plus
+    each row's causal in-flight fp chunk → [B, C, Hq, D] f32 (rows past a
+    row's q_len are padding garbage; mask outside). ``plan`` is the
+    combine's :func:`combine_plan` of the descriptor rows, built on the
+    host; without it the combine reads the rows back once."""
+    fn = (PA.paged_kv4_prefill_attention_wq if use_kernel(impl, q)
+          else PA.paged_kv4_prefill_attention_wq_ref)
+    return fn(q, k_new, v_new, k_pool, k_scale, k_zero, v_pool, v_scale,
+              v_zero, work_items, plan)

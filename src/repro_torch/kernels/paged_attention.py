@@ -1,0 +1,241 @@
+"""Work-queue (Stream-K) paged KV4 prefill attention: the CUDA kernel, its
+plain version, and the PyTorch pre-fold and split-KV combine around both.
+
+Kernel: ``csrc/paged_attention.cu`` (replaces ``repro/kernels/
+paged_attention.py`` ``paged_kv4_prefill_attention_wq``; bound by f32
+operations; keys stream through shared memory in chunks of 32 with an
+online softmax — see the source note).
+
+The host flattens the batch into ``[W, 4]`` int32 descriptors ``(row,
+phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``). Each
+item yields one flash partial ``(acc, l, m)``: kind 0 is one int4 history
+page with the V affine folded in, kind 1 the row's causal in-flight fp
+chunk. :func:`combine_work_partials` merges the partials per row:
+
+    M_r = max_i m_i,   out_r = Σ_i e^{m_i−M_r}·acc_i / Σ_i e^{m_i−M_r}·l_i
+
+Padding items carry a sentinel row ``≥ num_rows`` and ``count = 0``; the
+combine drops them. :func:`paged_kv4_partials` is the kernel's wrapper
+(pre-folded inputs → partials; its ``launches`` counts the kernel), and
+:func:`paged_kv4_prefill_attention_wq` composes it with both PyTorch ends.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+__all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
+           "prefold", "paged_kv4_partials", "paged_kv4_partials_ref",
+           "paged_kv4_prefill_attention_wq_ref",
+           "paged_kv4_prefill_attention_wq"]
+
+
+def _inv_sqrt(d: int) -> float:
+    """1/√d rounded as the reference computes it: in float32."""
+    return float(torch.tensor(float(d), dtype=torch.float32).sqrt()
+                 .reciprocal())
+
+
+def unpack_nibbles_f32(packed: torch.Tensor) -> torch.Tensor:
+    """[..., D/2] uint8 → [..., D] f32 nibbles; byte j = (ch j, ch j+D/2)."""
+    return torch.cat([(packed & 0x0F).float(), (packed >> 4).float()], -1)
+
+
+class CombinePlan(NamedTuple):
+    """Where each item's partial goes in the combine: ``order`` sorts the
+    items by row (stable), ``seg`` is each sorted item's row
+    (``num_rows`` = dropped), ``pos`` its slot within that row, ``kmax``
+    the most items any row has."""
+    order: torch.Tensor
+    seg: torch.Tensor
+    pos: torch.Tensor
+    kmax: int
+
+
+def combine_plan(rows, num_rows: int, device) -> CombinePlan:
+    """The combine's plan from the descriptor rows (numpy ``[W]``), worked
+    out on the host: the engine builds it once per step from the
+    descriptors it already holds, so no layer waits for the card."""
+    rows = np.minimum(np.asarray(rows, np.int64), num_rows)
+    order = np.argsort(rows, kind="stable")
+    seg = rows[order]
+    start = np.searchsorted(seg, np.arange(num_rows + 1))
+    pos = np.where(seg < num_rows, np.arange(seg.size) - start[seg], 0)
+    idx = torch.from_numpy(np.stack([order, seg, pos])).to(device)
+    return CombinePlan(idx[0], idx[1], idx[2], int(pos.max(initial=0)) + 1)
+
+
+def combine_work_partials(acc, l, m, rows, num_rows: int,
+                          plan: Optional[CombinePlan] = None) -> torch.Tensor:
+    """Split-KV log-sum-exp combine of per-item partials.
+
+    acc ``[W, R, D]``, l/m ``[W, R, 1]``, rows ``[W]`` segment ids (ids
+    ``≥ num_rows`` are padding and dropped) → ``[num_rows, R, D]``; rows
+    with no items come back 0. Without ``plan`` (:func:`combine_plan` of
+    the same rows) the rows are read back to the host once.
+
+    Deterministic: each row's items are summed in descriptor order, one
+    add at a time (the order of the reference's segment sum), instead of
+    with atomics, so two runs on the card agree bit for bit."""
+    dev = acc.device
+    if plan is None:
+        plan = combine_plan(rows.cpu().numpy(), num_rows, dev)
+    order, seg = plan.order, plan.seg
+    m = m[order]
+    mmax = torch.full((num_rows + 1,) + tuple(m.shape[1:]), float("-inf"),
+                      dtype=m.dtype, device=dev)
+    mmax.scatter_reduce_(0, seg.view(-1, *[1] * (m.ndim - 1)).expand_as(m),
+                         m, "amax")
+    # rows with no items keep -inf; clamp to the finite NEG_INF so a
+    # fully-masked partial weighs exp(0) instead of exp(+inf)
+    mmax = mmax.clamp_min(NEG_INF)
+    w = torch.exp(m - mmax[seg])
+
+    def segment_sum(x):
+        # dropped items all land on slot 0 of a scratch row num_rows, one
+        # row past the output
+        buf = torch.zeros((num_rows + 1, plan.kmax) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=dev)
+        buf[seg, plan.pos] = x
+        out = buf[:num_rows, 0]
+        for k in range(1, plan.kmax):
+            out = out + buf[:num_rows, k]
+        return out
+
+    return (segment_sum(acc[order] * w)
+            / segment_sum(l[order] * w).clamp_min(1e-30))
+
+
+def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero):
+    """Affine pre-fold outside the kernel (reference ``:648-661``).
+
+    → qt2 = q·s_k/√D and c2 = Σ qt·z_k (history pages), qs2 = q/√D (fp
+    chunk), all ``[B·Hkv, C·G, ·]``; kn2/vn2 ``[B·Hkv, C, D]`` f32; v
+    scale/zero ``[Hkv, D]``."""
+    b, c, hq, d = q.shape
+    hkv = k_new.shape[2]
+    g = hq // hkv
+    nrows = b * hkv
+    sm = _inv_sqrt(d)
+    qg = q.reshape(b, c, hkv, g, d).float().movedim(1, 2)   # [B,Hkv,C,G,D]
+    ksb = k_scale.expand(hkv, 1, d).reshape(1, hkv, 1, 1, d)
+    kzb = k_zero.expand(hkv, 1, d).reshape(1, hkv, 1, 1, d)
+    qt = qg * ksb * sm
+    cterm = (qt * kzb).sum(-1, keepdim=True)
+    return (qt.reshape(nrows, c * g, d).contiguous(),
+            cterm.reshape(nrows, c * g, 1).contiguous(),
+            (qg * sm).reshape(nrows, c * g, d).contiguous(),
+            k_new.float().transpose(1, 2).reshape(nrows, c, d).contiguous(),
+            v_new.float().transpose(1, 2).reshape(nrows, c, d).contiguous(),
+            v_scale.expand(hkv, 1, d).reshape(hkv, d).float().contiguous(),
+            v_zero.expand(hkv, 1, d).reshape(hkv, d).float().contiguous())
+
+
+def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
+                           v_pool, g: int):
+    """Plain version of the kernel: every item's partial for both kinds,
+    selected by ``kind`` (reference ``ref.py:341-395``)."""
+    nrows, cg, d = qt2.shape
+    c = kn2.shape[1]
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    desc = desc.long()
+    rcl = desc[:, 0].clamp(max=nrows - 1)
+    heads = rcl % hkv
+    counts = desc[:, 2][:, None, None]
+    sel = (desc[:, 3] != 0)[:, None, None]
+    vsb, vzb = vs2[heads][:, None, :], vz2[heads][:, None, :]
+
+    nk = unpack_nibbles_f32(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
+    nv = unpack_nibbles_f32(v_pool[desc[:, 1], :, heads])
+    s_h = torch.einsum("wgd,wpd->wgp", qt2[rcl], nk) - c2[rcl]
+    pos = torch.arange(ps, device=desc.device)[None, None, :]
+    s_h = torch.where(pos < counts, s_h, NEG_INF)
+    m_h = s_h.amax(-1, keepdim=True)
+    p_h = torch.exp(s_h - m_h)
+    l_h = p_h.sum(-1, keepdim=True)
+    pv = torch.einsum("wgp,wpd->wgd", p_h, nv)
+    acc_h = pv * vsb - l_h * (vsb * vzb)
+
+    s_c = torch.einsum("wgd,wcd->wgc", qs2[rcl], kn2[rcl])
+    qi = (torch.arange(cg, device=desc.device) // g)[None, :, None]
+    kj = torch.arange(c, device=desc.device)[None, None, :]
+    s_c = torch.where((kj <= qi) & (kj < counts), s_c, NEG_INF)
+    m_c = s_c.amax(-1, keepdim=True)
+    p_c = torch.exp(s_c - m_c)
+    l_c = p_c.sum(-1, keepdim=True)
+    acc_c = torch.einsum("wgc,wcd->wgd", p_c, vn2[rcl])
+    return (torch.where(sel, acc_c, acc_h), torch.where(sel, l_c, l_h),
+            torch.where(sel, m_c, m_h))
+
+
+def paged_kv4_partials(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
+                       v_pool, g: int):
+    """The K9 kernel on pre-folded inputs (:func:`prefold`) → one partial
+    per descriptor: acc ``[W, C·G, D]``, l and m ``[W, C·G, 1]`` f32.
+    Same arguments and result as :func:`paged_kv4_partials_ref`; D = 128."""
+    nrows, cg, d = qt2.shape
+    c = kn2.shape[1]
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    for name, t in (("qt2", qt2), ("kn2", kn2), ("vn2", vn2),
+                    ("k_pool", k_pool), ("v_pool", v_pool), ("desc", desc)):
+        if not t.is_cuda:
+            raise ValueError(f"paged attention kernel needs CUDA tensors "
+                             f"({name} is not)")
+    if d != 128:
+        raise ValueError(f"the kernel is built for head_dim 128, got {d}")
+    if (k_pool.dtype != torch.uint8 or v_pool.dtype != torch.uint8
+            or not k_pool.is_contiguous() or not v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous uint8 [P, ps, Hkv, D/2]")
+    desc = desc.to(torch.int32).contiguous()
+    w = desc.shape[0]
+    acc = torch.empty((w, cg, d), dtype=torch.float32, device=qt2.device)
+    l = torch.empty((w, cg, 1), dtype=torch.float32, device=qt2.device)
+    m = torch.empty((w, cg, 1), dtype=torch.float32, device=qt2.device)
+    _build.call("paged_attention", "paged_kv4_prefill_wq", qt2.device, desc,
+                w, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool, v_pool, acc, l,
+                m, nrows, cg, c, g, ps, hkv, d)
+    paged_kv4_partials.launches += 1
+    return acc, l, m
+
+
+paged_kv4_partials.launches = 0
+
+
+def _attend(partials, q, k_new, v_new, k_pool, k_scale, k_zero, v_pool,
+            v_scale, v_zero, work_items, plan):
+    """Pre-fold → per-item partials → combine → ``[B, C, Hq, D]``."""
+    b, c, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    folded = prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero)
+    acc, l, m = partials(work_items, *folded, k_pool, v_pool, hq // hkv)
+    out = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan)
+    out = out.reshape(b, hkv, c, hq // hkv, d).movedim(2, 1)
+    return out.reshape(b, c, hq, d)
+
+
+def paged_kv4_prefill_attention_wq_ref(q, k_new, v_new, k_pool, k_scale,
+                                       k_zero, v_pool, v_scale, v_zero,
+                                       work_items, plan=None) -> torch.Tensor:
+    """Plain version: q ``[B, C, Hq, D]``, in-flight k/v ``[B, C, Hkv, D]``,
+    pools ``[P, ps, Hkv, D/2]`` uint8, scales/zeros ``[Hkv, 1, D]``,
+    descriptors ``[W, 4]``, optional :class:`CombinePlan` of their rows →
+    f32 ``[B, C, Hq, D]``. Rows past a row's q_len are padding garbage;
+    the caller masks them."""
+    return _attend(paged_kv4_partials_ref, q, k_new, v_new, k_pool, k_scale,
+                   k_zero, v_pool, v_scale, v_zero, work_items, plan)
+
+
+def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
+                                   v_pool, v_scale, v_zero, work_items,
+                                   plan=None) -> torch.Tensor:
+    """On the card: pre-fold (PyTorch) → the K9 kernel → combine
+    (PyTorch). Same arguments and result as the plain version."""
+    return _attend(paged_kv4_partials, q, k_new, v_new, k_pool, k_scale,
+                   k_zero, v_pool, v_scale, v_zero, work_items, plan)

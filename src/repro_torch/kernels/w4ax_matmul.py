@@ -1,0 +1,148 @@
+"""W4Ax mixed-precision GEMM: the CUDA kernels and their plain versions.
+
+Kernels: ``csrc/w4ax_matmul.cu`` (replaces ``repro/kernels/w4ax_matmul.py``
+``w4a4_matmul``/``w4a8_matmul``; bound by bytes at serving batch sizes;
+int4 nibbles unpacked to int8 in shared memory for ``mma.sync`` int8 with
+the zero-extension correction algebra — see the source note).
+``w4ax_matmul_split`` composes them as the reference's split schedule:
+W4A4 over the K4 prefix, W4A8 over the K8 tail, summed.
+
+The plain versions unpack to exact int32 per-block dots and apply the
+per-(row, block) × per-(block, column) scales in f32, like
+``repro/kernels/ref.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quantizer as Q
+from repro_torch.kernels import _build
+
+BLOCK_K = 128
+PACKED_BLOCK = BLOCK_K // 2
+
+__all__ = ["w4a4_matmul_ref", "w4a8_matmul_ref", "w4ax_matmul_ref",
+           "w4a4_matmul", "w4a8_matmul", "w4ax_matmul_split"]
+
+
+def _block_dot_scaled(a: torch.Tensor, w: torch.Tensor, a_scale, w_scale,
+                      block_size: int) -> torch.Tensor:
+    """int8 a [M, K] × int8 w [K, N] → Σ_b f32(int32 block dot)·a_s·w_s."""
+    m, k = a.shape
+    out = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=a.device)
+    for b in range(k // block_size):
+        sl = slice(b * block_size, (b + 1) * block_size)
+        # the block dot is an integer below 2^18: exact in f64 (PyTorch has
+        # no integer matmul on the card) and exact again in f32
+        part = (a[:, sl].to(torch.float64) @ w[sl].to(torch.float64)).float()
+        out += part * (a_scale[:, b:b + 1].float() * w_scale[b].float())
+    return out
+
+
+def w4a4_matmul_ref(a_packed, a_scale, w_packed, w_scale,
+                    block_size: int = BLOCK_K) -> torch.Tensor:
+    """Packed int4 [M, K/2] × packed int4 [K/2, N] → f32 [M, N]."""
+    a = Q.unpack_int4_interleaved(a_packed, dim=1, block_size=block_size)
+    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
+    return _block_dot_scaled(a, w, a_scale, w_scale, block_size)
+
+
+def w4a8_matmul_ref(a_q, a_scale, w_packed, w_scale,
+                    block_size: int = BLOCK_K) -> torch.Tensor:
+    """int8 [M, K] × packed int4 [K/2, N] → f32 [M, N]."""
+    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
+    return _block_dot_scaled(a_q, w, a_scale, w_scale, block_size)
+
+
+def w4ax_matmul_ref(a4_packed, a4_scale, a8_q, a8_scale, w4_packed, w4_scale,
+                    w8_packed, w8_scale, block_size: int = BLOCK_K):
+    """K4 channels in W4A4 plus the trailing K8 in W4A8, one output."""
+    out = None
+    if a4_packed.shape[1] > 0:
+        out = w4a4_matmul_ref(a4_packed, a4_scale, w4_packed, w4_scale,
+                              block_size)
+    if a8_q.shape[1] > 0:
+        o8 = w4a8_matmul_ref(a8_q, a8_scale, w8_packed, w8_scale, block_size)
+        out = o8 if out is None else out + o8
+    if out is None:
+        raise ValueError("empty GEMM")
+    return out
+
+
+def _check_gemm(a, a_scale, w_packed, w_scale, nb, a_cols):
+    for name, t in (("a", a), ("a_scale", a_scale), ("w_packed", w_packed),
+                    ("w_scale", w_scale)):
+        if not t.is_cuda:
+            raise ValueError(f"w4ax kernel needs CUDA tensors ({name} is not)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m, n = a.shape[0], w_packed.shape[1]
+    if (a.shape[1] != a_cols or tuple(a_scale.shape) != (m, nb)
+            or w_packed.shape[0] != nb * PACKED_BLOCK
+            or tuple(w_scale.shape) != (nb, n)):
+        raise ValueError(
+            f"shape mismatch: a {tuple(a.shape)}, a_scale "
+            f"{tuple(a_scale.shape)}, w_packed {tuple(w_packed.shape)}, "
+            f"w_scale {tuple(w_scale.shape)}")
+    if w_packed.dtype != torch.uint8 or a_scale.dtype != torch.float32 \
+            or w_scale.dtype != torch.float32:
+        raise ValueError("w_packed must be uint8 and the scales f32")
+    if n % 4:
+        raise ValueError(f"N={n} must be a multiple of 4")
+    return m, n
+
+
+def w4a4_matmul(a_packed, a_scale, w_packed, w_scale, *,
+                conversion: str = "zeroext") -> torch.Tensor:
+    """Packed int4 [M, K/2] × packed int4 [K/2, N] on the card → f32 [M, N]."""
+    nb = a_scale.shape[1]
+    if a_packed.dtype != torch.uint8:
+        raise ValueError("a_packed must be uint8")
+    m, n = _check_gemm(a_packed, a_scale, w_packed, w_scale, nb,
+                       nb * PACKED_BLOCK)
+    out = torch.empty((m, n), dtype=torch.float32, device=a_packed.device)
+    _build.call("w4ax_matmul", "w4a4_matmul", a_packed.device, a_packed,
+                a_scale, w_packed, w_scale, out, m, n, nb,
+                int(conversion == "zeroext"))
+    w4a4_matmul.launches += 1
+    return out
+
+
+def w4a8_matmul(a_q, a_scale, w_packed, w_scale, *,
+                conversion: str = "zeroext") -> torch.Tensor:
+    """int8 [M, K] × packed int4 [K/2, N] on the card → f32 [M, N]."""
+    nb = a_scale.shape[1]
+    if a_q.dtype != torch.int8:
+        raise ValueError("a_q must be int8")
+    m, n = _check_gemm(a_q, a_scale, w_packed, w_scale, nb, nb * BLOCK_K)
+    out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
+    _build.call("w4ax_matmul", "w4a8_matmul", a_q.device, a_q, a_scale,
+                w_packed, w_scale, out, m, n, nb,
+                int(conversion == "zeroext"))
+    w4a8_matmul.launches += 1
+    return out
+
+
+w4a4_matmul.launches = 0
+w4a8_matmul.launches = 0
+
+
+def w4ax_matmul_split(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale,
+                      *, conversion: str = "zeroext") -> torch.Tensor:
+    """Two uniform sub-GEMMs over the contiguous K4 / K8 channel ranges.
+    The weight halves are row slices of one contiguous [K/2, N] array, so
+    they go to the kernels without a copy."""
+    nb4 = a4_scale.shape[1] if a4_packed.shape[1] else 0
+    k4p = nb4 * PACKED_BLOCK
+    out = None
+    if nb4 > 0:
+        out = w4a4_matmul(a4_packed, a4_scale, w_packed[:k4p], w_scale[:nb4],
+                          conversion=conversion)
+    if a8_q.shape[1] > 0:
+        o8 = w4a8_matmul(a8_q, a8_scale, w_packed[k4p:], w_scale[nb4:],
+                         conversion=conversion)
+        out = o8 if out is None else out.add_(o8)
+    if out is None:
+        raise ValueError("empty GEMM")
+    return out

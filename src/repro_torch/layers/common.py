@@ -1,0 +1,66 @@
+"""Shared layer primitives (``repro/layers/common.py``): RMSNorm, RoPE and
+the linear dispatch (packed W4 params → W4Ax; plain ``w`` → bf16 matmul).
+
+Rounding points follow the reference: norms and RoPE compute in f32 and
+return the input dtype; every projection returns bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import qlinear as QL
+
+__all__ = ["rmsnorm", "rope_frequencies", "apply_rope", "linear",
+           "resolve_device", "no_tf32"]
+
+
+def resolve_device(device) -> torch.device:
+    """An explicit device; a CUDA request without a card raises rather
+    than sliding onto the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested but none is "
+                           "available; pass device='cpu' explicitly")
+    return dev
+
+
+def no_tf32() -> None:
+    """The port's f32 products (attention pre-fold, no-history flash
+    attention, plain kernel versions) must run in full f32, as on the
+    reference: turn TF32 off for matmuls and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale).to(dt)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [..., S, H, D]; positions broadcastable to [..., S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_frequencies(d, theta, x.device)
+    ang = positions[..., :, None].float() * freqs        # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def linear(params, x: torch.Tensor, quant=None) -> torch.Tensor:
+    if "w_packed" in params:
+        return QL.dispatch_qlinear(params, x, quant).to(torch.bfloat16)
+    return x.to(torch.bfloat16) @ params["w"].to(torch.bfloat16)

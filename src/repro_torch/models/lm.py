@@ -1,0 +1,137 @@
+"""Dense language model: parameters, PTQ, embedding and head
+(``repro/models/lm.py``, dense family).
+
+Parameters are plain dictionaries shaped like the reference's tree, with
+the layer stack as a Python list of per-layer dicts instead of a stacked
+leading axis (the engine walks layers in a Python loop)::
+
+    {"embed": {"table": bf16 [V, d]}, "final_norm": {"scale": f32 [d]},
+     "lm_head": {"w": bf16 [d, V]},
+     "blocks": [{"attn_norm": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
+                 "mlp_norm": {"scale"}, "mlp": {"w_up", "w_gate",
+                 "w_down"}}, ...]}
+
+where each projection is ``{"w": f32 [K, N]}`` before :meth:`LM.quantize`
+and ``{"w_packed": uint8 [K/2, N], "w_scale": f32 [K/128, N]}`` after.
+Random weights follow the reference's initializers (truncated normal in
+[-2, 2] scaled by 1/√fan_in; unit-scale embedding) from a seeded
+``torch.Generator`` — the same distribution, not the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantizer as Q
+from repro_torch.layers import common as C
+
+__all__ = ["LM", "QuantConfig", "QUANT_KEYS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    int4_fraction: float = 0.875     # W4A4 block fraction (rest is W4A8)
+    impl: str = "auto"               # kernel impl: auto | cuda | ref
+
+
+QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "dense":
+            raise ValueError(f"only the dense family is ported, got "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+
+    # ------------------------------------------------------------ init
+
+    @staticmethod
+    def _trunc_normal(shape, scale, gen, device):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w.mul_(scale)
+
+    def _linear(self, d_in, d_out, gen, device):
+        return {"w": self._trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in),
+                                        gen, device)}
+
+    def init_block(self, gen: torch.Generator, device) -> dict:
+        """One fp block (f32 weights) on ``device``."""
+        cfg = self.cfg
+        d = cfg.d_model
+
+        def ones():
+            return {"scale": torch.ones(d, device=device)}
+
+        return {
+            "attn_norm": ones(),
+            "attn": {"wq": self._linear(d, cfg.q_dim, gen, device),
+                     "wk": self._linear(d, cfg.kv_dim, gen, device),
+                     "wv": self._linear(d, cfg.kv_dim, gen, device),
+                     "wo": self._linear(cfg.q_dim, d, gen, device)},
+            "mlp_norm": ones(),
+            "mlp": {"w_up": self._linear(d, cfg.d_ff, gen, device),
+                    "w_down": self._linear(cfg.d_ff, d, gen, device),
+                    "w_gate": self._linear(d, cfg.d_ff, gen, device)},
+        }
+
+    def init(self, seed: int = 0, device="cuda"):
+        """Random quantized parameters on ``device``, generated layer by
+        layer: each block is made in f32, quantized, and its f32 weights
+        freed before the next, so peak memory is one fp block plus the
+        packed model."""
+        dev = C.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cfg = self.cfg
+        params = {
+            "embed": {"table": self._trunc_normal(
+                (cfg.vocab_size, cfg.d_model), 1.0, gen, dev)},
+            "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
+            "lm_head": self._linear(cfg.d_model, cfg.vocab_size, gen, dev),
+            "blocks": [],
+        }
+        params = self.quantize(params)
+        for _ in range(cfg.num_layers):
+            block = self.init_block(gen, dev)
+            params["blocks"].append(self.quantize_block(block))
+            del block
+        return params
+
+    # ------------------------------------------------------ offline PTQ
+
+    def quantize_block(self, block: dict) -> dict:
+        """Replace every projection ``{"w"}`` of a block by packed W4."""
+        def tx(tree):
+            out = {}
+            for key, val in tree.items():
+                if key in QUANT_KEYS and "w" in val:
+                    packed, scale = Q.quantize_weight_int4(val["w"])
+                    out[key] = {"w_packed": packed, "w_scale": scale}
+                elif isinstance(val, dict):
+                    out[key] = tx(val)
+                else:
+                    out[key] = val
+            return out
+        return tx(block)
+
+    def quantize(self, params: dict) -> dict:
+        """fp params → packed W4 params; the embedding table and the head
+        are stored bf16 (unquantized, as in the reference)."""
+        out = dict(params)
+        out["embed"] = {"table": params["embed"]["table"].to(torch.bfloat16)}
+        out["lm_head"] = {"w": params["lm_head"]["w"].to(torch.bfloat16)}
+        out["blocks"] = [self.quantize_block(b) for b in params["blocks"]]
+        return out
+
+    # ---------------------------------------------------- embed / head
+
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"]["table"][tokens].to(torch.bfloat16)
+
+    def head(self, params, x: torch.Tensor) -> torch.Tensor:
+        return C.linear(params["lm_head"], x).float()

@@ -1,0 +1,493 @@
+"""Serving engine: the unified one-forward step over the paged KV4 cache
+(``repro/serving/engine.py``, the default ``unified_step`` path).
+
+Each step issues ONE forward for the union of decode rows (a chunk of 1
+with int4 paged history) and prompt chunks of partially prefilled
+requests, packed into a ragged token stream. Per layer: RMSNorm → q/k/v
+through W4Ax (act-quant int4 + int8 → W4A4 + W4A8) → RoPE → quantize the
+step's KV and write it into the int4 pools (in place) → work-queue paged
+attention (fp chunk queries over int4 history pages plus each row's causal
+fp chunk, split-KV combined) → wo → SwiGLU MLP, both W4Ax. A step in which
+no row has history yet uses plain fp causal attention instead. The head
+runs on the last token of each row and greedy sampling is a host argmax.
+
+Shapes are bucketed to powers of two like the reference's jit cache keys
+(tokens ≥ 8, rows, chunk length, work items), so the same padded layout
+reaches the kernels. Padding tokens carry page ``num_pages`` and row
+``nb``; where JAX drops such out-of-range scatters and clamps gathers, the
+port writes them to a scratch page (the pools hold one page more) and a
+scratch row, and clamps the gather (an out-of-range index on the card is a
+device-side assert).
+
+``step()`` never raises: a failure in the forward quarantines that step's
+batch to FAILED (``failed_count``), anything else is swallowed into
+``internal_errors``/``last_error``. Ported: the request lifecycle, chunked
+prefill, prefix caching, preemption. Not ported in this slice:
+speculation, fault injection, sanitizers, deadlines, the bounded waiting
+queue, snapshot/restore, tensor parallelism, MoE, the split-step
+baselines and stochastic sampling.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.layers import attention as ATT
+from repro_torch.layers import common as C
+from repro_torch.layers import mlp as MLP
+from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.serving import kv_cache as KVC
+from repro_torch.serving.api import (RequestHandle, RequestOutput,
+                                     RequestState, SamplingParams)
+from repro_torch.serving.scheduler import Request, Scheduler
+
+__all__ = ["Engine", "EngineConfig", "SamplingParams", "RequestState",
+           "RequestOutput", "RequestHandle"]
+
+
+def _bucket(n: int, lo: int = 1) -> int:
+    """Round ``n`` up to a power of two (≥ lo) — the reference's shape key."""
+    return max(lo, 1 << max(int(n) - 1, 0).bit_length())
+
+
+def _pad_to(a, n: int, fill=0) -> np.ndarray:
+    out = np.full((n,), fill, np.int64)
+    out[: len(a)] = a
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_batch: int = 32
+    num_pages: int = 512
+    page_size: int = 64
+    max_pages_per_seq: int = 64
+    prefill_chunk_tokens: int = 64  # per-step token budget (chunks + decode)
+    kv_range: float = 16.0          # calibrated |k|,|v| range → int4 scales
+    prefix_cache: bool = True       # publish/reuse shared prompt pages
+
+    def __post_init__(self):
+        if self.prefill_chunk_tokens < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1")
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, quant: QuantConfig =
+                 QuantConfig(), ecfg: EngineConfig = EngineConfig(), *,
+                 device="cuda"):
+        """``params``: the model's quantized parameters on ``device``
+        (``LM.init`` or ``convert.params_from_jax``)."""
+        self.device = C.resolve_device(device)
+        if self.device.type == "cuda":
+            C.no_tf32()
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params lie on {table.device}, the engine "
+                             f"on {self.device}")
+        self.cfg = cfg
+        self.quant = quant
+        self.lm = LM(cfg)
+        self.params = params
+        self.ecfg = ecfg
+        self.cache = KVC.PagedKV4Cache(
+            cfg,
+            KVC.PagedKV4Config(
+                num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+                max_seqs=ecfg.max_batch * 2,
+                max_pages_per_seq=ecfg.max_pages_per_seq),
+            num_layer_slots=cfg.num_layers, kv_range=ecfg.kv_range,
+            device=self.device)
+        self.sched = Scheduler(ecfg.max_batch, ecfg.max_batch * 2)
+        self.steps = 0
+        self.tokens_generated = 0
+        # forwards issued (exactly one per step with work), largest fp
+        # prefill chunk, steps mixing prefill and decode rows
+        self.forward_calls = 0
+        self.peak_prefill_fp_tokens = 0
+        self.interleaved_steps = 0
+        self.prefix_hit_tokens = 0
+        self.prefill_tokens = 0
+        self.aborted_count = 0
+        self.failed_count = 0
+        self.callback_errors = 0
+        self.internal_errors = 0
+        self.last_error: Optional[str] = None
+        # attention-schedule counters: real work items (Σ real pages +
+        # chunk items, per kv head), grid items launched (pow-2 padded),
+        # and forwards that went through the work-queue kernel
+        self.attn_work_items = 0
+        self.attn_grid_items = 0
+        self.attn_forwards = 0
+        self._by_id: dict[int, Request] = {}
+        self._next_id = 0
+        self._events: list[RequestOutput] = []
+
+    def counters(self) -> dict:
+        """Every counter the engine keeps, plus the scheduler's."""
+        return {
+            "steps": self.steps, "tokens_generated": self.tokens_generated,
+            "forward_calls": self.forward_calls,
+            "peak_prefill_fp_tokens": self.peak_prefill_fp_tokens,
+            "interleaved_steps": self.interleaved_steps,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "aborted_count": self.aborted_count,
+            "failed_count": self.failed_count,
+            "callback_errors": self.callback_errors,
+            "internal_errors": self.internal_errors,
+            "last_error": self.last_error,
+            "attn_work_items": self.attn_work_items,
+            "attn_grid_items": self.attn_grid_items,
+            "attn_forwards": self.attn_forwards,
+            **self.sched.counters(),
+        }
+
+    # ----------------------------------------------------- lifecycle API
+
+    def submit(self, prompt: list[int],
+               params: Optional[SamplingParams] = None,
+               request_id: Optional[int] = None,
+               on_event=None) -> RequestHandle:
+        """Enqueue a request (QUEUED) and return its handle."""
+        params = SamplingParams() if params is None else params
+        if request_id is None:
+            while self._next_id in self._by_id:
+                self._next_id += 1
+            request_id = self._next_id
+        old = self._by_id.get(request_id)
+        if old is not None and not old.state.terminal:
+            raise ValueError(f"request_id {request_id} already in flight")
+        req = Request(request_id=request_id, prompt=list(prompt),
+                      max_new_tokens=params.max_new_tokens,
+                      arrived_at=time.time(), params=params,
+                      on_event=on_event)
+        self._by_id[request_id] = req
+        self.sched.submit(req)
+        return RequestHandle(request_id=request_id, prompt_len=len(prompt))
+
+    def _resolve(self, handle) -> Optional[Request]:
+        rid = handle.request_id if isinstance(handle, RequestHandle) \
+            else int(handle)
+        return self._by_id.get(rid)
+
+    def abort(self, handle) -> bool:
+        """Cancel a request at any state; pages released refcount-exactly."""
+        req = self._resolve(handle)
+        if req is None or not self.sched.abort(req, self.cache):
+            return False
+        self.aborted_count += 1
+        self._emit(req)
+        return True
+
+    def events(self) -> list[RequestOutput]:
+        """Drain the engine-wide event queue."""
+        evs, self._events = self._events, []
+        return evs
+
+    def stream(self, handle):
+        """Yield one request's events as they happen, driving ``step()``."""
+        req = self._resolve(handle)
+        if req is None:
+            return
+        cursor = 0
+        while True:
+            while cursor < len(req.events):
+                yield req.events[cursor]
+                cursor += 1
+            if req.state.terminal or not self.sched.has_work:
+                return
+            self.step()
+
+    def result(self, handle) -> Optional[Request]:
+        return self._resolve(handle)
+
+    def release(self, handle) -> bool:
+        """Drop a terminal request's retained state."""
+        req = self._resolve(handle)
+        if req is None or not req.state.terminal:
+            return False
+        self.sched.release(req)
+        self._by_id.pop(req.request_id, None)
+        req.events.clear()
+        req.on_event = None
+        return True
+
+    def add_request(self, request_id: int, prompt: list[int],
+                    max_new_tokens: int):
+        """Batch API: submit with the engine-wide sampling defaults."""
+        self.submit(prompt, SamplingParams(max_new_tokens=max_new_tokens),
+                    request_id=request_id)
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        """Batch API: step until all work drains."""
+        while self.sched.has_work and self.steps < max_steps:
+            self.step()
+        return self.sched.finished
+
+    # ----------------------------------------------------------- events
+
+    def _emit(self, req: Request, token: Optional[int] = None):
+        """Single event choke point; at most one terminal event."""
+        if token is None:
+            if req.terminal_emitted:
+                return
+            req.terminal_emitted = True
+        out = RequestOutput(
+            request_id=req.request_id, state=req.state, token=token,
+            num_generated=len(req.generated), stop_reason=req.stop_reason,
+            finished=req.state.terminal)
+        self._events.append(out)
+        req.events.append(out)
+        if req.on_event is not None:
+            try:
+                req.on_event(out)
+            except Exception:  # noqa: BLE001 — user-callback boundary:
+                # client code may raise anything; detach + count it so
+                # one bad callback can't poison the serving loop
+                self.callback_errors += 1
+                req.on_event = None
+
+    def _record_token(self, req: Request, tok: int):
+        if req.state.terminal:
+            return              # aborted by a callback earlier this step
+        req.generated.append(int(tok))
+        if req.state == RequestState.PREFILLING:
+            req.state = RequestState.DECODING
+        self.tokens_generated += 1
+        self._emit(req, token=int(tok))
+
+    def _complete(self, req: Request):
+        self.sched.complete(req, self.cache)
+        self._emit(req)
+
+    def _fail(self, req: Request, reason: str):
+        if self.sched.fail(req, self.cache, reason):
+            self.failed_count += 1
+            self._emit(req)
+
+    # ------------------------------------------------------------- step
+
+    def step(self):
+        """Advance every in-flight request one scheduling quantum. Never
+        raises: unexpected exceptions land in ``internal_errors``."""
+        self.steps += 1
+        try:
+            self._step_inner()
+        except Exception as e:  # noqa: BLE001 — the serving-loop backstop
+            self.internal_errors += 1
+            self.last_error = repr(e)
+
+    def _step_inner(self):
+        nfin = len(self.sched.finished)
+        admitted = self.sched.admit(
+            self.cache, first_chunk_tokens=self.ecfg.prefill_chunk_tokens,
+            prefix_cache=self.ecfg.prefix_cache)
+        for r in self.sched.finished[nfin:]:    # prompt_too_long rejections
+            self._emit(r)
+        self.prefix_hit_tokens += sum(r.cached_tokens for r in admitted)
+        # chunk rows and decode rows share one token budget
+        n_decode_est = sum(1 for r in self.sched.running
+                           if r.prefilled and not r.done)
+        self._step_unified(max(1, self.ecfg.prefill_chunk_tokens
+                               - n_decode_est))
+        for req in list(self.sched.running):
+            if req.done:
+                self._complete(req)
+
+    def _step_unified(self, budget: int):
+        """ONE forward for decode rows ∪ prompt chunks; decode slots are
+        reserved before the prefill plan (reservation may preempt)."""
+        decode = self._reserve_decode_slots(
+            [r for r in self.sched.running if r.prefilled and not r.done])
+        plan = self.sched.plan_prefill(self.cache, budget)
+        if not plan and not decode:
+            stuck = [r for r in self.sched.running if not r.prefilled]
+            if stuck and not any(r.prefilled for r in self.sched.running):
+                self.sched.preempt_one(self.cache)
+            return
+        if plan and decode:
+            self.interleaved_steps += 1
+        self._forward_step(plan, decode)
+
+    def _reserve_decode_slots(self, runnable: list[Request]) -> list[Request]:
+        """Page headroom for one decode token per runnable sequence,
+        preempting youngest-first; a sequence at ``max_pages_per_seq``
+        finishes with ``stop_reason="length_cap"``."""
+        pending = list(runnable)
+        ready: list[Request] = []
+        while pending:
+            r = pending.pop(0)
+            if r.seq_slot < 0 or r.state.terminal:
+                continue
+            if self.cache.extend_seq(r.seq_slot):
+                ready.append(r)
+                continue
+            if self.cache.at_capacity(r.seq_slot):
+                r.stop_reason = "length_cap"
+                self._complete(r)
+                continue
+            victim = self.sched.preempt_one(self.cache)
+            if victim is None:
+                continue
+            if victim in pending:
+                pending.remove(victim)
+            elif victim in ready:
+                ready.remove(victim)
+            if victim is not r:
+                pending.insert(0, r)
+        return [r for r in ready if r.seq_slot >= 0 and not r.state.terminal]
+
+    # --------------------------------------------------- unified forward
+
+    def _forward_step(self, plan: list[tuple[Request, int, int]],
+                      decode: list[Request]):
+        """Pack prompt-chunk rows and decode rows into one ragged forward,
+        then advance host state and sample. A forward failure quarantines
+        every request of this batch; host state moves only afterwards."""
+        rows = list(plan) + [(r, int(self.cache.seq_len[r.seq_slot]), 1)
+                             for r in decode]
+        starts = np.asarray([s for _, s, _ in rows])
+        takes = np.asarray([t for _, _, t in rows])
+        slots = np.asarray([r.seq_slot for r, _, _ in rows])
+        nseq = len(rows)
+        cum = np.concatenate([[0], np.cumsum(takes)])
+        tok_seq = np.repeat(np.arange(nseq), takes)
+        tok_off = np.concatenate([np.arange(t) for t in takes])
+        tok_pos = starts[tok_seq] + tok_off
+        tokens = np.concatenate(
+            [np.asarray(r.prompt[s:s + t]) for r, s, t in plan]
+            + [[r.generated[-1]] for r in decode]).astype(np.int64)
+        try:
+            logits = self._guarded_forward(
+                plan, starts, takes, slots, cum, tok_seq, tok_off, tok_pos,
+                tokens)
+        except Exception as e:  # noqa: BLE001 — batch-granular quarantine
+            for r, _, _ in rows:
+                self._fail(r, f"forward: {e!r}")
+            return
+
+        for r, s, t in plan:
+            r.prefill_pos = s + t
+            self.cache.seq_len[r.seq_slot] = r.prefill_pos
+            if self.ecfg.prefix_cache and r.prefill_pos == len(r.prompt):
+                self.cache.publish_prefix(r.seq_slot, r.prompt)
+        self.cache.advance([r.seq_slot for r in decode])
+
+        # one logits row per packed row; sample finished-prefill rows and
+        # decode rows, quarantining any row whose logits are not finite
+        need = [(si, r) for si, (r, s, t) in enumerate(plan)
+                if s + t == len(r.prompt)]
+        need += [(len(plan) + j, r) for j, r in enumerate(decode)]
+        if not need:
+            return
+        idx = [si for si, _ in need]
+        finite = np.isfinite(logits[idx]).all(axis=-1)
+        toks = np.argmax(logits[idx], axis=-1)
+        for (_, r), ok, tok in zip(need, finite, toks):
+            if ok:
+                self._record_token(r, int(tok))
+            else:
+                self._fail(r, "non_finite_logits")
+
+    def _guarded_forward(self, plan, starts, takes, slots, cum, tok_seq,
+                         tok_off, tok_pos, tokens) -> np.ndarray:
+        """Destinations, shape buckets, counters and the ONE forward →
+        host logits ``[nb, V]`` f32. No scheduler or cache bookkeeping
+        moves in here."""
+        pages_np, offs_np = self.cache.token_dests_np(slots[tok_seq], tok_pos)
+        nseq, ttot = len(starts), int(takes.sum())
+        tb = _bucket(ttot, lo=8)
+        nb = _bucket(nseq)
+        cb = _bucket(int(takes.max()))
+        pf_tokens = int(sum(t for _, _, t in plan))
+        self.peak_prefill_fp_tokens = max(self.peak_prefill_fp_tokens,
+                                          pf_tokens)
+        self.prefill_tokens += pf_tokens
+        self.forward_calls += 1
+        no_history = int(starts.max()) == 0
+        hkv = self.cfg.num_kv_heads
+        desc = combine = None
+        if not no_history:
+            # the padding sentinel must clear the BUCKETED row count: rows
+            # [nseq, nb) are live (qlen-0) segments in the combine
+            desc_np = self.cache.work_queue_np(slots, starts, takes,
+                                               pad_row=nb * hkv)
+            desc = torch.from_numpy(desc_np).to(self.device)
+            combine = ops.combine_plan(desc_np[:, 0], nb * hkv,
+                                       self.device)
+            self.attn_forwards += 1
+            self.attn_work_items += int(hkv * (np.sum(
+                (starts + self.ecfg.page_size - 1) // self.ecfg.page_size)
+                + nseq))
+            self.attn_grid_items += desc_np.shape[0]
+
+        def dev(a, n, fill=0):
+            return torch.from_numpy(_pad_to(a, n, fill)).to(self.device)
+
+        logits = self._unified_body(
+            cb, nb, no_history,
+            tokens=dev(tokens, tb), positions=dev(tok_pos, tb),
+            # padding tokens: page == num_pages and row == nb, one past
+            # the pool and the batch — they land on scratch and are dropped
+            pages=dev(pages_np, tb, self.cache.pcfg.num_pages),
+            offs=dev(offs_np, tb), tseq=dev(tok_seq, tb, nb),
+            toff=dev(tok_off, tb),
+            # decode tokens (the packed tail) read their in-flight KV
+            # fake-quantized, the values their int4 page dequantizes to
+            dq_mask=dev(np.arange(ttot) >= cum[len(plan)], tb),
+            last_idx=dev(cum[1:] - 1, nb), desc=desc,
+            combine=combine)
+        return logits.cpu().numpy()
+
+    @torch.no_grad()
+    def _unified_body(self, cb: int, nb: int, no_history: bool, *, tokens,
+                      positions, pages, offs, tseq, toff, dq_mask, last_idx,
+                      desc, combine) -> torch.Tensor:
+        """The forward over the packed ``[1, Tb]`` stream → f32 logits
+        ``[nb, V]`` (one row per packed row's last token)."""
+        cfg, params, quant, cache = self.cfg, self.params, self.quant, \
+            self.cache
+        scales = (cache.k_scale, cache.k_zero, cache.v_scale, cache.v_zero)
+        gseq = tseq.clamp(max=nb - 1)          # JAX clamps this gather
+        dq = (dq_mask != 0)[None, :, None, None]
+
+        def pad(a):    # packed [1, Tb, H, D] → [nb, cb, H, D]
+            # padding tokens (row nb) land on a scratch row past the batch
+            z = torch.zeros((nb + 1, cb) + tuple(a.shape[2:]), dtype=a.dtype,
+                            device=a.device)
+            z[tseq, toff] = a[0]
+            return z[:nb]
+
+        x = self.lm.embed(params, tokens[None, :])
+        pos2 = positions[None, :]
+        for li, bp in enumerate(params["blocks"]):
+            h = C.rmsnorm(x, bp["attn_norm"]["scale"], cfg.norm_eps)
+            q, k, v = ATT.project_qkv(bp["attn"], cfg, h, pos2, quant)
+            kq, vq = KVC.quantize_kv_with(k, v, *scales)  # [1, Hkv, Tb, D/2]
+            cache.write_kv(li, pages, offs, kq[0].transpose(0, 1),
+                           vq[0].transpose(0, 1))
+            kdq, vdq = KVC.qdq_kv_with(k, v, *scales)
+            k_att = torch.where(dq, kdq, k.float())
+            v_att = torch.where(dq, vdq, v.float())
+            if no_history:
+                out = ATT.flash_attention(pad(q), pad(k_att), pad(v_att))
+            else:
+                out = ops.paged_kv4_prefill_attention_wq(
+                    pad(q), pad(k_att), pad(v_att),
+                    cache.k_pool[li], cache.k_scale, cache.k_zero,
+                    cache.v_pool[li], cache.v_scale, cache.v_zero,
+                    desc, plan=combine, impl=quant.impl)
+            a = out[gseq, toff][None].to(x.dtype).reshape(1, -1, cfg.q_dim)
+            x = x + C.linear(bp["attn"]["wo"], a, quant)
+            h = C.rmsnorm(x, bp["mlp_norm"]["scale"], cfg.norm_eps)
+            x = x + MLP.mlp_apply(bp["mlp"], h, quant)
+        h = C.rmsnorm(x[:, last_idx], params["final_norm"]["scale"],
+                      cfg.norm_eps)
+        return self.lm.head(params, h)[0]

@@ -1,0 +1,349 @@
+"""Paged KV4 cache: int4 page pools on the device, allocator on the host
+(``repro/serving/kv_cache.py``).
+
+Pools are ``[L, num_pages, page_size, Hkv, D/2]`` uint8 tensors (one K, one
+V); byte j of a token's head holds channel j (low nibble) and channel
+j + D/2 (high nibble), asymmetric per-channel quantization with static
+calibrated scales/zeros ``[Hkv, 1, D]``. The engine writes the pools in
+place each step.
+
+Host side: block tables ``[max_seqs, max_pages_per_seq]`` int32 (-1 =
+unmapped), refcounted pages, a chained-SHA-256 prefix index over full
+prompt pages with a reclaimable LRU, and the
+Stream-K work-queue descriptors (:func:`build_work_queue`, numpy).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.common import resolve_device
+
+__all__ = ["PagedKV4Config", "PagedKV4Cache", "build_work_queue",
+           "quantize_kv_with", "qdq_kv_with"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKV4Config:
+    num_pages: int
+    page_size: int = 64
+    max_seqs: int = 64
+    max_pages_per_seq: int = 128
+
+
+MIN_ITEMS = 8     # the smallest work-queue length (a power of two)
+
+
+def build_work_queue(block_tables, ctx_lens, page_size: int,
+                     num_kv_heads: int, q_lens=None,
+                     pad_row: Optional[int] = None,
+                     seq_ids=None) -> np.ndarray:
+    """Flatten a ragged batch into ``[W, 4]`` int32 descriptors ``(row,
+    phys_page, count, kind)``: one item per (seq, kv head, real history
+    page) — kind 0, count = valid tokens in the page — plus, with
+    ``q_lens``, one in-flight chunk item per row with q_len > 0 (kind 1,
+    count = q_len). Items are row-major (row = seq·Hkv + head). W is
+    padded to a power of two ≥ ``MIN_ITEMS`` with ``count = 0`` items on
+    the sentinel row ``pad_row`` (default B·Hkv)."""
+    tables = np.atleast_2d(np.asarray(block_tables))
+    ctx = np.atleast_1d(np.asarray(ctx_lens)).astype(np.int64)
+    b, ps, hkv = ctx.shape[0], page_size, num_kv_heads
+    npg = -(-ctx // ps)                              # real pages per seq
+    has_chunk = (np.zeros(b, np.int64) if q_lens is None else
+                 (np.atleast_1d(np.asarray(q_lens)) > 0).astype(np.int64))
+    seq_of_pg = np.repeat(np.arange(b), npg)
+    pg_off = np.concatenate([[0], np.cumsum(npg)])
+    pg_idx = np.arange(pg_off[-1]) - pg_off[seq_of_pg]
+    pages_flat = tables[seq_of_pg, pg_idx]
+    if (pages_flat < 0).any():
+        bad_idx = np.unique(seq_of_pg[pages_flat < 0])
+        bad = (np.atleast_1d(np.asarray(seq_ids))[bad_idx].tolist()
+               if seq_ids is not None else bad_idx.tolist())
+        what = "seq slot(s)" if seq_ids is not None else "batch row(s)"
+        raise IndexError(f"work queue over unmapped page(s) for {what} "
+                         f"{bad} — grow capacity first")
+    counts_flat = np.minimum(ps, ctx[seq_of_pg] - ps * pg_idx)
+    n_per_seq = npg + has_chunk
+    off = np.concatenate([[0], np.cumsum(n_per_seq)])
+    tot = int(off[-1])
+    pages_c = np.zeros(tot, np.int64)
+    counts_c = np.zeros(tot, np.int64)
+    kinds_c = np.zeros(tot, np.int64)
+    pg_pos = off[seq_of_pg] + pg_idx
+    pages_c[pg_pos] = pages_flat
+    counts_c[pg_pos] = counts_flat
+    if q_lens is not None:
+        ch = np.nonzero(has_chunk)[0]
+        counts_c[off[ch] + npg[ch]] = np.atleast_1d(
+            np.asarray(q_lens)).astype(np.int64)[ch]
+        kinds_c[off[ch] + npg[ch]] = 1
+    # tile each seq's item stream across its kv heads, row-major
+    reps = np.repeat(n_per_seq, hkv)
+    bs = np.cumsum(reps) - reps
+    within = np.arange(int(reps.sum())) - np.repeat(bs, reps)
+    src = np.repeat(off[np.repeat(np.arange(b), hkv)], reps) + within
+    w = max(len(src), 1)
+    wb = max(MIN_ITEMS, 1 << (w - 1).bit_length())
+    desc = np.zeros((wb, 4), np.int32)
+    desc[:, 0] = b * hkv if pad_row is None else pad_row
+    desc[:len(src), 0] = np.repeat(np.arange(b * hkv), reps)
+    desc[:len(src), 1] = pages_c[src]
+    desc[:len(src), 2] = counts_c[src]
+    desc[:len(src), 3] = kinds_c[src]
+    return desc
+
+
+def quantize_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
+    """k/v ``[B, T, Hkv, D]`` float → packed ``[B, Hkv, T, D/2]`` uint8."""
+    def pack(x, scale, zero):
+        xt = x.transpose(1, 2).float()                    # [B, Hkv, T, D]
+        n = torch.clamp(torch.round(xt / scale + zero), 0, 15).to(torch.uint8)
+        half = n.shape[-1] // 2
+        return n[..., :half] | (n[..., half:] << 4)
+    return pack(k, k_scale, k_zero), pack(v, v_scale, v_zero)
+
+
+def qdq_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
+    """Fake-quantize k/v (``[B, T, Hkv, D]``) through the int4 codebook →
+    the f32 values a reader dequantizes from the pools."""
+    def roundtrip(x, scale, zero):
+        xt = x.transpose(1, 2).float()
+        n = torch.clamp(torch.round(xt / scale + zero), 0, 15)
+        return ((n - zero) * scale).transpose(1, 2)
+    return roundtrip(k, k_scale, k_zero), roundtrip(v, v_scale, v_zero)
+
+
+class PagedKV4Cache:
+    """Host-managed page allocator + device-resident int4 pools (on the
+    card unless ``device="cpu"`` is asked for)."""
+
+    def __init__(self, cfg: ModelConfig, pcfg: PagedKV4Config,
+                 num_layer_slots: int, kv_range: float = 16.0,
+                 device="cuda"):
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.pcfg = pcfg
+        hkv, d = cfg.num_kv_heads, cfg.head_dim
+        # one page past the pool takes the writes of a bucketed step's
+        # padding tokens (page == num_pages): the in-place counterpart of
+        # the reference's dropped out-of-range scatter, with no mask (and
+        # no host sync) on the write
+        shape = (num_layer_slots, pcfg.num_pages + 1, pcfg.page_size, hkv,
+                 d // 2)
+        self._k_pages = torch.zeros(shape, dtype=torch.uint8, device=device)
+        self._v_pages = torch.zeros(shape, dtype=torch.uint8, device=device)
+        self.k_pool = self._k_pages[:, :pcfg.num_pages]
+        self.v_pool = self._v_pages[:, :pcfg.num_pages]
+        # symmetric range ±kv_range mapped onto [0, 15] (asym affine)
+        self.k_scale = torch.full((hkv, 1, d), kv_range / 15.0,
+                                  dtype=torch.float32, device=device)
+        self.k_zero = torch.full((hkv, 1, d), 7.5, dtype=torch.float32,
+                                 device=device)
+        self.v_scale = self.k_scale.clone()
+        self.v_zero = self.k_zero.clone()
+
+        self.block_table = np.full(
+            (pcfg.max_seqs, pcfg.max_pages_per_seq), -1, np.int32)
+        self.seq_len = np.zeros((pcfg.max_seqs,), np.int32)
+        self.page_count = np.zeros((pcfg.max_seqs,), np.int32)
+        self.free_pages = list(range(pcfg.num_pages - 1, -1, -1))
+        self.active = set()
+        self.ref = np.zeros((pcfg.num_pages,), np.int32)
+        self.prefix_index: dict = {}
+        self.page_key: dict = {}
+        self._reclaimable: OrderedDict = OrderedDict()
+
+    # ------------------------------------------------------------ allocator
+
+    @property
+    def pages_free(self) -> int:
+        return len(self.free_pages) + len(self._reclaimable)
+
+    def _evict_reclaimable(self) -> Optional[int]:
+        if not self._reclaimable:
+            return None
+        p, key = self._reclaimable.popitem(last=False)
+        del self.prefix_index[key]
+        del self.page_key[p]
+        return p
+
+    def _acquire_page(self) -> Optional[int]:
+        """A free page, else the LRU reclaimable prefix page (evicted
+        before any preemption can fire); None when both are dry."""
+        if self.free_pages:
+            p = self.free_pages.pop()
+        else:
+            p = self._evict_reclaimable()
+            if p is None:
+                return None
+        self.ref[p] = 1
+        return p
+
+    def _adopt_page(self, p: int):
+        if int(self.ref[p]) == 0:
+            self._reclaimable.pop(p, None)
+        self.ref[p] += 1
+
+    def _release_page(self, p: int):
+        self.ref[p] -= 1
+        if self.ref[p] > 0:
+            return
+        key = self.page_key.get(p)
+        if key is not None and self.prefix_index.get(key) == p:
+            self._reclaimable[p] = key      # cached, evicted LRU-first
+        else:
+            self.free_pages.append(p)
+
+    def pages_needed(self, tokens: int) -> int:
+        ps = self.pcfg.page_size
+        return (tokens + ps - 1) // ps
+
+    def pages_available_for(self, prefix_pages) -> int:
+        reserved = sum(1 for p in prefix_pages if int(self.ref[int(p)]) == 0)
+        return self.pages_free - reserved
+
+    def allocate_seq(self, seq_id: int, reserve_tokens: int,
+                     prefix_pages: tuple = (),
+                     prefix_tokens: int = 0) -> bool:
+        """Reserve pages for ``reserve_tokens``, adopting ``prefix_pages``
+        (published, refcounted) first; False if it cannot fit."""
+        need = max(self.pages_needed(reserve_tokens), len(prefix_pages))
+        if (need - len(prefix_pages) > self.pages_available_for(prefix_pages)
+                or seq_id in self.active
+                or need > self.pcfg.max_pages_per_seq):
+            return False
+        for i, p in enumerate(prefix_pages):
+            self._adopt_page(int(p))
+            self.block_table[seq_id, i] = int(p)
+        for i in range(len(prefix_pages), need):
+            p = self._acquire_page()
+            if p is None:
+                # roll back every reference this call took
+                for j in range(i):
+                    self._release_page(int(self.block_table[seq_id, j]))
+                self.block_table[seq_id, :i] = -1
+                return False
+            self.block_table[seq_id, i] = p
+        self.seq_len[seq_id] = prefix_tokens
+        self.page_count[seq_id] = need
+        self.active.add(seq_id)
+        return True
+
+    def extend_seq(self, seq_id: int) -> bool:
+        """Capacity for one more token; may grab a new page."""
+        need = self.pages_needed(int(self.seq_len[seq_id]) + 1)
+        have = int(self.page_count[seq_id])
+        if need <= have:
+            return True
+        if need > self.pcfg.max_pages_per_seq:
+            return False
+        p = self._acquire_page()
+        if p is None:
+            return False
+        self.block_table[seq_id, have] = p
+        self.page_count[seq_id] = have + 1
+        return True
+
+    def at_capacity(self, seq_id: int) -> bool:
+        """True when the sequence can never grow another token."""
+        return (self.pages_needed(int(self.seq_len[seq_id]) + 1)
+                > min(self.pcfg.max_pages_per_seq, self.pcfg.num_pages))
+
+    def grow_to(self, seq_id: int, target_tokens: int) -> int:
+        """Acquire pages toward ``target_tokens``; → token capacity."""
+        cap = min(self.pages_needed(target_tokens),
+                  self.pcfg.max_pages_per_seq)
+        have = int(self.page_count[seq_id])
+        while have < cap:
+            p = self._acquire_page()
+            if p is None:
+                break
+            self.block_table[seq_id, have] = p
+            have += 1
+        self.page_count[seq_id] = have
+        return have * self.pcfg.page_size
+
+    def free_seq(self, seq_id: int):
+        pages = self.block_table[seq_id]
+        for p in pages[pages >= 0]:
+            self._release_page(int(p))
+        self.block_table[seq_id, :] = -1
+        self.seq_len[seq_id] = 0
+        self.page_count[seq_id] = 0
+        self.active.discard(seq_id)
+
+    def write_kv(self, layer: int, pages, offs, kq, vq):
+        """Write packed KV ``[N, Hkv, D/2]`` of N tokens in place at
+        (page, offset); page ``num_pages`` is the padding tokens' trash."""
+        self._k_pages[layer][pages, offs] = kq
+        self._v_pages[layer][pages, offs] = vq
+
+    def advance(self, seq_ids):
+        for s in np.atleast_1d(seq_ids):
+            self.seq_len[s] += 1
+
+    # ---------------------------------------------------------- prefix cache
+
+    def _page_keys(self, tokens, nfull: int) -> list:
+        """Chained SHA-256 page digests: key i commits to every token
+        through page i (collision-resistant, unlike builtin hashing)."""
+        ps = self.pcfg.page_size
+        keys, key = [], b""
+        for i in range(nfull):
+            chunk = np.asarray(tokens[i * ps:(i + 1) * ps], np.int64)
+            key = hashlib.sha256(key + chunk.tobytes()).digest()
+            keys.append(key)
+        return keys
+
+    def match_prefix(self, tokens) -> tuple[list, int]:
+        """Longest published prefix → (pages, matched tokens); capped one
+        token short of the prompt so prefill always yields logits."""
+        nfull = max(0, (len(tokens) - 1)) // self.pcfg.page_size
+        pages = []
+        for key in self._page_keys(tokens, nfull):
+            p = self.prefix_index.get(key)
+            if p is None:
+                break
+            pages.append(p)
+        return pages, len(pages) * self.pcfg.page_size
+
+    def publish_prefix(self, seq_id: int, tokens):
+        """Publish the sequence's full prompt pages (first publisher wins)."""
+        nfull = len(tokens) // self.pcfg.page_size
+        for i, key in enumerate(self._page_keys(tokens, nfull)):
+            if key in self.prefix_index:
+                continue
+            page = int(self.block_table[seq_id, i])
+            if self.page_key.get(page) is not None:
+                continue
+            self.prefix_index[key] = page
+            self.page_key[page] = key
+
+    # ------------------------------------------------------- step views
+
+    def token_dests_np(self, seq_ids, positions):
+        """Validated (physical page, in-page offset) per token."""
+        seq_ids = np.atleast_1d(np.asarray(seq_ids))
+        pos = np.atleast_1d(np.asarray(positions))
+        ps = self.pcfg.page_size
+        pages_np = self.block_table[seq_ids, pos // ps]
+        if (pages_np < 0).any():
+            raise IndexError(
+                f"write into unmapped page(s) for seqs "
+                f"{seq_ids[pages_np < 0].tolist()} — grow capacity first")
+        return pages_np.astype(np.int32), (pos % ps).astype(np.int32)
+
+    def work_queue_np(self, seq_ids, ctx_lens, q_lens=None,
+                      pad_row: Optional[int] = None) -> np.ndarray:
+        """Stream-K descriptors for these sequences' real pages."""
+        return build_work_queue(
+            self.block_table[np.asarray(seq_ids)], ctx_lens,
+            self.pcfg.page_size, self.cfg.num_kv_heads, q_lens, pad_row,
+            seq_ids=seq_ids)

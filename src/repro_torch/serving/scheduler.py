@@ -1,0 +1,199 @@
+"""Continuous-batching request scheduler (``repro/serving/scheduler.py``).
+
+Pure host code. FCFS admission when the paged pool holds a request's
+first prefill chunk; chunked prefill planned round-robin under a
+per-step token budget; youngest-first preemption on pool exhaustion;
+abort/fail with refcount-exact page release. Not ported in this slice:
+the bounded waiting queue (reject/shed), deadlines, snapshot/restore.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Callable, Optional
+
+from repro_torch.serving.api import RequestState, SamplingParams
+
+__all__ = ["Request", "Scheduler"]
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: list                   # token ids
+    max_new_tokens: int
+    arrived_at: float = 0.0
+    generated: list = dataclasses.field(default_factory=list)
+    seq_slot: int = -1             # cache slot when running
+    prefill_pos: int = 0           # prompt tokens already through the model
+    stop_reason: Optional[str] = None   # None = ran to max_new_tokens
+    params: Optional[SamplingParams] = None
+    state: RequestState = RequestState.QUEUED
+    cached_tokens: int = 0         # prefix-cache hit tokens, last admission
+    terminal_emitted: bool = dataclasses.field(
+        default=False, repr=False, compare=False)
+    events: list = dataclasses.field(
+        default_factory=list, repr=False, compare=False)
+    on_event: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def prefilled(self) -> bool:
+        return self.prefill_pos >= len(self.prompt)
+
+    @property
+    def done(self) -> bool:
+        return (self.stop_reason is not None
+                or len(self.generated) >= self.max_new_tokens)
+
+
+class Scheduler:
+    def __init__(self, max_batch: int, max_seqs: int):
+        self.max_batch = max_batch
+        self.max_seqs = max_seqs
+        self.waiting: deque[Request] = deque()
+        self.running: list[Request] = []
+        self.finished: list[Request] = []
+        self._free_slots = list(range(max_seqs - 1, -1, -1))
+        self.preemptions = 0
+        self.released_count = 0     # terminal requests dropped via release
+        self._plan_cursor = 0       # round-robin start for prefill plans
+
+    def counters(self) -> dict:
+        return {"preemptions": self.preemptions,
+                "released_count": self.released_count}
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def admit(self, cache, first_chunk_tokens: int,
+              prefix_cache: bool = False) -> list[Request]:
+        """Admit waiting requests while pages and slots are available;
+        admission needs pages for the first chunk only. With
+        ``prefix_cache`` the published prefix pages are adopted and the
+        request starts prefill at the end of the shared prefix."""
+        admitted = []
+        while (self.waiting and self._free_slots
+               and len(self.running) < self.max_batch):
+            req = self.waiting[0]
+            if (cache.pages_needed(len(req.prompt))
+                    > cache.pcfg.max_pages_per_seq
+                    or cache.pages_needed(len(req.prompt) + 1)
+                    > cache.pcfg.num_pages):
+                # can never fit: fail fast instead of livelocking
+                self.waiting.popleft()
+                req.stop_reason = "prompt_too_long"
+                req.state = RequestState.FINISHED
+                self.finished.append(req)
+                continue
+            pages, matched = (cache.match_prefix(req.prompt)
+                              if prefix_cache else ([], 0))
+            reserve = min(len(req.prompt), matched + first_chunk_tokens)
+            # one decode token of headroom once the whole prompt is resident
+            headroom = reserve + 1 if reserve == len(req.prompt) else reserve
+            if (cache.pages_needed(headroom) - len(pages)
+                    > cache.pages_available_for(pages)):
+                break
+            slot = self._free_slots.pop()
+            if not cache.allocate_seq(slot, reserve, prefix_pages=pages,
+                                      prefix_tokens=matched):
+                self._free_slots.append(slot)
+                break
+            req.seq_slot = slot
+            req.prefill_pos = matched
+            req.cached_tokens = matched
+            req.state = RequestState.PREFILLING
+            self.waiting.popleft()
+            self.running.append(req)
+            admitted.append(req)
+        return admitted
+
+    def plan_prefill(self, cache,
+                     token_budget: int) -> list[tuple[Request, int, int]]:
+        """This step's prefill chunks ``[(req, start, take), ...]``: up to
+        ``token_budget`` prompt tokens, scan start round-robined across
+        the candidates, pages acquired chunk by chunk."""
+        cands = [r for r in self.running if r.prefill_pos < len(r.prompt)]
+        if not cands or token_budget <= 0:
+            return []
+        rot = self._plan_cursor % len(cands)
+        self._plan_cursor += 1
+        budget = token_budget
+        plan: list[tuple[Request, int, int]] = []
+        for req in cands[rot:] + cands[:rot]:
+            if budget <= 0:
+                break
+            rem = len(req.prompt) - req.prefill_pos
+            want = req.prefill_pos + min(rem, budget)
+            cap = cache.grow_to(req.seq_slot, want)
+            take = min(rem, budget, cap - req.prefill_pos)
+            if take <= 0:
+                continue
+            plan.append((req, req.prefill_pos, take))
+            budget -= take
+        return plan
+
+    def preempt_one(self, cache) -> Optional[Request]:
+        """Evict the youngest unfinished running sequence back to the
+        front of the waiting queue, its generated text folded into the
+        prompt (re-admission prefills prompt + generated)."""
+        candidates = [r for r in self.running if not r.done]
+        if not candidates:
+            return None
+        req = max(candidates, key=lambda r: r.arrived_at)
+        self.running.remove(req)
+        cache.free_seq(req.seq_slot)
+        self._free_slots.append(req.seq_slot)
+        req.seq_slot = -1
+        self.preemptions += 1
+        req.prompt = req.prompt + req.generated
+        req.max_new_tokens -= len(req.generated)
+        req.generated = []
+        req.prefill_pos = 0
+        req.state = RequestState.QUEUED
+        self.waiting.appendleft(req)
+        return req
+
+    def complete(self, req: Request, cache):
+        self.running.remove(req)
+        cache.free_seq(req.seq_slot)
+        self._free_slots.append(req.seq_slot)
+        req.seq_slot = -1
+        req.state = RequestState.FINISHED
+        self.finished.append(req)
+
+    def _end(self, req: Request, cache, state: RequestState,
+             reason: str) -> bool:
+        """Detach a non-terminal request wherever it is (running: pages
+        freed refcount-exactly, slot returned) and make it terminal."""
+        if req.state.terminal:
+            return False
+        if req in self.running:
+            self.running.remove(req)
+            cache.free_seq(req.seq_slot)
+            self._free_slots.append(req.seq_slot)
+            req.seq_slot = -1
+        elif req in self.waiting:
+            self.waiting.remove(req)
+        req.stop_reason = reason
+        req.state = state
+        self.finished.append(req)
+        return True
+
+    def abort(self, req: Request, cache) -> bool:
+        return self._end(req, cache, RequestState.ABORTED, "aborted")
+
+    def fail(self, req: Request, cache, reason: str) -> bool:
+        return self._end(req, cache, RequestState.FAILED, reason)
+
+    def release(self, req: Request) -> bool:
+        if req not in self.finished:
+            return False
+        self.finished.remove(req)
+        self.released_count += 1
+        return True

@@ -1,0 +1,70 @@
+"""Each CUDA kernel of the port against its plain version, on the card.
+
+Imports no JAX, so it runs where only PyTorch with CUDA is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+
+Small shapes; ``chip_smoke.py`` checks the Llama-3-8B widths. Skips where
+``torch.cuda.is_available()`` is false.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import act_quant as AQ
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import w4ax_matmul as WK
+from repro_torch.serving.kv_cache import build_work_queue
+
+
+def _cuda(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    x = torch.randn((16, 384), device="cuda")
+    for bits, kern in ((4, AQ.act_quant_int4), (8, AQ.act_quant_int8)):
+        got, want = kern(x), AQ.act_quant_ref(x, bits=bits)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    rng = np.random.default_rng(1)
+    m, nb4, nb8, n = 16, 3, 1, 128
+    a4 = _cuda(rng.integers(0, 256, (m, nb4 * 64)).astype(np.uint8))
+    s4 = _cuda(rng.uniform(0.01, 0.2, (m, nb4)).astype(np.float32))
+    a8 = _cuda(rng.integers(-128, 128, (m, nb8 * 128)).astype(np.int8))
+    s8 = _cuda(rng.uniform(0.001, 0.02, (m, nb8)).astype(np.float32))
+    w = _cuda(rng.integers(0, 256, ((nb4 + nb8) * 64, n)).astype(np.uint8))
+    ws = _cuda(rng.uniform(0.001, 0.05, (nb4 + nb8, n)).astype(np.float32))
+    got = WK.w4ax_matmul_split(a4, s4, a8, s8, w, ws)
+    want = WK.w4ax_matmul_ref(a4, s4, a8, s8, w[:nb4 * 64], ws[:nb4],
+                              w[nb4 * 64:], ws[nb4:])
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    # a decode row, a first chunk and a mid-prefill row, one qlen-0 pad row
+    hq, hkv, d, ps, c, nb = 8, 2, 128, 16, 16, 4
+    ctx, qls = [40, 0, 17], [1, 12, 5]
+    need = [-(-(cx + ql) // ps) for cx, ql in zip(ctx, qls)]
+    num_pages = sum(need) + 3
+    tbl = np.full((len(ctx), max(need)), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, npg in enumerate(need):
+        tbl[bi, :npg] = perm[i:i + npg]
+        i += npg
+    pools = [rng.integers(0, 256, (num_pages, ps, hkv, d // 2)).astype(np.uint8)
+             for _ in range(2)]
+    stats = [rng.uniform(lo, hi, (hkv, 1, d)).astype(np.float32)
+             for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2), (6, 9))]
+    q, kn, vn = [rng.normal(size=(nb, c, h, d)).astype(np.float32)
+                 for h in (hq, hkv, hkv)]
+    desc = build_work_queue(tbl, ctx, ps, hkv, qls, pad_row=nb * hkv)
+    args = [_cuda(a) for a in (q, kn, vn, pools[0], stats[0], stats[1],
+                               pools[1], stats[2], stats[3], desc)]
+    got = PA.paged_kv4_prefill_attention_wq(*args)
+    want = PA.paged_kv4_prefill_attention_wq_ref(*args)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))

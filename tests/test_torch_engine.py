@@ -1,0 +1,282 @@
+"""The port's serving engine vs the JAX reference engine on the same
+converted weights and the same requests (CPU, plain kernel versions).
+
+Test model: 2 layers, d_model 1024, 8/2 heads, head_dim 128, d_ff 2048,
+vocab 512 — wide enough that ``round(0.875·nb)`` leaves an int8 tail, so
+every projection runs both W4A4 and W4A8 (the llama3 smoke config's K is
+one or two 128-blocks and never reaches W4A8).
+
+The reference runs its unified forward un-jitted. Jitted, XLA fuses and
+reorders the f32 arithmetic around the int4 act-quant, and the reference
+disagrees with itself: its jitted and eager forwards differ by 0.46–0.54
+on first-step logits of max ~3.3 on this model (with or without
+``xla_allow_excess_precision``). Eager, the port matches it bit for bit
+on the first step. Later steps can still see f32 summation-order
+differences (the reference's einsum vs the port's blocked GEMM) flip the
+last bit of a bf16 projection output, and int4 act-quant can turn such a
+flip into a whole quantization step, so the workload is pinned (the
+reference's own practice for its greedy-parity tests): every prompt
+prefills in step 1, then the rows decode over int4 pages through the
+work-queue path.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.layers import attention as JATT
+from repro.layers import mlp as JMLP
+from repro.models.lm import LM as JLM
+from repro.models.lm import QuantConfig as JQuantConfig
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import params_from_jax, to_torch
+from repro_torch.layers import attention as ATT
+from repro_torch.layers import mlp as MLP
+from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.serving import kv_cache as KVC
+from repro_torch.serving.api import RequestState, SamplingParams
+from repro_torch.serving.engine import Engine, EngineConfig
+
+DIMS = dict(name="torch-parity", family="dense", num_layers=2, d_model=1024,
+            num_heads=8, num_kv_heads=2, head_dim=128, d_ff=2048,
+            vocab_size=512, rope_theta=500_000.0)
+ENGINE = dict(max_batch=4, num_pages=64, page_size=16, max_pages_per_seq=16,
+              prefill_chunk_tokens=64, kv_range=4.0)
+PROMPT_LENS, MAX_NEW = (20, 9, 27, 5), 8
+
+
+def _fp_params(seed=0):
+    """Reference-layout fp params (stacked blocks), made with numpy."""
+    rng = np.random.default_rng(seed)
+    n, d, f, v = DIMS["num_layers"], DIMS["d_model"], DIMS["d_ff"], \
+        DIMS["vocab_size"]
+
+    def lin(i, o):
+        return {"w": (rng.standard_normal((n, i, o)) / np.sqrt(i))
+                .astype(np.float32)}
+
+    blocks = {
+        "attn_norm": {"scale": np.ones((n, d), np.float32)},
+        "mlp_norm": {"scale": np.ones((n, d), np.float32)},
+        "attn": {"wq": lin(d, 1024), "wk": lin(d, 256), "wv": lin(d, 256),
+                 "wo": lin(1024, d)},
+        "mlp": {"w_up": lin(d, f), "w_gate": lin(d, f), "w_down": lin(f, d)},
+    }
+    return {
+        "embed": {"table": rng.standard_normal((v, d)).astype(np.float32)},
+        "final_norm": {"scale": np.ones(d, np.float32)},
+        "lm_head": {"w": (rng.standard_normal((d, v)) / np.sqrt(d))
+                    .astype(np.float32)},
+        "blocks": blocks,
+    }
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg, cfg = JModelConfig(**DIMS), ModelConfig(**DIMS)
+    jqc = JQuantConfig(weight_only=False, impl="ref")
+    fp = jax.tree.map(jnp.asarray, _fp_params())
+    qparams, _ = JLM(jcfg, quant=jqc).quantize(fp, jax.tree.map(lambda a: None, fp))
+    tparams = params_from_jax(jax.tree.map(np.asarray, qparams),
+                              device="cpu")
+    return jcfg, cfg, jqc, qparams, tparams
+
+
+def _prompts(lens, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, DIMS["vocab_size"], n).tolist() for n in lens]
+
+
+def _capture(obj, get, logs):
+    inner = obj._guarded_forward
+
+    def wrapped(*a, **k):
+        out = inner(*a, **k)
+        logs.append(np.array(get(out)))
+        return out
+
+    obj._guarded_forward = wrapped
+
+
+@pytest.fixture(scope="module")
+def run(model):
+    jcfg, cfg, jqc, qparams, tparams = model
+    je = JEngine(jcfg, qparams, jqc, JEngineConfig(**ENGINE))
+    je._fwd = je._unified_forward           # eager: see the module docstring
+    te = Engine(cfg, tparams, QuantConfig(impl="ref"), EngineConfig(**ENGINE),
+                device="cpu")
+    logs = {"j": [], "t": []}
+    _capture(je, lambda o: o[0], logs["j"])
+    _capture(te, lambda o: o, logs["t"])
+    for i, p in enumerate(_prompts(PROMPT_LENS)):
+        je.add_request(i, p, MAX_NEW)
+        te.add_request(i, p, MAX_NEW)
+    je.step()
+    te.step()
+    # copies: the port updates its pools in place on later steps
+    pools = [(np.asarray(je.cache.k_pool), te.cache.k_pool.numpy().copy()),
+             (np.asarray(je.cache.v_pool), te.cache.v_pool.numpy().copy())]
+    return je.run(), te.run(), je, te, logs, pools
+
+
+def _rel_err(a, b):
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def test_step1_logits_match(run):
+    logs = run[4]
+    assert logs["t"][0].shape == logs["j"][0].shape == (4, 512)
+    assert _rel_err(logs["t"][0], logs["j"][0]) <= 2e-2
+
+
+def test_kv_pool_bytes_after_step1(run):
+    """Same pool layout and codes: a bf16 last-bit difference in k/v may
+    move a code by one, nothing more."""
+    for jp, tp in run[5]:
+        assert tp.shape == jp.shape and tp.dtype == np.uint8
+        assert (jp != 0).any()
+        same = (tp == jp).mean()
+        lo = np.abs((tp & 15).astype(int) - (jp & 15))
+        hi = np.abs((tp >> 4).astype(int) - (jp >> 4))
+        assert same >= 0.999 and max(lo.max(), hi.max()) <= 1, same
+
+
+def test_work_queue_step_logits_match(run):
+    _, _, je, te, logs, _ = run
+    assert te.attn_forwards == je.attn_forwards > 0      # steps 2.. took K9
+    assert te.attn_work_items == je.attn_work_items
+    assert te.attn_grid_items == je.attn_grid_items
+    assert _rel_err(logs["t"][1], logs["j"][1]) <= 2e-2
+
+
+def test_greedy_agreement(run):
+    jd, td = run[0], run[1]
+    jt = {r.request_id: r.generated for r in jd}
+    tt = {r.request_id: r.generated for r in td}
+    assert sorted(tt) == sorted(jt) == list(range(len(PROMPT_LENS)))
+    total = sum(len(v) for v in jt.values())
+    agree = sum(a == b for i in jt for a, b in zip(jt[i], tt[i])) / total
+    assert agree >= 0.9, (jt, tt)
+
+
+def test_forward_calls_equal_steps(run):
+    _, td, je, te, _, _ = run
+    assert te.forward_calls == te.steps == je.steps == je.forward_calls
+    c = te.counters()
+    assert c["failed_count"] == c["internal_errors"] == 0
+    assert c["last_error"] is None
+    assert all(len(r.generated) == MAX_NEW and r.stop_reason is None
+               for r in td)
+
+
+def test_layer_outputs_match(model, run):
+    """q/k/v (with RoPE) and the SwiGLU MLP of layer 0 on one bf16 input
+    (the step-1 packed shape): f32 summation order may move a bf16 output
+    by one ulp, and a flipped act-quant code by one quantization step."""
+    jcfg, cfg, jqc, qparams, tparams = model
+    x = np.random.default_rng(4).normal(size=(1, 64, 1024))
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = to_torch(np.asarray(xj), device="cpu")
+    pos = np.arange(64)[None]
+    bj = jax.tree.map(lambda a: a[0], qparams["blocks"])
+    bt = tparams["blocks"][0]
+    q = QuantConfig(impl="ref")
+    with JLM(jcfg, quant=jqc)._ctx():
+        outs_j = JATT._project_qkv(bj["attn"], jcfg, xj, xj, jnp.asarray(pos),
+                                   jnp.asarray(pos))
+        outs_j += (JMLP.mlp_apply(bj["mlp"], xj),)
+    outs_t = ATT.project_qkv(bt["attn"], cfg, xt, torch.from_numpy(pos), q)
+    outs_t += (MLP.mlp_apply(bt["mlp"], xt, q),)
+    for oj, ot in zip(outs_j, outs_t):
+        oj = np.asarray(oj.astype(jnp.float32))
+        assert ot.dtype == torch.bfloat16 and ot.shape == oj.shape
+        assert _rel_err(ot.float().numpy(), oj) <= 1e-2
+
+
+# ------------------------------------------------- port-only engine checks
+
+def _port_engine(model, **kw):
+    cfg, tparams = model[1], model[4]
+    return Engine(cfg, tparams, QuantConfig(impl="ref"),
+                  EngineConfig(**dict(ENGINE, **kw)), device="cpu")
+
+
+def test_chunked_prefill_interleaves_with_decode(model):
+    """A 24-token budget streams the prompts in chunks next to decode rows
+    (mid-prefill rows over int4 history, the work-queue descriptors the
+    kernel tests hold against the reference); every request finishes and
+    the attention counters follow the descriptor count. (Chunked and
+    one-step prefill are not token-identical — the history is read back
+    in int4 — so no agreement is asserted between them.)"""
+    eng = _port_engine(model, prefill_chunk_tokens=24)
+    free0 = eng.cache.pages_free
+    for i, p in enumerate(_prompts(PROMPT_LENS)):
+        eng.add_request(i, p, MAX_NEW)
+    done = eng.run()
+    assert eng.interleaved_steps > 0 and eng.forward_calls == eng.steps
+    assert eng.peak_prefill_fp_tokens <= 24
+    assert sorted(len(r.generated) for r in done) == [MAX_NEW] * 4
+    assert eng.attn_grid_items >= eng.attn_work_items > 0
+    assert eng.counters()["failed_count"] == 0
+    assert eng.cache.pages_free == free0
+
+
+def test_lifecycle_stream_abort_release(model):
+    eng = _port_engine(model)
+    free0 = eng.cache.pages_free
+    prompts = _prompts((12, 30, 7))
+    h0 = eng.submit(prompts[0], SamplingParams(max_new_tokens=4))
+    h1 = eng.submit(prompts[1], SamplingParams(max_new_tokens=40))
+    h2 = eng.submit(prompts[2], SamplingParams(max_new_tokens=3))
+    toks = [e.token for e in eng.stream(h0) if e.token is not None]
+    assert toks == eng.result(h0).generated and len(toks) == 4
+    assert eng.abort(h1) and not eng.abort(h1)
+    eng.run()
+    assert eng.result(h1).state == RequestState.ABORTED
+    assert eng.result(h2).state == RequestState.FINISHED
+    evs = eng.events()
+    assert sum(e.finished for e in evs) == 3       # one terminal each
+    assert eng.cache.pages_free == free0           # refcount-exact release
+    assert eng.release(h2) and eng.result(h2) is None
+
+
+def test_cuda_device_without_card_raises(model):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        Engine(model[1], model[4], QuantConfig(), EngineConfig())
+
+
+@pytest.mark.parametrize("entry", ["cache", "params_from_jax", "lm_init"])
+def test_entry_points_default_to_card(model, entry):
+    """Every entry point that places tensors defaults to the card and
+    raises without one, instead of sliding onto the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg, qparams = model[1], model[3]
+    calls = {
+        "cache": lambda: KVC.PagedKV4Cache(
+            cfg, KVC.PagedKV4Config(num_pages=4), num_layer_slots=1),
+        "params_from_jax": lambda: params_from_jax(
+            jax.tree.map(np.asarray, qparams)),
+        "lm_init": lambda: LM(cfg).init(seed=0),
+    }
+    with pytest.raises(RuntimeError):
+        calls[entry]()
+
+
+def test_lm_init_layer_by_layer():
+    cfg = ModelConfig(**dict(DIMS, num_layers=1, d_model=256, d_ff=512,
+                             num_heads=2, num_kv_heads=1))
+    p = LM(cfg).init(seed=3, device="cpu")
+    assert p["embed"]["table"].dtype == torch.bfloat16
+    assert p["lm_head"]["w"].shape == (256, 512)
+    wq = p["blocks"][0]["attn"]["wq"]
+    assert wq["w_packed"].dtype == torch.uint8
+    assert wq["w_packed"].shape == (128, 256) and wq["w_scale"].shape == (2, 256)
+    q2 = LM(cfg).init(seed=3, device="cpu")["blocks"][0]["mlp"]["w_down"]
+    assert torch.equal(q2["w_packed"], p["blocks"][0]["mlp"]["w_down"]["w_packed"])

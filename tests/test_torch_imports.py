@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package ``repro``, not even its JAX-free modules."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", SCANNED,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_package_imports_with_jax_blocked():
+    """Every port module imports in a process where ``import jax`` fails,
+    and no ``repro`` module gets loaded along the way."""
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "loaded = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.') or m.split('.')[0] in ('jax', 'jaxlib')"
+        " and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok', len(" + repr(mods) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_kernel_sources_present():
+    """Every CUDA source the build names exists, and the launch counters
+    start as plain integers on the wrappers."""
+    from repro_torch.kernels import _build, ops
+    for name in _build.SOURCES:
+        assert (PORT / "csrc" / f"{name}.cu").is_file()
+    assert set(ops.KERNELS) == {
+        "act_quant_int4", "act_quant_int8", "w4a4_matmul", "w4a8_matmul",
+        "paged_kv4_prefill_attention_wq"}
+    assert all(isinstance(k.launches, int) for k in ops.KERNELS.values())
