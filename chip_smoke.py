@@ -9,21 +9,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the Llama-3-8B widths, M ∈ {1, 16, 256} — act-quant byte-exact, the
-   W4Ax GEMMs to 1e-5·max|ref|, work-queue attention to
-   1e-4·max(1, max|ref|) on descriptors from a real cache state — with
-   CUDA-event times (median of 20) of kernel, plain version, a library
-   yardstick where one exists, and the roofline bound (for attention, of
-   the kernel alone on pre-folded inputs, with the whole op beside it as
+   the Llama-3-8B widths — act-quant byte-exact (M ∈ {1, 16, 256}), the
+   W4Ax GEMMs to 1e-5·max|ref|, the attention kernels (work-queue and
+   dense prefill, paged dense and work-queue decode, contiguous decode)
+   to 1e-4·max(1, max|ref|) on real cache states with ragged lengths,
+   zero-history and q_len-0 rows (the dense and decode ones compute
+   exactly as their plain versions do on the card, f64 sums rounded once,
+   and agree bit for bit) — with CUDA-event times (median of 20)
+   of kernel, plain version, a library yardstick (bf16 ``torch.matmul``
+   on dequantized weights, SDPA on gathered dequantized KV) and the
+   roofline bound (for the work-queue kernels, of the kernel alone on
+   pre-folded inputs, with the whole op beside it as
    ``op_ms``/``op_plain_ms``);
-3. parity: a 2-layer d_model-1024 model served on the card twice, with
-   the kernels and with ``impl="ref"``: first-step logits to
-   2e-2·max|logit|, greedy agreement ≥ 0.9;
+3. parity: a 2-layer d_model-1024 model served on the card in every
+   engine configuration (the unified step under both attention
+   schedules, the split step under both, whole-prompt prefill with
+   gather decode), twice each, with the kernels and with ``impl="ref"``:
+   first logits to 2e-2·max|logit|, greedy agreement ≥ 0.9;
 4. slice: Llama-3-8B at full width and depth (random seeded weights),
    default ``EngineConfig`` but ``prefill_chunk_tokens=256``, 8 requests
    of 128–512 prompt tokens × 32 new tokens, greedy, to completion; every
    request must finish with 32 tokens, no failed or internal errors, and
-   every kernel must have launched (launch counts reset just before).
+   every kernel of the path must have launched (launch counts reset just
+   before);
+5. baselines: the same weights and workload served in the reference's
+   measured baselines — (a) split step, work queue; (b) split step,
+   dense; (c) whole-prompt prefill, gather decode; (d) unified step,
+   dense — with the same checks, each run launching its attention
+   kernels.
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +45,7 @@ The last two lines are the kernel table and
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import statistics
@@ -39,8 +53,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernels", "parity", "slice")
+PHASES = ("kernels", "parity", "slice", "baselines")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -207,39 +223,92 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
         }
 
 
-def attention_case(torch, cfg, KVC):
-    """A real cache state: decode rows, mid-prefill rows, a zero-history
-    row, and two qlen-0 pad rows of the power-of-two row bucket."""
-    hkv, d, ps = cfg.num_kv_heads, cfg.head_dim, 64
+PREFILL_ROWS = ((300, 1), (129, 1), (64, 1), (128, 256), (200, 100),
+                (0, 256))        # (history, chunk): decode, mid-prefill, first
+DECODE_LENS = (487, 405, 356, 263, 278, 175, 188, 166)   # not page multiples
+
+
+def llama_cache(torch, cfg, KVC, rows, seed: int):
+    """A real cache state at Llama-3-8B widths: random int4 pools and one
+    sequence per (history, chunk) row, allocated for history + chunk and
+    holding the history."""
     cache = KVC.PagedKV4Cache(
-        cfg, KVC.PagedKV4Config(num_pages=512, page_size=ps, max_seqs=16,
+        cfg, KVC.PagedKV4Config(num_pages=512, page_size=64, max_seqs=16,
                                 max_pages_per_seq=64),
         num_layer_slots=1, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    cache.k_pool.copy_(torch.randint(0, 256, cache.k_pool.shape,
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32).to(torch.uint8))
-    cache.v_pool.copy_(torch.randint(0, 256, cache.v_pool.shape,
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32).to(torch.uint8))
-    # (history, chunk): 3 decode rows, 2 mid-prefill rows, 1 first chunk
-    rows = ((300, 1), (129, 1), (64, 1), (128, 256), (200, 100), (0, 256))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for pool in (cache.k_pool, cache.v_pool):
+        pool.copy_(torch.randint(0, 256, pool.shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+                   .to(torch.uint8))
     for slot, (ctx, take) in enumerate(rows):
         assert cache.allocate_seq(slot, ctx + take)
         cache.seq_len[slot] = ctx
-    starts = [c for c, _ in rows]
-    takes = [t for _, t in rows]
+    return cache, gen
+
+
+def attention_case(torch, cfg, KVC):
+    """The prefill attention inputs of a real cache state: decode rows,
+    mid-prefill rows, a zero-history row, and two qlen-0 pad rows of the
+    power-of-two row bucket; both the work-queue descriptors and the
+    dense schedule's bucketed tables (pad rows: page 0, no history)."""
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    cache, gen = llama_cache(torch, cfg, KVC, PREFILL_ROWS, 3)
+    starts = [c for c, _ in PREFILL_ROWS]
+    takes = [t for _, t in PREFILL_ROWS]
+    slots = list(range(len(PREFILL_ROWS)))
     nb, cb = 8, 256
-    desc = cache.work_queue_np(list(range(len(rows))), starts, takes,
-                               pad_row=nb * hkv)
+    desc = cache.work_queue_np(slots, starts, takes, pad_row=nb * hkv)
     q = torch.randn((nb, cb, cfg.num_heads, d), generator=gen,
                     device="cuda").bfloat16()
     kn = torch.randn((nb, cb, hkv, d), generator=gen, device="cuda") * 4
     vn = torch.randn((nb, cb, hkv, d), generator=gen, device="cuda") * 4
-    args = (q, kn, vn, cache.k_pool[0], cache.k_scale, cache.k_zero,
-            cache.v_pool[0], cache.v_scale, cache.v_zero,
-            torch.from_numpy(desc).cuda())
-    return args, desc, takes
+    pools = (cache.k_pool[0], cache.k_scale, cache.k_zero,
+             cache.v_pool[0], cache.v_scale, cache.v_zero)
+    args = (q, kn, vn) + pools + (torch.from_numpy(desc).cuda(),)
+    npb = 1 << (cache.pages_needed(max(starts)) - 1).bit_length()
+    tables = np.zeros((nb, npb), np.int32)
+    tables[:len(slots)] = cache.block_tables_np(slots, npb)
+
+    def pad(a):
+        return torch.tensor(list(a) + [0] * (nb - len(a)), dtype=torch.int32,
+                            device="cuda")
+
+    dense = (q, kn, vn) + pools + (torch.from_numpy(tables).cuda(),
+                                   pad(starts), pad(takes))
+    return args, desc, takes, dense, cache
+
+
+def repeat_heads(x, g: int):
+    """[B, Hkv, T, D] → [B, Hkv·G, T, D]: the GQA heads written out."""
+    return x.repeat_interleave(g, dim=1)
+
+
+def sdpa_prefill_inputs(torch, Q, cache, dense, hq: int):
+    """The library yardstick's inputs for chunked prefill attention: bf16
+    q ``[B, Hq, C, D]``, K/V = the rows' history pages dequantized and
+    the chunk, heads repeated, and the same mask (history t < ctx, chunk
+    j ≤ i and j < q_len)."""
+    q, kn, vn, _, ks, kz, _, vs, vz, tables, ctx, ql = dense
+    b, c, _, d = q.shape
+    hkv = kn.shape[2]
+    t_hist = tables.shape[1] * cache.pcfg.page_size
+    idx = tables.long()
+    kv = []
+    for pool, s, z, new in ((cache.k_pool[0], ks, kz, kn),
+                            (cache.v_pool[0], vs, vz, vn)):
+        hist = pool[idx].reshape(b, t_hist, hkv, d // 2).transpose(1, 2)
+        hist = Q.dequantize_kv_channelwise(hist, s, z)
+        kv.append(repeat_heads(torch.cat([hist, new.transpose(1, 2)], 2)
+                               .bfloat16(), hq // hkv).contiguous())
+    tpos = torch.arange(t_hist + c, device="cuda")
+    j = tpos - t_hist
+    i = torch.arange(c, device="cuda")
+    mask = torch.where((tpos < t_hist)[None, None, :],
+                       (tpos[None, :] < ctx[:, None].long())[:, None, :],
+                       (j[None, None, :] <= i[None, :, None])
+                       & (j[None, None, :] < ql[:, None, None].long()))
+    return (q.transpose(1, 2).contiguous(), kv[0], kv[1], mask[:, None])
 
 
 def attention_bound(desc, takes, hkv: int, g: int, d: int):
@@ -269,21 +338,77 @@ def attention_bound(desc, takes, hkv: int, g: int, d: int):
     return nbytes, flops
 
 
-def check_attention(torch, cfg, KVC, PA, rows: dict):
-    args, desc, takes = attention_case(torch, cfg, KVC)
-    out = PA.paged_kv4_prefill_attention_wq(*args)
-    want = PA.paged_kv4_prefill_attention_wq_ref(*args)
+def check(name: str, got, want, tol_rows=None) -> float:
+    """Max error of a kernel against its plain version (over the valid
+    rows ``tol_rows`` (b, q_len) pairs where given), within
+    1e-4·max(1, max|ref|), every output finite."""
+    import torch
     torch.cuda.synchronize()
-    err = float((out - want).abs().max())
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
-    if not (torch.isfinite(out).all() and err <= tol):
-        fail(f"paged_kv4_prefill_attention_wq: max err {err} > {tol}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    pairs = [(got, want)] if tol_rows is None else [
+        (got[b, :n], want[b, :n]) for b, n in tol_rows if n]
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    tol = 1e-4 * max(1.0, max(float(w.abs().max()) for _, w in pairs))
+    if not err <= tol:
+        fail(f"{name}: max err {err} > {tol}")
+    return err
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = flops / F32_FLOPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def prefill_dense_bound(ctx, qls, hkv: int, g: int, d: int):
+    """Bytes and f32 operations of dense chunked prefill attention for
+    these rows: each valid query (i < q_len) against its valid keys (the
+    history [0, ctx) and chunk keys j ≤ i), 4·D operations per pair (q·k
+    and p·v); each row's valid queries, chunk k/v and history pages read
+    once, its valid outputs written once."""
+    flops = nbytes = 0
+    for cx, ql in zip(ctx, qls):
+        if not ql:
+            continue
+        pairs = ql * cx + ql * (ql + 1) // 2
+        flops += pairs * g * hkv * 4 * d
+        nbytes += (ql * g * hkv * d * 4 * 2          # q in, out
+                   + ql * hkv * d * 4 * 2            # chunk k, v
+                   + cx * hkv * (d // 2) * 2)        # int4 history k, v
+    return nbytes, flops
+
+
+def decode_bound(lengths, hq: int, hkv: int, d: int, extra_bytes: int = 0):
+    """Bytes and f32 operations of decode attention over these lengths:
+    the int4 K and V of every valid key of every kv head read once, the
+    queries and outputs once (plus ``extra_bytes``), 4·D operations per
+    (query head, key)."""
+    keys = int(sum(lengths))
+    nbytes = keys * hkv * (d // 2) * 2 + extra_bytes
+    return nbytes, keys * hq * 4 * d
+
+
+def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
+    """K9 (work-queue prefill) and K7 (dense prefill) on one real cache
+    state, against their plain versions and one library yardstick."""
+    import torch.nn.functional as F
+    args, desc, takes, dense, cache = attention_case(torch, cfg, KVC)
     q, kn, vn, k_pool, ks, kz, v_pool, vs, vz, desc_t = args
     b, c, hq, d = q.shape
     hkv = cfg.num_kv_heads
     g = hq // hkv
+    valid = list(enumerate(takes))
+    yard = sdpa_prefill_inputs(torch, Q, cache, dense, hq)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        yard[0], yard[1], yard[2], attn_mask=yard[3]))
+
+    err = check("paged_kv4_prefill_attention_wq",
+                PA.paged_kv4_prefill_attention_wq(*args),
+                PA.paged_kv4_prefill_attention_wq_ref(*args))
     say(f"[kernels] paged_kv4_prefill_attention_wq W={desc.shape[0]} "
-        f"C={c}: max err {err:.3g} (tol {tol:.3g})")
+        f"C={c}: max err {err:.3g}")
     # the kernel alone on pre-folded inputs, against its plain version;
     # the whole op (pre-fold, kernel, combine with the engine's host plan)
     # is timed beside it
@@ -300,11 +425,8 @@ def check_attention(torch, cfg, KVC, PA, rows: dict):
             desc_t, *folded, k_pool, v_pool, g)),
         "plain_ms": time_ms(torch, lambda: PA.paged_kv4_partials_ref(
             desc_t, *folded, k_pool, v_pool, g)),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / F32_FLOPS_PER_S) * 1e3,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / F32_FLOPS_PER_S else "operations"),
-        "library_ms": None,
+        **bound(nbytes, flops),
+        "library_ms": library_ms,
         "op_ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention_wq(
             *args, plan=plan)),
         "op_plain_ms": time_ms(
@@ -312,22 +434,146 @@ def check_attention(torch, cfg, KVC, PA, rows: dict):
                 *args, plan=plan)),
     }
 
+    ctx = [cx for cx, _ in PREFILL_ROWS]
+    err = check("paged_kv4_prefill_attention",
+                PA.paged_kv4_prefill_attention(*dense),
+                PA.paged_kv4_prefill_attention_ref(*dense), valid)
+    say(f"[kernels] paged_kv4_prefill_attention B={b} C={c} "
+        f"NP={dense[9].shape[1]}: max err {err:.3g}")
+    rows["paged_kv4_prefill_attention"] = {
+        "name": "paged_kv4_prefill_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:336",
+        "shape": f"B={b} C={c} Hq={hq} D={d} NP={dense[9].shape[1]}",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*dense)),
+        "plain_ms": time_ms(
+            torch, lambda: PA.paged_kv4_prefill_attention_ref(*dense)),
+        **bound(*prefill_dense_bound(ctx, takes, hkv, g, d)),
+        "library_ms": library_ms,
+    }
+
+
+def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
+    """K6, K8 and K10 on one decode batch of a real cache state (8 rows,
+    lengths that are not page multiples), against their f32 plain
+    versions, with one SDPA yardstick on the gathered, dequantized bf16
+    KV."""
+    import torch.nn.functional as F
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    cache, gen = llama_cache(torch, cfg, KVC, [(n, 1) for n in DECODE_LENS],
+                             4)
+    slots = list(range(len(DECODE_LENS)))
+    b = len(slots)
+    lens_np = np.asarray(DECODE_LENS)
+    max_len = int(lens_np.max())
+    lengths = torch.from_numpy(lens_np.astype(np.int32)).cuda()
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
+    pools = (cache.k_pool[0], cache.k_scale, cache.k_zero, cache.v_pool[0],
+             cache.v_scale, cache.v_zero)
+    kp, vp, _ = cache.gather_kv(0, slots, max_len)
+    kp, vp = kp.contiguous(), vp.contiguous()
+    bc = [torch.broadcast_to(s[None], (b,) + tuple(s.shape))
+          for s in pools[1:3] + pools[4:6]]
+    k10 = (q, kp, bc[0], bc[1], vp, bc[2], bc[3], lengths)
+    k6 = (q,) + pools + (cache.block_tables_device(slots, max_len), lengths)
+    desc = cache.work_queue_np(slots, lens_np)
+    desc_t = torch.from_numpy(desc).cuda()
+    plan = PA.combine_plan(desc[:, 0], b * hkv, "cuda")
+    k8 = (q,) + pools + (desc_t,)
+
+    mask = (torch.arange(max_len, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    yk, yv = [repeat_heads(Q.dequantize_kv_channelwise(x, s, z).bfloat16(), g)
+              .contiguous() for x, s, z in ((kp, bc[0], bc[1]),
+                                            (vp, bc[2], bc[3]))]
+    yq = q[:, :, None, :].contiguous()
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        yq, yk, yv, attn_mask=mask))
+    io = 2 * b * hq * d * 4
+    shape = f"B={b} Hq={hq} D={d} T={max_len}"
+
+    err = check("kv4_decode_attention", KA.kv4_decode_attention(*k10),
+                KA.kv4_decode_attention_ref(*k10))
+    say(f"[kernels] kv4_decode_attention {shape}: max err {err:.3g}")
+    rows["kv4_decode_attention"] = {
+        "name": "kv4_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv4_attention.cu",
+        "replaces": "src/repro/kernels/kv4_attention.py:111",
+        "shape": shape, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: KA.kv4_decode_attention(*k10)),
+        "plain_ms": time_ms(torch, lambda: KA.kv4_decode_attention_ref(*k10)),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d, io)),
+        "library_ms": library_ms,
+    }
+
+    err = check("paged_kv4_decode_attention",
+                PA.paged_kv4_decode_attention(*k6),
+                PA.paged_kv4_decode_attention_ref(*k6))
+    say(f"[kernels] paged_kv4_decode_attention {shape}: max err {err:.3g}")
+    rows["paged_kv4_decode_attention"] = {
+        "name": "paged_kv4_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:163",
+        "shape": shape, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: PA.paged_kv4_decode_attention(*k6)),
+        "plain_ms": time_ms(
+            torch, lambda: PA.paged_kv4_decode_attention_ref(*k6)),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d, io)),
+        "library_ms": library_ms,
+    }
+
+    err = check("paged_kv4_decode_attention_wq",
+                PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
+                PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan))
+    say(f"[kernels] paged_kv4_decode_attention_wq {shape} "
+        f"W={desc.shape[0]}: max err {err:.3g}")
+    # the kernel alone on pre-folded queries; the whole op beside it
+    qt2, c2 = PA.decode_prefold(q, pools[1], pools[2], hkv)
+    w = desc.shape[0]
+    rows["paged_kv4_decode_attention_wq"] = {
+        "name": "paged_kv4_decode_attention_wq", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:477",
+        "shape": f"{shape} W={w}", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: PA.paged_kv4_decode_partials(
+            desc_t, qt2, c2, pools[0], pools[3])),
+        "plain_ms": time_ms(torch, lambda: PA.paged_kv4_decode_partials_ref(
+            desc_t, qt2, c2, pools[0], pools[3])),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
+                              b * hq * (d + 1) * 4 + w * 16
+                              + w * g * (d + 2) * 4)),
+        "library_ms": library_ms,
+        "op_ms": time_ms(torch, lambda: PA.paged_kv4_decode_attention_wq(
+            *k8, plan=plan)),
+        "op_plain_ms": time_ms(
+            torch, lambda: PA.paged_kv4_decode_attention_wq_ref(
+                *k8, plan=plan)),
+    }
+
 
 # ------------------------------------------------------- phases 3 and 4
 
 def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
           prompts, max_new, ecfg):
+    """Serve ``prompts`` to completion; → (engine, the first logits the
+    engine produced, host seconds per step). The unified step's logits
+    come from ``_guarded_forward``, the split forwards' from the rows
+    they hand to ``_sample_batch``."""
     eng = Engine(cfg, params, QuantConfig(impl=impl), ecfg, device="cuda")
     first = []
-    inner = eng._guarded_forward
+    for name in ("_guarded_forward", "_sample_batch"):
+        inner = getattr(eng, name)
 
-    def capture(*a, **k):
-        logits = inner(*a, **k)
-        if not first:
-            first.append(logits.copy())
-        return logits
+        def capture(*a, inner=inner, name=name, **k):
+            out = inner(*a, **k)
+            if not first:
+                first.append(np.array(out if name == "_guarded_forward"
+                                      else a[0]))
+            return out
 
-    eng._guarded_forward = capture
+        setattr(eng, name, capture)
     for i, p in enumerate(prompts):
         eng.add_request(i, p, max_new)
     step_s = []
@@ -356,7 +602,21 @@ def check_run(eng, n_req: int, max_new: int, vocab: int, label: str):
     return {i: list(done[i].generated) for i in range(n_req)}
 
 
+# the engine configurations the port serves: the default unified step and
+# the reference's measured baselines
+CONFIGS = {
+    "unified work_queue": {},
+    "split work_queue": dict(unified_step=False),
+    "split dense": dict(unified_step=False, attention_schedule="dense"),
+    "whole gather": dict(prefill_mode="whole", decode_attention="gather"),
+    "unified dense": dict(attention_schedule="dense"),
+}
+
+
 def phase_parity(torch, np, mods):
+    """Each configuration served twice on a 2-layer d_model-1024 model,
+    with the kernels and with ``impl="ref"``: first logits within
+    2e-2·max|logit|, greedy agreement ≥ 0.9."""
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
     cfg = ModelConfig(name="parity", family="dense", num_layers=2,
                       d_model=1024, num_heads=8, num_kv_heads=2,
@@ -366,26 +626,31 @@ def phase_parity(torch, np, mods):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (40, 7, 23, 64, 13, 29)]
-    ecfg = EngineConfig(max_batch=8, num_pages=128, page_size=64,
-                        max_pages_per_seq=16, prefill_chunk_tokens=48,
-                        kv_range=4.0)
-    res = {}
-    for impl in ("auto", "ref"):
-        eng, first, _ = serve(torch, np, Engine, EngineConfig, QuantConfig,
-                              cfg, params, impl, prompts, 16, ecfg)
-        res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
-                               f"parity[{impl}]"), first)
-    (tk, lk), (tr, lr) = res["auto"], res["ref"]
-    err = float(np.abs(lk - lr).max())
-    tol = 2e-2 * float(np.abs(lr).max())
-    if not err <= tol:
-        fail(f"parity: first-step logits max err {err} > {tol}")
-    total = sum(len(v) for v in tr.values())
-    agree = sum(a == b for i in tr for a, b in zip(tk[i], tr[i])) / total
-    say(f"[parity] first-step logits max err {err:.4g} (tol {tol:.4g}); "
-        f"greedy agreement {agree:.4f} over {total} tokens")
-    if agree < 0.9:
-        fail(f"parity: greedy agreement {agree} < 0.9")
+    for label, kw in CONFIGS.items():
+        ecfg = EngineConfig(max_batch=8, num_pages=128, page_size=64,
+                            max_pages_per_seq=16, prefill_chunk_tokens=48,
+                            kv_range=4.0, **kw)
+        res = {}
+        for impl in ("auto", "ref"):
+            eng, first, _ = serve(torch, np, Engine, EngineConfig,
+                                  QuantConfig, cfg, params, impl, prompts,
+                                  16, ecfg)
+            res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
+                                   f"parity[{label}, {impl}]"), first)
+        (tk, lk), (tr, lr) = res["auto"], res["ref"]
+        if lk is None or lk.shape != lr.shape:
+            fail(f"parity[{label}]: first logits missing or mis-shaped")
+        err = float(np.abs(lk - lr).max())
+        tol = 2e-2 * float(np.abs(lr).max())
+        if not err <= tol:
+            fail(f"parity[{label}]: first logits max err {err} > {tol}")
+        total = sum(len(v) for v in tr.values())
+        agree = sum(a == b for i in tr for a, b in zip(tk[i], tr[i])) / total
+        say(f"[parity] {label}: first logits max err {err:.4g} "
+            f"(tol {tol:.4g}); greedy agreement {agree:.4f} over {total} "
+            f"tokens")
+        if agree < 0.9:
+            fail(f"parity[{label}]: greedy agreement {agree} < 0.9")
 
 
 def profile_table(torch, prof, wall_s: float):
@@ -416,19 +681,38 @@ def profile_table(torch, prof, wall_s: float):
     return "\n".join(lines)
 
 
-def phase_slice(torch, np, mods, KERNELS, profile=False):
+CORE = ("act_quant_int4", "act_quant_int8", "w4a4_matmul", "w4a8_matmul")
+# (run, configuration, the attention kernels it must launch beside CORE)
+RUNS = (
+    ("slice", "unified work_queue", ("paged_kv4_prefill_attention_wq",)),
+    ("a", "split work_queue", ("paged_kv4_prefill_attention",
+                               "paged_kv4_decode_attention_wq")),
+    ("b", "split dense", ("paged_kv4_prefill_attention",
+                          "paged_kv4_decode_attention")),
+    ("c", "whole gather", ("kv4_decode_attention",)),
+    ("d", "unified dense", ("paged_kv4_prefill_attention",)),
+)
+# the run whose launches a kernel's row reports: the path it serves
+PATH_OF = {"paged_kv4_decode_attention_wq": "a",
+           "paged_kv4_decode_attention": "b", "kv4_decode_attention": "c",
+           "paged_kv4_prefill_attention": "d"}
+
+
+def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
+                profile=False):
+    """One run of the ``slice`` workload on Llama-3-8B at full width and
+    depth: 8 requests of 128–512 prompt tokens × 32 new tokens, greedy,
+    ``prefill_chunk_tokens=256``, in the run's configuration. Launch
+    counts are set to 0 just before and read just after; every request
+    must finish with 32 tokens, with no failed or internal errors, and
+    every kernel of the run must have launched. → launches."""
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
-    from repro_torch.configs import get_config
-    cfg = get_config("llama3_8b")
-    t0 = time.perf_counter()
-    params = LM(cfg).init(seed=0, device="cuda")
-    torch.cuda.synchronize()
-    say(f"[slice] Llama-3-8B random W4 weights ({cfg.num_layers} layers) "
-        f"made in {time.perf_counter() - t0:.1f} s")
+    label, must = next((c, m) for r, c, m in RUNS if r == run)
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 513, 8)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
-    ecfg = EngineConfig(prefill_chunk_tokens=256)
+    ecfg = EngineConfig(prefill_chunk_tokens=256, **CONFIGS[label])
+    gc.collect()      # earlier runs' engines (their KV pools) are garbage now
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
         kern.launches = 0
@@ -442,27 +726,29 @@ def phase_slice(torch, np, mods, KERNELS, profile=False):
     eng, first, step_s = serve(torch, np, Engine, EngineConfig, QuantConfig,
                                cfg, params, "auto", prompts, 32, ecfg)
     wall = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    tag = f"[{'slice' if run == 'slice' else 'baselines'}] {run} ({label})"
     if prof is not None:
         prof.__exit__(None, None, None)
-        say("[slice] profiled run (times include profiler overhead):\n"
+        say(f"{tag} profiled run (times include profiler overhead):\n"
             + profile_table(torch, prof, wall))
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
-    check_run(eng, len(prompts), 32, cfg.vocab_size, "slice")
+    check_run(eng, len(prompts), 32, cfg.vocab_size, tag)
     if first is None or not np.isfinite(first).all():
-        fail("slice: first-step logits missing or not finite")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"slice: kernel {name} was never launched")
-    if eng.attn_forwards <= 0:
-        fail("slice: no step took the work-queue attention path")
+        fail(f"{tag}: first logits missing or not finite")
+    for name in CORE + must:
+        if launches[name] <= 0:
+            fail(f"{tag}: kernel {name} was never launched")
+    if eng.attn_forwards <= 0 and label != "whole gather":
+        fail(f"{tag}: no forward attended over paged history")
     toks = eng.tokens_generated
-    say(f"[slice] prompts {lens.tolist()}; {eng.steps} steps, {toks} tokens "
-        f"in {wall:.3f} s = {toks / wall:.2f} tok/s; median step "
+    say(f"{tag} prompts {lens.tolist()}; {eng.steps} steps, "
+        f"{eng.forward_calls} forwards, {toks} tokens in {wall:.3f} s = "
+        f"{toks / wall:.2f} tok/s; median step "
         f"{statistics.median(step_s) * 1e3:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say(f"[slice] step ms {[round(s * 1e3, 2) for s in step_s]}")
-    say(f"[slice] launches {json.dumps(launches)}")
-    say(f"[slice] counters {json.dumps(eng.counters())}")
+    say(f"{tag} step ms {[round(x * 1e3, 2) for x in step_s]}")
+    say(f"{tag} launches {json.dumps(launches)}")
+    say(f"{tag} counters {json.dumps(eng.counters())}")
     return launches
 
 
@@ -471,8 +757,14 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the slice run with torch.profiler and print "
-                         "the device busy share, top kernels and host ops")
+                    help="trace each Llama-3-8B run (slice, baselines) with "
+                         "torch.profiler and print the device busy share, "
+                         "top kernels and host ops")
+    ap.add_argument("--runs", default="",
+                    help="the Llama-3-8B runs to make, in this order, "
+                         "repeats allowed (e.g. slice,a,b,c,d,d,c,b,a,slice "
+                         "to compare them in turns); default: those of "
+                         "--phases")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     import torch
@@ -481,11 +773,11 @@ def main():
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, str(HERE / "src"))
-    import numpy as np
     from repro_torch.configs import ModelConfig, get_config
     from repro_torch.core import quantizer as Q
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import act_quant as AQ
+    from repro_torch.kernels import kv4_attention as KA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import w4ax_matmul as WK
     from repro_torch.layers.common import no_tf32
@@ -503,18 +795,33 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     rows: dict = {}
+    cfg8b = get_config("llama3_8b")
     if "kernels" in phases:
         check_act_quant(torch, AQ, rows)
         check_gemm(torch, AQ, WK, Q, rows)
-        check_attention(torch, get_config("llama3_8b"), KVC, PA, rows)
+        check_attention(torch, cfg8b, KVC, PA, Q, rows)
+        check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
     mods = (ModelConfig, LM, Engine, EngineConfig, QuantConfig)
     if "parity" in phases:
         phase_parity(torch, np, mods)
-    launches = {}
-    if "slice" in phases:
-        launches = phase_slice(torch, np, mods, ops.KERNELS, args.profile)
-    table = [dict(rows[n], launches=launches.get(n)) for n in ops.KERNELS
-             if n in rows]
+    order = (args.runs.split(",") if args.runs else
+             [r for r, _, _ in RUNS
+              if ("slice" if r == "slice" else "baselines") in phases])
+    if set(order) - {r for r, _, _ in RUNS}:
+        fail(f"--runs takes runs of {[r for r, _, _ in RUNS]}")
+    runs = {}
+    if order:
+        t0 = time.perf_counter()
+        params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
+        torch.cuda.synchronize()
+        say(f"[slice] Llama-3-8B random W4 weights ({cfg8b.num_layers} "
+            f"layers) made in {time.perf_counter() - t0:.1f} s")
+        for run in order:
+            runs[run] = serve_llama(torch, np, mods, ops.KERNELS, cfg8b,
+                                    params, run, args.profile)
+    table = [dict(rows[n], launches=runs.get(PATH_OF.get(n, "slice"),
+                                             {}).get(n))
+             for n in ops.KERNELS if n in rows]
     say(smi)
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

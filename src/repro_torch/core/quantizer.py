@@ -8,6 +8,10 @@
 * INT8 values live in [-128, 127] as plain int8.
 * Scales are float32, one per (row, 128-block) for activations and one
   per (128-block, output column) for weights.
+* KV is asymmetric per channel: codes ``clip(round(x/scale + zero), 0,
+  15)`` with static scale/zero ``[..., 1, D]``, packed along the head
+  dimension as byte ``j`` = channel ``j`` (low nibble) and channel
+  ``j + D/2`` (high nibble) — not the weights' per-128 layout.
 
 Rounding is half-to-even (``torch.round``) and every division is IEEE
 float32, so codes and scales match the reference bit for bit.
@@ -26,6 +30,7 @@ __all__ = [
     "pack_int4_interleaved", "unpack_int4_interleaved",
     "quantize_weight_int4", "dequantize_weight_int4",
     "quantize_act_groupwise",
+    "pack_kv_nibbles", "unpack_kv_nibbles", "dequantize_kv_channelwise",
 ]
 
 
@@ -126,3 +131,23 @@ def quantize_act_groupwise(x: torch.Tensor, block_size: int = 128,
     else:
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     return q.reshape(m, k), scale[:, :, 0]
+
+
+def pack_kv_nibbles(n: torch.Tensor) -> torch.Tensor:
+    """KV codes ``[..., D]`` in [0, 15] → uint8 ``[..., D/2]``: byte j =
+    channel j | channel j + D/2 << 4."""
+    n = n.to(torch.uint8)
+    half = n.shape[-1] // 2
+    return n[..., :half] | (n[..., half:] << 4)
+
+
+def unpack_kv_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_kv_nibbles` → f32 codes ``[..., D]``."""
+    return torch.cat([(packed & 0x0F).float(), (packed >> 4).float()], -1)
+
+
+def dequantize_kv_channelwise(packed: torch.Tensor, scale: torch.Tensor,
+                              zero: torch.Tensor) -> torch.Tensor:
+    """Packed KV ``[..., T, D/2]`` → f32 ``(code − zero)·scale`` with
+    scale/zero broadcastable to ``[..., 1, D]``."""
+    return (unpack_kv_nibbles(packed) - zero) * scale

@@ -1,9 +1,11 @@
-// Work-queue (Stream-K) paged KV4 prefill attention: one flash partial
-// (acc, l, m) per descriptor item.
+// Paged KV4 chunked-prefill attention under the reference's two grid
+// schedules.
 //
-// Replaces repro/kernels/paged_attention.py: paged_kv4_prefill_attention_wq
-// (_paged_kv4_prefill_wq_kernel). The affine pre-fold of the queries and
-// the log-sum-exp combine of the partials stay in PyTorch around it.
+// paged_kv4_prefill_wq — replaces repro/kernels/paged_attention.py:
+// paged_kv4_prefill_attention_wq (_paged_kv4_prefill_wq_kernel): one flash
+// partial (acc, l, m) per work-queue descriptor item. The affine pre-fold
+// of the queries and the log-sum-exp combine of the partials stay in
+// PyTorch around it.
 //
 // Descriptor item (row, page, count, kind), row = seq·Hkv + kv_head:
 //   kind 0 — one int4 history page: s = q̃·n_k − c over positions < count,
@@ -24,6 +26,9 @@
 // per lane for p·V, with an online softmax across chunks. A query row
 // skips the chunks wholly past its causal edge. f32 CUDA-core math, no
 // tensor cores yet.
+//
+// paged_kv4_prefill_dense — replaces paged_kv4_prefill_attention (dense
+// schedule, _paged_kv4_prefill_kernel): see the note at the kernel below.
 #include "common.cuh"
 
 namespace {
@@ -33,19 +38,6 @@ constexpr int KC = 32;        // keys per shared-memory chunk (one per lane)
 constexpr int ROWS = 16;      // query rows per thread block
 constexpr int WARPS = 4;
 constexpr int RPW = ROWS / WARPS;
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(WARPS * 32) prefill_wq_kernel(
     const int* __restrict__ desc,
@@ -189,6 +181,163 @@ __global__ void __launch_bounds__(WARPS * 32) prefill_wq_kernel(
   }
 }
 
+// Dense chunked prefill (K7): one block per (b, kv head) row and tile of
+// ROWS query rows r = qi·G + gi. The block walks the row's keys — the
+// history [0, ctx) through the block table, dequantized to (n − z)·s as it
+// is staged, then the chunk's keys j ≤ qi, j < q_len — three times: for
+// the max score, for L = Σ e^(s−M), and for Σ (e^(s−M)/L)·v. Every dot
+// product and sum accumulates in f64 and is rounded once to f32, and the
+// exponential is the f64 one rounded, as the plain version computes on the
+// card, so the two agree bit for bit (orders of summation no longer
+// matter) and a token served through the kernel is the token of the plain
+// version. Bound on the H100: operations, ~4·D per (valid query, valid
+// key); the three f64 passes cost ~6× that at the f64 rate, the price of
+// the exact agreement (a later PR can trade it for tensor cores).
+__global__ void __launch_bounds__(WARPS * 32) prefill_dense_kernel(
+    const float* __restrict__ q, const float* __restrict__ kn,
+    const float* __restrict__ vn, const float* __restrict__ ks,
+    const float* __restrict__ kz, const float* __restrict__ vs,
+    const float* __restrict__ vz, const uint8_t* __restrict__ k_pool,
+    const uint8_t* __restrict__ v_pool, const int* __restrict__ tables,
+    const int* __restrict__ ctx_lens, const int* __restrict__ q_lens,
+    float* __restrict__ out, int c, int g, int hkv, int np, int ps) {
+  __shared__ float sK[KC][D + 1];
+  __shared__ __align__(16) float sV[KC][D];
+  __shared__ __align__(16) float sQ[ROWS][D];
+
+  const int bh = blockIdx.x, b = bh / hkv, h = bh % hkv;
+  const int r0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = c * g, hq = hkv * g;
+  const int ctx = min(ctx_lens[b], np * ps);
+  const int qlen = min(q_lens[b], c);
+  // query row r of this (b, h) lives at out/q[b, r / g, h·g + r % g, :]
+  auto qrow = [=](int r) {
+    return ((static_cast<long>(b) * c + r / g) * hq + h * g + r % g) * D;
+  };
+
+  if (r0 >= qlen * g) {       // padding rows only: finite zeros, no reads
+    for (int i = tid; i < ROWS * D; i += WARPS * 32) {
+      const int r = r0 + i / D;
+      if (r < cg) out[qrow(r) + i % D] = 0.f;
+    }
+    return;
+  }
+  for (int i = tid; i < ROWS * D; i += WARPS * 32) {
+    const int r = r0 + i / D;
+    sQ[i / D][i % D] = r < cg ? q[qrow(r) + i % D] : 0.f;
+  }
+  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const float* ksh = ks + h * D;
+  const float* kzh = kz + h * D;
+  const float* vsh = vs + h * D;
+  const float* vzh = vz + h * D;
+  const int* tbl = tables + static_cast<long>(b) * np;
+  const int last_row = min(r0 + ROWS, cg) - 1;
+  const int nchunk = min(qlen, last_row / g + 1);   // chunk keys any row sees
+
+  float m_i[RPW], l_i[RPW];
+  double e_i[RPW], a_i[RPW][4];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m_i[i] = NEG_INF;
+    l_i[i] = 0.f;
+    e_i[i] = 0.0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a_i[i][e] = 0.0;
+  }
+
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int part = 0; part < 2; ++part) {     // history, then the chunk
+      const bool hist = part == 0;
+      const int nkeys = hist ? ctx : nchunk;
+      for (int k0 = 0; k0 < nkeys; k0 += KC) {
+        __syncthreads();   // sQ written / previous chunk consumed
+        if (hist) {
+          for (int i = tid; i < KC * (D / 2); i += WARPS * 32) {
+            const int j = i / (D / 2), d = i % (D / 2), t = k0 + j;
+            float k_lo = 0.f, k_hi = 0.f, v_lo = 0.f, v_hi = 0.f;
+            if (t < ctx) {
+              const int page = max(tbl[t / ps], 0);
+              const long off = ((static_cast<long>(page) * ps + t % ps) * hkv
+                                + h) * (D / 2) + d;
+              const uint8_t kb = k_pool[off], vb = v_pool[off];
+              k_lo = (static_cast<float>(kb & 15) - kzh[d]) * ksh[d];
+              k_hi = (static_cast<float>(kb >> 4) - kzh[d + D / 2]) * ksh[d + D / 2];
+              v_lo = (static_cast<float>(vb & 15) - vzh[d]) * vsh[d];
+              v_hi = (static_cast<float>(vb >> 4) - vzh[d + D / 2]) * vsh[d + D / 2];
+            }
+            sK[j][d] = k_lo;
+            sK[j][d + D / 2] = k_hi;
+            sV[j][d] = v_lo;
+            sV[j][d + D / 2] = v_hi;
+          }
+        } else {
+          for (int i = tid; i < KC * D; i += WARPS * 32) {
+            const int j = i / D, d = i % D, kj = k0 + j;
+            float kv = 0.f, vv = 0.f;
+            if (kj < qlen) {
+              const long off = ((static_cast<long>(b) * c + kj) * hkv + h) * D + d;
+              kv = kn[off];
+              vv = vn[off];
+            }
+            sK[j][d] = kv;
+            sV[j][d] = vv;
+          }
+        }
+        __syncthreads();
+
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          const int rl = warp * RPW + i, r = r0 + rl;
+          const int qi = r / g;
+          if (r >= cg || (!hist && k0 > qi)) continue;   // warp-uniform
+          const int kj = k0 + lane;
+          const bool valid = hist ? kj < ctx : (kj <= qi && kj < qlen);
+          double s0 = 0.0, s1 = 0.0;
+#pragma unroll 8
+          for (int d = 0; d < D; d += 2) {
+            s0 = fma(static_cast<double>(sQ[rl][d]),
+                     static_cast<double>(sK[lane][d]), s0);
+            s1 = fma(static_cast<double>(sQ[rl][d + 1]),
+                     static_cast<double>(sK[lane][d + 1]), s1);
+          }
+          const float s = static_cast<float>(s0 + s1) / sqrt_d;
+          if (pass == 0) {
+            m_i[i] = fmaxf(m_i[i], warp_max(valid ? s : NEG_INF));
+          } else if (pass == 1) {
+            e_i[i] += valid ? static_cast<double>(exp_f64(s - m_i[i])) : 0.0;
+          } else {
+            const float p = valid ? exp_f64(s - m_i[i]) / l_i[i] : 0.f;
+#pragma unroll 8
+            for (int jj = 0; jj < KC; ++jj) {
+              const double pj = __shfl_sync(0xffffffffu, p, jj);
+              const float4 v4 = *reinterpret_cast<const float4*>(&sV[jj][4 * lane]);
+              a_i[i][0] = fma(pj, static_cast<double>(v4.x), a_i[i][0]);
+              a_i[i][1] = fma(pj, static_cast<double>(v4.y), a_i[i][1]);
+              a_i[i][2] = fma(pj, static_cast<double>(v4.z), a_i[i][2]);
+              a_i[i][3] = fma(pj, static_cast<double>(v4.w), a_i[i][3]);
+            }
+          }
+        }
+      }
+    }
+    if (pass == 1) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) l_i[i] = static_cast<float>(warp_sum_d(e_i[i]));
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = r0 + warp * RPW + i;
+    if (r >= cg) continue;
+    *reinterpret_cast<float4*>(&out[qrow(r) + 4 * lane]) = make_float4(
+        static_cast<float>(a_i[i][0]), static_cast<float>(a_i[i][1]),
+        static_cast<float>(a_i[i][2]), static_cast<float>(a_i[i][3]));
+  }
+}
+
 }  // namespace
 
 // desc int32 [w, 4]; qt/qs f32 [nrows, cg, D]; cterm f32 [nrows, cg];
@@ -206,6 +355,26 @@ extern "C" int paged_kv4_prefill_wq(
     prefill_wq_kernel<<<grid, WARPS * 32, 0, stream>>>(
         desc, qt, cterm, qs, kn, vn, vs, vz, k_pool, v_pool, acc, l, m,
         nrows, cg, c, g, ps, hkv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q f32 [B, C, Hq, D]; k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32 [hkv, D];
+// pools uint8 [P, ps, hkv, D/2]; tables int32 [B, np]; ctx/q_len int32 [B]
+// → out f32 [B, C, Hq, D] (rows past q_len: finite garbage). All
+// contiguous; d must be 128.
+extern "C" int paged_kv4_prefill_dense(
+    const float* q, const float* kn, const float* vn, const float* ks,
+    const float* kz, const float* vs, const float* vz, const uint8_t* k_pool,
+    const uint8_t* v_pool, const int* tables, const int* ctx_lens,
+    const int* q_lens, float* out, int b, int c, int g, int hkv, int np,
+    int ps, int d, cudaStream_t stream) {
+  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+  if (b > 0 && c > 0 && hkv > 0) {
+    const dim3 grid(b * hkv, (c * g + ROWS - 1) / ROWS);
+    prefill_dense_kernel<<<grid, WARPS * 32, 0, stream>>>(
+        q, kn, vn, ks, kz, vs, vz, k_pool, v_pool, tables, ctx_lens, q_lens,
+        out, c, g, hkv, np, ps);
   }
   return static_cast<int>(cudaGetLastError());
 }

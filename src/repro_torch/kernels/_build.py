@@ -27,7 +27,8 @@ import torch
 __all__ = ["SOURCES", "build", "call", "build_dir"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("act_quant", "w4ax_matmul", "paged_attention")
+SOURCES = ("act_quant", "w4ax_matmul", "paged_attention", "paged_decode",
+           "kv4_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 

@@ -21,12 +21,15 @@ import math
 import torch
 
 from repro_torch.kernels import act_quant as AQ
+from repro_torch.kernels import kv4_attention as KA
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import w4ax_matmul as WK
 
 BLOCK_K = WK.BLOCK_K
 
 __all__ = ["act_quant", "w4ax_matmul", "paged_kv4_prefill_attention_wq",
+           "paged_kv4_prefill_attention", "paged_kv4_decode_attention",
+           "paged_kv4_decode_attention_wq", "kv4_decode_attention",
            "combine_plan", "use_kernel", "KERNELS"]
 
 # every kernel wrapper of the ported path, by the name its launch count is
@@ -37,6 +40,10 @@ KERNELS = {
     "w4a4_matmul": WK.w4a4_matmul,
     "w4a8_matmul": WK.w4a8_matmul,
     "paged_kv4_prefill_attention_wq": PA.paged_kv4_partials,
+    "paged_kv4_decode_attention": PA.paged_kv4_decode_attention,
+    "paged_kv4_prefill_attention": PA.paged_kv4_prefill_attention,
+    "paged_kv4_decode_attention_wq": PA.paged_kv4_decode_partials,
+    "kv4_decode_attention": KA.kv4_decode_attention,
 }
 combine_plan = PA.combine_plan
 
@@ -105,3 +112,58 @@ def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
           else PA.paged_kv4_prefill_attention_wq_ref)
     return fn(q, k_new, v_new, k_pool, k_scale, k_zero, v_pool, v_scale,
               v_zero, work_items, plan)
+
+
+def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
+                                v_pool, v_scale, v_zero, block_tables,
+                                ctx_lens, q_lens, *,
+                                impl: str = "auto") -> torch.Tensor:
+    """Dense-schedule chunked-prefill attention: each row's chunk queries
+    over its int4 history through the block table ``[B, NP]`` (−1 =
+    unmapped) plus its causal fp chunk → ``[B, C, Hq, D]`` f32 (rows past
+    ``q_lens`` are finite garbage; mask outside)."""
+    fn = (PA.paged_kv4_prefill_attention if use_kernel(impl, q)
+          else PA.paged_kv4_prefill_attention_ref)
+    return fn(q, k_new, v_new, k_pool, k_scale, k_zero, v_pool, v_scale,
+              v_zero, block_tables, ctx_lens, q_lens)
+
+
+def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
+                               v_zero, block_tables, length, *,
+                               impl: str = "auto") -> torch.Tensor:
+    """Dense-schedule flash-decode straight off the pools: q ``[B, Hq, D]``,
+    block tables ``[B, NP]``, lengths ``[B]`` → ``[B, Hq, D]`` f32."""
+    fn = (PA.paged_kv4_decode_attention if use_kernel(impl, q)
+          else PA.paged_kv4_decode_attention_ref)
+    return fn(q, k_pool, k_scale, k_zero, v_pool, v_scale, v_zero,
+              block_tables, length)
+
+
+def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
+                                  v_scale, v_zero, work_items, *, plan=None,
+                                  impl: str = "auto") -> torch.Tensor:
+    """Work-queue flash-decode: one partial per page item of the
+    descriptors ``[W, 4]``, split-KV combine (``plan`` built on the host,
+    as for the prefill op), V affine after → ``[B, Hq, D]`` f32."""
+    fn = (PA.paged_kv4_decode_attention_wq if use_kernel(impl, q)
+          else PA.paged_kv4_decode_attention_wq_ref)
+    return fn(q, k_pool, k_scale, k_zero, v_pool, v_scale, v_zero,
+              work_items, plan)
+
+
+def kv4_decode_attention(q, k_packed, k_scale, k_zero, v_packed, v_scale,
+                         v_zero, length=None, *,
+                         impl: str = "auto") -> torch.Tensor:
+    """Flash-decode over contiguous int4 KV ``[B, Hkv, T, D/2]`` → ``[B,
+    Hq, D]`` f32. On a CPU tensor the plain version computes in bf16 with
+    f32 products, as the reference's ops do on their ref path; the kernel
+    and the plain version on the card compute in f32."""
+    if length is None:
+        length = torch.full((q.shape[0],), k_packed.shape[2],
+                            dtype=torch.int32, device=q.device)
+    if use_kernel(impl, q):
+        return KA.kv4_decode_attention(q, k_packed, k_scale, k_zero,
+                                       v_packed, v_scale, v_zero, length)
+    return KA.kv4_decode_attention_ref(
+        q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, length,
+        compute_dtype=torch.float32 if q.is_cuda else torch.bfloat16)

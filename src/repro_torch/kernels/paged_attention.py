@@ -1,23 +1,37 @@
-"""Work-queue (Stream-K) paged KV4 prefill attention: the CUDA kernel, its
-plain version, and the PyTorch pre-fold and split-KV combine around both.
+"""Paged KV4 attention straight off the int4 page pools, under the
+reference's two grid schedules: the CUDA kernels, their plain versions,
+and the PyTorch pre-fold and split-KV combine around the work-queue ones.
 
-Kernel: ``csrc/paged_attention.cu`` (replaces ``repro/kernels/
-paged_attention.py`` ``paged_kv4_prefill_attention_wq``; bound by f32
-operations; keys stream through shared memory in chunks of 32 with an
-online softmax — see the source note).
+Kernels (each replaces the ``repro/kernels/paged_attention.py`` function
+of the same name; see the source notes for what bounds each on the H100
+and how its design answers that):
 
-The host flattens the batch into ``[W, 4]`` int32 descriptors ``(row,
-phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``). Each
-item yields one flash partial ``(acc, l, m)``: kind 0 is one int4 history
-page with the V affine folded in, kind 1 the row's causal in-flight fp
-chunk. :func:`combine_work_partials` merges the partials per row:
+* ``paged_kv4_prefill_attention_wq`` (K9, ``csrc/paged_attention.cu``) —
+  work-queue chunked prefill: one flash partial per descriptor item;
+* ``paged_kv4_prefill_attention`` (K7, ``csrc/paged_attention.cu``) —
+  dense chunked prefill: a (row, 16-query tile) block walks the row's
+  block table, then its causal fp chunk; one launch, no glue;
+* ``paged_kv4_decode_attention`` (K6, ``csrc/paged_decode.cu``) — dense
+  flash-decode over block tables, one block per (sequence, kv head) row;
+* ``paged_kv4_decode_attention_wq`` (K8, ``csrc/paged_decode.cu``) —
+  work-queue decode: one partial per page item in nibble space, the V
+  affine after the combine.
+
+The host flattens a work-queue batch into ``[W, 4]`` int32 descriptors
+``(row, phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``).
+Each item yields one flash partial ``(acc, l, m)``: kind 0 is one int4
+history page, kind 1 the row's causal in-flight fp chunk.
+:func:`combine_work_partials` merges the partials per row:
 
     M_r = max_i m_i,   out_r = Σ_i e^{m_i−M_r}·acc_i / Σ_i e^{m_i−M_r}·l_i
 
 Padding items carry a sentinel row ``≥ num_rows`` and ``count = 0``; the
-combine drops them. :func:`paged_kv4_partials` is the kernel's wrapper
-(pre-folded inputs → partials; its ``launches`` counts the kernel), and
-:func:`paged_kv4_prefill_attention_wq` composes it with both PyTorch ends.
+combine drops them. The work-queue wrappers whose ``launches`` count the
+kernels are :func:`paged_kv4_partials` (K9) and
+:func:`paged_kv4_decode_partials` (K8), on pre-folded inputs; the ops
+compose each with both PyTorch ends. Dense block tables hold −1 for
+unmapped pages: every version clamps them to page 0, which is never read
+for its values (it lies at or past the row's length).
 """
 
 from __future__ import annotations
@@ -27,25 +41,27 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import quantizer as Q
 from repro_torch.kernels import _build
+from repro_torch.kernels import kv4_attention as KA
 
 NEG_INF = -1e30
 
 __all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
            "prefold", "paged_kv4_partials", "paged_kv4_partials_ref",
            "paged_kv4_prefill_attention_wq_ref",
-           "paged_kv4_prefill_attention_wq"]
+           "paged_kv4_prefill_attention_wq",
+           "paged_kv4_prefill_attention_ref", "paged_kv4_prefill_attention",
+           "paged_kv4_decode_attention_ref", "paged_kv4_decode_attention",
+           "decode_prefold", "paged_kv4_decode_partials_ref",
+           "paged_kv4_decode_partials", "paged_kv4_decode_attention_wq_ref",
+           "paged_kv4_decode_attention_wq"]
 
 
 def _inv_sqrt(d: int) -> float:
     """1/√d rounded as the reference computes it: in float32."""
     return float(torch.tensor(float(d), dtype=torch.float32).sqrt()
                  .reciprocal())
-
-
-def unpack_nibbles_f32(packed: torch.Tensor) -> torch.Tensor:
-    """[..., D/2] uint8 → [..., D] f32 nibbles; byte j = (ch j, ch j+D/2)."""
-    return torch.cat([(packed & 0x0F).float(), (packed >> 4).float()], -1)
 
 
 class CombinePlan(NamedTuple):
@@ -152,8 +168,8 @@ def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
     sel = (desc[:, 3] != 0)[:, None, None]
     vsb, vzb = vs2[heads][:, None, :], vz2[heads][:, None, :]
 
-    nk = unpack_nibbles_f32(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
-    nv = unpack_nibbles_f32(v_pool[desc[:, 1], :, heads])
+    nk = Q.unpack_kv_nibbles(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
+    nv = Q.unpack_kv_nibbles(v_pool[desc[:, 1], :, heads])
     s_h = torch.einsum("wgd,wpd->wgp", qt2[rcl], nk) - c2[rcl]
     pos = torch.arange(ps, device=desc.device)[None, None, :]
     s_h = torch.where(pos < counts, s_h, NEG_INF)
@@ -239,3 +255,234 @@ def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
     (PyTorch). Same arguments and result as the plain version."""
     return _attend(paged_kv4_partials, q, k_new, v_new, k_pool, k_scale,
                    k_zero, v_pool, v_scale, v_zero, work_items, plan)
+
+
+# ------------------------------------------------- dense chunked prefill (K7)
+
+def _bcast(s, b: int, hkv: int, d: int):
+    return torch.broadcast_to(s, (b, hkv, 1, d))
+
+
+def paged_kv4_prefill_attention_ref(q, k_new, v_new, k_pool, k_scale, k_zero,
+                                    v_pool, v_scale, v_zero, block_tables,
+                                    ctx_lens, q_lens,
+                                    compute_dtype=torch.float32):
+    """Plain version (reference ``ref.paged_kv4_prefill_attention_ref``):
+    query i of row b attends over its int4 history [0, ctx_lens[b]),
+    gathered through the block table (−1 → page 0) and dequantized, and
+    the causal fp prefix of its chunk, keys j ≤ i, j < q_lens[b]. q
+    ``[B, C, Hq, D]``, k/v_new ``[B, C, Hkv, D]``, tables ``[B, NP]`` →
+    f32 ``[B, C, Hq, D]``; rows past q_len are finite garbage. Exact mode
+    on the card (see ``kv4_attention``)."""
+    b, c, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    g = hq // hkv
+    npages = block_tables.shape[1]
+    t_hist = npages * ps
+    dev = q.device
+    tables = block_tables.long().clamp_min(0)
+
+    def operand(x):
+        return x.to(compute_dtype).float()
+
+    def gather_deq(pool, scale, zero):
+        flat = pool[tables].reshape(b, t_hist, hkv, d // 2).transpose(1, 2)
+        return operand(Q.dequantize_kv_channelwise(
+            flat, _bcast(scale, b, hkv, d), _bcast(zero, b, hkv, d)))
+
+    keys = torch.cat([gather_deq(k_pool, k_scale, k_zero),
+                      operand(k_new.transpose(1, 2))], 2)  # [B, Hkv, T, D]
+    vals = torch.cat([gather_deq(v_pool, v_scale, v_zero),
+                      operand(v_new.transpose(1, 2))], 2)
+    qg = operand(q.reshape(b, c, hkv, g, d))
+    ex = KA.exact(q)
+    scores = (KA.contract("bchgd,bhtd->bhgct", qg, keys, ex)
+              / KA.sqrt_d(d, dev))                        # [B, Hkv, G, C, T]
+    tpos = torch.arange(t_hist + c, device=dev)
+    ctx = ctx_lens.to(dev).long()
+    ql = q_lens.to(dev).long()
+    hist_valid = tpos[None, :] < ctx[:, None]                      # [B, T]
+    j = tpos - t_hist
+    i = torch.arange(c, device=dev)
+    chunk_valid = ((j[None, None, :] <= i[None, :, None])
+                   & (j[None, None, :] < ql[:, None, None]))       # [B, C, T]
+    valid = torch.where((tpos < t_hist)[None, None, :],
+                        hist_valid[:, None, :], chunk_valid)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    p = KA.softmax(scores, ex)
+    out = KA.contract("bhgct,bhtd->bhgcd", operand(p), vals, ex)
+    return out.movedim(3, 1).reshape(b, c, hq, d)
+
+
+def _head_scales(scales, hkv: int, d: int):
+    """[Hkv, 1, D] scale/zero tensors → contiguous f32 [Hkv, D]."""
+    return [torch.broadcast_to(s, (hkv, 1, d)).reshape(hkv, d).float()
+            .contiguous() for s in scales]
+
+
+def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
+                                v_pool, v_scale, v_zero, block_tables,
+                                ctx_lens, q_lens) -> torch.Tensor:
+    """The K7 kernel: same arguments and result as the plain version (bit
+    for bit on the card), in one launch. Rows of a tile wholly at or past
+    ``q_len·G`` come back 0."""
+    b, c, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_prefill_attention")
+    dev = q.device
+    ks, kz, vs, vz = _head_scales((k_scale, k_zero, v_scale, v_zero), hkv, d)
+    tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    q = q.float().contiguous()
+    k_new = k_new.float().contiguous()
+    v_new = v_new.float().contiguous()
+    ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
+    ql = q_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
+    _build.call("paged_attention", "paged_kv4_prefill_dense", dev, q, k_new,
+                v_new, ks, kz, vs, vz, k_pool, v_pool, tables, ctx, ql, out,
+                b, c, hq // hkv, hkv, tables.shape[1], ps, d)
+    paged_kv4_prefill_attention.launches += 1
+    return out
+
+
+paged_kv4_prefill_attention.launches = 0
+
+
+# ------------------------------------------------------ dense decode (K6)
+
+def paged_kv4_decode_attention_ref(q, k_pool, k_scale, k_zero, v_pool,
+                                   v_scale, v_zero, block_tables, length,
+                                   compute_dtype=torch.float32):
+    """Plain version (reference ``ref.paged_kv4_decode_attention_ref``):
+    gather each row's pages through the block table (−1 → page 0), then
+    the contiguous flash-decode's plain version. q ``[B, Hq, D]``, tables
+    ``[B, NP]``, length ``[B]`` → f32 ``[B, Hq, D]``."""
+    b, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    npages = block_tables.shape[1]
+    tables = block_tables.long().clamp_min(0)
+
+    def gather(pool):
+        return pool[tables].reshape(b, npages * ps, hkv, d // 2).transpose(1, 2)
+
+    return KA.kv4_decode_attention_ref(
+        q, gather(k_pool), _bcast(k_scale, b, hkv, d), _bcast(k_zero, b, hkv, d),
+        gather(v_pool), _bcast(v_scale, b, hkv, d), _bcast(v_zero, b, hkv, d),
+        length, compute_dtype=compute_dtype)
+
+
+def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
+                               v_zero, block_tables, length) -> torch.Tensor:
+    """The K6 kernel: same arguments and result as the plain version (bit
+    for bit on the card), in one launch. Hq/Hkv ∈ {1, 2, 4, 8}."""
+    b, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention",
+                        hq // hkv)
+    dev = q.device
+    (ks, kz, vs, vz), sstride = KA.shared_scales(
+        (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
+    tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    length = length.to(device=dev, dtype=torch.int32).contiguous()
+    q = q.float().contiguous()
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    _build.call("paged_decode", "paged_kv4_decode", dev, q, k_pool, v_pool,
+                ks, kz, vs, vz, sstride, tables, length, out, b, hkv,
+                hq // hkv, tables.shape[1], ps, d)
+    paged_kv4_decode_attention.launches += 1
+    return out
+
+
+paged_kv4_decode_attention.launches = 0
+
+
+# ------------------------------------------------- work-queue decode (K8)
+
+def decode_prefold(q, k_scale, k_zero, hkv: int):
+    """q ``[B, Hq, D]`` → q̃ = q·s_k/√D ``[B·Hkv, G, D]`` and c = Σ q̃·z_k
+    ``[B·Hkv, G, 1]`` (reference ``paged_attention.py:508-514``)."""
+    b, hq, d = q.shape
+    g = hq // hkv
+    qt = (q.reshape(b, hkv, g, d).float() * _bcast(k_scale, b, hkv, d)
+          * _inv_sqrt(d))
+    c = (qt * _bcast(k_zero, b, hkv, d)).sum(-1, keepdim=True)
+    return (qt.reshape(b * hkv, g, d).contiguous(),
+            c.reshape(b * hkv, g, 1).contiguous())
+
+
+def paged_kv4_decode_partials_ref(desc, qt2, c2, k_pool, v_pool):
+    """Plain version of the K8 kernel: each item's partial over its page's
+    first ``count`` keys, in nibble space (reference ``ref.py:287-307``;
+    exact mode on the card, see ``kv4_attention``)."""
+    nrows = qt2.shape[0]
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    desc = desc.long()
+    rcl = desc[:, 0].clamp(max=nrows - 1)
+    heads = rcl % hkv
+    nk = Q.unpack_kv_nibbles(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
+    nv = Q.unpack_kv_nibbles(v_pool[desc[:, 1], :, heads])
+    ex = KA.exact(qt2)
+    s = KA.contract("wgd,wpd->wgp", qt2[rcl], nk, ex) - c2[rcl]
+    pos = torch.arange(ps, device=desc.device)[None, None, :]
+    s = torch.where(pos < desc[:, 2][:, None, None], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = KA.exp(s - m, ex)
+    return KA.contract("wgp,wpd->wgd", p, nv, ex), KA.row_sum(p, ex), m
+
+
+def paged_kv4_decode_partials(desc, qt2, c2, k_pool, v_pool):
+    """The K8 kernel on pre-folded queries (:func:`decode_prefold`) → one
+    nibble-space partial per descriptor: acc ``[W, G, D]``, l and m
+    ``[W, G, 1]`` f32. Same arguments and result as the plain version
+    (bit for bit on the card for real items); pages of at most 64 keys."""
+    nrows, g, d = qt2.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    KA.check_kv4_inputs(qt2, k_pool, v_pool, d, "paged_kv4_decode_wq", g)
+    if ps > 64:
+        raise ValueError(f"paged_kv4_decode_wq: pages of at most 64 keys, "
+                         f"got {ps}")
+    desc = desc.to(device=qt2.device, dtype=torch.int32).contiguous()
+    w = desc.shape[0]
+    acc = torch.empty((w, g, d), dtype=torch.float32, device=qt2.device)
+    l = torch.empty((w, g, 1), dtype=torch.float32, device=qt2.device)
+    m = torch.empty((w, g, 1), dtype=torch.float32, device=qt2.device)
+    _build.call("paged_decode", "paged_kv4_decode_wq", qt2.device, desc, w,
+                qt2.float().contiguous(), c2.float().contiguous(), k_pool,
+                v_pool, acc, l, m, nrows, g, ps, hkv, d)
+    paged_kv4_decode_partials.launches += 1
+    return acc, l, m
+
+
+paged_kv4_decode_partials.launches = 0
+
+
+def _attend_decode(partials, q, k_pool, k_scale, k_zero, v_pool, v_scale,
+                   v_zero, work_items, plan):
+    """Pre-fold → per-item partials → combine → V affine → ``[B, Hq, D]``."""
+    b, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    qt2, c2 = decode_prefold(q, k_scale, k_zero, hkv)
+    acc, l, m = partials(work_items, qt2, c2, k_pool, v_pool)
+    comb = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan)
+    sv = _bcast(v_scale, b, hkv, d)
+    out = sv * comb.reshape(b, hkv, hq // hkv, d) - sv * _bcast(v_zero, b, hkv, d)
+    return out.reshape(b, hq, d)
+
+
+def paged_kv4_decode_attention_wq_ref(q, k_pool, k_scale, k_zero, v_pool,
+                                      v_scale, v_zero, work_items,
+                                      plan=None) -> torch.Tensor:
+    """Plain version: q ``[B, Hq, D]``, descriptors ``[W, 4]`` (page items
+    only), optional :class:`CombinePlan` of their rows → f32
+    ``[B, Hq, D]`` = s_v·comb − s_v·z_v."""
+    return _attend_decode(paged_kv4_decode_partials_ref, q, k_pool, k_scale,
+                          k_zero, v_pool, v_scale, v_zero, work_items, plan)
+
+
+def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
+                                  v_scale, v_zero, work_items,
+                                  plan=None) -> torch.Tensor:
+    """On the card: pre-fold (PyTorch) → the K8 kernel → combine and V
+    affine (PyTorch). Same arguments and result as the plain version."""
+    return _attend_decode(paged_kv4_decode_partials, q, k_pool, k_scale,
+                          k_zero, v_pool, v_scale, v_zero, work_items, plan)

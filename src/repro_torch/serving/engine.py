@@ -1,31 +1,37 @@
-"""Serving engine: the unified one-forward step over the paged KV4 cache
-(``repro/serving/engine.py``, the default ``unified_step`` path).
+"""Serving engine over the paged KV4 cache (``repro/serving/engine.py``).
 
-Each step issues ONE forward for the union of decode rows (a chunk of 1
-with int4 paged history) and prompt chunks of partially prefilled
-requests, packed into a ragged token stream. Per layer: RMSNorm → q/k/v
-through W4Ax (act-quant int4 + int8 → W4A4 + W4A8) → RoPE → quantize the
-step's KV and write it into the int4 pools (in place) → work-queue paged
-attention (fp chunk queries over int4 history pages plus each row's causal
-fp chunk, split-KV combined) → wo → SwiGLU MLP, both W4Ax. A step in which
-no row has history yet uses plain fp causal attention instead. The head
-runs on the last token of each row and greedy sampling is a host argmax.
+The default step (``unified_step=True``, chunked prefill, paged decode)
+issues ONE forward for the union of decode rows (a chunk of 1 with int4
+paged history) and prompt chunks of partially prefilled requests, packed
+into a ragged token stream. Per layer: RMSNorm → q/k/v through W4Ax
+(act-quant int4 + int8 → W4A4 + W4A8) → RoPE → quantize the step's KV and
+write it into the int4 pools (in place) → paged attention (fp chunk
+queries over int4 history pages plus each row's causal fp chunk) → wo →
+SwiGLU MLP, both W4Ax. Attention follows ``attention_schedule``: the
+work-queue kernel with its split-KV combine, or the dense block-table
+kernel. A step in which no row has history yet uses plain fp causal
+attention instead. The head runs on the last token of each row and greedy
+sampling is a host argmax.
 
-Shapes are bucketed to powers of two like the reference's jit cache keys
-(tokens ≥ 8, rows, chunk length, work items), so the same padded layout
-reaches the kernels. Padding tokens carry page ``num_pages`` and row
-``nb``; where JAX drops such out-of-range scatters and clamps gathers, the
-port writes them to a scratch page (the pools hold one page more) and a
-scratch row, and clamps the gather (an out-of-range index on the card is a
-device-side assert).
+The measured baselines of the reference run too: ``unified_step=False``
+(a prefill forward, then a separate decode forward), ``prefill_mode=
+"whole"`` (one fp forward per prompt) and ``decode_attention="gather"``
+(a decode batch's pages gathered contiguously for the KV4 decode kernel).
+These split forwards are eager and unbucketed, as in the reference.
 
-``step()`` never raises: a failure in the forward quarantines that step's
-batch to FAILED (``failed_count``), anything else is swallowed into
-``internal_errors``/``last_error``. Ported: the request lifecycle, chunked
-prefill, prefix caching, preemption. Not ported in this slice:
+Shapes of the unified step are bucketed to powers of two like the
+reference's jit cache keys (tokens ≥ 8, rows, chunk length, work items or
+table pages), so the same padded layout reaches the kernels. Padding
+tokens carry page ``num_pages`` and row ``nb``; where JAX drops such
+out-of-range scatters and clamps gathers, the port writes them to a
+scratch page (the pools hold one page more) and a scratch row, and clamps
+the gather (an out-of-range index on the card is a device-side assert).
+
+``step()`` never raises: a failure in the unified forward quarantines
+that step's batch to FAILED (``failed_count``), anything else is
+swallowed into ``internal_errors``/``last_error``. Not ported yet:
 speculation, fault injection, sanitizers, deadlines, the bounded waiting
-queue, snapshot/restore, tensor parallelism, MoE, the split-step
-baselines and stochastic sampling.
+queue, snapshot/restore, tensor parallelism, MoE and stochastic sampling.
 """
 
 from __future__ import annotations
@@ -69,13 +75,42 @@ class EngineConfig:
     num_pages: int = 512
     page_size: int = 64
     max_pages_per_seq: int = 64
+    decode_attention: str = "paged"  # "paged" (block tables) | "gather"
+    prefill_mode: str = "chunked"    # "chunked" (ragged) | "whole"
     prefill_chunk_tokens: int = 64  # per-step token budget (chunks + decode)
     kv_range: float = 16.0          # calibrated |k|,|v| range → int4 scales
+    unified_step: bool = True       # ONE forward per step; False → split
     prefix_cache: bool = True       # publish/reuse shared prompt pages
+    attention_schedule: str = "work_queue"  # "work_queue" | "dense"
 
     def __post_init__(self):
+        if self.decode_attention not in ("paged", "gather"):
+            raise ValueError(
+                f"decode_attention must be 'paged' or 'gather', got "
+                f"{self.decode_attention!r}")
+        if self.prefill_mode not in ("chunked", "whole"):
+            raise ValueError(
+                f"prefill_mode must be 'chunked' or 'whole', got "
+                f"{self.prefill_mode!r}")
         if self.prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1")
+        if self.attention_schedule not in ("work_queue", "dense"):
+            raise ValueError(
+                f"attention_schedule must be 'work_queue' or 'dense', "
+                f"got {self.attention_schedule!r}")
+
+    @property
+    def unified(self) -> bool:
+        """The unified step needs chunked prefill and paged decode; the
+        whole-prompt and gather baselines imply the split step."""
+        return (self.unified_step and self.prefill_mode == "chunked"
+                and self.decode_attention == "paged")
+
+    @property
+    def prefix_caching(self) -> bool:
+        """Prefix reuse rides on chunked prefill: the whole-prompt
+        baseline always forwards the full prompt."""
+        return self.prefix_cache and self.prefill_mode == "chunked"
 
 
 class Engine:
@@ -119,11 +154,15 @@ class Engine:
         self.callback_errors = 0
         self.internal_errors = 0
         self.last_error: Optional[str] = None
-        # attention-schedule counters: real work items (Σ real pages +
-        # chunk items, per kv head), grid items launched (pow-2 padded),
-        # and forwards that went through the work-queue kernel
+        # attention-schedule counters (fig. 10): real work items (Σ real
+        # pages + chunk items, per kv head; the same under both
+        # schedules), grid items launched (work queue: the pow-2 padded
+        # descriptor count; dense: the padded rectangle), the dense
+        # rectangle the same forwards would launch, and the forwards that
+        # attended over paged history
         self.attn_work_items = 0
         self.attn_grid_items = 0
+        self.attn_dense_grid_items = 0
         self.attn_forwards = 0
         self._by_id: dict[int, Request] = {}
         self._next_id = 0
@@ -145,6 +184,7 @@ class Engine:
             "last_error": self.last_error,
             "attn_work_items": self.attn_work_items,
             "attn_grid_items": self.attn_grid_items,
+            "attn_dense_grid_items": self.attn_dense_grid_items,
             "attn_forwards": self.attn_forwards,
             **self.sched.counters(),
         }
@@ -285,18 +325,24 @@ class Engine:
             self.last_error = repr(e)
 
     def _step_inner(self):
+        chunked = self.ecfg.prefill_mode == "chunked"
         nfin = len(self.sched.finished)
         admitted = self.sched.admit(
-            self.cache, first_chunk_tokens=self.ecfg.prefill_chunk_tokens,
-            prefix_cache=self.ecfg.prefix_cache)
+            self.cache,
+            first_chunk_tokens=(self.ecfg.prefill_chunk_tokens if chunked
+                                else None),
+            prefix_cache=self.ecfg.prefix_caching)
         for r in self.sched.finished[nfin:]:    # prompt_too_long rejections
             self._emit(r)
         self.prefix_hit_tokens += sum(r.cached_tokens for r in admitted)
         # chunk rows and decode rows share one token budget
         n_decode_est = sum(1 for r in self.sched.running
                            if r.prefilled and not r.done)
-        self._step_unified(max(1, self.ecfg.prefill_chunk_tokens
-                               - n_decode_est))
+        budget = max(1, self.ecfg.prefill_chunk_tokens - n_decode_est)
+        if self.ecfg.unified:
+            self._step_unified(budget)
+        else:
+            self._step_split(admitted, chunked, budget)
         for req in list(self.sched.running):
             if req.done:
                 self._complete(req)
@@ -376,7 +422,7 @@ class Engine:
         for r, s, t in plan:
             r.prefill_pos = s + t
             self.cache.seq_len[r.seq_slot] = r.prefill_pos
-            if self.ecfg.prefix_cache and r.prefill_pos == len(r.prompt):
+            if self.ecfg.prefix_caching and r.prefill_pos == len(r.prompt):
                 self.cache.publish_prefix(r.seq_slot, r.prompt)
         self.cache.advance([r.seq_slot for r in decode])
 
@@ -413,23 +459,36 @@ class Engine:
         self.forward_calls += 1
         no_history = int(starts.max()) == 0
         hkv = self.cfg.num_kv_heads
-        desc = combine = None
+        # the dense schedule's table width, bucketed like the reference's
+        npb = min(_bucket(self.cache.pages_needed(max(int(starts.max()), 1))),
+                  self.cache.pcfg.max_pages_per_seq)
+
+        def dev(a, n, fill=0):
+            return torch.from_numpy(_pad_to(a, n, fill)).to(self.device)
+
+        attn = {}
         if not no_history:
-            # the padding sentinel must clear the BUCKETED row count: rows
-            # [nseq, nb) are live (qlen-0) segments in the combine
-            desc_np = self.cache.work_queue_np(slots, starts, takes,
-                                               pad_row=nb * hkv)
-            desc = torch.from_numpy(desc_np).to(self.device)
-            combine = ops.combine_plan(desc_np[:, 0], nb * hkv,
-                                       self.device)
             self.attn_forwards += 1
             self.attn_work_items += int(hkv * (np.sum(
                 (starts + self.ecfg.page_size - 1) // self.ecfg.page_size)
                 + nseq))
-            self.attn_grid_items += desc_np.shape[0]
-
-        def dev(a, n, fill=0):
-            return torch.from_numpy(_pad_to(a, n, fill)).to(self.device)
+            self.attn_dense_grid_items += nb * hkv * (npb + 1)
+            if self.ecfg.attention_schedule == "dense":
+                # rows [nseq, nb) are q_len-0 padding: page 0, no history
+                tables = np.zeros((nb, npb), np.int32)
+                tables[:nseq] = self.cache.block_tables_np(slots, npb)
+                attn = dict(tables=torch.from_numpy(tables).to(self.device),
+                            ctx=dev(starts, nb), qlens=dev(takes, nb))
+                self.attn_grid_items += nb * hkv * (npb + 1)
+            else:
+                # the padding sentinel must clear the BUCKETED row count:
+                # rows [nseq, nb) are live (qlen-0) segments in the combine
+                desc_np = self.cache.work_queue_np(slots, starts, takes,
+                                                   pad_row=nb * hkv)
+                attn = dict(desc=torch.from_numpy(desc_np).to(self.device),
+                            combine=ops.combine_plan(desc_np[:, 0], nb * hkv,
+                                                     self.device))
+                self.attn_grid_items += desc_np.shape[0]
 
         logits = self._unified_body(
             cb, nb, no_history,
@@ -442,16 +501,18 @@ class Engine:
             # decode tokens (the packed tail) read their in-flight KV
             # fake-quantized, the values their int4 page dequantizes to
             dq_mask=dev(np.arange(ttot) >= cum[len(plan)], tb),
-            last_idx=dev(cum[1:] - 1, nb), desc=desc,
-            combine=combine)
+            last_idx=dev(cum[1:] - 1, nb), **attn)
         return logits.cpu().numpy()
 
     @torch.no_grad()
     def _unified_body(self, cb: int, nb: int, no_history: bool, *, tokens,
                       positions, pages, offs, tseq, toff, dq_mask, last_idx,
-                      desc, combine) -> torch.Tensor:
+                      desc=None, combine=None, tables=None, ctx=None,
+                      qlens=None) -> torch.Tensor:
         """The forward over the packed ``[1, Tb]`` stream → f32 logits
-        ``[nb, V]`` (one row per packed row's last token)."""
+        ``[nb, V]`` (one row per packed row's last token). Attention takes
+        the work-queue descriptors ``desc`` (and the combine's host plan),
+        or the dense schedule's ``tables`` with per-row ``ctx``/``qlens``."""
         cfg, params, quant, cache = self.cfg, self.params, self.quant, \
             self.cache
         scales = (cache.k_scale, cache.k_zero, cache.v_scale, cache.v_zero)
@@ -478,12 +539,18 @@ class Engine:
             v_att = torch.where(dq, vdq, v.float())
             if no_history:
                 out = ATT.flash_attention(pad(q), pad(k_att), pad(v_att))
-            else:
+            elif tables is None:
                 out = ops.paged_kv4_prefill_attention_wq(
                     pad(q), pad(k_att), pad(v_att),
                     cache.k_pool[li], cache.k_scale, cache.k_zero,
                     cache.v_pool[li], cache.v_scale, cache.v_zero,
                     desc, plan=combine, impl=quant.impl)
+            else:
+                out = ops.paged_kv4_prefill_attention(
+                    pad(q), pad(k_att), pad(v_att),
+                    cache.k_pool[li], cache.k_scale, cache.k_zero,
+                    cache.v_pool[li], cache.v_scale, cache.v_zero,
+                    tables, ctx, qlens, impl=quant.impl)
             a = out[gseq, toff][None].to(x.dtype).reshape(1, -1, cfg.q_dim)
             x = x + C.linear(bp["attn"]["wo"], a, quant)
             h = C.rmsnorm(x, bp["mlp_norm"]["scale"], cfg.norm_eps)
@@ -491,3 +558,216 @@ class Engine:
         h = C.rmsnorm(x[:, last_idx], params["final_norm"]["scale"],
                       cfg.norm_eps)
         return self.lm.head(params, h)[0]
+
+    # ----------------------------------------- split-step baselines
+
+    def _step_split(self, admitted: list[Request], chunked: bool,
+                    budget: int):
+        """[Baseline] the two-forward step: a prefill forward (the planned
+        chunks, or each newly admitted whole prompt), then a separate
+        decode forward. Prefill is planned BEFORE decode slots are
+        reserved, the reverse of the unified step, so a reservation can
+        preempt a request that prefilled in this very step."""
+        if chunked:
+            plan = self.sched.plan_prefill(self.cache, budget)
+            if plan:
+                self._prefill_forward(plan)
+            else:
+                stuck = [r for r in self.sched.running if not r.prefilled]
+                if stuck and not any(r.prefilled
+                                     for r in self.sched.running):
+                    self.sched.preempt_one(self.cache)
+            prefill_ran = bool(plan)
+        else:
+            for req in admitted:
+                self._prefill(req)
+            prefill_ran = bool(admitted)
+        runnable = self._reserve_decode_slots(
+            [r for r in self.sched.running if r.prefilled and not r.done])
+        if runnable:
+            self._decode_batch(runnable)
+            if prefill_ran:
+                self.interleaved_steps += 1
+
+    def _sample_batch(self, logits: np.ndarray,
+                      reqs: list[Request]) -> list[int]:
+        """Greedy tokens for the split forwards' rows (``logits`` [n, V])."""
+        return [int(t) for t in np.argmax(logits, axis=-1)]
+
+    def _layers(self, x, positions, attend):
+        """Every layer around ``attend(li, q, k, v)`` → the attention
+        output ``[..., Hq, D]`` (RMSNorm, q/k/v with RoPE, wo, SwiGLU
+        MLP) → the last hidden state."""
+        cfg, quant = self.cfg, self.quant
+        for li, bp in enumerate(self.params["blocks"]):
+            h = C.rmsnorm(x, bp["attn_norm"]["scale"], cfg.norm_eps)
+            q, k, v = ATT.project_qkv(bp["attn"], cfg, h, positions, quant)
+            a = attend(li, q, k, v).to(x.dtype).reshape(*x.shape[:2],
+                                                         cfg.q_dim)
+            x = x + C.linear(bp["attn"]["wo"], a, quant)
+            h = C.rmsnorm(x, bp["mlp_norm"]["scale"], cfg.norm_eps)
+            x = x + MLP.mlp_apply(bp["mlp"], h, quant)
+        return x
+
+    def _logits(self, x) -> np.ndarray:
+        h = C.rmsnorm(x, self.params["final_norm"]["scale"],
+                      self.cfg.norm_eps)
+        return self.lm.head(self.params, h).cpu().numpy()
+
+    @torch.no_grad()
+    def _prefill(self, req: Request):
+        """[Baseline] whole-prompt prefill: one fp causal forward over the
+        prompt; each layer writes the prompt's int4 KV into its pages."""
+        t = len(req.prompt)
+        self.peak_prefill_fp_tokens = max(self.peak_prefill_fp_tokens, t)
+        self.prefill_tokens += t
+        self.forward_calls += 1
+        tokens = torch.tensor(req.prompt, dtype=torch.int64,
+                              device=self.device)[None]
+        positions = torch.arange(t, device=self.device)[None]
+
+        def attend(li, q, k, v):
+            self.cache.write_prompt(li, req.seq_slot, k, v)
+            return ATT.flash_attention(q, k, v)
+
+        x = self._layers(self.lm.embed(self.params, tokens), positions,
+                         attend)
+        tok = self._sample_batch(self._logits(x[:, -1:])[0], [req])[0]
+        self.cache.extend_seq(req.seq_slot)
+        req.prefill_pos = t
+        self._record_token(req, tok)
+
+    @torch.no_grad()
+    def _prefill_forward(self, plan: list[tuple[Request, int, int]]):
+        """[Baseline] ONE ragged forward over the planned prompt chunks and
+        no decode rows. Per layer the chunk's raw k/v is quantized into
+        the pools first; attention then reads the fp chunk queries against
+        the int4 history through block tables (the dense kernel) plus the
+        chunk's own fp k/v, or plain fp causal attention when no row has
+        history. Logits only for prompts that finish here."""
+        cache, dev = self.cache, self.device
+        starts = np.asarray([s for _, s, _ in plan])
+        takes = np.asarray([t for _, _, t in plan])
+        slots = np.asarray([r.seq_slot for r, _, _ in plan])
+        nseq, cmax, ttot = len(plan), int(takes.max()), int(takes.sum())
+        cum = np.concatenate([[0], np.cumsum(takes)])
+        tok_seq = np.repeat(np.arange(nseq), takes)
+        tok_off = np.concatenate([np.arange(t) for t in takes])
+        tok_pos = starts[tok_seq] + tok_off
+        tokens = np.concatenate(
+            [r.prompt[s:s + t] for r, s, t in plan]).astype(np.int64)
+        pages, offs = cache.token_dests(slots[tok_seq], tok_pos)
+        tables = cache.block_tables_device(slots, max(int(starts.max()), 1))
+        ctx = torch.from_numpy(starts).to(dev)
+        qlens = torch.from_numpy(takes).to(dev)
+        tseq = torch.from_numpy(tok_seq).to(dev)
+        toff = torch.from_numpy(tok_off).to(dev)
+        # equal takes: the packed layout IS the padded one
+        uniform = bool((takes == takes[0]).all())
+        no_history = int(starts.max()) == 0
+        self.peak_prefill_fp_tokens = max(self.peak_prefill_fp_tokens, ttot)
+        self.prefill_tokens += ttot
+        self.forward_calls += 1
+
+        def pad(a):            # [1, Ttot, H, D] → [nseq, Cmax, H, D]
+            if uniform:
+                return a[0].reshape(nseq, cmax, *a.shape[2:])
+            z = a.new_zeros((nseq, cmax) + tuple(a.shape[2:]))
+            z[tseq, toff] = a[0]
+            return z
+
+        def attend(li, q, k, v):
+            cache.scatter_tokens(li, pages, offs, k, v)
+            if no_history:
+                out = ATT.flash_attention(pad(q), pad(k), pad(v))
+            else:
+                out = ops.paged_kv4_prefill_attention(
+                    pad(q), pad(k), pad(v),
+                    cache.k_pool[li], cache.k_scale, cache.k_zero,
+                    cache.v_pool[li], cache.v_scale, cache.v_zero,
+                    tables, ctx, qlens, impl=self.quant.impl)
+            return (out.reshape(1, ttot, *out.shape[2:]) if uniform
+                    else out[tseq, toff][None])
+
+        x = self._layers(
+            self.lm.embed(self.params, torch.from_numpy(tokens).to(dev)[None]),
+            torch.from_numpy(tok_pos).to(dev)[None], attend)
+        finished = [(si, r) for si, (r, s, t) in enumerate(plan)
+                    if s + t == len(r.prompt)]
+        if finished:
+            logits = self._logits(x[:, [int(cum[si + 1] - 1)
+                                        for si, _ in finished]])[0]
+        for r, s, t in plan:
+            r.prefill_pos = s + t
+            cache.seq_len[r.seq_slot] = r.prefill_pos
+            if self.ecfg.prefix_caching and r.prefill_pos == len(r.prompt):
+                cache.publish_prefix(r.seq_slot, r.prompt)
+        if finished:
+            toks = self._sample_batch(logits, [r for _, r in finished])
+            for (_, r), tok in zip(finished, toks):
+                self._record_token(r, tok)
+
+    @torch.no_grad()
+    def _decode_batch(self, reqs: list[Request]):
+        """[Baseline] the separate decode forward. Each layer writes the
+        new token's int4 KV into the pools BEFORE attention, over lengths
+        seq_len + 1, so decode reads its own token back as int4 (the
+        unified step fake-quantizes it in flight instead)."""
+        cache, dev, hkv = self.cache, self.device, self.cfg.num_kv_heads
+        ps = self.ecfg.page_size
+        slots = [r.seq_slot for r in reqs]
+        bsz = len(reqs)
+        lengths_np = cache.seq_len[slots].copy()
+        max_len = int(lengths_np.max()) + 1
+        paged = self.ecfg.decode_attention == "paged"
+        lengths = torch.from_numpy(lengths_np + 1).to(dev)
+        pages, offs = cache.token_dests(slots, lengths_np)
+        self.forward_calls += 1
+        npages = cache.pages_needed(max_len)
+        if paged:
+            self.attn_forwards += 1
+            self.attn_work_items += int(hkv * np.sum((lengths_np + ps) // ps))
+            self.attn_dense_grid_items += bsz * hkv * npages
+            if self.ecfg.attention_schedule == "work_queue":
+                # the batch attends over ctx + this step's token: the
+                # descriptors cover exactly those real pages
+                desc_np = cache.work_queue_np(slots, lengths_np + 1)
+                desc = torch.from_numpy(desc_np).to(dev)
+                combine = ops.combine_plan(desc_np[:, 0], bsz * hkv, dev)
+                self.attn_grid_items += desc_np.shape[0]
+            else:
+                tables = cache.block_tables_device(slots, max_len)
+                self.attn_grid_items += bsz * hkv * npages
+        else:
+            # the scales broadcast to the batch, as views
+            ks, kz, vs, vz = [
+                torch.broadcast_to(s[None], (bsz,) + tuple(s.shape))
+                for s in (cache.k_scale, cache.k_zero, cache.v_scale,
+                          cache.v_zero)]
+
+        def attend(li, q, k, v):
+            cache.scatter_tokens(li, pages, offs, k, v)   # before attention
+            q = q[:, 0]
+            if not paged:
+                kp, vp, _ = cache.gather_kv(li, slots, max_len)
+                return ops.kv4_decode_attention(
+                    q, kp, ks, kz, vp, vs, vz, lengths, impl=self.quant.impl)
+            if self.ecfg.attention_schedule == "work_queue":
+                return ops.paged_kv4_decode_attention_wq(
+                    q, cache.k_pool[li], cache.k_scale, cache.k_zero,
+                    cache.v_pool[li], cache.v_scale, cache.v_zero, desc,
+                    plan=combine, impl=self.quant.impl)
+            return ops.paged_kv4_decode_attention(
+                q, cache.k_pool[li], cache.k_scale, cache.k_zero,
+                cache.v_pool[li], cache.v_scale, cache.v_zero, tables,
+                lengths, impl=self.quant.impl)
+
+        last = torch.tensor([[r.generated[-1]] for r in reqs],
+                            dtype=torch.int64, device=dev)
+        x = self._layers(self.lm.embed(self.params, last),
+                         torch.from_numpy(lengths_np).to(dev)[:, None],
+                         attend)
+        logits = self._logits(x)[:, -1]
+        cache.advance(slots)
+        for r, tok in zip(reqs, self._sample_batch(logits, reqs)):
+            self._record_token(r, tok)

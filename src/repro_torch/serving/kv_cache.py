@@ -11,6 +11,14 @@ Host side: block tables ``[max_seqs, max_pages_per_seq]`` int32 (-1 =
 unmapped), refcounted pages, a chained-SHA-256 prefix index over full
 prompt pages with a reclaimable LRU, and the
 Stream-K work-queue descriptors (:func:`build_work_queue`, numpy).
+
+The split-step baselines also write whole prompts (:meth:`write_prompt`)
+and scatter a step's tokens at destinations resolved once per step
+(:meth:`token_dests`, :meth:`scatter_tokens`), hand the dense schedule
+block tables with unmapped entries clamped to page 0, and gather a decode
+batch's pages contiguously (:meth:`gather_kv`, the gather baseline). On
+the card an out-of-range index is a device-side assert, not JAX's silent
+drop or clamp, so every table handed to the device is clamped first.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantizer as Q
 from repro_torch.layers.common import resolve_device
 
 __all__ = ["PagedKV4Config", "PagedKV4Cache", "build_work_queue",
@@ -104,9 +113,8 @@ def quantize_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
     """k/v ``[B, T, Hkv, D]`` float → packed ``[B, Hkv, T, D/2]`` uint8."""
     def pack(x, scale, zero):
         xt = x.transpose(1, 2).float()                    # [B, Hkv, T, D]
-        n = torch.clamp(torch.round(xt / scale + zero), 0, 15).to(torch.uint8)
-        half = n.shape[-1] // 2
-        return n[..., :half] | (n[..., half:] << 4)
+        return Q.pack_kv_nibbles(
+            torch.clamp(torch.round(xt / scale + zero), 0, 15))
     return pack(k, k_scale, k_zero), pack(v, v_scale, v_zero)
 
 
@@ -279,6 +287,48 @@ class PagedKV4Cache:
         self.page_count[seq_id] = 0
         self.active.discard(seq_id)
 
+    def quantize_kv(self, k, v):
+        """k/v ``[B, T, Hkv, D]`` float → packed ``[B, Hkv, T, D/2]``."""
+        return quantize_kv_with(k, v, self.k_scale, self.k_zero,
+                                self.v_scale, self.v_zero)
+
+    def write_prompt(self, layer: int, seq_id: int, k, v):
+        """Write a whole prompt's packed KV (``[1, T, Hkv, D]`` float) into
+        its pages, the last one padded with zero bytes; layer 0 sets the
+        sequence's length to T."""
+        kp, vp = self.quantize_kv(k, v)                  # [1, Hkv, T, D/2]
+        t = kp.shape[2]
+        ps = self.pcfg.page_size
+        need = self.pages_needed(t)
+
+        def paged(x):                                   # → [need, ps, Hkv, D/2]
+            x = torch.nn.functional.pad(x[0], (0, 0, 0, need * ps - t))
+            return x.reshape(x.shape[0], need, ps, -1).permute(1, 2, 0, 3)
+
+        pages = torch.from_numpy(
+            self.block_table[seq_id, :need].astype(np.int64)).to(kp.device)
+        self._k_pages[layer][pages] = paged(kp)
+        self._v_pages[layer][pages] = paged(vp)
+        if layer == 0:
+            self.seq_len[seq_id] = t
+
+    def token_dests(self, seq_ids, positions):
+        """:meth:`token_dests_np` on the device, resolved once per step and
+        reused by every layer's :meth:`scatter_tokens`."""
+        pages, offs = self.token_dests_np(seq_ids, positions)
+        dev = self.k_pool.device
+        return (torch.from_numpy(pages.astype(np.int64)).to(dev),
+                torch.from_numpy(offs.astype(np.int64)).to(dev))
+
+    def scatter_tokens(self, layer: int, pages, offs, k, v):
+        """Quantize N tokens' KV (``[B, T, Hkv, D]`` float, B·T = N in
+        the order of ``pages``/``offs``) and write it in place."""
+        kq, vq = self.quantize_kv(k, v)                  # [B, Hkv, T, D/2]
+        hkv, half = kq.shape[1], kq.shape[-1]
+        self.write_kv(layer, pages, offs,
+                      kq.transpose(1, 2).reshape(-1, hkv, half),
+                      vq.transpose(1, 2).reshape(-1, hkv, half))
+
     def write_kv(self, layer: int, pages, offs, kq, vq):
         """Write packed KV ``[N, Hkv, D/2]`` of N tokens in place at
         (page, offset); page ``num_pages`` is the padding tokens' trash."""
@@ -347,3 +397,40 @@ class PagedKV4Cache:
             self.block_table[np.asarray(seq_ids)], ctx_lens,
             self.pcfg.page_size, self.cfg.num_kv_heads, q_lens, pad_row,
             seq_ids=seq_ids)
+
+    def block_tables_np(self, seq_ids, npages: int) -> np.ndarray:
+        """``[B, npages]`` int32 table with unmapped slots (-1) clamped to
+        page 0 (masked by length in the kernels, never read for values)."""
+        tables = self.block_table[np.asarray(seq_ids), :npages]
+        return np.maximum(tables, 0).astype(np.int32)
+
+    def block_tables_device(self, seq_ids, max_len: int) -> torch.Tensor:
+        """The dense schedule's ``[B, NP]`` table, sliced to the pages
+        covering ``max_len`` tokens."""
+        return torch.from_numpy(self.block_tables_np(
+            seq_ids, self.pages_needed(max_len))).to(self.k_pool.device)
+
+    def lengths_device(self, seq_ids) -> torch.Tensor:
+        return torch.from_numpy(
+            self.seq_len[np.asarray(seq_ids)].astype(np.int32)).to(
+                self.k_pool.device)
+
+    def gather_kv(self, layer: int, seq_ids, max_len: int):
+        """[Baseline] a decode batch's packed KV made contiguous →
+        (k, v ``[B, Hkv, max_len, D/2]`` uint8, lengths ``[B]``); unmapped
+        pages read page 0 and lie past each row's length."""
+        ps = self.pcfg.page_size
+        npages = (max_len + ps - 1) // ps
+        seq_ids = np.asarray(seq_ids)
+        tables = torch.from_numpy(
+            self.block_tables_np(seq_ids, npages).astype(np.int64)).to(
+                self.k_pool.device)
+        b = len(seq_ids)
+
+        def gather(pool):
+            pg = pool[layer][tables]                  # [B, NP, ps, Hkv, D/2]
+            pg = pg.reshape(b, npages * ps, *pg.shape[3:]).transpose(1, 2)
+            return pg[:, :, :max_len]
+
+        return (gather(self.k_pool), gather(self.v_pool),
+                self.lengths_device(seq_ids))

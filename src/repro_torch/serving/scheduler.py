@@ -3,7 +3,8 @@
 Pure host code. FCFS admission when the paged pool holds a request's
 first prefill chunk; chunked prefill planned round-robin under a
 per-step token budget; youngest-first preemption on pool exhaustion;
-abort/fail with refcount-exact page release. Not ported in this slice:
+abort/fail with refcount-exact page release; whole-prompt admission for
+the ``prefill_mode="whole"`` baseline. Not ported yet:
 the bounded waiting queue (reject/shed), deadlines, snapshot/restore.
 """
 
@@ -43,6 +44,10 @@ class Request:
         return self.prefill_pos >= len(self.prompt)
 
     @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    @property
     def done(self) -> bool:
         return (self.stop_reason is not None
                 or len(self.generated) >= self.max_new_tokens)
@@ -71,12 +76,14 @@ class Scheduler:
     def submit(self, req: Request):
         self.waiting.append(req)
 
-    def admit(self, cache, first_chunk_tokens: int,
+    def admit(self, cache, first_chunk_tokens: Optional[int] = None,
               prefix_cache: bool = False) -> list[Request]:
-        """Admit waiting requests while pages and slots are available;
-        admission needs pages for the first chunk only. With
-        ``prefix_cache`` the published prefix pages are adopted and the
-        request starts prefill at the end of the shared prefix."""
+        """Admit waiting requests while pages and slots are available.
+        With chunked prefill admission needs pages for the first chunk
+        only; ``first_chunk_tokens=None`` reserves the whole prompt (the
+        whole-prompt baseline). With ``prefix_cache`` the published prefix
+        pages are adopted and the request starts prefill at the end of
+        the shared prefix."""
         admitted = []
         while (self.waiting and self._free_slots
                and len(self.running) < self.max_batch):
@@ -93,7 +100,9 @@ class Scheduler:
                 continue
             pages, matched = (cache.match_prefix(req.prompt)
                               if prefix_cache else ([], 0))
-            reserve = min(len(req.prompt), matched + first_chunk_tokens)
+            reserve = (len(req.prompt) if first_chunk_tokens is None
+                       else min(len(req.prompt),
+                                matched + first_chunk_tokens))
             # one decode token of headroom once the whole prompt is resident
             headroom = reserve + 1 if reserve == len(req.prompt) else reserve
             if (cache.pages_needed(headroom) - len(pages)

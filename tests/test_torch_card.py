@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import act_quant as AQ
+from repro_torch.kernels import kv4_attention as KA
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import w4ax_matmul as WK
 from repro_torch.serving.kv_cache import build_work_queue
@@ -68,3 +69,66 @@ def test_kernels_match_plain_on_card():
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4 * max(
         1.0, float(want.abs().max()))
+
+
+def _within(got, want):
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_baseline_attention_kernels_match_plain_on_card():
+    """K10 (contiguous), K6 (dense paged) and K8 (work-queue) decode and
+    K7 (dense prefill) against their f32 plain versions: ragged lengths
+    that are not page multiples, −1 table entries, a ctx-0 row beside rows
+    with history, q_len-0 pad rows and count-0 pad items."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(2)
+    hq, hkv, d, ps = 8, 2, 128, 16
+    stats = [_cuda(rng.uniform(lo, hi, (hkv, 1, d)).astype(np.float32))
+             for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2), (6, 9))]
+    ks, kz, vs, vz = stats
+
+    lens = np.array([70, 33, 1], np.int32)             # K10, T = 70
+    kp, vp = [_cuda(rng.integers(0, 256, (3, hkv, 70, d // 2)).astype(np.uint8))
+              for _ in range(2)]
+    q = _cuda(rng.normal(size=(3, hq, d)).astype(np.float32))
+    bc = [s.expand(3, hkv, 1, d) for s in stats]
+    args = (q, kp, bc[0], bc[1], vp, bc[2], bc[3], _cuda(lens))
+    _within(KA.kv4_decode_attention(*args), KA.kv4_decode_attention_ref(*args))
+
+    lens = [40, 17, 1]                                 # K6, K8
+    need = [-(-n // ps) for n in lens]
+    num_pages = sum(need) + 3
+    tbl = np.full((3, max(need) + 1), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, n in enumerate(need):
+        tbl[bi, :n] = perm[i:i + n]
+        i += n
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(tbl),
+            _cuda(np.asarray(lens, np.int32)))
+    _within(PA.paged_kv4_decode_attention(*args),
+            PA.paged_kv4_decode_attention_ref(*args))
+    desc = _cuda(build_work_queue(tbl, lens, ps, hkv))
+    args = (q, pools[0], ks, kz, pools[1], vs, vz, desc)
+    _within(PA.paged_kv4_decode_attention_wq(*args),
+            PA.paged_kv4_decode_attention_wq_ref(*args))
+
+    ctx, qls, c = [40, 0, 17, 0], [1, 12, 5, 0], 16    # K7, one pad row
+    qc, kn, vn = [_cuda(rng.normal(size=(4, c, h, d)).astype(np.float32))
+                  for h in (hq, hkv, hkv)]
+    t4 = np.zeros((4, tbl.shape[1]), np.int32)
+    t4[:3] = tbl
+    args = (qc, kn, vn, pools[0], ks, kz, pools[1], vs, vz, _cuda(t4),
+            _cuda(np.asarray(ctx, np.int32)), _cuda(np.asarray(qls, np.int32)))
+    got = PA.paged_kv4_prefill_attention(*args)
+    want = PA.paged_kv4_prefill_attention_ref(*args)
+    assert torch.isfinite(got).all()
+    for bi, ql in enumerate(qls):
+        if ql:
+            _within(got[bi, :ql], want[bi, :ql])

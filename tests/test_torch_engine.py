@@ -102,19 +102,26 @@ def _capture(obj, get, logs):
     obj._guarded_forward = wrapped
 
 
-@pytest.fixture(scope="module")
-def run(model):
+def _engine_pair(model, **kw):
+    """The JAX engine (eager) and the port's, both holding the pinned
+    requests and logging each forward's logits."""
     jcfg, cfg, jqc, qparams, tparams = model
-    je = JEngine(jcfg, qparams, jqc, JEngineConfig(**ENGINE))
+    je = JEngine(jcfg, qparams, jqc, JEngineConfig(**ENGINE, **kw))
     je._fwd = je._unified_forward           # eager: see the module docstring
-    te = Engine(cfg, tparams, QuantConfig(impl="ref"), EngineConfig(**ENGINE),
-                device="cpu")
+    te = Engine(cfg, tparams, QuantConfig(impl="ref"),
+                EngineConfig(**ENGINE, **kw), device="cpu")
     logs = {"j": [], "t": []}
     _capture(je, lambda o: o[0], logs["j"])
     _capture(te, lambda o: o, logs["t"])
     for i, p in enumerate(_prompts(PROMPT_LENS)):
         je.add_request(i, p, MAX_NEW)
         te.add_request(i, p, MAX_NEW)
+    return je, te, logs
+
+
+@pytest.fixture(scope="module")
+def run(model):
+    je, te, logs = _engine_pair(model)
     je.step()
     te.step()
     # copies: the port updates its pools in place on later steps
@@ -150,6 +157,7 @@ def test_work_queue_step_logits_match(run):
     assert te.attn_forwards == je.attn_forwards > 0      # steps 2.. took K9
     assert te.attn_work_items == je.attn_work_items
     assert te.attn_grid_items == je.attn_grid_items
+    assert te.attn_dense_grid_items == je.attn_dense_grid_items
     assert _rel_err(logs["t"][1], logs["j"][1]) <= 2e-2
 
 
@@ -171,6 +179,39 @@ def test_forward_calls_equal_steps(run):
     assert c["last_error"] is None
     assert all(len(r.generated) == MAX_NEW and r.stop_reason is None
                for r in td)
+
+
+@pytest.fixture(scope="module")
+def run_dense(model):
+    """The same workload through the unified step under the dense
+    schedule: K7's plain version on the bucketed block tables, the
+    bucket's q_len-0 rows included."""
+    je, te, logs = _engine_pair(model, attention_schedule="dense")
+    return je.run(), te.run(), je, te, logs
+
+
+def test_dense_schedule_step_logits_match(run_dense):
+    """Step 1 has no history (plain fp attention), step 2 attends over
+    the int4 pages through the dense kernel's plain version."""
+    logs = run_dense[4]
+    for step in (0, 1):
+        assert logs["t"][step].shape == logs["j"][step].shape
+        assert _rel_err(logs["t"][step], logs["j"][step]) <= 2e-2
+
+
+def test_dense_schedule_greedy_and_counters(run_dense):
+    jd, td, je, te, _ = run_dense
+    jt = {r.request_id: r.generated for r in jd}
+    tt = {r.request_id: r.generated for r in td}
+    total = sum(len(v) for v in jt.values())
+    agree = sum(a == b for i in jt for a, b in zip(jt[i], tt[i])) / total
+    assert agree >= 0.9, (jt, tt)
+    for name in ("forward_calls", "interleaved_steps", "attn_forwards",
+                 "attn_work_items", "attn_grid_items",
+                 "attn_dense_grid_items", "peak_prefill_fp_tokens"):
+        assert getattr(te, name) == getattr(je, name), name
+    assert te.attn_grid_items == te.attn_dense_grid_items > 0
+    assert te.counters()["internal_errors"] == 0
 
 
 def test_layer_outputs_match(model, run):
