@@ -10,7 +10,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    per source, all started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B widths — act-quant byte-exact (M ∈ {1, 16, 256}), the
-   W4Ax GEMMs to 1e-5·max|ref|, the attention kernels (work-queue and
+   W4Ax GEMMs (W4A4, W4A8 and the mixed kernel, which adds
+   ``(d·a_s)·w_s`` in its plain version's order and agrees bit for bit) to
+   1e-5·max|ref|, the attention kernels (work-queue and
    dense prefill, paged dense and work-queue decode, contiguous decode)
    to 1e-4·max(1, max|ref|) on real cache states with ragged lengths,
    zero-history and q_len-0 rows (the dense and decode ones compute
@@ -20,12 +22,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    on dequantized weights, SDPA on gathered dequantized KV) and the
    roofline bound (for the work-queue kernels, of the kernel alone on
    pre-folded inputs, with the whole op beside it as
-   ``op_ms``/``op_plain_ms``);
+   ``op_ms``/``op_plain_ms``; for the mixed kernel the split pair on the
+   same inputs as ``split_ms``);
 3. parity: a 2-layer d_model-1024 model served on the card in every
    engine configuration (the unified step under both attention
    schedules, the split step under both, whole-prompt prefill with
-   gather decode), twice each, with the kernels and with ``impl="ref"``:
-   first logits to 2e-2·max|logit|, greedy agreement ≥ 0.9;
+   gather decode, the unified step under the mixed W4Ax schedule), twice
+   each, with the kernels and with ``impl="ref"``: first logits to
+   2e-2·max|logit|, greedy agreement ≥ 0.9;
 4. slice: Llama-3-8B at full width and depth (random seeded weights),
    default ``EngineConfig`` but ``prefill_chunk_tokens=256``, 8 requests
    of 128–512 prompt tokens × 32 new tokens, greedy, to completion; every
@@ -35,8 +39,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
 5. baselines: the same weights and workload served in the reference's
    measured baselines — (a) split step, work queue; (b) split step,
    dense; (c) whole-prompt prefill, gather decode; (d) unified step,
-   dense — with the same checks, each run launching its attention
-   kernels.
+   dense; (e) the default step under the paper's mixed W4Ax schedule —
+   with the same checks, each run launching its own kernels ((e) the
+   mixed GEMM and never the W4A4/W4A8 pair);
+6. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
+   subprocess on Llama-3-8B at full width and depth under the mixed
+   schedule, 8 requests of 384–640 prompt tokens (128 shared) × 32 new
+   tokens with a 6-deep waiting queue and every 4th request aborted: 2
+   must be rejected (``queue_full``), 1 aborted and 5 finish with 32
+   tokens, with no failed step, internal or callback error.
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.
@@ -47,7 +58,9 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +69,7 @@ import time
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernels", "parity", "slice", "baselines")
+PHASES = ("kernels", "parity", "slice", "baselines", "cli")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -154,7 +167,7 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
     gen = torch.Generator(device="cuda").manual_seed(2)
     # (N, K): q/o, k/v, up/gate, down projections of Llama-3-8B
     shapes = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
-    worst = {"w4a4_matmul": 0.0, "w4a8_matmul": 0.0}
+    worst = {"w4a4_matmul": 0.0, "w4a8_matmul": 0.0, "w4ax_matmul_mixed": 0.0}
     timed = {}
     for n, k in shapes:
         nb = k // 128
@@ -192,6 +205,25 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
             err = float((split - want).abs().max())
             if not err <= 1e-5 * float(want.abs().max()):
                 fail(f"w4ax_matmul_split M={m} N={n} K={k}: max err {err}")
+            # the mixed kernel (nb4 + nb8 blocks in one K loop)
+            mixed = (a4, s4, a8, s8, wp, ws)
+            out = WK.w4ax_matmul_mixed(*mixed)
+            want = WK.w4ax_matmul_mixed_ref(*mixed)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            tol = 1e-5 * float(want.abs().max())
+            if not err <= tol:
+                fail(f"w4ax_matmul_mixed M={m} N={n} K={k}: max err {err} "
+                     f"> {tol}")
+            worst["w4ax_matmul_mixed"] = max(worst["w4ax_matmul_mixed"], err)
+            say(f"[kernels] w4ax_matmul_mixed M={m} N={n} K={k} "
+                f"({nb4}+{nb - nb4} blocks): max err {err:.3g} (tol "
+                f"{tol:.3g})")
+            if m == 256 and (n, k) == (4096, 4096):
+                timed["w4ax_matmul_mixed"] = (m, n, mixed)
+    m, n, mixed = timed.pop("w4ax_matmul_mixed")
+    rows["w4ax_matmul_mixed"] = mixed_gemm_row(torch, WK, Q, gen, m, n, mixed,
+                                               worst["w4ax_matmul_mixed"])
     for name, (m, n, args) in timed.items():
         a, s, wpk, wsc = args
         kk = wpk.shape[0] * 2
@@ -221,6 +253,36 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
                          >= ops_ / INT8_OPS_PER_S else "operations"),
             "library_ms": time_ms(torch, lambda: torch.matmul(xb, wb)),
         }
+
+
+def mixed_gemm_row(torch, WK, Q, gen, m: int, n: int, args, err: float):
+    """The mixed kernel's table row at one shape: its time, its plain
+    version's, the split pair's (K3 + K4 + ``add_``) on the same inputs,
+    a bf16 ``torch.matmul`` on the dequantized weights, and its bound:
+    every operand read once and the output written once, or 2·M·N·K int8
+    operations."""
+    a4, s4, a8, s8, wpk, wsc = args
+    kk = wpk.shape[0] * 2
+    nbytes = sum(t.numel() * t.element_size() for t in args) + m * n * 4
+    ops_ = 2 * m * n * kk
+    xb = torch.randn((m, kk), generator=gen, device="cuda").bfloat16()
+    wb = Q.dequantize_weight_int4(wpk, wsc).bfloat16()
+    return {
+        "name": "w4ax_matmul_mixed", "route": "cuda",
+        "source": "src/repro_torch/csrc/w4ax_matmul.cu",
+        "replaces": "src/repro/kernels/w4ax_matmul.py:288",
+        "shape": (f"M={m} N={n} K={kk} ({s4.shape[1]}+{s8.shape[1]} "
+                  f"blocks)"),
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: WK.w4ax_matmul_mixed(*args)),
+        "plain_ms": time_ms(torch, lambda: WK.w4ax_matmul_mixed_ref(*args)),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        ops_ / INT8_OPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= ops_ / INT8_OPS_PER_S else "operations"),
+        "library_ms": time_ms(torch, lambda: torch.matmul(xb, wb)),
+        "split_ms": time_ms(torch, lambda: WK.w4ax_matmul_split(*args)),
+    }
 
 
 PREFILL_ROWS = ((300, 1), (129, 1), (64, 1), (128, 256), (200, 100),
@@ -556,12 +618,14 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
 # ------------------------------------------------------- phases 3 and 4
 
 def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
-          prompts, max_new, ecfg):
-    """Serve ``prompts`` to completion; → (engine, the first logits the
-    engine produced, host seconds per step). The unified step's logits
-    come from ``_guarded_forward``, the split forwards' from the rows
-    they hand to ``_sample_batch``."""
-    eng = Engine(cfg, params, QuantConfig(impl=impl), ecfg, device="cuda")
+          prompts, max_new, ecfg, quant_kw):
+    """Serve ``prompts`` to completion under ``QuantConfig(impl=impl,
+    **quant_kw)``; → (engine, the first logits the engine produced, host
+    seconds per step). The unified step's logits come from
+    ``_guarded_forward``, the split forwards' from the rows they hand to
+    ``_sample_batch``."""
+    eng = Engine(cfg, params, QuantConfig(impl=impl, **quant_kw), ecfg,
+                 device="cuda")
     first = []
     for name in ("_guarded_forward", "_sample_batch"):
         inner = getattr(eng, name)
@@ -602,15 +666,18 @@ def check_run(eng, n_req: int, max_new: int, vocab: int, label: str):
     return {i: list(done[i].generated) for i in range(n_req)}
 
 
-# the engine configurations the port serves: the default unified step and
-# the reference's measured baselines
+# the engine configurations the port serves: the default unified step, the
+# reference's measured baselines and the paper's mixed W4Ax schedule
 CONFIGS = {
     "unified work_queue": {},
     "split work_queue": dict(unified_step=False),
     "split dense": dict(unified_step=False, attention_schedule="dense"),
     "whole gather": dict(prefill_mode="whole", decode_attention="gather"),
     "unified dense": dict(attention_schedule="dense"),
+    "unified work_queue mixed": {},
 }
+# the QuantConfig fields of a configuration beside impl
+QUANT = {"unified work_queue mixed": dict(schedule="mixed")}
 
 
 def phase_parity(torch, np, mods):
@@ -634,7 +701,7 @@ def phase_parity(torch, np, mods):
         for impl in ("auto", "ref"):
             eng, first, _ = serve(torch, np, Engine, EngineConfig,
                                   QuantConfig, cfg, params, impl, prompts,
-                                  16, ecfg)
+                                  16, ecfg, QUANT.get(label, {}))
             res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
                                    f"parity[{label}, {impl}]"), first)
         (tk, lk), (tr, lr) = res["auto"], res["ref"]
@@ -681,21 +748,27 @@ def profile_table(torch, prof, wall_s: float):
     return "\n".join(lines)
 
 
-CORE = ("act_quant_int4", "act_quant_int8", "w4a4_matmul", "w4a8_matmul")
-# (run, configuration, the attention kernels it must launch beside CORE)
+ACT = ("act_quant_int4", "act_quant_int8")
+SPLIT = ACT + ("w4a4_matmul", "w4a8_matmul")
+MIXED = ACT + ("w4ax_matmul_mixed",)
+# (run, configuration, the kernels it must launch, the kernels it must not)
 RUNS = (
-    ("slice", "unified work_queue", ("paged_kv4_prefill_attention_wq",)),
-    ("a", "split work_queue", ("paged_kv4_prefill_attention",
-                               "paged_kv4_decode_attention_wq")),
-    ("b", "split dense", ("paged_kv4_prefill_attention",
-                          "paged_kv4_decode_attention")),
-    ("c", "whole gather", ("kv4_decode_attention",)),
-    ("d", "unified dense", ("paged_kv4_prefill_attention",)),
+    ("slice", "unified work_queue",
+     SPLIT + ("paged_kv4_prefill_attention_wq",), ("w4ax_matmul_mixed",)),
+    ("a", "split work_queue", SPLIT + ("paged_kv4_prefill_attention",
+                                       "paged_kv4_decode_attention_wq"), ()),
+    ("b", "split dense", SPLIT + ("paged_kv4_prefill_attention",
+                                  "paged_kv4_decode_attention"), ()),
+    ("c", "whole gather", SPLIT + ("kv4_decode_attention",), ()),
+    ("d", "unified dense", SPLIT + ("paged_kv4_prefill_attention",), ()),
+    ("e", "unified work_queue mixed",
+     MIXED + ("paged_kv4_prefill_attention_wq",),
+     ("w4a4_matmul", "w4a8_matmul")),
 )
 # the run whose launches a kernel's row reports: the path it serves
 PATH_OF = {"paged_kv4_decode_attention_wq": "a",
            "paged_kv4_decode_attention": "b", "kv4_decode_attention": "c",
-           "paged_kv4_prefill_attention": "d"}
+           "paged_kv4_prefill_attention": "d", "w4ax_matmul_mixed": "e"}
 
 
 def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
@@ -704,10 +777,11 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     depth: 8 requests of 128–512 prompt tokens × 32 new tokens, greedy,
     ``prefill_chunk_tokens=256``, in the run's configuration. Launch
     counts are set to 0 just before and read just after; every request
-    must finish with 32 tokens, with no failed or internal errors, and
-    every kernel of the run must have launched. → launches."""
+    must finish with 32 tokens, with no failed or internal errors, every
+    kernel of the run must have launched and none it must not. →
+    launches."""
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
-    label, must = next((c, m) for r, c, m in RUNS if r == run)
+    label, must, never = next((c, m, x) for r, c, m, x in RUNS if r == run)
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 513, 8)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
@@ -724,7 +798,8 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
         prof.__enter__()
     t0 = time.perf_counter()
     eng, first, step_s = serve(torch, np, Engine, EngineConfig, QuantConfig,
-                               cfg, params, "auto", prompts, 32, ecfg)
+                               cfg, params, "auto", prompts, 32, ecfg,
+                               QUANT.get(label, {}))
     wall = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in KERNELS.items()}
     tag = f"[{'slice' if run == 'slice' else 'baselines'}] {run} ({label})"
@@ -735,9 +810,13 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     check_run(eng, len(prompts), 32, cfg.vocab_size, tag)
     if first is None or not np.isfinite(first).all():
         fail(f"{tag}: first logits missing or not finite")
-    for name in CORE + must:
+    for name in must:
         if launches[name] <= 0:
             fail(f"{tag}: kernel {name} was never launched")
+    for name in never:
+        if launches[name]:
+            fail(f"{tag}: kernel {name} launched {launches[name]} times; "
+                 f"this configuration must not reach it")
     if eng.attn_forwards <= 0 and label != "whole gather":
         fail(f"{tag}: no forward attended over paged history")
     toks = eng.tokens_generated
@@ -752,6 +831,59 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     return launches
 
 
+# the cli phase's launcher flags, and what they must lead to: 8 requests
+# into a 6-deep waiting queue reject the last 2, every 4th submit (the 4th;
+# the 8th is already rejected) is aborted after its first token, and the 5
+# others finish with all 32 tokens (greedy decoding has no EOS)
+CLI = ("--arch", "llama3_8b", "--schedule", "mixed", "--requests", "8",
+       "--prompt-len", "512", "--max-new", "32", "--prefill-chunk", "256",
+       "--shared-prefix", "128", "--abort-every", "4", "--max-waiting", "6")
+CLI_EXPECT = {"failed": 0, "callback_errors": 0, "internal_errors": 0,
+              "rejected": 2, "aborted": 1, "states": "aborted=1 failed=2 "
+              "finished=5", "reasons": "aborted=1 queue_full=2",
+              "tokens": ",".join(["32"] * 5)}
+
+
+def phase_cli(timeout_s: float = 600.0):
+    """The serve launcher in a subprocess at full width and depth under
+    the mixed schedule; its lines are printed, and the counts must follow
+    from the flags (``CLI_EXPECT``)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    say(f"[cli] python -m repro_torch.launch.serve {' '.join(CLI)}")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *CLI],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        fail(f"cli: the launcher did not finish in {timeout_s:.0f} s")
+    for line in out.stdout.splitlines():
+        say(f"[cli] {line}")
+    if out.returncode:
+        fail(f"cli: exit code {out.returncode}:\n{out.stderr[-4000:]}")
+    text = out.stdout
+    robust = re.search(r"\[robust\] failed=(\d+) timed_out=\d+ shed=\d+ "
+                       r"rejected=(\d+) callback_errors=(\d+) "
+                       r"internal_errors=(\d+)", text)
+    cache = re.search(r"\[cache\] .* aborted=(\d+)", text)
+    states = re.search(r"^\[states\] (.*) \| stop reasons: (.*) \| tokens "
+                       r"of finished requests: (.*)$", text, re.M)
+    if not (robust and cache and states):
+        fail("cli: summary lines missing")
+    got = {"failed": int(robust[1]), "rejected": int(robust[2]),
+           "callback_errors": int(robust[3]),
+           "internal_errors": int(robust[4]), "aborted": int(cache[1]),
+           "states": states[1], "reasons": states[2], "tokens": states[3]}
+    if got != CLI_EXPECT:
+        fail(f"cli: got {got}, expected {CLI_EXPECT}")
+    say(f"[cli] counts as the flags say ({time.perf_counter() - t0:.1f} s "
+        f"with the launcher's start-up)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -762,9 +894,8 @@ def main():
                          "top kernels and host ops")
     ap.add_argument("--runs", default="",
                     help="the Llama-3-8B runs to make, in this order, "
-                         "repeats allowed (e.g. slice,a,b,c,d,d,c,b,a,slice "
-                         "to compare them in turns); default: those of "
-                         "--phases")
+                         "repeats allowed (e.g. slice,e,e,slice to compare "
+                         "them in turns); default: those of --phases")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     import torch
@@ -805,10 +936,10 @@ def main():
     if "parity" in phases:
         phase_parity(torch, np, mods)
     order = (args.runs.split(",") if args.runs else
-             [r for r, _, _ in RUNS
+             [r for r, *_ in RUNS
               if ("slice" if r == "slice" else "baselines") in phases])
-    if set(order) - {r for r, _, _ in RUNS}:
-        fail(f"--runs takes runs of {[r for r, _, _ in RUNS]}")
+    if set(order) - {r for r, *_ in RUNS}:
+        fail(f"--runs takes runs of {[r for r, *_ in RUNS]}")
     runs = {}
     if order:
         t0 = time.perf_counter()
@@ -819,6 +950,11 @@ def main():
         for run in order:
             runs[run] = serve_llama(torch, np, mods, ops.KERNELS, cfg8b,
                                     params, run, args.profile)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()     # the cli phase's process needs the room
+    if "cli" in phases:
+        phase_cli()
     table = [dict(rows[n], launches=runs.get(PATH_OF.get(n, "slice"),
                                              {}).get(n))
              for n in ops.KERNELS if n in rows]

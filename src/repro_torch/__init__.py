@@ -2,8 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``configs``, ``core``, ``kernels``, ``layers``, ``models``,
-``serving``) and never imports it or JAX. Plain tensor code is PyTorch; every
-Pallas kernel on the ported path is a hand-written CUDA kernel for ``sm_90a``
+``serving``, ``launch``) and never imports it or JAX. Plain tensor code is
+PyTorch; every Pallas kernel is a hand-written CUDA kernel for ``sm_90a``
 (sources under ``csrc/``, built on first use by ``kernels/_build.py``), each
 with a plain PyTorch version beside it that CPU tensors take.
 """

@@ -2,10 +2,12 @@
 qlinear.py``, the W4Ax branch of ``_dispatch_qlinear``).
 
 Online: quantize the INT4 and INT8 channel ranges of the activation on
-the fly (two act-quant launches) and run the W4Ax GEMM under the split
-schedule (the only one ported; the reference's ``mixed`` baseline is
-K5). The channel order is the identity (``quantize_linear_fraction``'s synthetic plan: no
-permutation); the INT8 tail is the trailing ``K − K4`` channels with
+the fly (two act-quant launches) and run the W4Ax GEMM under the
+configured schedule: ``split`` (the default: W4A4 and W4A8 kernels over
+the two ranges, summed) or ``mixed`` (the paper's single kernel whose K
+loop switches precision per block). The channel order is the identity
+(``quantize_linear_fraction``'s synthetic plan: no permutation); the INT8
+tail is the trailing ``K − K4`` channels with
 ``K4 = round(int4_fraction · K/128) · 128``.
 """
 
@@ -29,6 +31,7 @@ class QLinearSpec:
     k: int
     n: int
     k4: int                      # leading channels in W4A4 (multiple of 128)
+    schedule: str = "split"      # split | mixed
     impl: str = "auto"
 
     @property
@@ -52,16 +55,18 @@ def qlinear_apply(spec: QLinearSpec, qparams, x: torch.Tensor) -> torch.Tensor:
         a8 = torch.zeros((*lead, 0), dtype=torch.int8, device=dev)
         s8 = torch.zeros((*lead, 0), dtype=torch.float32, device=dev)
     out = ops.w4ax_matmul(a4, s4, a8, s8, qparams["w_packed"],
-                          qparams["w_scale"], impl=spec.impl)
+                          qparams["w_scale"], schedule=spec.schedule,
+                          impl=spec.impl)
     return out.to(in_dtype)
 
 
 def dispatch_qlinear(params, x: torch.Tensor, quant) -> torch.Tensor:
     """A packed projection under a quant config (``int4_fraction``,
-    ``impl``) → :func:`qlinear_apply`."""
+    ``schedule``, ``impl``) → :func:`qlinear_apply`."""
     k = 2 * params["w_packed"].shape[-2]
     nb = k // BLOCK_K
     nb4 = max(0, min(nb, int(round(quant.int4_fraction * nb))))
     spec = QLinearSpec(k=k, n=params["w_packed"].shape[-1],
-                       k4=nb4 * BLOCK_K, impl=quant.impl)
+                       k4=nb4 * BLOCK_K, schedule=quant.schedule,
+                       impl=quant.impl)
     return qlinear_apply(spec, params, x)

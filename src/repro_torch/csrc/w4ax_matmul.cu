@@ -1,12 +1,16 @@
 // W4Ax GEMM: packed int4 weights × int4 (W4A4) or int8 (W4A8) activations.
 //
-// Replaces repro/kernels/w4ax_matmul.py: w4a4_matmul (_w4a4_kernel) and
-// w4a8_matmul (_w4a8_kernel). The split schedule (w4ax_matmul_split)
-// launches one of each over the K4 prefix and the K8 tail.
+// Replaces repro/kernels/w4ax_matmul.py: w4a4_matmul (_w4a4_kernel),
+// w4a8_matmul (_w4a8_kernel) and w4ax_matmul_mixed (_w4ax_mixed_kernel).
+// The split schedule (w4ax_matmul_split) launches one uniform kernel over
+// the K4 prefix and one over the K8 tail; the mixed schedule launches ONE
+// kernel whose K loop runs the nb4 INT4 blocks, then the nb8 INT8 blocks.
 //
 // Per 128-channel block b the int32 dot of the block is formed exactly,
-// then scaled into an f32 accumulator, blocks in order:
-//     acc[m, n] += f32(d) · (a_scale[m, b] · w_scale[b, n])
+// then scaled into an f32 accumulator, blocks in order, in the rounding
+// order of the reference kernel it replaces:
+//     uniform: acc[m, n] += f32(d) · (a_scale[m, b] · w_scale[b, n])
+//     mixed:   acc[m, n] += (f32(d) · a_scale[m, b]) · w_scale[b, n]
 // Hopper has no int4 tensor-core MMA, so nibbles are unpacked to int8 in
 // shared memory and fed to mma.sync m16n8k32 s8·s8→s32. With the default
 // zero-extension unpack (mask and shift, values 0..15) the block dot is
@@ -14,7 +18,8 @@
 //     W4A4: d = dot(a', w') − 8·Σa' − 8·Σw' + 8192
 //     W4A8: d = dot(a,  w') − 8·Σa
 // ZEROEXT=false is the sign-extension ablation (values −8..7, no
-// correction); only zeroext is on the serving path.
+// correction) of the uniform kernels; only zeroext is on the serving path,
+// and the mixed kernel has no other (as the reference's).
 //
 // Bound on the H100: bytes for the serving batch sizes (M ≤ 256 tokens; the
 // int4 weight panel is read once per 64-row M tile, ~2 int8 ops per weight
@@ -23,8 +28,11 @@
 // of A and W (unpacked) in padded shared memory (row stride 144 B makes the
 // fragment loads conflict-free), computes the row/column sums with dp4a,
 // and each warp issues 4×8 int8 MMAs for its 16 rows. Warps whose rows are
-// all past M skip the MMAs. Simple and right first: no cp.async/TMA
-// pipeline and no wgmma yet.
+// all past M skip the MMAs. The mixed kernel decides per K step which A
+// operand to stage (b < nb4: the packed nibbles, else the int8 tail) and
+// which correction to apply; the condition is the same for every thread of
+// the block, so nothing diverges, and the weight staging is shared. Simple
+// and right first: no cp.async/TMA pipeline and no wgmma yet.
 #include "common.cuh"
 
 namespace {
@@ -48,13 +56,19 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A: A_INT4 → packed uint8 [m, nb*64]; else int8 [m, nb*128].
-// W: packed uint8 [nb*64, n] (byte j of a block: k=j low, k=j+64 high).
-template <bool A_INT4, bool ZEROEXT>
+// How a kernel's A operand is laid out: all packed int4, all int8, or the
+// mixed kernel's nb4 packed int4 blocks followed by nb8 int8 blocks.
+enum AMode { A_INT4 = 0, A_INT8 = 1, A_MIXED = 2 };
+
+// a4: packed uint8 [m, nb4*64]; a8: int8 [m, nb8*128] (nb4 = 0 for A_INT8,
+// nb8 = 0 for A_INT4). W: packed uint8 [(nb4+nb8)*64, n] (byte j of a
+// block: k=j low, k=j+64 high), rows contiguous across the two parts.
+template <int MODE, bool ZEROEXT>
 __global__ void __launch_bounds__(THREADS) w4ax_kernel(
-    const uint8_t* __restrict__ a, const float* __restrict__ a_scale,
+    const uint8_t* __restrict__ a4, const float* __restrict__ a4_scale,
+    const uint8_t* __restrict__ a8, const float* __restrict__ a8_scale,
     const uint8_t* __restrict__ w, const float* __restrict__ w_scale,
-    float* __restrict__ out, int m, int n, int nb) {
+    float* __restrict__ out, int m, int n, int nb4, int nb8) {
   __shared__ __align__(16) int8_t sA[BM][SROW];
   __shared__ __align__(16) int8_t sB[BN][SROW];   // [n][k]: MMA "col" operand
   __shared__ int sRowSum[BM];
@@ -66,8 +80,9 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int r0 = warp * 16;
-  const long a_row = A_INT4 ? static_cast<long>(nb) * (BK / 2)
-                            : static_cast<long>(nb) * BK;
+  const int nb = nb4 + nb8;
+  const long a4_row = static_cast<long>(nb4) * (BK / 2);
+  const long a8_row = static_cast<long>(nb8) * BK;
   const bool active = m0 + r0 < m;   // warp-uniform
 
   float facc[8][4];
@@ -77,14 +92,18 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
     for (int e = 0; e < 4; ++e) facc[j][e] = 0.f;
 
   for (int b = 0; b < nb; ++b) {
+    // the same for every thread of the block: no divergence
+    const bool packed = MODE == A_INT4 || (MODE == A_MIXED && b < nb4);
+    const int b8 = b - nb4;            // the block's index in the int8 part
     // ---- stage the A block: [BM rows][128 channels] as int8
-    if (A_INT4) {
+    if (packed) {
       for (int i = tid; i < BM * 16; i += THREADS) {
         const int r = i >> 4, c = i & 15;      // word c = packed bytes 4c..4c+3
         uint32_t v = 0;
         if (m0 + r < m)
           v = *reinterpret_cast<const uint32_t*>(
-              a + (m0 + r) * a_row + static_cast<long>(b) * (BK / 2) + 4 * c);
+              a4 + (m0 + r) * a4_row + static_cast<long>(b) * (BK / 2) +
+              4 * c);
         uint32_t lo = v & 0x0F0F0F0Fu, hi = (v >> 4) & 0x0F0F0F0Fu;
         if (!ZEROEXT) {
           lo = __vsub4(lo, 0x08080808u);
@@ -99,7 +118,7 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
         uint32_t v = 0;
         if (m0 + r < m)
           v = *reinterpret_cast<const uint32_t*>(
-              a + (m0 + r) * a_row + static_cast<long>(b) * BK + 4 * c);
+              a8 + (m0 + r) * a8_row + static_cast<long>(b8) * BK + 4 * c);
         *reinterpret_cast<uint32_t*>(&sA[r][4 * c]) = v;
       }
     }
@@ -121,7 +140,10 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
       }
     }
     if (tid < BM) {
-      sAs[tid] = m0 + tid < m ? a_scale[static_cast<long>(m0 + tid) * nb + b] : 0.f;
+      const long row = m0 + tid;
+      sAs[tid] = row >= m ? 0.f
+                 : packed ? a4_scale[row * nb4 + b]
+                         : a8_scale[row * nb8 + b8];
     } else {
       const int c = tid - BM;
       sWs[c] = n0 + c < n ? w_scale[static_cast<long>(b) * n + n0 + c] : 0.f;
@@ -165,14 +187,16 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
           int d = iacc[j][e];
           if (ZEROEXT) {
             d -= 8 * sRowSum[rl];
-            if (A_INT4) d += 8 * 8 * BK - 8 * sColSum[cl];
+            if (packed) d += 8 * 8 * BK - 8 * sColSum[cl];
           }
           // explicit roundings (no FMA contraction): the same f32 ops in
           // the same block order as the plain version, so the two agree
           // bit for bit
+          const float fd = static_cast<float>(d);
           facc[j][e] = __fadd_rn(
-              facc[j][e], __fmul_rn(static_cast<float>(d),
-                                    __fmul_rn(sAs[rl], sWs[cl])));
+              facc[j][e],
+              MODE == A_MIXED ? __fmul_rn(__fmul_rn(fd, sAs[rl]), sWs[cl])
+                              : __fmul_rn(fd, __fmul_rn(sAs[rl], sWs[cl])));
         }
       }
     }
@@ -191,19 +215,21 @@ __global__ void __launch_bounds__(THREADS) w4ax_kernel(
   }
 }
 
-template <bool A_INT4>
-int launch(const uint8_t* a, const float* a_scale, const uint8_t* w,
-           const float* w_scale, float* out, int m, int n, int nb,
-           int zeroext, cudaStream_t stream) {
-  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m > 0 && n > 0 && nb > 0) {
+template <int MODE>
+int launch(const uint8_t* a4, const float* a4_scale, const uint8_t* a8,
+           const float* a8_scale, const uint8_t* w, const float* w_scale,
+           float* out, int m, int n, int nb4, int nb8, int zeroext,
+           cudaStream_t stream) {
+  if (n % 4 != 0 || (MODE == A_MIXED && !zeroext))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 0 && n > 0 && nb4 + nb8 > 0) {
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     if (zeroext)
-      w4ax_kernel<A_INT4, true><<<grid, THREADS, 0, stream>>>(
-          a, a_scale, w, w_scale, out, m, n, nb);
-    else
-      w4ax_kernel<A_INT4, false><<<grid, THREADS, 0, stream>>>(
-          a, a_scale, w, w_scale, out, m, n, nb);
+      w4ax_kernel<MODE, true><<<grid, THREADS, 0, stream>>>(
+          a4, a4_scale, a8, a8_scale, w, w_scale, out, m, n, nb4, nb8);
+    else if constexpr (MODE != A_MIXED)
+      w4ax_kernel<MODE, false><<<grid, THREADS, 0, stream>>>(
+          a4, a4_scale, a8, a8_scale, w, w_scale, out, m, n, nb4, nb8);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -216,8 +242,8 @@ extern "C" int w4a4_matmul(const uint8_t* a_packed, const float* a_scale,
                            const uint8_t* w_packed, const float* w_scale,
                            float* out, int m, int n, int nb, int zeroext,
                            cudaStream_t stream) {
-  return launch<true>(a_packed, a_scale, w_packed, w_scale, out, m, n, nb,
-                      zeroext, stream);
+  return launch<A_INT4>(a_packed, a_scale, nullptr, nullptr, w_packed,
+                        w_scale, out, m, n, nb, 0, zeroext, stream);
 }
 
 // a_q int8 [m, nb*128], a_scale f32 [m, nb], weights as above → f32 [m, n].
@@ -225,6 +251,22 @@ extern "C" int w4a8_matmul(const int8_t* a_q, const float* a_scale,
                            const uint8_t* w_packed, const float* w_scale,
                            float* out, int m, int n, int nb, int zeroext,
                            cudaStream_t stream) {
-  return launch<false>(reinterpret_cast<const uint8_t*>(a_q), a_scale,
-                       w_packed, w_scale, out, m, n, nb, zeroext, stream);
+  return launch<A_INT8>(nullptr, nullptr,
+                        reinterpret_cast<const uint8_t*>(a_q), a_scale,
+                        w_packed, w_scale, out, m, n, 0, nb, zeroext, stream);
+}
+
+// a4_packed uint8 [m, nb4*64], a4_scale f32 [m, nb4], a8_q int8
+// [m, nb8*128], a8_scale f32 [m, nb8], w_packed uint8 [(nb4+nb8)*64, n],
+// w_scale f32 [nb4+nb8, n] → out f32 [m, n]; zero-extension only.
+extern "C" int w4ax_matmul_mixed(const uint8_t* a4_packed,
+                                 const float* a4_scale, const int8_t* a8_q,
+                                 const float* a8_scale,
+                                 const uint8_t* w_packed,
+                                 const float* w_scale, float* out, int m,
+                                 int n, int nb4, int nb8,
+                                 cudaStream_t stream) {
+  return launch<A_MIXED>(a4_packed, a4_scale,
+                         reinterpret_cast<const uint8_t*>(a8_q), a8_scale,
+                         w_packed, w_scale, out, m, n, nb4, nb8, 1, stream);
 }

@@ -39,6 +39,7 @@ KERNELS = {
     "act_quant_int8": AQ.act_quant_int8,
     "w4a4_matmul": WK.w4a4_matmul,
     "w4a8_matmul": WK.w4a8_matmul,
+    "w4ax_matmul_mixed": WK.w4ax_matmul_mixed,
     "paged_kv4_prefill_attention_wq": PA.paged_kv4_partials,
     "paged_kv4_decode_attention": PA.paged_kv4_decode_attention,
     "paged_kv4_prefill_attention": PA.paged_kv4_prefill_attention,
@@ -78,9 +79,17 @@ def act_quant(x: torch.Tensor, *, bits: int = 4, impl: str = "auto"):
 
 
 def w4ax_matmul(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, *,
-                impl: str = "auto") -> torch.Tensor:
-    """Mixed-precision W4Ax GEMM under the split schedule: dequant(a) @
-    dequant(w) → [..., N] f32."""
+                schedule: str = "split", impl: str = "auto") -> torch.Tensor:
+    """Mixed-precision W4Ax GEMM: dequant(a) @ dequant(w) → [..., N] f32.
+
+    ``schedule="split"`` launches the W4A4 and W4A8 kernels over the two
+    channel ranges and sums them; ``"mixed"`` launches the single mixed
+    kernel. Off the kernel path a CPU tensor takes the reference oracle
+    under either schedule, as the reference's ops do; a CUDA tensor under
+    ``"mixed"`` takes the mixed kernel's plain version, which it matches
+    bit for bit."""
+    if schedule not in ("split", "mixed"):
+        raise ValueError(f"schedule must be split|mixed, got {schedule}")
     lead = a4_packed.shape[:-1]
     m = math.prod(lead) if lead else 1
     n = w_packed.shape[1]
@@ -89,7 +98,11 @@ def w4ax_matmul(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, *,
     a8q = a8_q.reshape(m, a8_q.shape[-1])
     a8s = a8_scale.reshape(m, a8_scale.shape[-1])
     if use_kernel(impl, a4p):
-        out = WK.w4ax_matmul_split(a4p, a4s, a8q, a8s, w_packed, w_scale)
+        fn = (WK.w4ax_matmul_mixed if schedule == "mixed"
+              else WK.w4ax_matmul_split)
+        out = fn(a4p, a4s, a8q, a8s, w_packed, w_scale)
+    elif schedule == "mixed" and a4p.is_cuda:
+        out = WK.w4ax_matmul_mixed_ref(a4p, a4s, a8q, a8s, w_packed, w_scale)
     else:
         nb4 = a4s.shape[1] if a4p.shape[1] else 0
         k4p = nb4 * WK.PACKED_BLOCK

@@ -10,10 +10,12 @@ from repro_torch.kernels.paged_attention import (
     paged_kv4_partials_ref, paged_kv4_prefill_attention_ref,
     paged_kv4_prefill_attention_wq_ref)
 from repro_torch.kernels.w4ax_matmul import (w4a4_matmul_ref, w4a8_matmul_ref,
+                                             w4ax_matmul_mixed_ref,
                                              w4ax_matmul_ref)
 
 __all__ = ["act_quant_ref", "w4a4_matmul_ref", "w4a8_matmul_ref",
-           "w4ax_matmul_ref", "paged_kv4_partials_ref",
+           "w4ax_matmul_ref", "w4ax_matmul_mixed_ref",
+           "paged_kv4_partials_ref",
            "paged_kv4_prefill_attention_wq_ref", "combine_work_partials",
            "kv4_decode_attention_ref", "paged_kv4_decode_attention_ref",
            "paged_kv4_prefill_attention_ref", "paged_kv4_decode_partials_ref",

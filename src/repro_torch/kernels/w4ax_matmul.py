@@ -1,15 +1,19 @@
 """W4Ax mixed-precision GEMM: the CUDA kernels and their plain versions.
 
 Kernels: ``csrc/w4ax_matmul.cu`` (replaces ``repro/kernels/w4ax_matmul.py``
-``w4a4_matmul``/``w4a8_matmul``; bound by bytes at serving batch sizes;
-int4 nibbles unpacked to int8 in shared memory for ``mma.sync`` int8 with
-the zero-extension correction algebra — see the source note).
-``w4ax_matmul_split`` composes them as the reference's split schedule:
-W4A4 over the K4 prefix, W4A8 over the K8 tail, summed.
+``w4a4_matmul``/``w4a8_matmul``/``w4ax_matmul_mixed``; bound by bytes at
+serving batch sizes; int4 nibbles unpacked to int8 in shared memory for
+``mma.sync`` int8 with the zero-extension correction algebra — see the
+source note). Two schedules: ``w4ax_matmul_split`` composes the uniform
+kernels as the reference's split schedule (W4A4 over the K4 prefix, W4A8
+over the K8 tail, summed); ``w4ax_matmul_mixed`` is the paper's single
+kernel, whose K loop switches from INT4 to INT8 activation blocks.
 
 The plain versions unpack to exact int32 per-block dots and apply the
 per-(row, block) × per-(block, column) scales in f32, like
-``repro/kernels/ref.py``.
+``repro/kernels/ref.py``: ``d·(a_s·w_s)`` for the uniform kernels,
+``(d·a_s)·w_s`` into one accumulator for the mixed one, each in its
+kernel's rounding order.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ BLOCK_K = 128
 PACKED_BLOCK = BLOCK_K // 2
 
 __all__ = ["w4a4_matmul_ref", "w4a8_matmul_ref", "w4ax_matmul_ref",
-           "w4a4_matmul", "w4a8_matmul", "w4ax_matmul_split"]
+           "w4ax_matmul_mixed_ref", "w4a4_matmul", "w4a8_matmul",
+           "w4ax_matmul_split", "w4ax_matmul_mixed"]
 
 
 def _block_dot_scaled(a: torch.Tensor, w: torch.Tensor, a_scale, w_scale,
@@ -67,6 +72,41 @@ def w4ax_matmul_ref(a4_packed, a4_scale, a8_q, a8_scale, w4_packed, w4_scale,
         out = o8 if out is None else out + o8
     if out is None:
         raise ValueError("empty GEMM")
+    return out
+
+
+def _mixed_blocks(a4_packed, a4_scale, a8_q, a8_scale) -> tuple[int, int]:
+    """(INT4 blocks, INT8 blocks) of a mixed GEMM's two activation parts."""
+    nb4 = a4_scale.shape[1] if a4_packed.shape[1] else 0
+    nb8 = a8_scale.shape[1] if a8_q.shape[1] else 0
+    if nb4 + nb8 == 0:
+        raise ValueError("empty GEMM")
+    return nb4, nb8
+
+
+def w4ax_matmul_mixed_ref(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
+                          w_scale, block_size: int = BLOCK_K) -> torch.Tensor:
+    """The mixed kernel's function: one accumulator over the nb4 INT4
+    blocks, then the nb8 INT8 blocks (weight rows contiguous across both),
+    each block adding ``(f32(d)·a_s)·w_s`` as ``_w4ax_mixed_kernel`` does.
+    A uniform operand (nb4 = 0 or nb8 = 0) takes the W4A8 or W4A4 plain
+    version, as the reference's wrapper does."""
+    nb4, nb8 = _mixed_blocks(a4_packed, a4_scale, a8_q, a8_scale)
+    if nb4 == 0:
+        return w4a8_matmul_ref(a8_q, a8_scale, w_packed, w_scale, block_size)
+    if nb8 == 0:
+        return w4a4_matmul_ref(a4_packed, a4_scale, w_packed, w_scale,
+                               block_size)
+    a = torch.cat([Q.unpack_int4_interleaved(a4_packed, dim=1,
+                                             block_size=block_size), a8_q], 1)
+    a_scale = torch.cat([a4_scale, a8_scale], 1).float()
+    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
+    out = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for b in range(nb4 + nb8):
+        sl = slice(b * block_size, (b + 1) * block_size)
+        part = (a[:, sl].to(torch.float64) @ w[sl].to(torch.float64)).float()
+        out = out + (part * a_scale[:, b:b + 1]) * w_scale[b].float()
     return out
 
 
@@ -124,8 +164,35 @@ def w4a8_matmul(a_q, a_scale, w_packed, w_scale, *,
     return out
 
 
+def w4ax_matmul_mixed(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
+                      w_scale) -> torch.Tensor:
+    """The mixed schedule on the card: ONE launch whose K loop runs the
+    nb4 INT4 blocks, then the nb8 INT8 blocks, into one accumulator → f32
+    [M, N]. A uniform operand launches the W4A8 or W4A4 kernel instead,
+    as the reference's wrapper does."""
+    nb4, nb8 = _mixed_blocks(a4_packed, a4_scale, a8_q, a8_scale)
+    if nb4 == 0:
+        return w4a8_matmul(a8_q, a8_scale, w_packed, w_scale)
+    if nb8 == 0:
+        return w4a4_matmul(a4_packed, a4_scale, w_packed, w_scale)
+    if a4_packed.dtype != torch.uint8 or a8_q.dtype != torch.int8:
+        raise ValueError("a4_packed must be uint8 and a8_q int8")
+    m, n = _check_gemm(a4_packed, a4_scale, w_packed[:nb4 * PACKED_BLOCK],
+                       w_scale[:nb4], nb4, nb4 * PACKED_BLOCK)
+    if _check_gemm(a8_q, a8_scale, w_packed[nb4 * PACKED_BLOCK:],
+                   w_scale[nb4:], nb8, nb8 * BLOCK_K) != (m, n):
+        raise ValueError("the INT4 and INT8 parts have different row counts")
+    out = torch.empty((m, n), dtype=torch.float32, device=a4_packed.device)
+    _build.call("w4ax_matmul", "w4ax_matmul_mixed", a4_packed.device,
+                a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, out,
+                m, n, nb4, nb8)
+    w4ax_matmul_mixed.launches += 1
+    return out
+
+
 w4a4_matmul.launches = 0
 w4a8_matmul.launches = 0
+w4ax_matmul_mixed.launches = 0
 
 
 def w4ax_matmul_split(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale,

@@ -1,0 +1,250 @@
+"""Serving launcher of the port: random seeded W4 weights and the
+request-lifecycle engine over a synthetic request trace (the single-engine
+path of ``repro/launch/serve.py``).
+
+Requests go through ``Engine.submit`` with per-request
+:class:`SamplingParams` (greedy). ``--schedule`` picks the W4Ax GEMM
+schedule (``split``: the W4A4 and W4A8 kernels per projection; ``mixed``:
+the paper's single kernel), ``--impl`` the kernels or their plain versions,
+``--stream`` prints tokens as ``step()`` emits them, ``--prefix-cache``
+toggles shared-prompt page reuse (``--shared-prefix`` sets how many prompt
+tokens the trace shares, ``--prefix-cache-max-bytes`` caps the reclaimable
+LRU), ``--abort-every N`` cancels every Nth request after its first token,
+``--arrival-every N`` submits one request every N steps. Robustness:
+``--deadline-ms``/``--ttft-ms`` set per-request deadlines (expired requests
+end ``TIMED_OUT``) and ``--max-waiting`` bounds the waiting queue (submits
+past it end ``FAILED("queue_full")``, preemption victims are shed).
+
+The summary prints the reference's ``[done]``, ``[cache]``, ``[robust]``,
+``[slo]`` (TTFT and TPOT mean and p95 from the lifecycle stamps) and
+``[sched]`` lines without the fields of features the port lacks (the
+reference's ``traces=`` counts jit compiles; the port runs eagerly, so
+``forwards=`` stands alone), then a ``[states]`` line: requests by
+terminal state, stop reasons, and the tokens of each finished request.
+Prompts come from ``np.random.default_rng(seed)`` in the reference's order,
+so both launchers serve the same prompts.
+
+The reference's flags for what is not ported yet are not defined, so
+argparse refuses them (ROADMAP Queue 1): ``--speculation``,
+``--temperature``, ``--top-k``, ``--inject-faults`` and ``--sanitize``
+(item 9), ``--snapshot-every`` (item 10), ``--replicas``, ``--failover``,
+``--kill-replica-at`` and ``--kill-replica`` (item 13), ``--mesh`` and
+``--head-dim`` (item 14).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch llama3_8b --smoke --requests 4 --max-new 6 \\
+      --int4-fraction 0.5 --schedule mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --schedule mixed --requests 8 --prompt-len 512 --max-new 32 \\
+      --prefill-chunk 256 --shared-prefix 128 --abort-every 4 \\
+      --max-waiting 6
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+__all__ = ["main", "build_parser"]
+
+
+def _ms_stats(xs: list) -> str:
+    """Mean and p95 of a latency sample in ms (or 'n/a')."""
+    if not xs:
+        return "n/a"
+    arr = np.asarray(xs) * 1000.0
+    return f"mean {arr.mean():.1f}ms p95 {np.percentile(arr, 95):.1f}ms"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced smoke configuration")
+    ap.add_argument("--device", default="cuda",
+                    help="where the weights, pools and kernels live; a "
+                         "machine without a card needs --device cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--pages", type=int, default=256)
+    ap.add_argument("--page-size", type=int, default=32)
+    ap.add_argument("--int4-fraction", type=float, default=0.875)
+    ap.add_argument("--schedule", default="split", choices=["split", "mixed"],
+                    help="W4Ax GEMM schedule: the W4A4 + W4A8 kernel pair "
+                         "(split) or the single mixed kernel")
+    ap.add_argument("--impl", default="auto", choices=["auto", "cuda", "ref"],
+                    help="kernels (cuda; auto = on a CUDA tensor) or their "
+                         "plain versions (ref)")
+    ap.add_argument("--prefill-mode", default="chunked",
+                    choices=["chunked", "whole"])
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="per-step token budget (prompt chunks + decode)")
+    ap.add_argument("--kv-range", type=float, default=16.0,
+                    help="calibrated |k|,|v| range of the int4 KV scales")
+    ap.add_argument("--step-mode", default="unified",
+                    choices=["unified", "split"],
+                    help="unified: ONE forward per step; split: separate "
+                         "prefill and decode forwards (baseline)")
+    ap.add_argument("--attention-schedule", default="work_queue",
+                    choices=["work_queue", "dense"])
+    ap.add_argument("--prefix-cache", default="on", choices=["on", "off"])
+    ap.add_argument("--prefix-cache-max-bytes", type=int, default=0,
+                    help="byte cap on the reclaimable prefix-page LRU "
+                         "(0 = unlimited)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prompt tokens shared by every request")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they are emitted")
+    ap.add_argument("--abort-every", type=int, default=0,
+                    help="abort every Nth request after its first token "
+                         "(0 = never)")
+    ap.add_argument("--arrival-every", type=int, default=0,
+                    help="submit one request every N engine steps "
+                         "(0 = all up front)")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="per-request deadline from submit (0 = none)")
+    ap.add_argument("--ttft-ms", type=float, default=0,
+                    help="per-request first-token budget (0 = none)")
+    ap.add_argument("--max-waiting", type=int, default=0,
+                    help="bound on the waiting queue (0 = unbounded)")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None) -> Engine:
+    """Serve the synthetic trace and print the summary → the engine."""
+    args = build_parser().parse_args(argv)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    quant = QuantConfig(int4_fraction=args.int4_fraction,
+                        schedule=args.schedule, impl=args.impl)
+    t0 = time.time()
+    params = LM(cfg).init(seed=args.seed, device=args.device)
+    where = (torch.cuda.get_device_name(torch.device(args.device))
+             if torch.device(args.device).type == "cuda" else args.device)
+    print(f"[init] {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}) random W4 weights from seed {args.seed} on "
+          f"{where} in {time.time() - t0:.1f}s; schedule={args.schedule} "
+          f"impl={args.impl}", flush=True)
+
+    eng = Engine(cfg, params, quant, EngineConfig(
+        max_batch=args.max_batch, num_pages=args.pages,
+        page_size=args.page_size, prefill_mode=args.prefill_mode,
+        prefill_chunk_tokens=args.prefill_chunk, kv_range=args.kv_range,
+        unified_step=(args.step_mode == "unified"),
+        prefix_cache=(args.prefix_cache == "on"),
+        attention_schedule=args.attention_schedule,
+        prefix_cache_max_bytes=(args.prefix_cache_max_bytes or None),
+        max_waiting=(args.max_waiting or None)), device=args.device)
+
+    rng = np.random.default_rng(args.seed)
+    shared = rng.integers(0, cfg.vocab_size,
+                          size=args.shared_prefix).tolist()
+    if 0 < args.shared_prefix < args.page_size:
+        print(f"[warn] --shared-prefix {args.shared_prefix} < --page-size "
+              f"{args.page_size}: prefix matching is full-page-granular, "
+              "so the shared prefix can never hit", flush=True)
+    sp = SamplingParams(max_new_tokens=args.max_new,
+                        deadline_ms=(args.deadline_ms or None),
+                        ttft_ms=(args.ttft_ms or None))
+    prompts = []
+    for _ in range(args.requests):
+        plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
+        prompts.append(shared
+                       + rng.integers(0, cfg.vocab_size, size=plen).tolist())
+    # arrival trace: request i is submitted at step i·arrival_every
+    pending = [(i * args.arrival_every, p) for i, p in enumerate(prompts)]
+    abort_ids: set = set()
+    submitted = 0
+
+    t0 = time.time()
+    while (pending or eng.sched.has_work) and eng.steps < 10_000:
+        while pending and pending[0][0] <= eng.steps:
+            _, prompt = pending.pop(0)
+            h = eng.submit(prompt, sp)
+            submitted += 1
+            if args.abort_every and submitted % args.abort_every == 0:
+                abort_ids.add(h.request_id)
+        eng.step()
+        for ev in eng.events():
+            if ev.token is not None and ev.request_id in abort_ids:
+                eng.abort(ev.request_id)       # cancel after first token
+                abort_ids.discard(ev.request_id)
+            if args.stream:
+                if ev.token is not None:
+                    print(f"  [stream] req {ev.request_id} +tok {ev.token} "
+                          f"(#{ev.num_generated})", flush=True)
+                elif ev.finished:
+                    print(f"  [stream] req {ev.request_id} "
+                          f"{ev.state.value}"
+                          + (f" ({ev.stop_reason})" if ev.stop_reason
+                             else ""), flush=True)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    dt = time.time() - t0
+
+    finished = eng.sched.finished
+    total_tokens = sum(len(r.generated) for r in finished)
+    prompt_tokens = eng.prefill_tokens + eng.prefix_hit_tokens
+    hit_rate = eng.prefix_hit_tokens / prompt_tokens if prompt_tokens else 0.0
+    print(f"[done] {len(finished)} requests, {total_tokens} tokens in "
+          f"{dt:.1f}s → {total_tokens / max(dt, 1e-9):.1f} tok/s "
+          f"(steps={eng.steps}, forwards={eng.forward_calls}, "
+          f"preemptions={eng.sched.preemptions})", flush=True)
+    print(f"[cache] prefix hit rate {hit_rate:.0%} "
+          f"({eng.prefix_hit_tokens}/{prompt_tokens} prompt tokens served "
+          f"from published pages); evicted={eng.cache.prefix_evicted_pages} "
+          f"pages; reclaimable={eng.cache.prefix_reclaimable_bytes}B; "
+          f"aborted={eng.aborted_count}", flush=True)
+    print(f"[robust] failed={eng.failed_count} timed_out={eng.timeout_count} "
+          f"shed={eng.shed_count} rejected={eng.rejected_count} "
+          f"callback_errors={eng.callback_errors} "
+          f"internal_errors={eng.internal_errors} "
+          f"released={eng.sched.released_count}", flush=True)
+    # latency from the lifecycle stamps: TTFT from arrival to the first
+    # token, TPOT over the decode window
+    ttft = [r.first_token_at - r.arrived_at
+            for r in finished if r.first_token_at]
+    tpot = [(r.finished_at - r.first_token_at) / (len(r.generated) - 1)
+            for r in finished
+            if r.finished_at and r.first_token_at and len(r.generated) > 1]
+    print(f"[slo] ttft {_ms_stats(ttft)} | tpot {_ms_stats(tpot)} "
+          f"(over {len(ttft)} first tokens / {len(tpot)} decode windows)",
+          flush=True)
+    if eng.attn_forwards:
+        waste = eng.attn_grid_items - eng.attn_work_items
+        dense_waste = eng.attn_dense_grid_items - eng.attn_work_items
+        print(f"[sched] {args.attention_schedule}: "
+              f"{eng.attn_work_items} attention work items over "
+              f"{eng.attn_forwards} forwards; grid={eng.attn_grid_items} "
+              f"(waste {waste}; dense rectangle would waste "
+              f"{dense_waste})", flush=True)
+    states = collections.Counter(r.state.value for r in finished)
+    reasons = collections.Counter(r.stop_reason for r in finished
+                                  if r.stop_reason)
+    done_tokens = [len(r.generated) for r in finished
+                   if r.state.value == "finished"]
+    print("[states] " + " ".join(f"{k}={v}" for k, v in sorted(
+              states.items()))
+          + " | stop reasons: " + (" ".join(
+              f"{k}={v}" for k, v in sorted(reasons.items())) or "none")
+          + " | tokens of finished requests: "
+          + (",".join(map(str, done_tokens)) or "none"), flush=True)
+    for r in finished[:4]:
+        print(f"  req {r.request_id}: {r.state.value:9s} "
+              f"{r.generated[:12]}…", flush=True)
+    return eng
+
+
+if __name__ == "__main__":
+    main()

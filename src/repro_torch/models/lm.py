@@ -35,7 +35,13 @@ __all__ = ["LM", "QuantConfig", "QUANT_KEYS"]
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
     int4_fraction: float = 0.875     # W4A4 block fraction (rest is W4A8)
+    schedule: str = "split"          # split | mixed (paper baseline)
     impl: str = "auto"               # kernel impl: auto | cuda | ref
+
+    def __post_init__(self):
+        if self.schedule not in ("split", "mixed"):
+            raise ValueError(
+                f"schedule must be split|mixed, got {self.schedule}")
 
 
 QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})

@@ -9,10 +9,14 @@ Lifecycle::
 
     QUEUED → PREFILLING → DECODING → FINISHED(stop_reason)
        │         ├────────────┴────→ FAILED(error)   (step-level fault)
+       ├─────────┴────────────┴────→ TIMED_OUT       (deadline/TTFT)
        └─────────┴────────────┴────→ ABORTED         (abort() anywhere)
 
-Every sampled token is emitted exactly once, in order; every request
-emits exactly one terminal event, always last.
+``FAILED`` also carries two policy reasons: ``"queue_full"`` (submitted
+against a full bounded waiting queue; the handle comes back terminal) and
+``"shed"`` (a preemption victim dropped because re-queueing it would
+overflow that queue). Every sampled token is emitted exactly once, in
+order; every request emits exactly one terminal event, always last.
 """
 
 from __future__ import annotations
@@ -28,14 +32,26 @@ __all__ = ["SamplingParams", "RequestState", "RequestOutput",
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Per-request sampling configuration. Only greedy decoding is
-    ported; temperature/top-k sampling and deadlines come with a later
-    slice."""
+    ported; temperature/top-k sampling comes with speculation.
+
+    deadline_ms: budget for the whole request from submit; past it the
+        request expires to ``TIMED_OUT`` (``"deadline"``) at the next step
+        boundary, partial output kept. ``None`` = no deadline.
+    ttft_ms: budget for the first token from submit (``"ttft_budget"``).
+        ``None`` = no budget.
+    """
 
     max_new_tokens: int = 16
+    deadline_ms: Optional[float] = None
+    ttft_ms: Optional[float] = None
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.deadline_ms is not None and self.deadline_ms <= 0:
+            raise ValueError("deadline_ms must be > 0 (None = no deadline)")
+        if self.ttft_ms is not None and self.ttft_ms <= 0:
+            raise ValueError("ttft_ms must be > 0 (None = no budget)")
 
 
 class RequestState(str, enum.Enum):
@@ -44,12 +60,13 @@ class RequestState(str, enum.Enum):
     DECODING = "decoding"
     FINISHED = "finished"
     ABORTED = "aborted"
-    FAILED = "failed"
+    FAILED = "failed"            # step-level fault, "queue_full" or "shed"
+    TIMED_OUT = "timed_out"      # deadline_ms / ttft_ms expired
 
     @property
     def terminal(self) -> bool:
         return self in (RequestState.FINISHED, RequestState.ABORTED,
-                        RequestState.FAILED)
+                        RequestState.FAILED, RequestState.TIMED_OUT)
 
 
 @dataclasses.dataclass(frozen=True)

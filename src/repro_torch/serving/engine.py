@@ -29,9 +29,16 @@ the gather (an out-of-range index on the card is a device-side assert).
 
 ``step()`` never raises: a failure in the unified forward quarantines
 that step's batch to FAILED (``failed_count``), anything else is
-swallowed into ``internal_errors``/``last_error``. Not ported yet:
-speculation, fault injection, sanitizers, deadlines, the bounded waiting
-queue, snapshot/restore, tensor parallelism, MoE and stochastic sampling.
+swallowed into ``internal_errors``/``last_error``. Per-request deadlines
+(``SamplingParams.deadline_ms``/``ttft_ms``) expire at each step boundary
+before admission (``TIMED_OUT``, ``timeout_count``); with
+``max_waiting`` a submit against a full waiting queue is rejected
+(``FAILED("queue_full")``, ``rejected_count``) and a preemption victim
+that cannot re-queue is shed (``FAILED("shed")``, ``shed_count``). Every
+lifecycle stamp (arrival, first token, terminal event) comes from the
+injectable ``clock``. Not ported yet: speculation, fault injection,
+sanitizers, snapshot/restore, tensor parallelism, MoE and stochastic
+sampling.
 """
 
 from __future__ import annotations
@@ -82,8 +89,15 @@ class EngineConfig:
     unified_step: bool = True       # ONE forward per step; False → split
     prefix_cache: bool = True       # publish/reuse shared prompt pages
     attention_schedule: str = "work_queue"  # "work_queue" | "dense"
+    prefix_cache_max_bytes: Optional[int] = None  # byte cap on the
+    #                                reclaimable prefix-page LRU
+    max_waiting: Optional[int] = None  # bound on the waiting queue: submits
+    #                                past it are rejected ("queue_full")
+    #                                and preemption victims shed
 
     def __post_init__(self):
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError("max_waiting must be >= 1 (None = unbounded)")
         if self.decode_attention not in ("paged", "gather"):
             raise ValueError(
                 f"decode_attention must be 'paged' or 'gather', got "
@@ -116,9 +130,11 @@ class EngineConfig:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, quant: QuantConfig =
                  QuantConfig(), ecfg: EngineConfig = EngineConfig(), *,
-                 device="cuda"):
+                 device="cuda", clock=time.time):
         """``params``: the model's quantized parameters on ``device``
-        (``LM.init`` or ``convert.params_from_jax``)."""
+        (``LM.init`` or ``convert.params_from_jax``). ``clock``: the
+        wall-clock source of arrival, first-token and terminal stamps and
+        of deadline expiry (injectable, so deadline tests are exact)."""
         self.device = C.resolve_device(device)
         if self.device.type == "cuda":
             C.no_tf32()
@@ -136,10 +152,13 @@ class Engine:
             KVC.PagedKV4Config(
                 num_pages=ecfg.num_pages, page_size=ecfg.page_size,
                 max_seqs=ecfg.max_batch * 2,
-                max_pages_per_seq=ecfg.max_pages_per_seq),
+                max_pages_per_seq=ecfg.max_pages_per_seq,
+                reclaimable_max_bytes=ecfg.prefix_cache_max_bytes),
             num_layer_slots=cfg.num_layers, kv_range=ecfg.kv_range,
             device=self.device)
-        self.sched = Scheduler(ecfg.max_batch, ecfg.max_batch * 2)
+        self.sched = Scheduler(ecfg.max_batch, ecfg.max_batch * 2,
+                               max_waiting=ecfg.max_waiting)
+        self.clock = clock
         self.steps = 0
         self.tokens_generated = 0
         # forwards issued (exactly one per step with work), largest fp
@@ -151,6 +170,9 @@ class Engine:
         self.prefill_tokens = 0
         self.aborted_count = 0
         self.failed_count = 0
+        self.timeout_count = 0
+        self.shed_count = 0
+        self.rejected_count = 0
         self.callback_errors = 0
         self.internal_errors = 0
         self.last_error: Optional[str] = None
@@ -179,6 +201,9 @@ class Engine:
             "prefill_tokens": self.prefill_tokens,
             "aborted_count": self.aborted_count,
             "failed_count": self.failed_count,
+            "timeout_count": self.timeout_count,
+            "shed_count": self.shed_count,
+            "rejected_count": self.rejected_count,
             "callback_errors": self.callback_errors,
             "internal_errors": self.internal_errors,
             "last_error": self.last_error,
@@ -195,7 +220,10 @@ class Engine:
                params: Optional[SamplingParams] = None,
                request_id: Optional[int] = None,
                on_event=None) -> RequestHandle:
-        """Enqueue a request (QUEUED) and return its handle."""
+        """Enqueue a request (QUEUED) and return its handle. Against a full
+        bounded waiting queue the request is rejected instead: the handle
+        resolves to a request already terminal in ``FAILED("queue_full")``,
+        its terminal event emitted."""
         params = SamplingParams() if params is None else params
         if request_id is None:
             while self._next_id in self._by_id:
@@ -206,10 +234,15 @@ class Engine:
             raise ValueError(f"request_id {request_id} already in flight")
         req = Request(request_id=request_id, prompt=list(prompt),
                       max_new_tokens=params.max_new_tokens,
-                      arrived_at=time.time(), params=params,
+                      arrived_at=self.clock(), params=params,
                       on_event=on_event)
         self._by_id[request_id] = req
-        self.sched.submit(req)
+        if self.sched.waiting_full:
+            self.sched.reject(req)
+            self.rejected_count += 1
+            self._emit(req)
+        else:
+            self.sched.submit(req)
         return RequestHandle(request_id=request_id, prompt_len=len(prompt))
 
     def _resolve(self, handle) -> Optional[Request]:
@@ -279,6 +312,8 @@ class Engine:
             if req.terminal_emitted:
                 return
             req.terminal_emitted = True
+            if not req.finished_at:     # the TPOT window's end
+                req.finished_at = self.clock()
         out = RequestOutput(
             request_id=req.request_id, state=req.state, token=token,
             num_generated=len(req.generated), stop_reason=req.stop_reason,
@@ -298,6 +333,8 @@ class Engine:
         if req.state.terminal:
             return              # aborted by a callback earlier this step
         req.generated.append(int(tok))
+        if not req.first_token_at:      # TTFT survives preemption
+            req.first_token_at = self.clock()
         if req.state == RequestState.PREFILLING:
             req.state = RequestState.DECODING
         self.tokens_generated += 1
@@ -312,6 +349,16 @@ class Engine:
             self.failed_count += 1
             self._emit(req)
 
+    def _preempt_one(self) -> Optional[Request]:
+        """Preempt the youngest runnable sequence; a victim the scheduler
+        shed (full waiting queue) is counted and its terminal event
+        emitted here."""
+        victim = self.sched.preempt_one(self.cache)
+        if victim is not None and victim.state.terminal:
+            self.shed_count += 1
+            self._emit(victim)
+        return victim
+
     # ------------------------------------------------------------- step
 
     def step(self):
@@ -325,6 +372,11 @@ class Engine:
             self.last_error = repr(e)
 
     def _step_inner(self):
+        # expiry runs before admission: a request dead on arrival never
+        # acquires pages
+        for req in self.sched.expire_deadlines(self.cache, self.clock()):
+            self.timeout_count += 1
+            self._emit(req)
         chunked = self.ecfg.prefill_mode == "chunked"
         nfin = len(self.sched.finished)
         admitted = self.sched.admit(
@@ -356,7 +408,7 @@ class Engine:
         if not plan and not decode:
             stuck = [r for r in self.sched.running if not r.prefilled]
             if stuck and not any(r.prefilled for r in self.sched.running):
-                self.sched.preempt_one(self.cache)
+                self._preempt_one()
             return
         if plan and decode:
             self.interleaved_steps += 1
@@ -379,7 +431,7 @@ class Engine:
                 r.stop_reason = "length_cap"
                 self._complete(r)
                 continue
-            victim = self.sched.preempt_one(self.cache)
+            victim = self._preempt_one()
             if victim is None:
                 continue
             if victim in pending:
@@ -576,7 +628,7 @@ class Engine:
                 stuck = [r for r in self.sched.running if not r.prefilled]
                 if stuck and not any(r.prefilled
                                      for r in self.sched.running):
-                    self.sched.preempt_one(self.cache)
+                    self._preempt_one()
             prefill_ran = bool(plan)
         else:
             for req in admitted:

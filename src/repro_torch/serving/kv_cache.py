@@ -9,8 +9,12 @@ place each step.
 
 Host side: block tables ``[max_seqs, max_pages_per_seq]`` int32 (-1 =
 unmapped), refcounted pages, a chained-SHA-256 prefix index over full
-prompt pages with a reclaimable LRU, and the
-Stream-K work-queue descriptors (:func:`build_work_queue`, numpy).
+prompt pages with a reclaimable LRU (optionally capped in bytes by
+``reclaimable_max_bytes``: releasing past the cap evicts oldest-first;
+``prefix_evicted_pages`` counts every eviction, by the cap or by
+allocation pressure, and ``prefix_reclaimable_bytes`` the bytes the LRU
+pins), and the Stream-K work-queue descriptors (:func:`build_work_queue`,
+numpy).
 
 The split-step baselines also write whole prompts (:meth:`write_prompt`)
 and scatter a step's tokens at destinations resolved once per step
@@ -45,6 +49,7 @@ class PagedKV4Config:
     page_size: int = 64
     max_seqs: int = 64
     max_pages_per_seq: int = 128
+    reclaimable_max_bytes: Optional[int] = None  # byte cap on the prefix LRU
 
 
 MIN_ITEMS = 8     # the smallest work-queue length (a power of two)
@@ -167,6 +172,9 @@ class PagedKV4Cache:
         self.prefix_index: dict = {}
         self.page_key: dict = {}
         self._reclaimable: OrderedDict = OrderedDict()
+        # bytes one page pins in the pools (K + V across the layer stack)
+        self.page_bytes = 2 * num_layer_slots * pcfg.page_size * hkv * (d // 2)
+        self.prefix_evicted_pages = 0
 
     # ------------------------------------------------------------ allocator
 
@@ -174,12 +182,18 @@ class PagedKV4Cache:
     def pages_free(self) -> int:
         return len(self.free_pages) + len(self._reclaimable)
 
+    @property
+    def prefix_reclaimable_bytes(self) -> int:
+        """Pool bytes pinned by published ref==0 pages (the LRU)."""
+        return len(self._reclaimable) * self.page_bytes
+
     def _evict_reclaimable(self) -> Optional[int]:
         if not self._reclaimable:
             return None
         p, key = self._reclaimable.popitem(last=False)
         del self.prefix_index[key]
         del self.page_key[p]
+        self.prefix_evicted_pages += 1
         return p
 
     def _acquire_page(self) -> Optional[int]:
@@ -206,6 +220,9 @@ class PagedKV4Cache:
         key = self.page_key.get(p)
         if key is not None and self.prefix_index.get(key) == p:
             self._reclaimable[p] = key      # cached, evicted LRU-first
+            cap = self.pcfg.reclaimable_max_bytes
+            while cap is not None and self.prefix_reclaimable_bytes > cap:
+                self.free_pages.append(self._evict_reclaimable())
         else:
             self.free_pages.append(p)
 

@@ -4,8 +4,12 @@ Pure host code. FCFS admission when the paged pool holds a request's
 first prefill chunk; chunked prefill planned round-robin under a
 per-step token budget; youngest-first preemption on pool exhaustion;
 abort/fail with refcount-exact page release; whole-prompt admission for
-the ``prefill_mode="whole"`` baseline. Not ported yet:
-the bounded waiting queue (reject/shed), deadlines, snapshot/restore.
+the ``prefill_mode="whole"`` baseline. With ``max_waiting`` the waiting
+queue is bounded: the engine rejects at submit when it is full
+(``FAILED("queue_full")``) and a preemption victim that cannot re-queue
+is shed (``FAILED("shed")``). ``expire_deadlines`` moves requests past
+their ``deadline_ms``/``ttft_ms`` to ``TIMED_OUT`` at each step boundary.
+Not ported yet: snapshot/restore.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ class Request:
     seq_slot: int = -1             # cache slot when running
     prefill_pos: int = 0           # prompt tokens already through the model
     stop_reason: Optional[str] = None   # None = ran to max_new_tokens
+    first_token_at: float = 0.0    # clock of the first generated token
+    finished_at: float = 0.0       # clock of the terminal event; with
+    #                                first_token_at it brackets the decode
+    #                                window (TTFT/TPOT in the serve CLI)
     params: Optional[SamplingParams] = None
     state: RequestState = RequestState.QUEUED
     cached_tokens: int = 0         # prefix-cache hit tokens, last admission
@@ -38,6 +46,21 @@ class Request:
         default_factory=list, repr=False, compare=False)
     on_event: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
+
+    def deadline_status(self, now: float) -> Optional[str]:
+        """The stop reason this request owes at clock ``now``
+        (``"deadline"`` or ``"ttft_budget"``), or None within budget.
+        Measured from ``arrived_at``, which preemption keeps."""
+        p = self.params
+        if p is None:
+            return None
+        waited_ms = (now - self.arrived_at) * 1000.0
+        if p.deadline_ms is not None and waited_ms > p.deadline_ms:
+            return "deadline"
+        if (p.ttft_ms is not None and not self.first_token_at
+                and waited_ms > p.ttft_ms):
+            return "ttft_budget"
+        return None
 
     @property
     def prefilled(self) -> bool:
@@ -54,9 +77,11 @@ class Request:
 
 
 class Scheduler:
-    def __init__(self, max_batch: int, max_seqs: int):
+    def __init__(self, max_batch: int, max_seqs: int,
+                 max_waiting: Optional[int] = None):
         self.max_batch = max_batch
         self.max_seqs = max_seqs
+        self.max_waiting = max_waiting   # None = unbounded waiting queue
         self.waiting: deque[Request] = deque()
         self.running: list[Request] = []
         self.finished: list[Request] = []
@@ -72,6 +97,12 @@ class Scheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
+
+    @property
+    def waiting_full(self) -> bool:
+        """The bounded waiting queue cannot take another request."""
+        return (self.max_waiting is not None
+                and len(self.waiting) >= self.max_waiting)
 
     def submit(self, req: Request):
         self.waiting.append(req)
@@ -150,7 +181,9 @@ class Scheduler:
     def preempt_one(self, cache) -> Optional[Request]:
         """Evict the youngest unfinished running sequence back to the
         front of the waiting queue, its generated text folded into the
-        prompt (re-admission prefills prompt + generated)."""
+        prompt (re-admission prefills prompt + generated). When the
+        bounded waiting queue is full the victim is shed instead:
+        terminal ``FAILED("shed")``, partial output kept, pages freed."""
         candidates = [r for r in self.running if not r.done]
         if not candidates:
             return None
@@ -160,6 +193,11 @@ class Scheduler:
         self._free_slots.append(req.seq_slot)
         req.seq_slot = -1
         self.preemptions += 1
+        if self.waiting_full:
+            req.stop_reason = "shed"
+            req.state = RequestState.FAILED
+            self.finished.append(req)
+            return req
         req.prompt = req.prompt + req.generated
         req.max_new_tokens -= len(req.generated)
         req.generated = []
@@ -199,6 +237,25 @@ class Scheduler:
 
     def fail(self, req: Request, cache, reason: str) -> bool:
         return self._end(req, cache, RequestState.FAILED, reason)
+
+    def reject(self, req: Request, reason: str = "queue_full"):
+        """Refuse a request at submit: straight to ``FAILED(reason)``,
+        never queued, holding no pages or slots."""
+        req.stop_reason = reason
+        req.state = RequestState.FAILED
+        self.finished.append(req)
+
+    def expire_deadlines(self, cache, now: float) -> list[Request]:
+        """Move every running or waiting request past its deadline or
+        TTFT budget at clock ``now`` to ``TIMED_OUT`` (pages freed
+        refcount-exactly, partial output kept) → the expired requests."""
+        expired = []
+        for req in list(self.running) + list(self.waiting):
+            why = req.deadline_status(now)
+            if why is not None and self._end(req, cache,
+                                             RequestState.TIMED_OUT, why):
+                expired.append(req)
+        return expired
 
     def release(self, req: Request) -> bool:
         if req not in self.finished:

@@ -132,3 +132,32 @@ def test_baseline_attention_kernels_match_plain_on_card():
     for bi, ql in enumerate(qls):
         if ql:
             _within(got[bi, :ql], want[bi, :ql])
+
+
+@pytest.mark.cuda
+def test_mixed_gemm_kernel_matches_plain_on_card():
+    """K5 against its plain version bit for bit: mixed shapes with ragged
+    M and N tiles, and the degenerate ones that fall back to K3 or K4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(3)
+    for m, nb4, nb8, n in ((1, 7, 1, 128), (16, 3, 2, 68), (70, 14, 2, 200),
+                           (5, 0, 2, 64), (9, 2, 0, 64)):
+        a4 = _cuda(rng.integers(0, 256, (m, nb4 * 64)).astype(np.uint8))
+        s4 = _cuda(rng.uniform(0.01, 0.2, (m, nb4)).astype(np.float32))
+        a8 = _cuda(rng.integers(-128, 128, (m, nb8 * 128)).astype(np.int8))
+        s8 = _cuda(rng.uniform(0.001, 0.02, (m, nb8)).astype(np.float32))
+        w = _cuda(rng.integers(0, 256, ((nb4 + nb8) * 64, n)).astype(np.uint8))
+        ws = _cuda(rng.uniform(0.001, 0.05, (nb4 + nb8, n)).astype(np.float32))
+        before = (WK.w4ax_matmul_mixed.launches, WK.w4a4_matmul.launches,
+                  WK.w4a8_matmul.launches)
+        got = WK.w4ax_matmul_mixed(a4, s4, a8, s8, w, ws)
+        want = WK.w4ax_matmul_mixed_ref(a4, s4, a8, s8, w, ws)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, nb4, nb8, n,
+                                        float((got - want).abs().max()))
+        after = (WK.w4ax_matmul_mixed.launches, WK.w4a4_matmul.launches,
+                 WK.w4a8_matmul.launches)
+        which = 2 if nb4 == 0 else 1 if nb8 == 0 else 0
+        assert [a - b for a, b in zip(after, before)] == [
+            int(i == which) for i in range(3)]

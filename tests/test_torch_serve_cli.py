@@ -1,0 +1,114 @@
+"""The port's serve CLI against the reference's (CPU, plain kernel
+versions, the smoke model).
+
+Both launchers get the same flags and draw the same prompts from
+``np.random.default_rng(seed)``; greedy decoding has no EOS, so every
+request runs to its token budget unless the flags end it. Their weights
+differ (each makes its own random weights), so token ids are not
+compared; everything the flags decide is: requests, tokens, steps,
+forwards, preemptions, prefix-hit and prompt tokens, prefix evictions and
+reclaimable bytes, aborted, rejected, shed and timed-out requests. The
+schedule is ``mixed`` at ``--int4-fraction 0.5``, where the smoke model's
+down projection has one INT4 and one INT8 block.
+"""
+import contextlib
+import io
+import re
+import sys
+
+import pytest
+
+from repro.launch import serve as JSERVE
+from repro_torch.launch import serve as SERVE
+
+COMMON = ["--arch", "llama3_8b", "--smoke", "--int4-fraction", "0.5",
+          "--schedule", "mixed", "--impl", "ref", "--max-new", "6",
+          "--page-size", "8", "--shared-prefix", "16"]
+CASES = {
+    # all up front: one rejected at the door, one aborted after its first
+    # token, a byte cap on the prefix LRU, budgets that never expire
+    "reject_abort_cap": ["--requests", "4", "--prompt-len", "32",
+                         "--max-waiting", "3", "--abort-every", "2",
+                         "--prefix-cache-max-bytes", "4096",
+                         "--deadline-ms", "600000", "--ttft-ms", "600000"],
+    # staggered arrivals into a 7-page pool: prefix hits, a preemption
+    # whose victim is shed, a rejection, an abort, a pressure eviction
+    "shed_under_pressure": ["--requests", "4", "--prompt-len", "16",
+                            "--pages", "7", "--max-waiting", "1",
+                            "--arrival-every", "1", "--abort-every", "3"],
+}
+FIELDS = {
+    "done": r"\[done\] (\d+) requests, (\d+) tokens .*steps=(\d+), "
+            r"forwards=(\d+),.*preemptions=(\d+)\)",
+    "cache": r"\[cache\] .*\((\d+)/(\d+) prompt tokens .*evicted=(\d+) "
+             r"pages; reclaimable=(\d+)B; aborted=(\d+)",
+    "robust": r"\[robust\] failed=(\d+) timed_out=(\d+) shed=(\d+) "
+              r"rejected=(\d+) callback_errors=(\d+) internal_errors=(\d+)",
+    "slo": r"\[slo\] .*\(over (\d+) first tokens / (\d+) decode windows\)",
+    "sched": r"\[sched\] work_queue: (\d+) attention work items over (\d+) "
+             r"forwards; grid=(\d+)",
+}
+
+
+def _summary(out: str) -> dict:
+    got = {}
+    for key, pat in FIELDS.items():
+        m = re.search(pat, out)
+        assert m, (key, out)
+        got[key] = tuple(int(g) for g in m.groups())
+    return got
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def runs(request):
+    """→ (case, the port CLI's engine, its flags, what it printed)."""
+    argv = COMMON + CASES[request.param]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eng = SERVE.main(argv + ["--device", "cpu"])
+    return request.param, eng, argv, out.getvalue()
+
+
+def test_cli_counts_match_reference(runs, capsys, monkeypatch):
+    name, eng, argv, port = runs
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    JSERVE.main()
+    ref = capsys.readouterr().out
+    assert _summary(port) == _summary(ref), (port, ref)
+    c = eng.counters()
+    assert c["internal_errors"] == c["failed_count"] == 0
+    assert c["rejected_count"] == 1 and c["aborted_count"] == 1
+    if name == "reject_abort_cap":
+        assert eng.cache.prefix_reclaimable_bytes <= 4096
+        assert eng.cache.prefix_evicted_pages > 0
+    else:
+        assert c["shed_count"] == 1 and c["preemptions"] == 1
+        assert c["prefix_hit_tokens"] > 0
+
+
+def test_states_line(runs):
+    """The ``[states]`` line tallies the terminal states the counters
+    report, with every finished request at its token budget."""
+    name, eng, argv, port = runs
+    line = next(ln for ln in port.splitlines() if ln.startswith("[states]"))
+    fin = [r for r in eng.sched.finished if r.state.value == "finished"]
+    assert f"finished={len(fin)}" in line and "aborted=1" in line
+    assert "queue_full=1" in line
+    assert line.endswith(",".join(["6"] * len(fin)))
+
+
+def test_cli_needs_a_card_unless_told_cpu():
+    """The device defaults to the card; without one the CLI raises."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SERVE.main(COMMON + ["--requests", "1"])
+
+
+@pytest.mark.parametrize("flag", [["--speculation", "2"], ["--mesh", "1x2"],
+                                  ["--temperature", "0.7"],
+                                  ["--inject-faults", "forward:step=1"],
+                                  ["--replicas", "2"],
+                                  ["--snapshot-every", "2"]])
+def test_unported_flags_are_refused(flag, capsys):
+    with pytest.raises(SystemExit):
+        SERVE.build_parser().parse_args(COMMON + flag)
+    assert "unrecognized arguments" in capsys.readouterr().err
