@@ -11,19 +11,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B widths — act-quant byte-exact (M ∈ {1, 16, 256}), the
    W4Ax GEMMs (W4A4, W4A8 and the mixed kernel, which adds
-   ``(d·a_s)·w_s`` in its plain version's order and agrees bit for bit) to
-   1e-5·max|ref|, the attention kernels (work-queue and
-   dense prefill, paged dense and work-queue decode, contiguous decode)
-   to 1e-4·max(1, max|ref|) on real cache states with ragged lengths,
+   ``(d·a_s)·w_s`` in its plain version's order) bit for bit at M ∈ {1,
+   8, 16, 256}, the attention kernels (work-queue and dense prefill,
+   paged dense and work-queue decode, contiguous decode) to
+   1e-4·max(1, max|ref|) on real cache states with ragged lengths,
    zero-history and q_len-0 rows (the dense and decode ones compute
    exactly as their plain versions do on the card, f64 sums rounded once,
-   and agree bit for bit) — with CUDA-event times (median of 20)
+   and agree bit for bit; the dense prefill kernel must, at C = 256 and
+   at decode shape C = 1) — with CUDA-event times (median of 20)
    of kernel, plain version, a library yardstick (bf16 ``torch.matmul``
    on dequantized weights, SDPA on gathered dequantized KV) and the
    roofline bound (for the work-queue kernels, of the kernel alone on
    pre-folded inputs, with the whole op beside it as
    ``op_ms``/``op_plain_ms``; for the mixed kernel the split pair on the
-   same inputs as ``split_ms``);
+   same inputs as ``split_ms``); the GEMMs are timed at M = 256 and, under
+   their row's ``decode`` key, M = 8, and the dense prefill kernel at
+   C = 256 and, under ``decode``, at C = 1 on the decode kernels' inputs;
 3. parity: a 2-layer d_model-1024 model served on the card in every
    engine configuration (the unified step under both attention
    schedules, the split step under both, whole-prompt prefill with
@@ -163,11 +166,19 @@ def check_act_quant(torch, AQ, rows: dict):
         }
 
 
+GEMM_M = (1, 8, 16, 256)      # decode widths, the prefill tile's
+GEMM_TIMED_M = (256, 8)       # the table row's shape, then its "decode"
+
+
 def check_gemm(torch, AQ, WK, Q, rows: dict):
+    """K3, K4 and K5 bit for bit against their plain versions at the four
+    Llama-3-8B projection shapes × ``GEMM_M``; each timed at N = K = 4096
+    for both M of ``GEMM_TIMED_M`` (the M = 8 times go under the row's
+    ``decode`` key)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     # (N, K): q/o, k/v, up/gate, down projections of Llama-3-8B
     shapes = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
-    worst = {"w4a4_matmul": 0.0, "w4a8_matmul": 0.0, "w4ax_matmul_mixed": 0.0}
+    names = ("w4a4_matmul", "w4a8_matmul", "w4ax_matmul_mixed")
     timed = {}
     for n, k in shapes:
         nb = k // 128
@@ -175,7 +186,7 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
         k4 = nb4 * 128
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
         wp, ws = Q.quantize_weight_int4(w, group_size=128)
-        for m in (1, 16, 256):
+        for m in GEMM_M:
             x = (torch.randn((m, k), generator=gen, device="cuda")
                  .bfloat16().float())
             a4, s4 = AQ.act_quant_ref(x[:, :k4].contiguous(), bits=4)
@@ -186,103 +197,71 @@ def check_gemm(torch, AQ, WK, Q, rows: dict):
                     ("w4a4_matmul", WK.w4a4_matmul, WK.w4a4_matmul_ref,
                      (a4, s4, w4p, w4s)),
                     ("w4a8_matmul", WK.w4a8_matmul, WK.w4a8_matmul_ref,
-                     (a8, s8, w8p, w8s))):
+                     (a8, s8, w8p, w8s)),
+                    ("w4ax_matmul_mixed", WK.w4ax_matmul_mixed,
+                     WK.w4ax_matmul_mixed_ref, (a4, s4, a8, s8, wp, ws))):
                 out = kern(*args)
                 want = ref(*args)
                 torch.cuda.synchronize()
                 err = float((out - want).abs().max())
-                tol = 1e-5 * float(want.abs().max())
-                if not err <= tol:
-                    fail(f"{name} M={m} N={n} K={k}: max err {err} > {tol}")
-                worst[name] = max(worst[name], err)
-                say(f"[kernels] {name} M={m} N={n} K={k}: max err {err:.3g}"
-                    f" (tol {tol:.3g})")
-                if m == 256 and (n, k) == (4096, 4096):
-                    timed[name] = (m, n, args)
+                if not torch.equal(out, want):
+                    fail(f"{name} M={m} N={n} K={k}: not bit-exact against "
+                         f"its plain version (max err {err})")
+                say(f"[kernels] {name} M={m} N={n} K={k}"
+                    + (f" ({nb4}+{nb - nb4} blocks)"
+                       if name == "w4ax_matmul_mixed" else "")
+                    + ": exact")
+                if m in GEMM_TIMED_M and (n, k) == (4096, 4096):
+                    timed[name, m] = args
             # the composed split schedule against the mixed-precision oracle
             split = WK.w4ax_matmul_split(a4, s4, a8, s8, wp, ws)
             want = WK.w4ax_matmul_ref(a4, s4, a8, s8, w4p, w4s, w8p, w8s)
             err = float((split - want).abs().max())
             if not err <= 1e-5 * float(want.abs().max()):
                 fail(f"w4ax_matmul_split M={m} N={n} K={k}: max err {err}")
-            # the mixed kernel (nb4 + nb8 blocks in one K loop)
-            mixed = (a4, s4, a8, s8, wp, ws)
-            out = WK.w4ax_matmul_mixed(*mixed)
-            want = WK.w4ax_matmul_mixed_ref(*mixed)
-            torch.cuda.synchronize()
-            err = float((out - want).abs().max())
-            tol = 1e-5 * float(want.abs().max())
-            if not err <= tol:
-                fail(f"w4ax_matmul_mixed M={m} N={n} K={k}: max err {err} "
-                     f"> {tol}")
-            worst["w4ax_matmul_mixed"] = max(worst["w4ax_matmul_mixed"], err)
-            say(f"[kernels] w4ax_matmul_mixed M={m} N={n} K={k} "
-                f"({nb4}+{nb - nb4} blocks): max err {err:.3g} (tol "
-                f"{tol:.3g})")
-            if m == 256 and (n, k) == (4096, 4096):
-                timed["w4ax_matmul_mixed"] = (m, n, mixed)
-    m, n, mixed = timed.pop("w4ax_matmul_mixed")
-    rows["w4ax_matmul_mixed"] = mixed_gemm_row(torch, WK, Q, gen, m, n, mixed,
-                                               worst["w4ax_matmul_mixed"])
-    for name, (m, n, args) in timed.items():
-        a, s, wpk, wsc = args
-        kk = wpk.shape[0] * 2
-        a_bytes = m * kk // 2 if name == "w4a4_matmul" else m * kk
-        nbytes = (a_bytes + s.numel() * 4 + wpk.numel() + wsc.numel() * 4
-                  + m * n * 4)
-        ops_ = 2 * m * n * kk
-        bound = max(nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S) * 1e3
-        kern = WK.w4a4_matmul if name == "w4a4_matmul" else WK.w4a8_matmul
-        ref = WK.w4a4_matmul_ref if name == "w4a4_matmul" \
-            else WK.w4a8_matmul_ref
-        # yardstick only: bf16 matmul on pre-dequantized weights
-        xb = torch.randn((m, kk), generator=gen, device="cuda").bfloat16()
-        wb = Q.dequantize_weight_int4(wpk, wsc).bfloat16()
+    for name in names:
+        main, dec = (gemm_times(torch, WK, Q, gen, name, timed[name, m])
+                     for m in GEMM_TIMED_M)
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/w4ax_matmul.cu",
-            "replaces": ("src/repro/kernels/w4ax_matmul.py:142"
-                         if name == "w4a4_matmul"
-                         else "src/repro/kernels/w4ax_matmul.py:209"),
-            "shape": f"M={m} N={n} K={kk}",
-            "max_abs_err": worst[name],
-            "ms": time_ms(torch, lambda: kern(*args)),
-            "plain_ms": time_ms(torch, lambda: ref(*args)),
-            "bound_ms": bound,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= ops_ / INT8_OPS_PER_S else "operations"),
-            "library_ms": time_ms(torch, lambda: torch.matmul(xb, wb)),
-        }
+            "replaces": {"w4a4_matmul": "src/repro/kernels/w4ax_matmul.py:142",
+                         "w4a8_matmul": "src/repro/kernels/w4ax_matmul.py:209",
+                         "w4ax_matmul_mixed":
+                         "src/repro/kernels/w4ax_matmul.py:288"}[name],
+            "max_abs_err": 0.0, **main, "decode": dec}
 
 
-def mixed_gemm_row(torch, WK, Q, gen, m: int, n: int, args, err: float):
-    """The mixed kernel's table row at one shape: its time, its plain
-    version's, the split pair's (K3 + K4 + ``add_``) on the same inputs,
-    a bf16 ``torch.matmul`` on the dequantized weights, and its bound:
-    every operand read once and the output written once, or 2·M·N·K int8
-    operations."""
-    a4, s4, a8, s8, wpk, wsc = args
-    kk = wpk.shape[0] * 2
+def gemm_times(torch, WK, Q, gen, name: str, args) -> dict:
+    """One GEMM kernel's times on these operands: the kernel, its plain
+    version, a bf16 ``torch.matmul`` on the dequantized weights (the
+    yardstick), the split pair (K3 + K4 + ``add_``) for the mixed kernel,
+    and its bound: every operand read once and the output written once,
+    or 2·M·N·K int8 operations."""
+    kern = getattr(WK, name)
+    ref = getattr(WK, name + "_ref")
+    m, n = args[0].shape[0], args[-2].shape[1]
+    kk = args[-2].shape[0] * 2
     nbytes = sum(t.numel() * t.element_size() for t in args) + m * n * 4
     ops_ = 2 * m * n * kk
     xb = torch.randn((m, kk), generator=gen, device="cuda").bfloat16()
-    wb = Q.dequantize_weight_int4(wpk, wsc).bfloat16()
-    return {
-        "name": "w4ax_matmul_mixed", "route": "cuda",
-        "source": "src/repro_torch/csrc/w4ax_matmul.cu",
-        "replaces": "src/repro/kernels/w4ax_matmul.py:288",
-        "shape": (f"M={m} N={n} K={kk} ({s4.shape[1]}+{s8.shape[1]} "
-                  f"blocks)"),
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: WK.w4ax_matmul_mixed(*args)),
-        "plain_ms": time_ms(torch, lambda: WK.w4ax_matmul_mixed_ref(*args)),
+    wb = Q.dequantize_weight_int4(args[-2], args[-1]).bfloat16()
+    shape = f"M={m} N={n} K={kk}"
+    if name == "w4ax_matmul_mixed":
+        shape += f" ({args[1].shape[1]}+{args[3].shape[1]} blocks)"
+    row = {
+        "shape": shape,
+        "ms": time_ms(torch, lambda: kern(*args)),
+        "plain_ms": time_ms(torch, lambda: ref(*args)),
         "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                         ops_ / INT8_OPS_PER_S) * 1e3,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= ops_ / INT8_OPS_PER_S else "operations"),
         "library_ms": time_ms(torch, lambda: torch.matmul(xb, wb)),
-        "split_ms": time_ms(torch, lambda: WK.w4ax_matmul_split(*args)),
     }
+    if name == "w4ax_matmul_mixed":
+        row["split_ms"] = time_ms(torch, lambda: WK.w4ax_matmul_split(*args))
+    return row
 
 
 PREFILL_ROWS = ((300, 1), (129, 1), (64, 1), (128, 256), (200, 100),
@@ -417,6 +396,16 @@ def check(name: str, got, want, tol_rows=None) -> float:
     return err
 
 
+def check_exact(name: str, got, want, tol_rows) -> float:
+    """``check``, and bit for bit on the valid rows: the kernels that
+    compute exactly as their plain versions do must agree exactly."""
+    err = check(name, got, want, tol_rows)
+    if err != 0.0:
+        fail(f"{name}: max err {err} against its plain version; it must be "
+             f"bit-exact")
+    return err
+
+
 def bound(nbytes: float, flops: float) -> dict:
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = flops / F32_FLOPS_PER_S
@@ -497,9 +486,9 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
     }
 
     ctx = [cx for cx, _ in PREFILL_ROWS]
-    err = check("paged_kv4_prefill_attention",
-                PA.paged_kv4_prefill_attention(*dense),
-                PA.paged_kv4_prefill_attention_ref(*dense), valid)
+    err = check_exact("paged_kv4_prefill_attention",
+                      PA.paged_kv4_prefill_attention(*dense),
+                      PA.paged_kv4_prefill_attention_ref(*dense), valid)
     say(f"[kernels] paged_kv4_prefill_attention B={b} C={c} "
         f"NP={dense[9].shape[1]}: max err {err:.3g}")
     rows["paged_kv4_prefill_attention"] = {
@@ -583,6 +572,28 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_decode_attention_ref(*k6)),
         **bound(*decode_bound(DECODE_LENS, hq, hkv, d, io)),
+        "library_ms": library_ms,
+    }
+
+    # K7 at decode shape: the same rows as one new token each over their
+    # history (the unified dense step's decode rows), C = 1
+    kn1, vn1 = (torch.randn((b, 1, hkv, d), generator=gen, device="cuda") * 4
+                for _ in range(2))
+    k7 = ((q[:, None], kn1, vn1) + pools
+          + (cache.block_tables_device(slots, max_len), lengths,
+             torch.ones(b, dtype=torch.int32, device="cuda")))
+    err = check_exact("paged_kv4_prefill_attention (C=1)",
+                      PA.paged_kv4_prefill_attention(*k7),
+                      PA.paged_kv4_prefill_attention_ref(*k7),
+                      [(i, 1) for i in range(b)])
+    say(f"[kernels] paged_kv4_prefill_attention {shape} C=1: max err "
+        f"{err:.3g}")
+    rows["paged_kv4_prefill_attention"]["decode"] = {
+        "shape": f"{shape} C=1", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*k7)),
+        "plain_ms": time_ms(
+            torch, lambda: PA.paged_kv4_prefill_attention_ref(*k7)),
+        **bound(*prefill_dense_bound(DECODE_LENS, [1] * b, hkv, g, d)),
         "library_ms": library_ms,
     }
 

@@ -29,6 +29,8 @@
 //
 // paged_kv4_prefill_dense — replaces paged_kv4_prefill_attention (dense
 // schedule, _paged_kv4_prefill_kernel): see the note at the kernel below.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -181,161 +183,444 @@ __global__ void __launch_bounds__(WARPS * 32) prefill_wq_kernel(
   }
 }
 
-// Dense chunked prefill (K7): one block per (b, kv head) row and tile of
-// ROWS query rows r = qi·G + gi. The block walks the row's keys — the
-// history [0, ctx) through the block table, dequantized to (n − z)·s as it
-// is staged, then the chunk's keys j ≤ qi, j < q_len — three times: for
-// the max score, for L = Σ e^(s−M), and for Σ (e^(s−M)/L)·v. Every dot
-// product and sum accumulates in f64 and is rounded once to f32, and the
-// exponential is the f64 one rounded, as the plain version computes on the
-// card, so the two agree bit for bit (orders of summation no longer
-// matter) and a token served through the kernel is the token of the plain
-// version. Bound on the H100: operations, ~4·D per (valid query, valid
-// key); the three f64 passes cost ~6× that at the f64 rate, the price of
-// the exact agreement (a later PR can trade it for tensor cores).
-__global__ void __launch_bounds__(WARPS * 32) prefill_dense_kernel(
-    const float* __restrict__ q, const float* __restrict__ kn,
-    const float* __restrict__ vn, const float* __restrict__ ks,
-    const float* __restrict__ kz, const float* __restrict__ vs,
-    const float* __restrict__ vz, const uint8_t* __restrict__ k_pool,
-    const uint8_t* __restrict__ v_pool, const int* __restrict__ tables,
-    const int* __restrict__ ctx_lens, const int* __restrict__ q_lens,
-    float* __restrict__ out, int c, int g, int hkv, int np, int ps) {
-  __shared__ float sK[KC][D + 1];
-  __shared__ __align__(16) float sV[KC][D];
-  __shared__ __align__(16) float sQ[ROWS][D];
+// Dense chunked prefill (K7) — replaces repro/kernels/paged_attention.py:
+// paged_kv4_prefill_attention (_paged_kv4_prefill_kernel). Query row r =
+// qi·G + gi of (b, kv head h) attends over the int4 history [0, ctx),
+// gathered through the block table and dequantized to (n − z)·s, and the
+// chunk's keys j ≤ qi, j < q_len, in exact arithmetic: every dot product
+// and sum in f64 rounded once to f32, the exponential the f64 one rounded
+// (e = f32(exp(s − M)), L = f32(Σ e), p = e / L in f32, out = f32(Σ p·v)),
+// as the plain version computes on the card, so the two agree bit for bit
+// (an f64 sum rounded once does not depend on its order) and a token served
+// through the kernel is the token of the plain version.
+//
+// Bound on the H100: operations, ~4·D per (valid query, valid key), at the
+// f64 rate the exact contract asks for. The first design walked every key
+// three times (max, Σe, p·V), re-staging and re-scoring it each time with
+// f64 FMAs on the CUDA cores, with one 16-row tile of 4 warps per (b, h)
+// — at decode shape (C = 1, G = 4) 64 blocks for 132 SMs, one warp of four
+// busy. This one:
+// * scores each (row, key) once. A 64-key tile's packed bytes come by
+//   16-byte cp.async one tile ahead (the block's page ids read once),
+//   are dequantized to f64 in shared memory, and QKᵀ runs on the f64
+//   tensor cores (mma m16n8k8: f32 products are exact in f64, so only the
+//   summation order changes, and it is free), keys as the MMA's rows and
+//   8 query rows as its columns. The scores stay in shared memory — or,
+//   when rows × keys do not fit (dense_plan in kernels/paged_attention.py
+//   decides), in a scratch buffer the wrapper allocates — for the max,
+//   the exponentials and Σe, then Oᵀ = Vᵀ·Pᵀ on the tensor cores over V
+//   tiles staged once.
+// * sizes the row tile to C·G (8, 16 or 32 rows; warps split the rows
+//   and the keys of each tile) and splits the key range of one (b, h, row
+//   tile) across the blocks of a thread-block cluster (1..8, as many as
+//   run in one wave): the partial maxima, the f64 partial Σe and the f64
+//   partial outputs meet through distributed shared memory between
+//   cluster barriers, so M is global before any exponential and L before
+//   any p, in one launch;
+// * skips the MMAs of key steps wholly past a warp's causal edge, and
+//   gives the 32-row tile 8 warps, so an SM has warps to switch to while
+//   one waits on an MMA or a load.
+constexpr int KT = 64;             // keys per staged tile
+constexpr int SKV = D + 4;         // f64 row stride of a staged K/V tile:
+                                   // the fragment loads are conflict-free
+constexpr int DN_MAXR = 32;        // most rows per block
+constexpr int DN_MAXWR = 64;       // most (key-warp, row) partials
+// warps across the keys of a tile: 4 for the 8- and 16-row tiles, 2 for
+// the 32-row tile (8 warps a block, so the SM has warps to switch to)
+__host__ __device__ constexpr int dn_wk(int wr) { return wr == 4 ? 2 : 4; }
+__host__ __device__ constexpr int dn_threads(int wr) {
+  return 32 * wr * dn_wk(wr);
+}
+constexpr int DN_MAXP = 512;       // history pages of a block kept at hand
+constexpr int DN_KV = KT * SKV * 8;
+constexpr int DN_RAW = 2 * KT * (D / 2);    // two tiles of packed bytes
+constexpr int DN_FIXED = DN_KV + DN_RAW + DN_MAXP * 4 + 4 * D * 4 +
+                         DN_MAXR * 8 + (DN_MAXWR + 2 * DN_MAXR) * 4;
+                                            // 80,640 bytes
+constexpr int DN_SMEM_MAX = 232448;         // the H100's per-block opt-in
 
-  const int bh = blockIdx.x, b = bh / hkv, h = bh % hkv;
-  const int r0 = blockIdx.y * ROWS;
+// D(16×8) += A(16×8)·B(8×8) in f64 on the tensor cores; lane (g, t) holds
+// a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
+// d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]
+__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1,
+                                     double a2, double a3, double b0,
+                                     double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+struct DenseArgs {
+  const float* q; const float* kn; const float* vn;
+  const float* ks; const float* kz; const float* vs; const float* vz;
+  const uint8_t* k_pool; const uint8_t* v_pool;
+  const int* tables; const int* ctx_lens; const int* q_lens;
+  float* out; float* scratch;
+  int c, g, hkv, np, ps, sstride;
+};
+
+// WR warps across the rows (8 each), dn_wk(WR) across the keys of a tile;
+// gridDim = (split, row tiles, B·Hkv), the cluster spans the split.
+// Products are taken transposed, keys (or head channels) as the MMA's 16
+// rows and the warp's 8 query rows as its 8 columns: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ.
+template <int WR>
+__global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
+    DenseArgs a) {
+  constexpr int R = 8 * WR, WK = dn_wk(WR), DN_THREADS = dn_threads(WR);
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* sKV = reinterpret_cast<double*>(smem);            // [KT][SKV]
+  double* sSumP = reinterpret_cast<double*>(smem + DN_KV);  // [R]
+  unsigned char* sRaw = smem + DN_KV + DN_MAXR * 8;         // [2][KT][D/2]
+  int* sPage = reinterpret_cast<int*>(sRaw + DN_RAW);       // [DN_MAXP]
+  float* sScale = reinterpret_cast<float*>(sPage + DN_MAXP); // ks kz vs vz
+  float* sMaxP = sScale + 4 * D;                            // [WK][R]
+  float* sM = sMaxP + DN_MAXWR;
+  float* sL = sM + DN_MAXR;
+  float* sQ = reinterpret_cast<float*>(smem);   // [R][D] before the keys
+  double* sOut = sKV;          // [WK][R][D] after the last V tile
+
+  namespace cg = cooperative_groups;
+  const int nsplit = gridDim.x, rank = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cg = c * g, hq = hkv * g;
-  const int ctx = min(ctx_lens[b], np * ps);
-  const int qlen = min(q_lens[b], c);
-  // query row r of this (b, h) lives at out/q[b, r / g, h·g + r % g, :]
-  auto qrow = [=](int r) {
-    return ((static_cast<long>(b) * c + r / g) * hq + h * g + r % g) * D;
+  const int gi = lane >> 2, t = lane & 3;
+  const int wr = warp % WR, wk = warp / WR;
+  const int bh = blockIdx.z, b = bh / a.hkv, h = bh % a.hkv;
+  const int r0 = blockIdx.y * R;
+  const int grp = a.g, cg_rows = a.c * grp, hq = a.hkv * grp;
+  const int ctx = min(a.ctx_lens[b], a.np * a.ps);
+  const int qlen = min(a.q_lens[b], a.c);
+  // query row r of this (b, h) lives at out/q[b, r / G, h·G + r % G, :]
+  auto qrow = [&](int r) {
+    return ((static_cast<long>(b) * a.c + r / grp) * hq + h * grp + r % grp)
+           * D;
+  };
+  auto cluster_sync = [&]() {
+    if (nsplit > 1) cg::this_cluster().sync(); else __syncthreads();
+  };
+  auto remote = [&](auto* p, int rk) {
+    return nsplit > 1 ? cg::this_cluster().map_shared_rank(p, rk) : p;
   };
 
-  if (r0 >= qlen * g) {       // padding rows only: finite zeros, no reads
-    for (int i = tid; i < ROWS * D; i += WARPS * 32) {
+  if (r0 >= qlen * grp) {     // padding rows only: zeros, no reads
+    for (int i = rank * DN_THREADS + tid; i < R * D;
+         i += nsplit * DN_THREADS) {
       const int r = r0 + i / D;
-      if (r < cg) out[qrow(r) + i % D] = 0.f;
+      if (r < cg_rows) a.out[qrow(r) + i % D] = 0.f;
     }
-    return;
+    return;                   // the whole cluster returns here
   }
-  for (int i = tid; i < ROWS * D; i += WARPS * 32) {
-    const int r = r0 + i / D;
-    sQ[i / D][i % D] = r < cg ? q[qrow(r) + i % D] : 0.f;
-  }
+
+  // this block's share of the keys: history [0, ctx), then chunk keys
+  // [0, nchunk) as keys ctx.. ; a multiple of 8 keys per block
+  const int last_qi = (min(r0 + R, cg_rows) - 1) / grp;
+  const int nchunk = min(qlen, last_qi + 1);
+  const int nk = ctx + nchunk;
+  const int per = ((nk + nsplit - 1) / nsplit + 7) & ~7;
+  const int lo = rank * per;
+  const int nloc = max(0, min(per, nk - lo));
+  const int ntile = (nloc + KT - 1) / KT;
+  float* scores = a.scratch == nullptr
+      ? sL + DN_MAXR
+      : a.scratch + ((static_cast<long>(bh) * gridDim.y + blockIdx.y) *
+                     nsplit + rank) * R * a.sstride;
+  const int rbase = 8 * wr;                 // the warp's first row
+  const int warp_qi = (min(r0 + rbase + 7, cg_rows - 1)) / grp;
+  const int* tbl = a.tables + static_cast<long>(b) * a.np;
   const float sqrt_d = sqrtf(static_cast<float>(D));
-  const float* ksh = ks + h * D;
-  const float* kzh = kz + h * D;
-  const float* vsh = vs + h * D;
-  const float* vzh = vz + h * D;
-  const int* tbl = tables + static_cast<long>(b) * np;
-  const int last_row = min(r0 + ROWS, cg) - 1;
-  const int nchunk = min(qlen, last_row / g + 1);   // chunk keys any row sees
 
-  float m_i[RPW], l_i[RPW];
-  double e_i[RPW], a_i[RPW][4];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-    e_i[i] = 0.0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a_i[i][e] = 0.0;
+  for (int i = tid; i < 4 * D; i += DN_THREADS) {
+    const float* src = i < D ? a.ks : i < 2 * D ? a.kz : i < 3 * D ? a.vs
+                                                                   : a.vz;
+    sScale[i] = src[h * D + i % D];
   }
+  for (int i = tid; i < R * D / 4; i += DN_THREADS) {
+    const int r = r0 + i / (D / 4);
+    *reinterpret_cast<float4*>(sQ + 4 * i) =
+        r < cg_rows ? *reinterpret_cast<const float4*>(
+                          a.q + qrow(r) + 4 * (i % (D / 4)))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the physical pages of this block's history keys, at hand
+  const int p_first = lo / a.ps;
+  const int p_count = lo < ctx ? (min(lo + nloc, ctx) - 1) / a.ps - p_first + 1
+                               : 0;
+  for (int i = tid; i < min(p_count, DN_MAXP); i += DN_THREADS)
+    sPage[i] = max(tbl[p_first + i], 0);
+  auto page_of = [&](int tg) {
+    const int i = tg / a.ps - p_first;
+    return i < DN_MAXP ? sPage[i] : max(tbl[tg / a.ps], 0);
+  };
+  // a key step [k, ..) of local keys that no row of this warp sees
+  auto dead = [&](int k) {
+    const int tg = lo + k;
+    return k >= nloc || (tg >= ctx && tg - ctx > warp_qi);
+  };
 
-  for (int pass = 0; pass < 3; ++pass) {
-    for (int part = 0; part < 2; ++part) {     // history, then the chunk
-      const bool hist = part == 0;
-      const int nkeys = hist ? ctx : nchunk;
-      for (int k0 = 0; k0 < nkeys; k0 += KC) {
-        __syncthreads();   // sQ written / previous chunk consumed
-        if (hist) {
-          for (int i = tid; i < KC * (D / 2); i += WARPS * 32) {
-            const int j = i / (D / 2), d = i % (D / 2), t = k0 + j;
-            float k_lo = 0.f, k_hi = 0.f, v_lo = 0.f, v_hi = 0.f;
-            if (t < ctx) {
-              const int page = max(tbl[t / ps], 0);
-              const long off = ((static_cast<long>(page) * ps + t % ps) * hkv
-                                + h) * (D / 2) + d;
-              const uint8_t kb = k_pool[off], vb = v_pool[off];
-              k_lo = (static_cast<float>(kb & 15) - kzh[d]) * ksh[d];
-              k_hi = (static_cast<float>(kb >> 4) - kzh[d + D / 2]) * ksh[d + D / 2];
-              v_lo = (static_cast<float>(vb & 15) - vzh[d]) * vsh[d];
-              v_hi = (static_cast<float>(vb >> 4) - vzh[d + D / 2]) * vsh[d + D / 2];
-            }
-            sK[j][d] = k_lo;
-            sK[j][d + D / 2] = k_hi;
-            sV[j][d] = v_lo;
-            sV[j][d + D / 2] = v_hi;
-          }
-        } else {
-          for (int i = tid; i < KC * D; i += WARPS * 32) {
-            const int j = i / D, d = i % D, kj = k0 + j;
-            float kv = 0.f, vv = 0.f;
-            if (kj < qlen) {
-              const long off = ((static_cast<long>(b) * c + kj) * hkv + h) * D + d;
-              kv = kn[off];
-              vv = vn[off];
-            }
-            sK[j][d] = kv;
-            sV[j][d] = vv;
-          }
-        }
-        __syncthreads();
-
+  // the tile stream: K tiles 0..ntile−1, then V tiles; tile s's packed
+  // history bytes go to raw buffer s & 1 by cp.async one tile ahead
+  auto prefetch = [&](int s) {
+    const int k0 = (s % ntile) * KT;
+    const uint8_t* pool = s < ntile ? a.k_pool : a.v_pool;
+    unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const int rl = warp * RPW + i, r = r0 + rl;
-          const int qi = r / g;
-          if (r >= cg || (!hist && k0 > qi)) continue;   // warp-uniform
-          const int kj = k0 + lane;
-          const bool valid = hist ? kj < ctx : (kj <= qi && kj < qlen);
-          double s0 = 0.0, s1 = 0.0;
-#pragma unroll 8
-          for (int d = 0; d < D; d += 2) {
-            s0 = fma(static_cast<double>(sQ[rl][d]),
-                     static_cast<double>(sK[lane][d]), s0);
-            s1 = fma(static_cast<double>(sQ[rl][d + 1]),
-                     static_cast<double>(sK[lane][d + 1]), s1);
-          }
-          const float s = static_cast<float>(s0 + s1) / sqrt_d;
-          if (pass == 0) {
-            m_i[i] = fmaxf(m_i[i], warp_max(valid ? s : NEG_INF));
-          } else if (pass == 1) {
-            e_i[i] += valid ? static_cast<double>(exp_f64(s - m_i[i])) : 0.0;
-          } else {
-            const float p = valid ? exp_f64(s - m_i[i]) / l_i[i] : 0.f;
-#pragma unroll 8
-            for (int jj = 0; jj < KC; ++jj) {
-              const double pj = __shfl_sync(0xffffffffu, p, jj);
-              const float4 v4 = *reinterpret_cast<const float4*>(&sV[jj][4 * lane]);
-              a_i[i][0] = fma(pj, static_cast<double>(v4.x), a_i[i][0]);
-              a_i[i][1] = fma(pj, static_cast<double>(v4.y), a_i[i][1]);
-              a_i[i][2] = fma(pj, static_cast<double>(v4.z), a_i[i][2]);
-              a_i[i][3] = fma(pj, static_cast<double>(v4.w), a_i[i][3]);
-            }
-          }
-        }
+    for (int u = 0; u < KT * 4 / DN_THREADS; ++u) {
+      const int i = tid + u * DN_THREADS;
+      const int j = i >> 2, c16 = i & 3, kl = k0 + j, tg = lo + kl;
+      if (kl < nloc && tg < ctx) {
+        const long off = ((static_cast<long>(page_of(tg)) * a.ps + tg % a.ps)
+                          * a.hkv + h) * (D / 2) + 16 * c16;
+        cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
       }
     }
-    if (pass == 1) {
+    cp_commit();
+  };
+  // stage tile s (its packed bytes landed) into sKV as f64
+  auto stage = [&](int s) {
+    const bool val = s >= ntile;
+    const int k0 = (s % ntile) * KT;
+    cp_wait<0>();
+    __syncthreads();   // tile s landed; the previous tile is consumed
+    if (s + 1 < 2 * ntile) prefetch(s + 1);
+    const unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
+    const float* sc = sScale + (val ? 2 * D : 0);   // scale, then zero
+    for (int j = warp; j < KT; j += DN_THREADS / 32) {
+      const int kl = k0 + j, tg = lo + kl;
+      double* dst = sKV + j * SKV;
+      if (kl >= nloc) {
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) l_i[i] = static_cast<float>(warp_sum_d(e_i[i]));
+        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = 0.0;
+      } else if (tg < ctx) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = lane + 32 * e;
+          const unsigned byte = raw[j * (D / 2) + d];
+          // (n − z)·s in f32, as the plain version dequantizes; the code
+          // n is exact as (2^23 + n) − 2^23, without a conversion
+          const float n_lo =
+              __int_as_float(0x4B000000 | (byte & 15)) - 8388608.f;
+          const float n_hi =
+              __int_as_float(0x4B000000 | (byte >> 4)) - 8388608.f;
+          dst[d] = __fmul_rn(__fsub_rn(n_lo, sc[D + d]), sc[d]);
+          dst[d + D / 2] = __fmul_rn(__fsub_rn(n_hi, sc[D + d + D / 2]),
+                                     sc[d + D / 2]);
+        }
+      } else {
+        const float* src = (val ? a.vn : a.kn) +
+            ((static_cast<long>(b) * a.c + (tg - ctx)) * a.hkv + h) * D;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = src[lane + 32 * e];
+      }
+    }
+    __syncthreads();
+  };
+
+  // ---- scores, once: s = f32(Σ_f64 q·k) / √D, masked to NEG_INF.
+  // Lane (gi, t) ends with keys gi, gi+8 of each 16-key subtile × rows
+  // 2t, 2t+1 of the warp's 8.
+  constexpr int NSUB = 4 / WK;       // 16-key subtiles of a tile per warp
+  static_assert(KT * 4 % DN_THREADS == 0 && WK * R <= DN_MAXWR, "tiling");
+  constexpr int NCH = 4 / NSUB;      // accumulator chains per subtile
+  __syncthreads();                   // sQ, sPage and sScale are written
+  if (ntile > 0) prefetch(0);
+  float mrow[2] = {NEG_INF, NEG_INF};
+  {
+    double qb[D / 8][2];     // B fragments: q[row gi][8kk + t (+4)]
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      qb[kk][0] = sQ[(rbase + gi) * D + 8 * kk + t];
+      qb[kk][1] = sQ[(rbase + gi) * D + 8 * kk + t + 4];
+    }
+    int qi2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qi2[i] = (r0 + rbase + 2 * t + i) / grp;
+    for (int k0 = 0; k0 < ntile * KT; k0 += KT) {
+      stage(k0 / KT);
+      const int kw = k0 + 16 * NSUB * wk;    // this warp's first key
+      float s4[NSUB][4];
+      if (dead(kw)) {                        // warp-uniform
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s4[j][e] = NEG_INF;
+      } else {
+        // four independent MMA chains (by subtile, else by k step); their
+        // f64 partials add
+        double acc[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][e] = 0.0;
+        const double* kp = sKV + (kw - k0 + gi) * SKV + t;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j) {
+            const double* k8 = kp + 16 * j * SKV + 8 * kk;
+            dmma(acc[j * NCH + kk % NCH], k8[0], k8[8 * SKV], k8[4],
+                 k8[8 * SKV + 4], qb[kk][0], qb[kk][1]);
+          }
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            double v = acc[j * NCH][e];
+#pragma unroll
+            for (int c = 1; c < NCH; ++c) v += acc[j * NCH + c][e];
+            const int kl = kw + 16 * j + gi + 8 * (e >> 1), tg = lo + kl;
+            const int q_i = qi2[e & 1];
+            const bool valid = kl < nloc && (tg < ctx || (tg - ctx <= q_i &&
+                                                          tg - ctx < qlen));
+            s4[j][e] = valid ? __fdiv_rn(static_cast<float>(v), sqrt_d)
+                             : NEG_INF;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e & 1;
+          scores[static_cast<long>(rbase + 2 * t + i) * a.sstride + kw +
+                 16 * j + gi + 8 * (e >> 1)] = s4[j][e];
+          mrow[i] = fmaxf(mrow[i], s4[j][e]);
+        }
     }
   }
-
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = r0 + warp * RPW + i;
-    if (r >= cg) continue;
-    *reinterpret_cast<float4*>(&out[qrow(r) + 4 * lane]) = make_float4(
-        static_cast<float>(a_i[i][0]), static_cast<float>(a_i[i][1]),
-        static_cast<float>(a_i[i][2]), static_cast<float>(a_i[i][3]));
+  for (int i = 0; i < 2; ++i) {       // over the 8 lanes of a column
+    mrow[i] = fmaxf(mrow[i], __shfl_xor_sync(0xffffffffu, mrow[i], 4));
+    mrow[i] = fmaxf(mrow[i], __shfl_xor_sync(0xffffffffu, mrow[i], 8));
+    mrow[i] = fmaxf(mrow[i], __shfl_xor_sync(0xffffffffu, mrow[i], 16));
+    if (gi == 0) sMaxP[wk * R + rbase + 2 * t + i] = mrow[i];
   }
+  cluster_sync();
+  if (tid < R) {              // the row's max over every block and warp
+    float m = NEG_INF;
+#pragma unroll
+    for (int rk = 0; rk < 8; ++rk) {
+      if (rk >= nsplit) break;
+      const float* src = remote(sMaxP, rk);
+      for (int w = 0; w < WK; ++w) m = fmaxf(m, src[w * R + tid]);
+    }
+    sM[tid] = m;
+  }
+  __syncthreads();
+
+  // ---- e = f32(exp_f64(s − M)) in place, partial Σ_f64 e: the block's
+  // threads in groups of TPR per row, each over keys TPR apart
+  {
+    constexpr int TPR = DN_THREADS / R;
+    const int rr = tid / TPR, j0 = tid % TPR;
+    const float m = sM[rr];
+    float* sr = scores + static_cast<long>(rr) * a.sstride;
+    double sum4[4] = {0.0, 0.0, 0.0, 0.0};   // four chains: the exps overlap
+    for (int k4 = j0; k4 < ntile * KT; k4 += 4 * TPR) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int kl = k4 + u * TPR;     // KT is a multiple of 4·TPR
+        const float s = sr[kl];
+        // a masked score's exponential is exactly 0: skip the f64 exp
+        const float e = s <= NEG_INF ? 0.f : exp_f64(s - m);
+        sr[kl] = e;
+        sum4[u] += static_cast<double>(e);
+      }
+    }
+    double sum = (sum4[0] + sum4[1]) + (sum4[2] + sum4[3]);
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (j0 == 0) sSumP[rr] = sum;
+  }
+  cluster_sync();
+  if (tid < R) {              // L = f32(Σ e) over every block
+    double l = 0.0;
+#pragma unroll
+    for (int rk = 0; rk < 8; ++rk) {
+      if (rk >= nsplit) break;
+      l += remote(sSumP, rk)[tid];
+    }
+    sL[tid] = static_cast<float>(l);
+  }
+  // (stage() begins with a barrier, which orders sL before its readers)
+
+  // ---- Oᵀ = Σ_f64 Vᵀ·(e / L)ᵀ over V tiles staged once; lane (gi, t)
+  // ends with head channels 16n + gi (+8) × rows 2t, 2t+1
+  double oacc[D / 16][4];
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0;
+  const float* prow = scores + static_cast<long>(rbase + gi) * a.sstride;
+  for (int k0 = 0; k0 < ntile * KT; k0 += KT) {
+    stage(ntile + k0 / KT);
+    const float l = sL[rbase + gi];
+#pragma unroll
+    for (int ks = wk * (8 / WK); ks < (wk + 1) * (8 / WK); ++ks) {
+      const int kb = k0 + 8 * ks;
+      if (dead(kb)) continue;               // warp-uniform
+      const double p0 = static_cast<double>(__fdiv_rn(prow[kb + t], l));
+      const double p1 = static_cast<double>(__fdiv_rn(prow[kb + t + 4], l));
+      const double* vp = sKV + (8 * ks + t) * SKV + gi;
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n)
+        dmma(oacc[n], vp[16 * n], vp[16 * n + 8], vp[4 * SKV + 16 * n],
+             vp[4 * SKV + 16 * n + 8], p0, p1);
+    }
+  }
+  __syncthreads();            // every warp is done with the last V tile
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sOut[(wk * R + rbase + 2 * t + (e & 1)) * D + 16 * n + gi +
+           8 * (e >> 1)] = oacc[n][e];
+  if (WK > 1) {               // the warps' partials, summed in the block
+    __syncthreads();
+    for (int i = tid; i < R * D; i += DN_THREADS) {
+      double v = sOut[i];
+#pragma unroll
+      for (int w = 1; w < WK; ++w) v += sOut[w * R * D + i];
+      sOut[i] = v;
+    }
+  }
+  cluster_sync();
+  // each block of the cluster rounds its share of the tile's outputs
+  for (int i = rank * DN_THREADS + tid; i < R * D; i += nsplit * DN_THREADS) {
+    const int r = r0 + i / D;
+    if (r >= cg_rows) continue;
+    double v = 0.0;
+#pragma unroll
+    for (int rk = 0; rk < 8; ++rk) {
+      if (rk >= nsplit) break;
+      v += remote(sOut, rk)[i];
+    }
+    a.out[qrow(r) + i % D] = r < qlen * grp ? static_cast<float>(v) : 0.f;
+  }
+  if (nsplit > 1) cg::this_cluster().sync();   // peers may still read us
+}
+
+template <int WR>
+cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
+                         cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_dense_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DN_SMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  const int rows = 8 * WR;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (a.c * a.g + rows - 1) / rows, b * a.hkv);
+  cfg.blockDim = dim3(dn_threads(WR));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, prefill_dense_kernel<WR>, a);
 }
 
 }  // namespace
@@ -361,20 +646,33 @@ extern "C" int paged_kv4_prefill_wq(
 
 // q f32 [B, C, Hq, D]; k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32 [hkv, D];
 // pools uint8 [P, ps, hkv, D/2]; tables int32 [B, np]; ctx/q_len int32 [B]
-// → out f32 [B, C, Hq, D] (rows past q_len: finite garbage). All
-// contiguous; d must be 128.
+// → out f32 [B, C, Hq, D] (rows at or past q_len·G: 0). All contiguous;
+// d must be 128. The launch plan (kernels/paged_attention.py:dense_plan):
+// rows per block (8, 16 or 32), split (cluster size, 1..8), sstride (the
+// score rows' stride in floats), smem (dynamic shared bytes); scratch is
+// null when the scores live in shared memory, else f32
+// [B·hkv·tiles·split·rows·sstride].
 extern "C" int paged_kv4_prefill_dense(
     const float* q, const float* kn, const float* vn, const float* ks,
     const float* kz, const float* vs, const float* vz, const uint8_t* k_pool,
     const uint8_t* v_pool, const int* tables, const int* ctx_lens,
-    const int* q_lens, float* out, int b, int c, int g, int hkv, int np,
-    int ps, int d, cudaStream_t stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+    const int* q_lens, float* out, float* scratch, int b, int c, int g,
+    int hkv, int np, int ps, int d, int rows, int split, int sstride,
+    int smem, cudaStream_t stream) {
+  const bool plan_ok =
+      (rows == 8 || rows == 16 || rows == 32) && split >= 1 && split <= 8 &&
+      sstride % 32 == 8 && smem <= DN_SMEM_MAX &&
+      smem == DN_FIXED + (scratch ? 0 : rows * sstride * 4);
+  if (d != D || !plan_ok) return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && c > 0 && hkv > 0) {
-    const dim3 grid(b * hkv, (c * g + ROWS - 1) / ROWS);
-    prefill_dense_kernel<<<grid, WARPS * 32, 0, stream>>>(
-        q, kn, vn, ks, kz, vs, vz, k_pool, v_pool, tables, ctx_lens, q_lens,
-        out, c, g, hkv, np, ps);
+    const DenseArgs a{q, kn, vn, ks, kz, vs, vz, k_pool, v_pool, tables,
+                      ctx_lens, q_lens, out, scratch, c, g, hkv, np, ps,
+                      sstride};
+    const cudaError_t e =
+        rows == 8 ? launch_dense<1>(a, b, split, smem, stream)
+        : rows == 16 ? launch_dense<2>(a, b, split, smem, stream)
+                     : launch_dense<4>(a, b, split, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@ an unchanged one is reused. Libraries go to ``build/kernels/`` at the root
 of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it). No
 ``--use_fast_math``: the activation quantizer relies on IEEE division.
 
-Binding rules: every pointer and the stream are ``c_void_p``; the caller
+Binding rules: every pointer and the stream are ``c_void_p`` (``None`` is
+the null pointer); the caller
 allocates every output with ``torch.empty``; each C entry point returns
 ``cudaGetLastError()`` and :func:`call` raises if it is not 0.
 """
@@ -100,6 +101,8 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _arg(a):
+    if a is None:                     # an optional buffer left out
+        return ctypes.c_void_p(None)
     if isinstance(a, torch.Tensor):
         return ctypes.c_void_p(a.data_ptr())
     if isinstance(a, bool) or not isinstance(a, int):

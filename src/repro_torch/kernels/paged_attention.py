@@ -9,8 +9,9 @@ and how its design answers that):
 * ``paged_kv4_prefill_attention_wq`` (K9, ``csrc/paged_attention.cu``) —
   work-queue chunked prefill: one flash partial per descriptor item;
 * ``paged_kv4_prefill_attention`` (K7, ``csrc/paged_attention.cu``) —
-  dense chunked prefill: a (row, 16-query tile) block walks the row's
-  block table, then its causal fp chunk; one launch, no glue;
+  dense chunked prefill: each (row, query tile) scores its keys once on
+  the f64 tensor cores, the keys of a row split across a thread-block
+  cluster (:func:`dense_plan`); one launch, no glue;
 * ``paged_kv4_decode_attention`` (K6, ``csrc/paged_decode.cu``) — dense
   flash-decode over block tables, one block per (sequence, kv head) row;
 * ``paged_kv4_decode_attention_wq`` (K8, ``csrc/paged_decode.cu``) —
@@ -52,6 +53,7 @@ __all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
            "paged_kv4_prefill_attention_wq_ref",
            "paged_kv4_prefill_attention_wq",
            "paged_kv4_prefill_attention_ref", "paged_kv4_prefill_attention",
+           "DensePlan", "dense_plan",
            "paged_kv4_decode_attention_ref", "paged_kv4_decode_attention",
            "decode_prefold", "paged_kv4_decode_partials_ref",
            "paged_kv4_decode_partials", "paged_kv4_decode_attention_wq_ref",
@@ -320,12 +322,78 @@ def _head_scales(scales, hkv: int, d: int):
             .contiguous() for s in scales]
 
 
+class DensePlan(NamedTuple):
+    """How the K7 kernel is launched: ``rows`` query rows per block,
+    ``split`` blocks (one thread-block cluster) per (b, kv head, row
+    tile) sharing its keys, score rows ``sstride`` floats apart,
+    ``smem`` dynamic shared bytes, and ``scratch`` floats of device
+    memory for the scores when they do not fit in shared memory (else
+    0)."""
+    rows: int
+    split: int
+    sstride: int
+    smem: int
+    scratch: int
+
+
+DENSE_KEY_TILE = 64          # keys per staged tile (csrc KT)
+DENSE_FIXED_SMEM = 80640     # shared bytes besides the scores (DN_FIXED)
+DENSE_SMEM_MAX = 232448      # the H100's per-block opt-in
+DENSE_SM_SMEM = 233472       # shared memory of one H100 SM
+DENSE_SMS = 132
+# blocks of each tile height one SM holds by its registers (4 warps at
+# ≤ 128 registers; 8 warps at ≤ 128; 8 warps at ~160)
+DENSE_REG_BLOCKS = {8: 4, 16: 2, 32: 1}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
+               ps: int) -> DensePlan:
+    """The K7 launch for these shapes, from shapes alone (no device
+    read). Rows: the smallest of 8, 16, 32 that holds C·G. Split: the
+    least number of blocks per (b, h, tile) whose scores for ``NP·ps + C``
+    keys fit in shared memory (at most 8, a portable cluster), widened
+    while the wider grid still runs in one wave on the card and every
+    block keeps a key tile. The scores go to scratch when 8 does not
+    fit."""
+    cg = c * g
+    rows = 8 if cg <= 8 else 16 if cg <= 16 else 32
+    blocks = b * hkv * -(-cg // rows)
+    tmax = np_ * ps + c
+
+    def stride(split):     # key columns of one block, + 8 (banks)
+        per = _round_up(-(-tmax // split), 8)
+        return _round_up(_round_up(per, DENSE_KEY_TILE), 32) + 8
+
+    def smem(split):
+        return DENSE_FIXED_SMEM + rows * stride(split) * 4
+
+    def resident(split):   # blocks the card holds at once
+        per_sm = min(DENSE_REG_BLOCKS[rows],
+                     DENSE_SM_SMEM // (min(smem(split), DENSE_SMEM_MAX)
+                                       + 1024))
+        return DENSE_SMS * per_sm
+
+    split = next((s for s in range(1, 9) if smem(s) <= DENSE_SMEM_MAX), 8)
+    while (split < min(8, -(-tmax // DENSE_KEY_TILE))
+           and blocks * (split + 1) <= resident(split + 1)):
+        split += 1
+    sstride = stride(split)
+    if smem(split) <= DENSE_SMEM_MAX:
+        return DensePlan(rows, split, sstride, smem(split), 0)
+    return DensePlan(rows, split, sstride, DENSE_FIXED_SMEM,
+                     blocks * split * rows * sstride)
+
+
 def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
                                 v_pool, v_scale, v_zero, block_tables,
                                 ctx_lens, q_lens) -> torch.Tensor:
     """The K7 kernel: same arguments and result as the plain version (bit
-    for bit on the card), in one launch. Rows of a tile wholly at or past
-    ``q_len·G`` come back 0."""
+    for bit on the card), in one launch (:func:`dense_plan`). Rows at or
+    past ``q_len·G`` come back 0."""
     b, c, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_prefill_attention")
@@ -337,10 +405,14 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
     v_new = v_new.float().contiguous()
     ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
     ql = q_lens.to(device=dev, dtype=torch.int32).contiguous()
+    plan = dense_plan(b, c, hq // hkv, hkv, tables.shape[1], ps)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
     _build.call("paged_attention", "paged_kv4_prefill_dense", dev, q, k_new,
                 v_new, ks, kz, vs, vz, k_pool, v_pool, tables, ctx, ql, out,
-                b, c, hq // hkv, hkv, tables.shape[1], ps, d)
+                scratch, b, c, hq // hkv, hkv, tables.shape[1], ps, d,
+                plan.rows, plan.split, plan.sstride, plan.smem)
     paged_kv4_prefill_attention.launches += 1
     return out
 

@@ -2,10 +2,12 @@
 
 Kernels: ``csrc/w4ax_matmul.cu`` (replaces ``repro/kernels/w4ax_matmul.py``
 ``w4a4_matmul``/``w4a8_matmul``/``w4ax_matmul_mixed``; bound by bytes at
-serving batch sizes; int4 nibbles unpacked to int8 in shared memory for
-``mma.sync`` int8 with the zero-extension correction algebra — see the
-source note). Two schedules: ``w4ax_matmul_split`` composes the uniform
-kernels as the reference's split schedule (W4A4 over the K4 prefix, W4A8
+serving batch sizes; raw bytes through a ``cp.async`` ring, int4 nibbles
+unpacked to int8 in registers for ``mma.sync`` int8 with the
+zero-extension correction algebra, a decode kernel for M ≤ 16 and a
+prefill kernel above — see the source note). Two schedules:
+``w4ax_matmul_split`` composes the uniform kernels as the reference's
+split schedule (W4A4 over the K4 prefix, W4A8
 over the K8 tail, summed); ``w4ax_matmul_mixed`` is the paper's single
 kernel, whose K loop switches from INT4 to INT8 activation blocks.
 

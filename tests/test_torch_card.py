@@ -161,3 +161,126 @@ def test_mixed_gemm_kernel_matches_plain_on_card():
         which = 2 if nb4 == 0 else 1 if nb8 == 0 else 0
         assert [a - b for a, b in zip(after, before)] == [
             int(i == which) for i in range(3)]
+
+
+def _gemm_operands(rng, m, nb4, nb8, n):
+    return (_cuda(rng.integers(0, 256, (m, nb4 * 64)).astype(np.uint8)),
+            _cuda(rng.uniform(0.01, 0.2, (m, nb4)).astype(np.float32)),
+            _cuda(rng.integers(-128, 128, (m, nb8 * 128)).astype(np.int8)),
+            _cuda(rng.uniform(0.001, 0.02, (m, nb8)).astype(np.float32)),
+            _cuda(rng.integers(0, 256, ((nb4 + nb8) * 64, n))
+                  .astype(np.uint8)),
+            _cuda(rng.uniform(0.001, 0.05, (nb4 + nb8, n))
+                  .astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [68, 200, 1024, 4096])
+def test_w4ax_tiles_match_plain_exactly_on_card(n):
+    """K3, K4 (both conversions) and K5 bit for bit against their plain
+    versions on both tiles — the decode tile (M ≤ 16) and the prefill
+    tile — and across their edges: M ∈ {1, 8, 15, 16, 17, 63, 64, 65,
+    256}, N not a multiple of 16 (4-byte copies) or of the tile width,
+    K block counts that are not multiples of the decode kernel's group
+    of 4 or the ring's depth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(n)
+    for m in (1, 8, 15, 16, 17, 63, 64, 65, 256):
+        nb4, nb8 = int(rng.integers(1, 8)), int(rng.integers(1, 4))
+        a4, s4, a8, s8, w, ws = _gemm_operands(rng, m, nb4, nb8, n)
+        w4, ws4 = w[:nb4 * 64], ws[:nb4]
+        w8, ws8 = w[nb4 * 64:], ws[nb4:]
+        for conv in ("zeroext", "signext"):
+            got = WK.w4a4_matmul(a4, s4, w4, ws4, conversion=conv)
+            assert torch.equal(got, WK.w4a4_matmul_ref(a4, s4, w4, ws4)), (
+                "w4a4", conv, m, n, nb4)
+            got = WK.w4a8_matmul(a8, s8, w8, ws8, conversion=conv)
+            assert torch.equal(got, WK.w4a8_matmul_ref(a8, s8, w8, ws8)), (
+                "w4a8", conv, m, n, nb8)
+        got = WK.w4ax_matmul_mixed(a4, s4, a8, s8, w, ws)
+        want = WK.w4ax_matmul_mixed_ref(a4, s4, a8, s8, w, ws)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ("mixed", m, n, nb4, nb8)
+
+
+def _dense_case(rng, ctx, qls, c, hq, hkv, ps, extra_pages=2):
+    """K7 inputs: one row per (history, q_len), its pages scattered over
+    the pool, −1 past each row's pages; f32 query and chunk."""
+    d = 128
+    need = [max(1, -(-(cx + ql) // ps)) for cx, ql in zip(ctx, qls)]
+    num_pages = sum(need) + extra_pages
+    tbl = np.full((len(ctx), max(need) + 1), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, npg in enumerate(need):
+        tbl[bi, :npg] = perm[i:i + npg]
+        i += npg
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    ks, kz, vs, vz = [_cuda(rng.uniform(lo, hi, (hkv, 1, d))
+                            .astype(np.float32))
+                      for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2),
+                                     (6, 9))]
+    b = len(ctx)
+    q, kn, vn = [_cuda(rng.normal(size=(b, c, h, d)).astype(np.float32))
+                 for h in (hq, hkv, hkv)]
+    return (q, kn, vn, pools[0], ks, kz, pools[1], vs, vz, _cuda(tbl),
+            _cuda(np.asarray(ctx, np.int32)), _cuda(np.asarray(qls, np.int32)))
+
+
+def _dense_exact(args, qls):
+    got = PA.paged_kv4_prefill_attention(*args)
+    want = PA.paged_kv4_prefill_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    g = args[0].shape[2] // args[3].shape[2]
+    for bi, ql in enumerate(qls):
+        assert torch.equal(got[bi, :ql], want[bi, :ql]), (
+            bi, ql, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
+        assert not got[bi, ql:].any()        # rows past q_len: zeros
+    return g
+
+
+@pytest.mark.cuda
+def test_dense_prefill_decode_shape_exact_on_card():
+    """K7 at C = 1, G = 4 bit for bit against its plain version across the
+    cluster split's edges: contexts of 1, ps−1, ps, ps+1 and 487 keys,
+    and one whose scores exceed the shared-memory buffer (the scratch
+    path, checked through :func:`dense_plan`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(5)
+    hq, hkv, ps = 8, 2, 64
+    ctx = [1, ps - 1, ps, ps + 1, 487]
+    args = _dense_case(rng, ctx, [1] * len(ctx), 1, hq, hkv, ps)
+    assert PA.dense_plan(len(ctx), 1, 4, hkv, args[9].shape[1], ps).split > 1
+    _dense_exact(args, [1] * len(ctx))
+
+    big = [50_000, 3]
+    args = _dense_case(rng, big, [1, 1], 1, hq, hkv, ps)
+    plan = PA.dense_plan(2, 1, 4, hkv, args[9].shape[1], ps)
+    assert plan.scratch > 0 and plan.split == 8, plan
+    _dense_exact(args, [1, 1])
+
+
+@pytest.mark.cuda
+def test_dense_prefill_tiles_exact_on_card():
+    """K7 bit for bit on its 16- and 32-row tiles: chunks of several
+    queries with history, a first chunk (no history), pad rows past
+    q_len, q_len-0 rows with and without history, and a chunk whose
+    scores go to scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(6)
+    hq, hkv, ps = 8, 2, 16
+    for c, ctx, qls in ((4, [40, 0, 17, 5], [4, 3, 1, 0]),
+                        (16, [40, 0, 17, 0, 70], [16, 12, 5, 0, 9]),
+                        (37, [130, 0, 33], [37, 20, 0])):
+        args = _dense_case(rng, ctx, qls, c, hq, hkv, ps)
+        _dense_exact(args, qls)
+    ctx, qls = [12_000, 7], [8, 8]
+    args = _dense_case(rng, ctx, qls, 8, hq, hkv, 128)
+    plan = PA.dense_plan(2, 8, 4, hkv, args[9].shape[1], 128)
+    assert plan.rows == 32 and plan.scratch > 0, plan
+    _dense_exact(args, qls)
