@@ -13,19 +13,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    W4Ax GEMMs (W4A4, W4A8 and the mixed kernel, which adds
    ``(d·a_s)·w_s`` in its plain version's order) bit for bit at M ∈ {1,
    8, 16, 256}, the attention kernels (work-queue and dense prefill,
-   paged dense and work-queue decode, contiguous decode) to
-   1e-4·max(1, max|ref|) on real cache states with ragged lengths,
-   zero-history and q_len-0 rows (the dense and decode ones compute
-   exactly as their plain versions do on the card, f64 sums rounded once,
-   and agree bit for bit; the dense prefill kernel must, at C = 256 and
-   at decode shape C = 1) — with CUDA-event times (median of 20)
-   of kernel, plain version, a library yardstick (bf16 ``torch.matmul``
-   on dequantized weights, SDPA on gathered dequantized KV) and the
-   roofline bound (for the work-queue kernels, of the kernel alone on
-   pre-folded inputs, with the whole op beside it as
-   ``op_ms``/``op_plain_ms``; for the mixed kernel the split pair on the
-   same inputs as ``split_ms``); the GEMMs are timed at M = 256 and, under
-   their row's ``decode`` key, M = 8, and the dense prefill kernel at
+   paged dense and work-queue decode, contiguous decode) on real cache
+   states with ragged lengths, zero-history and q_len-0 rows: each
+   computes exactly as its plain version does on the card (f64 sums
+   rounded once) and must agree bit for bit on the valid rows, but the
+   contiguous decode kernel, held to 1e-4·max(1, max|ref|) — with
+   CUDA-event times (median of 20) of kernel, plain version, a library
+   yardstick (bf16 ``torch.matmul`` on dequantized weights, SDPA on
+   gathered dequantized KV) and the roofline bound (for the work-queue
+   decode kernel, of the kernel alone on pre-folded inputs, with the whole
+   op beside it as ``op_ms``/``op_plain_ms``; for the mixed kernel the
+   split pair on the same inputs as ``split_ms``); the GEMMs are timed at
+   M = 256 and, under their row's ``decode`` key, M = 8, and both prefill
+   attention ops (K7 dense, K9 work queue — the whole op, which must run
+   in at most two kernel launches, counted by ``torch.profiler``) at
    C = 256 and, under ``decode``, at C = 1 on the decode kernels' inputs;
 3. parity: a 2-layer d_model-1024 model served on the card in every
    engine configuration (the unified step under both attention
@@ -52,6 +53,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    must be rejected (``queue_full``), 1 aborted and 5 finish with 32
    tokens, with no failed step, internal or callback error.
 
+``--phases times`` (not among the defaults) prints unchecked times of
+K9's op (C = 256, C = 1) and K6 on the kernels phase's inputs through the
+API every tree of the port has, to time two trees in turns in one call.
+``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
+with the kernel launch calls per engine step.
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.
 """
@@ -73,6 +80,7 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "cli")
+EXTRA_PHASES = ("times",)      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -352,33 +360,6 @@ def sdpa_prefill_inputs(torch, Q, cache, dense, hq: int):
     return (q.transpose(1, 2).contiguous(), kv[0], kv[1], mask[:, None])
 
 
-def attention_bound(desc, takes, hkv: int, g: int, d: int):
-    """Bytes and f32 operations the K9 kernel needs for this descriptor
-    array, counting only each row's valid queries (its q_len) and each
-    item's valid keys: per (query, key) pair 4·D operations (q·k and p·v);
-    the folded queries (q·s_k, Σ q·z_k, q/√D) and the fp chunk's k/v read
-    once per row, the int4 keys/values of each page item, the descriptor
-    array, the V affine, and each valid query's partial (acc, l, m)."""
-    flops = nbytes = 0
-    for row in set(int(r) for r in desc[desc[:, 2] > 0, 0]):
-        ql = takes[row // hkv]
-        items = desc[(desc[:, 0] == row) & (desc[:, 2] > 0)]
-        if (items[:, 3] == 0).any():
-            nbytes += ql * g * (d + 1) * 4               # q·s_k/√D, Σ q·z_k
-        for _, _, count, kind in items:
-            count = int(count)
-            if kind == 0:
-                flops += ql * g * count * 4 * d
-                nbytes += count * (d // 2) * 2           # int4 k and v
-            else:
-                keys = sum(min(qi + 1, count) for qi in range(ql))
-                flops += keys * g * 4 * d
-                nbytes += ql * g * d * 4 + count * d * 4 * 2  # q/√D, k, v
-            nbytes += ql * g * (d + 2) * 4               # acc, l, m
-    nbytes += desc.size * 4 + 2 * hkv * d * 4
-    return nbytes, flops
-
-
 def check(name: str, got, want, tol_rows=None) -> float:
     """Max error of a kernel against its plain version (over the valid
     rows ``tol_rows`` (b, q_len) pairs where given), within
@@ -413,19 +394,20 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def prefill_dense_bound(ctx, qls, hkv: int, g: int, d: int):
-    """Bytes and f32 operations of dense chunked prefill attention for
-    these rows: each valid query (i < q_len) against its valid keys (the
-    history [0, ctx) and chunk keys j ≤ i), 4·D operations per pair (q·k
-    and p·v); each row's valid queries, chunk k/v and history pages read
-    once, its valid outputs written once."""
+def prefill_bound(ctx, qls, hkv: int, g: int, d: int, q_bytes: int = 2):
+    """Bytes and f32 operations of chunked prefill attention for these
+    rows, whichever schedule computes it (K7 dense, K9 work queue): each
+    valid query (i < q_len) against its valid keys (the history [0, ctx)
+    and chunk keys j ≤ i), 4·D operations per pair (q·k and p·v); each
+    row's valid queries (``q_bytes`` each), chunk k/v (f32) and int4
+    history pages read once, its valid f32 outputs written once."""
     flops = nbytes = 0
     for cx, ql in zip(ctx, qls):
         if not ql:
             continue
         pairs = ql * cx + ql * (ql + 1) // 2
         flops += pairs * g * hkv * 4 * d
-        nbytes += (ql * g * hkv * d * 4 * 2          # q in, out
+        nbytes += (ql * g * hkv * d * (q_bytes + 4)  # q in, out
                    + ql * hkv * d * 4 * 2            # chunk k, v
                    + cx * hkv * (d // 2) * 2)        # int4 history k, v
     return nbytes, flops
@@ -446,8 +428,7 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
     state, against their plain versions and one library yardstick."""
     import torch.nn.functional as F
     args, desc, takes, dense, cache = attention_case(torch, cfg, KVC)
-    q, kn, vn, k_pool, ks, kz, v_pool, vs, vz, desc_t = args
-    b, c, hq, d = q.shape
+    b, c, hq, d = args[0].shape
     hkv = cfg.num_kv_heads
     g = hq // hkv
     valid = list(enumerate(takes))
@@ -455,37 +436,35 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         yard[0], yard[1], yard[2], attn_mask=yard[3]))
 
-    err = check("paged_kv4_prefill_attention_wq",
-                PA.paged_kv4_prefill_attention_wq(*args),
-                PA.paged_kv4_prefill_attention_wq_ref(*args))
+    # the whole op (pre-fold, partials, combine) in one launch, with the
+    # engine's host plan, against its plain version
+    ctx = [cx for cx, _ in PREFILL_ROWS]
+    plan = PA.work_plan(desc, b * hkv, c, g, "cuda")
+    op = lambda: PA.paged_kv4_prefill_attention_wq(*args, plan=plan)  # noqa: E731
+    err = check_exact("paged_kv4_prefill_attention_wq", op(),
+                      PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan),
+                      valid)
+    n = device_launches(torch, op)
+    if n > 2:
+        fail(f"paged_kv4_prefill_attention_wq: {n} kernel launches a call")
     say(f"[kernels] paged_kv4_prefill_attention_wq W={desc.shape[0]} "
-        f"C={c}: max err {err:.3g}")
-    # the kernel alone on pre-folded inputs, against its plain version;
-    # the whole op (pre-fold, kernel, combine with the engine's host plan)
-    # is timed beside it
-    folded = PA.prefold(q, kn, vn, ks, kz, vs, vz)
-    plan = PA.combine_plan(desc[:, 0], b * hkv, "cuda")
-    nbytes, flops = attention_bound(desc, takes, hkv, g, d)
+        f"C={c}: max err {err:.3g}; {n} launch(es) a call, "
+        f"{plan.jobs.shape[0]} blocks of {plan.rows} rows")
     rows["paged_kv4_prefill_attention_wq"] = {
         "name": "paged_kv4_prefill_attention_wq", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:622",
         "shape": f"B={b} C={c} Hq={hq} D={d} W={desc.shape[0]}",
         "max_abs_err": err,
-        "ms": time_ms(torch, lambda: PA.paged_kv4_partials(
-            desc_t, *folded, k_pool, v_pool, g)),
-        "plain_ms": time_ms(torch, lambda: PA.paged_kv4_partials_ref(
-            desc_t, *folded, k_pool, v_pool, g)),
-        **bound(nbytes, flops),
-        "library_ms": library_ms,
-        "op_ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention_wq(
-            *args, plan=plan)),
-        "op_plain_ms": time_ms(
+        "ms": time_ms(torch, op),
+        "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_wq_ref(
                 *args, plan=plan)),
+        **bound(*prefill_bound(ctx, takes, hkv, g, d)),
+        "library_ms": library_ms,
+        "launches_per_call": n,
     }
 
-    ctx = [cx for cx, _ in PREFILL_ROWS]
     err = check_exact("paged_kv4_prefill_attention",
                       PA.paged_kv4_prefill_attention(*dense),
                       PA.paged_kv4_prefill_attention_ref(*dense), valid)
@@ -500,9 +479,22 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
         "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*dense)),
         "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_ref(*dense)),
-        **bound(*prefill_dense_bound(ctx, takes, hkv, g, d)),
+        **bound(*prefill_bound(ctx, takes, hkv, g, d)),
         "library_ms": library_ms,
     }
+
+
+def device_launches(torch, fn) -> int:
+    """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``
+    (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
@@ -559,9 +551,10 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "library_ms": library_ms,
     }
 
-    err = check("paged_kv4_decode_attention",
-                PA.paged_kv4_decode_attention(*k6),
-                PA.paged_kv4_decode_attention_ref(*k6))
+    err = check_exact("paged_kv4_decode_attention",
+                      PA.paged_kv4_decode_attention(*k6),
+                      PA.paged_kv4_decode_attention_ref(*k6),
+                      [(i, hq) for i in range(b)])
     say(f"[kernels] paged_kv4_decode_attention {shape}: max err {err:.3g}")
     rows["paged_kv4_decode_attention"] = {
         "name": "paged_kv4_decode_attention", "route": "cuda",
@@ -593,13 +586,37 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*k7)),
         "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_ref(*k7)),
-        **bound(*prefill_dense_bound(DECODE_LENS, [1] * b, hkv, g, d)),
+        **bound(*prefill_bound(DECODE_LENS, [1] * b, hkv, g, d)),
         "library_ms": library_ms,
     }
 
-    err = check("paged_kv4_decode_attention_wq",
-                PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
-                PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan))
+    # K9 at decode shape on the same rows: one page item per history page
+    # and a one-key chunk item per (row, kv head), the unified step's
+    # decode rows
+    desc9 = cache.work_queue_np(slots, lens_np, [1] * b)
+    k9 = ((q[:, None], kn1, vn1) + pools + (torch.from_numpy(desc9).cuda(),))
+    plan9 = PA.work_plan(desc9, b * hkv, 1, g, "cuda")
+    op9 = lambda: PA.paged_kv4_prefill_attention_wq(*k9, plan=plan9)  # noqa: E731
+    err = check_exact("paged_kv4_prefill_attention_wq (C=1)", op9(),
+                      PA.paged_kv4_prefill_attention_wq_ref(*k9, plan=plan9),
+                      [(i, 1) for i in range(b)])
+    say(f"[kernels] paged_kv4_prefill_attention_wq {shape} C=1 "
+        f"W={desc9.shape[0]}: max err {err:.3g}; {plan9.jobs.shape[0]} "
+        f"blocks of {plan9.rows} rows")
+    rows["paged_kv4_prefill_attention_wq"]["decode"] = {
+        "shape": f"{shape} C=1 W={desc9.shape[0]}", "max_abs_err": err,
+        "ms": time_ms(torch, op9),
+        "plain_ms": time_ms(
+            torch, lambda: PA.paged_kv4_prefill_attention_wq_ref(
+                *k9, plan=plan9)),
+        **bound(*prefill_bound(DECODE_LENS, [1] * b, hkv, g, d)),
+        "library_ms": library_ms,
+    }
+
+    err = check_exact("paged_kv4_decode_attention_wq",
+                      PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
+                      PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan),
+                      [(i, hq) for i in range(b)])
     say(f"[kernels] paged_kv4_decode_attention_wq {shape} "
         f"W={desc.shape[0]}: max err {err:.3g}")
     # the kernel alone on pre-folded queries; the whole op beside it
@@ -624,6 +641,52 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
             torch, lambda: PA.paged_kv4_decode_attention_wq_ref(
                 *k8, plan=plan)),
     }
+
+
+def wq_plan(PA, desc, num_rows: int, c: int, g: int):
+    """The K9 op's host plan for ``desc``: its work plan, or in a package
+    whose op takes the combine's plan, that."""
+    if hasattr(PA, "work_plan"):
+        return PA.work_plan(desc, num_rows, c, g, "cuda")
+    return PA.combine_plan(desc[:, 0], num_rows, "cuda")
+
+
+def phase_times(torch, cfg, KVC, PA):
+    """Unchecked times of the attention ops this package's path runs, on
+    the kernels phase's inputs, through the API every tree of the port
+    has (so two trees can be timed in turns in one call): K9's whole op
+    at B = 8, C = 256 and at C = 1 on the decode rows, and K6."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    args, desc, _, _, _ = attention_case(torch, cfg, KVC)
+    b, c = args[0].shape[:2]
+    plan = wq_plan(PA, desc, b * hkv, c, g)
+    cache, gen = llama_cache(torch, cfg, KVC, [(n, 1) for n in DECODE_LENS],
+                             4)
+    slots = list(range(len(DECODE_LENS)))
+    b1 = len(slots)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    q = torch.randn((b1, hq, d), generator=gen, device="cuda").bfloat16()
+    pools = (cache.k_pool[0], cache.k_scale, cache.k_zero, cache.v_pool[0],
+             cache.v_scale, cache.v_zero)
+    kn1, vn1 = (torch.randn((b1, 1, hkv, d), generator=gen, device="cuda")
+                for _ in range(2))
+    desc9 = cache.work_queue_np(slots, np.asarray(DECODE_LENS), [1] * b1)
+    k9 = (q[:, None], kn1, vn1) + pools + (torch.from_numpy(desc9).cuda(),)
+    plan9 = wq_plan(PA, desc9, b1 * hkv, 1, g)
+    k6 = (q,) + pools + (cache.block_tables_device(slots, max(DECODE_LENS)),
+                         lens)
+    times = {
+        "paged_kv4_prefill_attention_wq C=256": time_ms(
+            torch, lambda: PA.paged_kv4_prefill_attention_wq(*args,
+                                                             plan=plan)),
+        "paged_kv4_prefill_attention_wq C=1": time_ms(
+            torch, lambda: PA.paged_kv4_prefill_attention_wq(*k9,
+                                                             plan=plan9)),
+        "paged_kv4_decode_attention": time_ms(
+            torch, lambda: PA.paged_kv4_decode_attention(*k6)),
+    }
+    say(f"[times] {HERE} {json.dumps(times)}")
 
 
 # ------------------------------------------------------- phases 3 and 4
@@ -731,10 +794,15 @@ def phase_parity(torch, np, mods):
             fail(f"parity[{label}]: greedy agreement {agree} < 0.9")
 
 
-def profile_table(torch, prof, wall_s: float):
-    """Top kernels by device time, the device busy share of the run, and
-    the top host operations by their own CPU time."""
+def profile_table(torch, prof, wall_s: float, steps: int):
+    """Top kernels by device time, the device busy share of the run, the
+    kernel launches the host made per engine step (CUDA runtime and
+    driver launch calls), and the top host operations by their own CPU
+    time."""
     events = prof.key_averages()
+    launch_calls = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunchKernel",
+                                            "cuLaunchKernel")))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -748,6 +816,8 @@ def profile_table(torch, prof, wall_s: float):
     lines = [f"device busy {busy:.3f} s of {wall_s:.3f} s wall "
              f"({100 * busy / wall_s:.1f} %) in "
              f"{sum(e.count for e in on_dev)} device events",
+             f"kernel launch calls {launch_calls} in {steps} steps = "
+             f"{launch_calls / max(steps, 1):.1f} per step",
              "top device time:"]
     for e in sorted(on_dev, key=dev_us, reverse=True)[:25]:
         lines.append(f"{dev_us(e) / 1e3:10.2f} ms {e.count:7d}x  {e.key[:90]}")
@@ -817,7 +887,7 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     if prof is not None:
         prof.__exit__(None, None, None)
         say(f"{tag} profiled run (times include profiler overhead):\n"
-            + profile_table(torch, prof, wall))
+            + profile_table(torch, prof, wall, eng.steps))
     check_run(eng, len(prompts), 32, cfg.vocab_size, tag)
     if first is None or not np.isfinite(first).all():
         fail(f"{tag}: first logits missing or not finite")
@@ -898,7 +968,7 @@ def phase_cli(timeout_s: float = 600.0):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     ap.add_argument("--profile", action="store_true",
                     help="trace each Llama-3-8B run (slice, baselines) with "
                          "torch.profiler and print the device busy share, "
@@ -943,6 +1013,8 @@ def main():
         check_gemm(torch, AQ, WK, Q, rows)
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
+    if "times" in phases:
+        phase_times(torch, cfg8b, KVC, PA)
     mods = (ModelConfig, LM, Engine, EngineConfig, QuantConfig)
     if "parity" in phases:
         phase_parity(torch, np, mods)

@@ -1,6 +1,7 @@
-// Flash-decode over int4 KV, shared by the three decode kernels: K10
-// (contiguous KV, kv4_attention.cu), K6 (block tables) and K8 (work-queue
-// page items, both paged_decode.cu).
+// Flash-decode over int4 KV, shared by two decode kernels: K10 (contiguous
+// KV, kv4_attention.cu) and K8 (work-queue page items, paged_decode.cu).
+// (K6, the dense paged decode, runs the tensor-core kernel of
+// dense_attention.cuh.)
 //
 // Exact arithmetic. Every dot product and every sum over keys accumulates
 // in f64 and is rounded once to f32, and the exponential is the f64 one
@@ -12,7 +13,7 @@
 // quantization steps and, at a near-tied logit, into another token.)
 //
 // The softmax is the plain version's, in three passes over the keys: the
-// max score M, then L = Σ e^(s−M), then Σ (e^(s−M)/L)·v. K6 and K10 work on
+// max score M, then L = Σ e^(s−M), then Σ (e^(s−M)/L)·v. K10 works on
 // dequantized values (n − z)·s, rounded to f32 as the plain version's
 // dequantization rounds them; K8 keeps the reference's partial in nibble
 // space (s = q̃·n − c with q̃ = q·s_k/√D and c = Σ q̃·z_k pre-folded, V
@@ -28,7 +29,7 @@
 namespace {
 
 constexpr int DD = 128;     // head_dim the decode kernels are built for
-constexpr int DWARPS = 8;   // warps of a whole-row block (K6, K10)
+constexpr int DWARPS = 8;   // warps of a whole-row block (K10)
 constexpr int DNT = DWARPS * 32;
 constexpr int PCH = DNT;    // keys whose probabilities a row block stages
 constexpr int VCH = 32;     // keys whose dequantized V it stages
@@ -91,7 +92,7 @@ struct RowSmem {
   float m[G], l[G];
 };
 
-// One (sequence, kv head) row per block (K6, K10): the block's threads
+// One (sequence, kv head) row per block (K10): the block's threads
 // split the keys [0, n) of the row, whose packed bytes sit at row_off(t)
 // in both pools; q [B, Hq, DD], scales/zeros of the row's kv head [DD] →
 // out[b, h·G .. h·G+G−1, :] = Σ_t p_t·(n_v − z_v)·s_v.

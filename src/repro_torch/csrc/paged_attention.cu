@@ -1,382 +1,180 @@
 // Paged KV4 chunked-prefill attention under the reference's two grid
 // schedules.
 //
-// paged_kv4_prefill_wq — replaces repro/kernels/paged_attention.py:
-// paged_kv4_prefill_attention_wq (_paged_kv4_prefill_wq_kernel): one flash
-// partial (acc, l, m) per work-queue descriptor item. The affine pre-fold
-// of the queries and the log-sum-exp combine of the partials stay in
-// PyTorch around it.
+// paged_kv4_prefill_wq (K9) — replaces repro/kernels/paged_attention.py:
+// paged_kv4_prefill_attention_wq (_paged_kv4_prefill_wq_kernel and the
+// combine_work_partials after it): the whole op in one launch — the affine
+// pre-fold of the queries, one flash partial (acc, l, m) per work-queue
+// descriptor item, and the split-KV combine of each row's partials,
+// written to the [B, C, Hq, D] output.
 //
 // Descriptor item (row, page, count, kind), row = seq·Hkv + kv_head:
-//   kind 0 — one int4 history page: s = q̃·n_k − c over positions < count,
-//            partial value p·n_v·s_v − (Σp)·s_v·z_v (V affine folded in);
-//   kind 1 — the row's in-flight fp chunk: s = (q/√D)·k over keys
-//            kj ≤ qi and kj < count (causal), value p·v.
-// Masked scores are NEG_INF = −1e30 (finite, as in the reference), and the
-// row id is clamped to nrows − 1 when reading. An item with count ≤ 0 —
-// only the power-of-two padding, whose sentinel row the combine drops —
-// writes (acc, l, m) = (0, 0, NEG_INF) without touching any page.
+//   kind 0 — one int4 history page, in nibble space: s = q̃·n_k − c over
+//            positions < count, with q̃ = (q·s_k)·(1/√D) and c = Σ q̃·z_k,
+//            partial value Σ p·n_v·s_v − (Σp)·s_v·z_v (V affine folded in);
+//   kind 1 — the row's in-flight fp chunk: s = (q·(1/√D))·k over keys
+//            kj ≤ qi and kj < count (causal), value Σ p·v;
+// with p = e^(s − m), m the partial's max, masked scores NEG_INF = −1e30.
+// The combine: M = max m_i, w_i = e^(m_i − M), out = Σ w_i·acc_i /
+// max(Σ w_i·l_i, 1e-30). Exact arithmetic, as the plain version computes
+// on the card: every dot product and sum (c, the scores, Σp, Σp·v, the
+// combine's sums) in f64 rounded once to f32, the exponentials the f64 ones
+// rounded, every other step the plain version's f32 operations in its
+// order (__fmul_rn, __fsub_rn: no contraction into FMAs). The partials are
+// rounded to f32 where the plain version rounds them.
 //
-// Bound on the H100: operations (f32 FMAs on the CUDA cores, ~4·D per
-// query row per key, against 4.2·D bytes of page per key shared by all of
-// the row's C·G query rows). Design: a (item, 16-query-row) tile per
-// 128-thread block; keys stream through shared memory in chunks of 32
-// (unpacked nibbles for pages, f32 for the chunk), one key per lane for
-// the scores (padded row stride: conflict-free) and four head channels
-// per lane for p·V, with an online softmax across chunks. A query row
-// skips the chunks wholly past its causal edge. f32 CUDA-core math, no
-// tensor cores yet.
+// Bound on the H100: operations for a prefill chunk (~4·D per valid
+// (query, key) pair, at the f64 rate the exact contract asks for); at
+// decode (C = 1) the int4 bytes of each page, read once, where the launch
+// and the latency of a block's phases set the time. Design: the host
+// (kernels/paged_attention.py:work_plan, once per engine step) turns the
+// descriptors into jobs — one block per (item, row tile), tiles of 8, 16
+// or 32 query rows sized to the batch's largest q_len·G, only the tiles a
+// row's q_len reaches; plus zero jobs for the output rows no item covers.
+// A job folds its own query tile, stages its page (cp.async) or chunk keys
+// as f64 in shared memory, scores them on the f64 tensor cores as the
+// dense kernel does (dense_attention.cuh: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ, warps
+// split the rows and the keys), and writes its f32 partial to a scratch
+// buffer that stays in L2. It then bumps its (row, tile)'s arrival
+// counter; the block that arrives last reads the group's partials in
+// descriptor order, combines them in f64 and resets the counter. The
+// combine reads the partials in a fixed order, so which block arrives last
+// does not change a bit. Spreading over items is the point of the work
+// queue: a long row's pages run on many SMs at once.
 //
-// paged_kv4_prefill_dense — replaces paged_kv4_prefill_attention (dense
-// schedule, _paged_kv4_prefill_kernel): see the note at the kernel below.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+// paged_kv4_prefill_dense (K7) — replaces paged_kv4_prefill_attention
+// (dense schedule): see dense_attention.cuh.
+#include "dense_attention.cuh"
 
 namespace {
 
-constexpr int D = 128;        // head_dim this kernel is built for
-constexpr int KC = 32;        // keys per shared-memory chunk (one per lane)
-constexpr int ROWS = 16;      // query rows per thread block
-constexpr int WARPS = 4;
-constexpr int RPW = ROWS / WARPS;
+constexpr int WQ_WCH = 64;   // items whose combine weights one pass stages
+// shared bytes besides the scores: the staged tile, two raw tiles, the
+// head's scales, the row reductions and the arrival flag
+constexpr int WQ_FIXED = DN_KV + DN_RAW + 4 * D * 4 + DN_MAXWR * 4 +
+                         4 * DN_MAXR * 4 + 16;                 // 78,608
+static_assert(WQ_WCH * DN_MAXR * 4 <= DN_KV, "combine weights fit");
 
-__global__ void __launch_bounds__(WARPS * 32) prefill_wq_kernel(
-    const int* __restrict__ desc,
-    const float* __restrict__ qt, const float* __restrict__ cterm,
-    const float* __restrict__ qs,
-    const float* __restrict__ kn, const float* __restrict__ vn,
-    const float* __restrict__ vs, const float* __restrict__ vz,
-    const uint8_t* __restrict__ k_pool, const uint8_t* __restrict__ v_pool,
-    float* __restrict__ acc_out, float* __restrict__ l_out,
-    float* __restrict__ m_out,
-    int nrows, int cg, int c, int g, int ps, int hkv) {
-  __shared__ float sK[KC][D + 1];
-  __shared__ __align__(16) float sV[KC][D];
-  __shared__ __align__(16) float sQ[ROWS][D];
-
-  const int item = blockIdx.x;
-  const int r0 = blockIdx.y * ROWS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row = min(desc[4 * item], nrows - 1);
-  const int page = desc[4 * item + 1];
-  const int count = desc[4 * item + 2];
-  const int kind = desc[4 * item + 3];
-  const int head = row % hkv;
-  const long obase = static_cast<long>(item) * cg;
-
-  if (count <= 0) {
-    for (int i = tid; i < ROWS * D; i += WARPS * 32) {
-      const int r = r0 + i / D;
-      if (r < cg) acc_out[(obase + r) * D + i % D] = 0.f;
-    }
-    if (tid < ROWS && r0 + tid < cg) {
-      l_out[obase + r0 + tid] = 0.f;
-      m_out[obase + r0 + tid] = NEG_INF;
-    }
-    return;
-  }
-
-  const float* qsrc = (kind == 0 ? qt : qs) + static_cast<long>(row) * cg * D;
-  for (int i = tid; i < ROWS * D; i += WARPS * 32) {
-    const int r = r0 + i / D;
-    sQ[i / D][i % D] = r < cg ? qsrc[static_cast<long>(r) * D + i % D] : 0.f;
-  }
-  const int last_row = min(r0 + ROWS, cg) - 1;
-  const int nkeys = kind == 0 ? min(count, ps)
-                              : min(min(count, c), last_row / g + 1);
-
-  float m_i[RPW], l_i[RPW], c_i[RPW], a_i[RPW][4];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = r0 + warp * RPW + i;
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-    c_i[i] = (kind == 0 && r < cg) ? cterm[static_cast<long>(row) * cg + r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a_i[i][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < nkeys; k0 += KC) {
-    __syncthreads();   // sQ written / previous chunk consumed
-    if (kind == 0) {
-      for (int i = tid; i < KC * (D / 2); i += WARPS * 32) {
-        const int j = i / (D / 2), d = i % (D / 2), p = k0 + j;
-        uint8_t kb = 0, vb = 0;
-        if (p < ps) {
-          const long off =
-              ((static_cast<long>(page) * ps + p) * hkv + head) * (D / 2) + d;
-          kb = k_pool[off];
-          vb = v_pool[off];
-        }
-        sK[j][d] = static_cast<float>(kb & 15);
-        sK[j][d + D / 2] = static_cast<float>(kb >> 4);
-        sV[j][d] = static_cast<float>(vb & 15);
-        sV[j][d + D / 2] = static_cast<float>(vb >> 4);
-      }
-    } else {
-      for (int i = tid; i < KC * D; i += WARPS * 32) {
-        const int j = i / D, d = i % D, kj = k0 + j;
-        float kv = 0.f, vv = 0.f;
-        if (kj < c) {
-          const long off = (static_cast<long>(row) * c + kj) * D + d;
-          kv = kn[off];
-          vv = vn[off];
-        }
-        sK[j][d] = kv;
-        sV[j][d] = vv;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int rl = warp * RPW + i, r = r0 + rl;
-      const int qi = r / g;
-      if (r >= cg || (kind != 0 && k0 > qi)) continue;   // warp-uniform
-      const int kj = k0 + lane;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s = fmaf(sQ[rl][d], sK[lane][d], s);
-      const bool valid = kind == 0 ? (kj < count && kj < ps)
-                                   : (kj <= qi && kj < count && kj < c);
-      s = valid ? s - c_i[i] : NEG_INF;
-      const float m_new = fmaxf(m_i[i], warp_max(s));
-      const float alpha = expf(m_i[i] - m_new);
-      const float p = expf(s - m_new);
-      l_i[i] = l_i[i] * alpha + warp_sum(p);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a_i[i][e] *= alpha;
-#pragma unroll 8
-      for (int jj = 0; jj < KC; ++jj) {
-        const float pj = __shfl_sync(0xffffffffu, p, jj);
-        const float4 v4 = *reinterpret_cast<const float4*>(&sV[jj][4 * lane]);
-        a_i[i][0] = fmaf(pj, v4.x, a_i[i][0]);
-        a_i[i][1] = fmaf(pj, v4.y, a_i[i][1]);
-        a_i[i][2] = fmaf(pj, v4.z, a_i[i][2]);
-        a_i[i][3] = fmaf(pj, v4.w, a_i[i][3]);
-      }
-      m_i[i] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = r0 + warp * RPW + i;
-    if (r >= cg) continue;
-    float o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (kind == 0) {
-        const int d = head * D + 4 * lane + e;
-        o[e] = a_i[i][e] * vs[d] - l_i[i] * (vs[d] * vz[d]);
-      } else {
-        o[e] = a_i[i][e];
-      }
-    }
-    *reinterpret_cast<float4*>(&acc_out[(obase + r) * D + 4 * lane]) =
-        make_float4(o[0], o[1], o[2], o[3]);
-    if (lane == 0) {
-      l_out[obase + r] = l_i[i];
-      m_out[obase + r] = m_i[i];
-    }
-  }
-}
-
-// Dense chunked prefill (K7) — replaces repro/kernels/paged_attention.py:
-// paged_kv4_prefill_attention (_paged_kv4_prefill_kernel). Query row r =
-// qi·G + gi of (b, kv head h) attends over the int4 history [0, ctx),
-// gathered through the block table and dequantized to (n − z)·s, and the
-// chunk's keys j ≤ qi, j < q_len, in exact arithmetic: every dot product
-// and sum in f64 rounded once to f32, the exponential the f64 one rounded
-// (e = f32(exp(s − M)), L = f32(Σ e), p = e / L in f32, out = f32(Σ p·v)),
-// as the plain version computes on the card, so the two agree bit for bit
-// (an f64 sum rounded once does not depend on its order) and a token served
-// through the kernel is the token of the plain version.
-//
-// Bound on the H100: operations, ~4·D per (valid query, valid key), at the
-// f64 rate the exact contract asks for. The first design walked every key
-// three times (max, Σe, p·V), re-staging and re-scoring it each time with
-// f64 FMAs on the CUDA cores, with one 16-row tile of 4 warps per (b, h)
-// — at decode shape (C = 1, G = 4) 64 blocks for 132 SMs, one warp of four
-// busy. This one:
-// * scores each (row, key) once. A 64-key tile's packed bytes come by
-//   16-byte cp.async one tile ahead (the block's page ids read once),
-//   are dequantized to f64 in shared memory, and QKᵀ runs on the f64
-//   tensor cores (mma m16n8k8: f32 products are exact in f64, so only the
-//   summation order changes, and it is free), keys as the MMA's rows and
-//   8 query rows as its columns. The scores stay in shared memory — or,
-//   when rows × keys do not fit (dense_plan in kernels/paged_attention.py
-//   decides), in a scratch buffer the wrapper allocates — for the max,
-//   the exponentials and Σe, then Oᵀ = Vᵀ·Pᵀ on the tensor cores over V
-//   tiles staged once.
-// * sizes the row tile to C·G (8, 16 or 32 rows; warps split the rows
-//   and the keys of each tile) and splits the key range of one (b, h, row
-//   tile) across the blocks of a thread-block cluster (1..8, as many as
-//   run in one wave): the partial maxima, the f64 partial Σe and the f64
-//   partial outputs meet through distributed shared memory between
-//   cluster barriers, so M is global before any exponential and L before
-//   any p, in one launch;
-// * skips the MMAs of key steps wholly past a warp's causal edge, and
-//   gives the 32-row tile 8 warps, so an SM has warps to switch to while
-//   one waits on an MMA or a load.
-constexpr int KT = 64;             // keys per staged tile
-constexpr int SKV = D + 4;         // f64 row stride of a staged K/V tile:
-                                   // the fragment loads are conflict-free
-constexpr int DN_MAXR = 32;        // most rows per block
-constexpr int DN_MAXWR = 64;       // most (key-warp, row) partials
-// warps across the keys of a tile: 4 for the 8- and 16-row tiles, 2 for
-// the 32-row tile (8 warps a block, so the SM has warps to switch to)
-__host__ __device__ constexpr int dn_wk(int wr) { return wr == 4 ? 2 : 4; }
-__host__ __device__ constexpr int dn_threads(int wr) {
-  return 32 * wr * dn_wk(wr);
-}
-constexpr int DN_MAXP = 512;       // history pages of a block kept at hand
-constexpr int DN_KV = KT * SKV * 8;
-constexpr int DN_RAW = 2 * KT * (D / 2);    // two tiles of packed bytes
-constexpr int DN_FIXED = DN_KV + DN_RAW + DN_MAXP * 4 + 4 * D * 4 +
-                         DN_MAXR * 8 + (DN_MAXWR + 2 * DN_MAXR) * 4;
-                                            // 80,640 bytes
-constexpr int DN_SMEM_MAX = 232448;         // the H100's per-block opt-in
-
-// D(16×8) += A(16×8)·B(8×8) in f64 on the tensor cores; lane (g, t) holds
-// a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
-// d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]
-__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1,
-                                     double a2, double a3, double b0,
-                                     double b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
-}
-
-struct DenseArgs {
-  const float* q; const float* kn; const float* vn;
+// desc [W, 4], jobs [J, 4] (work_plan); q [B, C, Hq, D] f32 or bf16;
+// kn/vn f32 [B, C, Hkv, D]; ks/kz/vs/vz f32 [Hkv, D]; part f32 [compute
+// jobs][R][D + 2] (acc, l, m); arrive int32 [≥ compute jobs], zero at
+// launch and left zero; scratch f32 [compute jobs][R][sstride] when the
+// scores do not fit in shared memory, else null.
+struct WqArgs {
+  const int* desc; const int* jobs;
+  const void* q; const float* kn; const float* vn;
   const float* ks; const float* kz; const float* vs; const float* vz;
   const uint8_t* k_pool; const uint8_t* v_pool;
-  const int* tables; const int* ctx_lens; const int* q_lens;
-  float* out; float* scratch;
-  int c, g, hkv, np, ps, sstride;
+  float* out; float* part; int* arrive; float* scratch;
+  int c, g, hkv, ps, sstride, q_bf16;
 };
 
-// WR warps across the rows (8 each), dn_wk(WR) across the keys of a tile;
-// gridDim = (split, row tiles, B·Hkv), the cluster spans the split.
-// Products are taken transposed, keys (or head channels) as the MMA's 16
-// rows and the warp's 8 query rows as its 8 columns: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ.
+// Job (item, tile, first, count): the partial of descriptor item `item`
+// for query rows [tile·R, tile·R + R) of its row, then — if last of the
+// `count` jobs first.. of that (row, tile) — their combine. Job (−1, t0,
+// row, t1): zeros for tiles [t0, t1) of row `row`. gridDim.x = J; the
+// compute jobs come first, job j's partial in scratch slot j.
 template <int WR>
-__global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
-    DenseArgs a) {
-  constexpr int R = 8 * WR, WK = dn_wk(WR), DN_THREADS = dn_threads(WR);
+__global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
+    WqArgs a) {
+  constexpr int R = 8 * WR, WK = dn_wk(WR), NT = dn_threads(WR);
+  constexpr long PSZ = R * (D + 2);         // floats of one partial
   extern __shared__ __align__(16) unsigned char smem[];
   double* sKV = reinterpret_cast<double*>(smem);            // [KT][SKV]
-  double* sSumP = reinterpret_cast<double*>(smem + DN_KV);  // [R]
-  unsigned char* sRaw = smem + DN_KV + DN_MAXR * 8;         // [2][KT][D/2]
-  int* sPage = reinterpret_cast<int*>(sRaw + DN_RAW);       // [DN_MAXP]
-  float* sScale = reinterpret_cast<float*>(sPage + DN_MAXP); // ks kz vs vz
+  unsigned char* sRaw = smem + DN_KV;                       // [2][KT][D/2]
+  float* sScale = reinterpret_cast<float*>(sRaw + DN_RAW);  // ks kz vs vz
   float* sMaxP = sScale + 4 * D;                            // [WK][R]
   float* sM = sMaxP + DN_MAXWR;
   float* sL = sM + DN_MAXR;
+  float* sC = sL + DN_MAXR;
+  float* sDen = sC + DN_MAXR;
+  int* sFlag = reinterpret_cast<int*>(sDen + DN_MAXR);
   float* sQ = reinterpret_cast<float*>(smem);   // [R][D] before the keys
   double* sOut = sKV;          // [WK][R][D] after the last V tile
+  float* sW = reinterpret_cast<float*>(smem);   // [WQ_WCH][R] in the combine
 
-  namespace cg = cooperative_groups;
-  const int nsplit = gridDim.x, rank = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gi = lane >> 2, t = lane & 3;
   const int wr = warp % WR, wk = warp / WR;
-  const int bh = blockIdx.z, b = bh / a.hkv, h = bh % a.hkv;
-  const int r0 = blockIdx.y * R;
+  const int4 job = reinterpret_cast<const int4*>(a.jobs)[blockIdx.x];
   const int grp = a.g, cg_rows = a.c * grp, hq = a.hkv * grp;
-  const int ctx = min(a.ctx_lens[b], a.np * a.ps);
-  const int qlen = min(a.q_lens[b], a.c);
-  // query row r of this (b, h) lives at out/q[b, r / G, h·G + r % G, :]
-  auto qrow = [&](int r) {
+  // query row r of (b, h) lives at out/q[b, r / G, h·G + r % G, :]
+  auto qrow = [&](int b, int h, int r) {
     return ((static_cast<long>(b) * a.c + r / grp) * hq + h * grp + r % grp)
            * D;
   };
-  auto cluster_sync = [&]() {
-    if (nsplit > 1) cg::this_cluster().sync(); else __syncthreads();
-  };
-  auto remote = [&](auto* p, int rk) {
-    return nsplit > 1 ? cg::this_cluster().map_shared_rank(p, rk) : p;
-  };
 
-  if (r0 >= qlen * grp) {     // padding rows only: zeros, no reads
-    for (int i = rank * DN_THREADS + tid; i < R * D;
-         i += nsplit * DN_THREADS) {
-      const int r = r0 + i / D;
-      if (r < cg_rows) a.out[qrow(r) + i % D] = 0.f;
-    }
-    return;                   // the whole cluster returns here
+  if (job.x < 0) {            // zero job
+    const int b = job.z / a.hkv, h = job.z % a.hkv;
+    const int end = min(job.w * R, cg_rows) * (D / 4);
+    for (int i = job.y * R * (D / 4) + tid; i < end; i += NT)
+      *reinterpret_cast<float4*>(a.out + qrow(b, h, i / (D / 4)) +
+                                 4 * (i % (D / 4))) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
   }
-
-  // this block's share of the keys: history [0, ctx), then chunk keys
-  // [0, nchunk) as keys ctx.. ; a multiple of 8 keys per block
+  const int4 it = reinterpret_cast<const int4*>(a.desc)[job.x];
+  const int page = it.y, count = it.z;
+  const bool hist = it.w == 0;
+  const int b = it.x / a.hkv, h = it.x % a.hkv;
+  const int r0 = job.y * R, first = job.z, cnt = job.w;
+  const float sm = __frcp_rn(__fsqrt_rn(static_cast<float>(D)));   // 1/√D
   const int last_qi = (min(r0 + R, cg_rows) - 1) / grp;
-  const int nchunk = min(qlen, last_qi + 1);
-  const int nk = ctx + nchunk;
-  const int per = ((nk + nsplit - 1) / nsplit + 7) & ~7;
-  const int lo = rank * per;
-  const int nloc = max(0, min(per, nk - lo));
-  const int ntile = (nloc + KT - 1) / KT;
+  const int nk = hist ? min(count, a.ps) : min(min(count, a.c), last_qi + 1);
+  const int ntile = (nk + KT - 1) / KT;
   float* scores = a.scratch == nullptr
-      ? sL + DN_MAXR
-      : a.scratch + ((static_cast<long>(bh) * gridDim.y + blockIdx.y) *
-                     nsplit + rank) * R * a.sstride;
+      ? reinterpret_cast<float*>(sFlag + 4)
+      : a.scratch + static_cast<long>(blockIdx.x) * R * a.sstride;
   const int rbase = 8 * wr;                 // the warp's first row
   const int warp_qi = (min(r0 + rbase + 7, cg_rows - 1)) / grp;
-  const int* tbl = a.tables + static_cast<long>(b) * a.np;
-  const float sqrt_d = sqrtf(static_cast<float>(D));
 
-  for (int i = tid; i < 4 * D; i += DN_THREADS) {
+  for (int i = tid; i < 4 * D; i += NT) {
     const float* src = i < D ? a.ks : i < 2 * D ? a.kz : i < 3 * D ? a.vs
                                                                    : a.vz;
     sScale[i] = src[h * D + i % D];
   }
-  for (int i = tid; i < R * D / 4; i += DN_THREADS) {
-    const int r = r0 + i / (D / 4);
-    *reinterpret_cast<float4*>(sQ + 4 * i) =
-        r < cg_rows ? *reinterpret_cast<const float4*>(
-                          a.q + qrow(r) + 4 * (i % (D / 4)))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the pre-fold of the tile's queries: (q·s_k)·(1/√D) for a history
+  // page, q·(1/√D) for the chunk — the plain version's two roundings
+  for (int i = tid; i < R * D / 4; i += NT) {
+    const int r = r0 + i / (D / 4), c4 = 4 * (i % (D / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < cg_rows) {
+      v = load_q4(a.q, qrow(b, h, r) + c4, a.q_bf16);
+      if (hist) {
+        const float4 s = *reinterpret_cast<const float4*>(a.ks + h * D + c4);
+        v = make_float4(__fmul_rn(v.x, s.x), __fmul_rn(v.y, s.y),
+                        __fmul_rn(v.z, s.z), __fmul_rn(v.w, s.w));
+      }
+      v = make_float4(__fmul_rn(v.x, sm), __fmul_rn(v.y, sm),
+                      __fmul_rn(v.z, sm), __fmul_rn(v.w, sm));
+    }
+    *reinterpret_cast<float4*>(sQ + 4 * i) = v;
   }
-  // the physical pages of this block's history keys, at hand
-  const int p_first = lo / a.ps;
-  const int p_count = lo < ctx ? (min(lo + nloc, ctx) - 1) / a.ps - p_first + 1
-                               : 0;
-  for (int i = tid; i < min(p_count, DN_MAXP); i += DN_THREADS)
-    sPage[i] = max(tbl[p_first + i], 0);
-  auto page_of = [&](int tg) {
-    const int i = tg / a.ps - p_first;
-    return i < DN_MAXP ? sPage[i] : max(tbl[tg / a.ps], 0);
-  };
-  // a key step [k, ..) of local keys that no row of this warp sees
-  auto dead = [&](int k) {
-    const int tg = lo + k;
-    return k >= nloc || (tg >= ctx && tg - ctx > warp_qi);
-  };
+  // a key step [k, ..) that no row of this warp sees
+  auto dead = [&](int k) { return k >= nk || (!hist && k > warp_qi); };
 
-  // the tile stream: K tiles 0..ntile−1, then V tiles; tile s's packed
-  // history bytes go to raw buffer s & 1 by cp.async one tile ahead
+  // the tile stream: K tiles 0..ntile−1, then V tiles; a page's packed
+  // bytes go to raw buffer s & 1 by cp.async one tile ahead, chunk keys
+  // are read straight from global memory when staged
   auto prefetch = [&](int s) {
-    const int k0 = (s % ntile) * KT;
-    const uint8_t* pool = s < ntile ? a.k_pool : a.v_pool;
-    unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
+    if (hist) {
+      const int k0 = (s % ntile) * KT;
+      const uint8_t* pool = s < ntile ? a.k_pool : a.v_pool;
+      unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
 #pragma unroll
-    for (int u = 0; u < KT * 4 / DN_THREADS; ++u) {
-      const int i = tid + u * DN_THREADS;
-      const int j = i >> 2, c16 = i & 3, kl = k0 + j, tg = lo + kl;
-      if (kl < nloc && tg < ctx) {
-        const long off = ((static_cast<long>(page_of(tg)) * a.ps + tg % a.ps)
-                          * a.hkv + h) * (D / 2) + 16 * c16;
-        cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
+      for (int u = 0; u < KT * 4 / NT; ++u) {
+        const int i = tid + u * NT;
+        const int j = i >> 2, c16 = i & 3, kl = k0 + j;
+        if (kl < nk) {
+          const long off = ((static_cast<long>(page) * a.ps + kl) * a.hkv + h)
+                           * (D / 2) + 16 * c16;
+          cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
+        }
       }
     }
     cp_commit();
   };
-  // stage tile s (its packed bytes landed) into sKV as f64
+  // stage tile s into sKV as f64: nibble codes, or the chunk's f32 keys
   auto stage = [&](int s) {
     const bool val = s >= ntile;
     const int k0 = (s % ntile) * KT;
@@ -384,31 +182,23 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
     __syncthreads();   // tile s landed; the previous tile is consumed
     if (s + 1 < 2 * ntile) prefetch(s + 1);
     const unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
-    const float* sc = sScale + (val ? 2 * D : 0);   // scale, then zero
-    for (int j = warp; j < KT; j += DN_THREADS / 32) {
-      const int kl = k0 + j, tg = lo + kl;
+    for (int j = warp; j < KT; j += NT / 32) {
+      const int kl = k0 + j;
       double* dst = sKV + j * SKV;
-      if (kl >= nloc) {
+      if (kl >= nk) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = 0.0;
-      } else if (tg < ctx) {
+      } else if (hist) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int d = lane + 32 * e;
           const unsigned byte = raw[j * (D / 2) + d];
-          // (n − z)·s in f32, as the plain version dequantizes; the code
-          // n is exact as (2^23 + n) − 2^23, without a conversion
-          const float n_lo =
-              __int_as_float(0x4B000000 | (byte & 15)) - 8388608.f;
-          const float n_hi =
-              __int_as_float(0x4B000000 | (byte >> 4)) - 8388608.f;
-          dst[d] = __fmul_rn(__fsub_rn(n_lo, sc[D + d]), sc[d]);
-          dst[d + D / 2] = __fmul_rn(__fsub_rn(n_hi, sc[D + d + D / 2]),
-                                     sc[d + D / 2]);
+          dst[d] = static_cast<double>(byte & 15u);
+          dst[d + D / 2] = static_cast<double>(byte >> 4);
         }
       } else {
         const float* src = (val ? a.vn : a.kn) +
-            ((static_cast<long>(b) * a.c + (tg - ctx)) * a.hkv + h) * D;
+            ((static_cast<long>(b) * a.c + kl) * a.hkv + h) * D;
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = src[lane + 32 * e];
       }
@@ -416,14 +206,27 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
     __syncthreads();
   };
 
-  // ---- scores, once: s = f32(Σ_f64 q·k) / √D, masked to NEG_INF.
-  // Lane (gi, t) ends with keys gi, gi+8 of each 16-key subtile × rows
-  // 2t, 2t+1 of the warp's 8.
-  constexpr int NSUB = 4 / WK;       // 16-key subtiles of a tile per warp
-  static_assert(KT * 4 % DN_THREADS == 0 && WK * R <= DN_MAXWR, "tiling");
-  constexpr int NCH = 4 / NSUB;      // accumulator chains per subtile
-  __syncthreads();                   // sQ, sPage and sScale are written
+  __syncthreads();                   // sQ and sScale are written
   if (ntile > 0) prefetch(0);
+  if (hist) {                        // c = f32(Σ_f64 q̃·z_k), per row
+    constexpr int TPR = NT / R;
+    const int rr = tid / TPR, j0 = tid % TPR;
+    double s = 0.0;
+    for (int ch = j0; ch < D; ch += TPR)
+      s = fma(static_cast<double>(sQ[rr * D + ch]),
+              static_cast<double>(sScale[D + ch]), s);
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (j0 == 0) sC[rr] = static_cast<float>(s);
+  }
+
+  // ---- scores, once: s = f32(Σ_f64 q̃·n) − c or f32(Σ_f64 (q/√D)·k),
+  // masked to NEG_INF. Lane (gi, t) ends with keys gi, gi+8 of each
+  // 16-key subtile × rows 2t, 2t+1 of the warp's 8.
+  constexpr int NSUB = 4 / WK;       // 16-key subtiles of a tile per warp
+  static_assert(KT * 4 % NT == 0 && WK * R <= DN_MAXWR, "tiling");
+  constexpr int NCH = 4 / NSUB;      // accumulator chains per subtile
   float mrow[2] = {NEG_INF, NEG_INF};
   {
     double qb[D / 8][2];     // B fragments: q[row gi][8kk + t (+4)]
@@ -445,8 +248,6 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) s4[j][e] = NEG_INF;
       } else {
-        // four independent MMA chains (by subtile, else by k step); their
-        // f64 partials add
         double acc[4][4];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
@@ -468,12 +269,12 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
             double v = acc[j * NCH][e];
 #pragma unroll
             for (int c = 1; c < NCH; ++c) v += acc[j * NCH + c][e];
-            const int kl = kw + 16 * j + gi + 8 * (e >> 1), tg = lo + kl;
-            const int q_i = qi2[e & 1];
-            const bool valid = kl < nloc && (tg < ctx || (tg - ctx <= q_i &&
-                                                          tg - ctx < qlen));
-            s4[j][e] = valid ? __fdiv_rn(static_cast<float>(v), sqrt_d)
-                             : NEG_INF;
+            const int kl = kw + 16 * j + gi + 8 * (e >> 1);
+            const bool valid = kl < nk && (hist || kl <= qi2[e & 1]);
+            const float sv = static_cast<float>(v);
+            s4[j][e] = !valid ? NEG_INF
+                       : hist ? __fsub_rn(sv, sC[rbase + 2 * t + (e & 1)])
+                              : sv;
           }
       }
 #pragma unroll
@@ -494,33 +295,27 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
     mrow[i] = fmaxf(mrow[i], __shfl_xor_sync(0xffffffffu, mrow[i], 16));
     if (gi == 0) sMaxP[wk * R + rbase + 2 * t + i] = mrow[i];
   }
-  cluster_sync();
-  if (tid < R) {              // the row's max over every block and warp
+  __syncthreads();
+  if (tid < R) {              // the row's max m over the key warps
     float m = NEG_INF;
-#pragma unroll
-    for (int rk = 0; rk < 8; ++rk) {
-      if (rk >= nsplit) break;
-      const float* src = remote(sMaxP, rk);
-      for (int w = 0; w < WK; ++w) m = fmaxf(m, src[w * R + tid]);
-    }
+    for (int w = 0; w < WK; ++w) m = fmaxf(m, sMaxP[w * R + tid]);
     sM[tid] = m;
   }
   __syncthreads();
 
-  // ---- e = f32(exp_f64(s − M)) in place, partial Σ_f64 e: the block's
+  // ---- e = f32(exp_f64(s − m)) in place, l = f32(Σ_f64 e): the block's
   // threads in groups of TPR per row, each over keys TPR apart
   {
-    constexpr int TPR = DN_THREADS / R;
+    constexpr int TPR = NT / R;
     const int rr = tid / TPR, j0 = tid % TPR;
     const float m = sM[rr];
     float* sr = scores + static_cast<long>(rr) * a.sstride;
-    double sum4[4] = {0.0, 0.0, 0.0, 0.0};   // four chains: the exps overlap
+    double sum4[4] = {0.0, 0.0, 0.0, 0.0};
     for (int k4 = j0; k4 < ntile * KT; k4 += 4 * TPR) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int kl = k4 + u * TPR;     // KT is a multiple of 4·TPR
         const float s = sr[kl];
-        // a masked score's exponential is exactly 0: skip the f64 exp
         const float e = s <= NEG_INF ? 0.f : exp_f64(s - m);
         sr[kl] = e;
         sum4[u] += static_cast<double>(e);
@@ -530,22 +325,12 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
 #pragma unroll
     for (int o = TPR / 2; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (j0 == 0) sSumP[rr] = sum;
+    if (j0 == 0) sL[rr] = static_cast<float>(sum);
   }
-  cluster_sync();
-  if (tid < R) {              // L = f32(Σ e) over every block
-    double l = 0.0;
-#pragma unroll
-    for (int rk = 0; rk < 8; ++rk) {
-      if (rk >= nsplit) break;
-      l += remote(sSumP, rk)[tid];
-    }
-    sL[tid] = static_cast<float>(l);
-  }
-  // (stage() begins with a barrier, which orders sL before its readers)
+  // (stage() begins with a barrier, which orders the e before their use)
 
-  // ---- Oᵀ = Σ_f64 Vᵀ·(e / L)ᵀ over V tiles staged once; lane (gi, t)
-  // ends with head channels 16n + gi (+8) × rows 2t, 2t+1
+  // ---- Oᵀ = Σ_f64 Vᵀ·eᵀ over V tiles staged once; lane (gi, t) ends with
+  // head channels 16n + gi (+8) × rows 2t, 2t+1
   double oacc[D / 16][4];
 #pragma unroll
   for (int n = 0; n < D / 16; ++n)
@@ -554,13 +339,12 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
   const float* prow = scores + static_cast<long>(rbase + gi) * a.sstride;
   for (int k0 = 0; k0 < ntile * KT; k0 += KT) {
     stage(ntile + k0 / KT);
-    const float l = sL[rbase + gi];
 #pragma unroll
     for (int ks = wk * (8 / WK); ks < (wk + 1) * (8 / WK); ++ks) {
       const int kb = k0 + 8 * ks;
       if (dead(kb)) continue;               // warp-uniform
-      const double p0 = static_cast<double>(__fdiv_rn(prow[kb + t], l));
-      const double p1 = static_cast<double>(__fdiv_rn(prow[kb + t + 4], l));
+      const double p0 = static_cast<double>(prow[kb + t]);
+      const double p1 = static_cast<double>(prow[kb + t + 4]);
       const double* vp = sKV + (8 * ks + t) * SKV + gi;
 #pragma unroll
       for (int n = 0; n < D / 16; ++n)
@@ -575,103 +359,154 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_dense_kernel(
     for (int e = 0; e < 4; ++e)
       sOut[(wk * R + rbase + 2 * t + (e & 1)) * D + 16 * n + gi +
            8 * (e >> 1)] = oacc[n][e];
-  if (WK > 1) {               // the warps' partials, summed in the block
+  __syncthreads();
+
+  // ---- the partial, rounded as the plain version rounds it: acc =
+  // f32(Σ e·v), for a page then acc·s_v − l·(s_v·z_v) in f32
+  float* pj = a.part + static_cast<long>(blockIdx.x) * PSZ;
+  for (int i = tid; i < R * D; i += NT) {
+    double v = sOut[i];
+#pragma unroll
+    for (int w = 1; w < WK; ++w) v += sOut[w * R * D + i];
+    float o = static_cast<float>(v);
+    if (hist) {
+      const float vsc = sScale[2 * D + i % D], vzc = sScale[3 * D + i % D];
+      o = __fsub_rn(__fmul_rn(o, vsc),
+                    __fmul_rn(sL[i / D], __fmul_rn(vsc, vzc)));
+    }
+    pj[i] = o;
+  }
+  if (tid < R) {
+    pj[R * D + tid] = sL[tid];
+    pj[R * D + R + tid] = sM[tid];
+  }
+
+  // ---- arrival: the last of the group's blocks combines
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    sFlag[0] = cnt == 1 || atomicAdd(a.arrive + first, 1) == cnt - 1;
+  __syncthreads();
+  if (!sFlag[0]) return;
+  __threadfence();
+  const float* pg = a.part + static_cast<long>(first) * PSZ;
+  if (tid < R) {              // M = max(NEG_INF, max_i m_i)
+    float mx = NEG_INF;
+#pragma unroll 4
+    for (int i = 0; i < cnt; ++i)
+      mx = fmaxf(mx, __ldcg(pg + i * PSZ + R * D + R + tid));
+    sM[tid] = mx;
+  }
+  constexpr int EPT = R * D / NT;
+  double num[EPT];
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) num[k] = 0.0;
+  double den = 0.0;
+  for (int i0 = 0; i0 < cnt; i0 += WQ_WCH) {
+    const int n = min(WQ_WCH, cnt - i0);
+    __syncthreads();          // sM written / the previous weights consumed
+    for (int j = tid; j < n * R; j += NT) {   // w = f32(exp_f64(m_i − M))
+      const int r = j % R;
+      sW[j] = exp_f64(__fsub_rn(
+          __ldcg(pg + (i0 + j / R) * PSZ + R * D + R + r), sM[r]));
+    }
     __syncthreads();
-    for (int i = tid; i < R * D; i += DN_THREADS) {
-      double v = sOut[i];
+    if (tid < R)
+      for (int i = 0; i < n; ++i)
+        den = fma(static_cast<double>(sW[i * R + tid]),
+                  static_cast<double>(
+                      __ldcg(pg + (i0 + i) * PSZ + R * D + tid)), den);
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      const float* pa = pg + (i0 + i) * PSZ;
 #pragma unroll
-      for (int w = 1; w < WK; ++w) v += sOut[w * R * D + i];
-      sOut[i] = v;
+      for (int k = 0; k < EPT; ++k) {
+        const int e = tid + k * NT;
+        num[k] = fma(static_cast<double>(sW[i * R + e / D]),
+                     static_cast<double>(__ldcg(pa + e)), num[k]);
+      }
     }
   }
-  cluster_sync();
-  // each block of the cluster rounds its share of the tile's outputs
-  for (int i = rank * DN_THREADS + tid; i < R * D; i += nsplit * DN_THREADS) {
-    const int r = r0 + i / D;
-    if (r >= cg_rows) continue;
-    double v = 0.0;
+  if (tid < R) sDen[tid] = fmaxf(static_cast<float>(den), 1e-30f);
+  __syncthreads();
 #pragma unroll
-    for (int rk = 0; rk < 8; ++rk) {
-      if (rk >= nsplit) break;
-      v += remote(sOut, rk)[i];
-    }
-    a.out[qrow(r) + i % D] = r < qlen * grp ? static_cast<float>(v) : 0.f;
+  for (int k = 0; k < EPT; ++k) {
+    const int e = tid + k * NT, r = r0 + e / D;
+    if (r < cg_rows)
+      a.out[qrow(b, h, r) + e % D] =
+          __fdiv_rn(static_cast<float>(num[k]), sDen[e / D]);
   }
-  if (nsplit > 1) cg::this_cluster().sync();   // peers may still read us
+  if (tid == 0 && cnt > 1) a.arrive[first] = 0;
 }
 
 template <int WR>
-cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
-                         cudaStream_t stream) {
+cudaError_t launch_wq(const WqArgs& a, int njobs, int smem,
+                      cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_dense_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_wq_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DN_SMEM_MAX);
   if (attr != cudaSuccess) return attr;
-  const int rows = 8 * WR;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (a.c * a.g + rows - 1) / rows, b * a.hkv);
-  cfg.blockDim = dim3(dn_threads(WR));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = split;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, prefill_dense_kernel<WR>, a);
+  prefill_wq_kernel<WR><<<njobs, dn_threads(WR), smem, stream>>>(a);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// desc int32 [w, 4]; qt/qs f32 [nrows, cg, D]; cterm f32 [nrows, cg];
-// kn/vn f32 [nrows, c, D]; vs/vz f32 [hkv, D]; pools uint8 [P, ps, hkv, D/2]
-// → acc f32 [w, cg, D], l/m f32 [w, cg]. All contiguous; d must be 128.
+// desc int32 [W, 4]; jobs int32 [njobs, 4] (work_plan); q [B, C, Hq, D]
+// (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32
+// [hkv, D]; pools uint8 [P, ps, hkv, D/2] → out f32 [B, C, Hq, D]. part,
+// arrive and scratch as WqArgs says; rows (8, 16 or 32) the jobs' tile,
+// sstride the score rows' stride in floats (≥ every job's keys rounded to
+// 64, + 8), smem the dynamic shared bytes. All contiguous; d must be 128.
 extern "C" int paged_kv4_prefill_wq(
-    const int* desc, int w, const float* qt, const float* cterm,
-    const float* qs, const float* kn, const float* vn, const float* vs,
-    const float* vz, const uint8_t* k_pool, const uint8_t* v_pool,
-    float* acc, float* l, float* m, int nrows, int cg, int c, int g, int ps,
-    int hkv, int d, cudaStream_t stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  if (w > 0 && cg > 0) {
-    const dim3 grid(w, (cg + ROWS - 1) / ROWS);
-    prefill_wq_kernel<<<grid, WARPS * 32, 0, stream>>>(
-        desc, qt, cterm, qs, kn, vn, vs, vz, k_pool, v_pool, acc, l, m,
-        nrows, cg, c, g, ps, hkv);
+    const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
+    const float* kn, const float* vn, const float* ks, const float* kz,
+    const float* vs, const float* vz, const uint8_t* k_pool,
+    const uint8_t* v_pool, float* out, float* part, int* arrive,
+    float* scratch, int c, int g, int hkv, int ps, int d, int rows,
+    int sstride, int smem, cudaStream_t stream) {
+  const bool plan_ok =
+      (rows == 8 || rows == 16 || rows == 32) && sstride % 32 == 8 &&
+      smem <= DN_SMEM_MAX &&
+      smem == WQ_FIXED + (scratch ? 0 : rows * sstride * 4);
+  if (d != D || !plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (njobs > 0) {
+    const WqArgs a{desc, jobs, q, kn, vn, ks, kz, vs, vz, k_pool, v_pool,
+                   out, part, arrive, scratch, c, g, hkv, ps, sstride,
+                   q_bf16};
+    const cudaError_t e =
+        rows == 8 ? launch_wq<1>(a, njobs, smem, stream)
+        : rows == 16 ? launch_wq<2>(a, njobs, smem, stream)
+                     : launch_wq<4>(a, njobs, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// q f32 [B, C, Hq, D]; k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32 [hkv, D];
-// pools uint8 [P, ps, hkv, D/2]; tables int32 [B, np]; ctx/q_len int32 [B]
-// → out f32 [B, C, Hq, D] (rows at or past q_len·G: 0). All contiguous;
-// d must be 128. The launch plan (kernels/paged_attention.py:dense_plan):
-// rows per block (8, 16 or 32), split (cluster size, 1..8), sstride (the
-// score rows' stride in floats), smem (dynamic shared bytes); scratch is
+// q [B, C, Hq, D] (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D];
+// ks/kz/vs/vz f32 [hkv, D]; pools uint8 [P, ps, hkv, D/2]; tables int32
+// [B, np]; ctx/q_len int32 [B] → out f32 [B, C, Hq, D] (rows at or past
+// q_len·G: 0). All contiguous; d must be 128. The launch plan
+// (kernels/paged_attention.py:dense_plan) as dense_plan_ok says; scratch is
 // null when the scores live in shared memory, else f32
 // [B·hkv·tiles·split·rows·sstride].
 extern "C" int paged_kv4_prefill_dense(
-    const float* q, const float* kn, const float* vn, const float* ks,
-    const float* kz, const float* vs, const float* vz, const uint8_t* k_pool,
-    const uint8_t* v_pool, const int* tables, const int* ctx_lens,
-    const int* q_lens, float* out, float* scratch, int b, int c, int g,
-    int hkv, int np, int ps, int d, int rows, int split, int sstride,
-    int smem, cudaStream_t stream) {
-  const bool plan_ok =
-      (rows == 8 || rows == 16 || rows == 32) && split >= 1 && split <= 8 &&
-      sstride % 32 == 8 && smem <= DN_SMEM_MAX &&
-      smem == DN_FIXED + (scratch ? 0 : rows * sstride * 4);
-  if (d != D || !plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+    const void* q, int q_bf16, const float* kn, const float* vn,
+    const float* ks, const float* kz, const float* vs, const float* vz,
+    const uint8_t* k_pool, const uint8_t* v_pool, const int* tables,
+    const int* ctx_lens, const int* q_lens, float* out, float* scratch, int b,
+    int c, int g, int hkv, int np, int ps, int d, int rows, int split,
+    int sstride, int smem, cudaStream_t stream) {
+  if (d != D || !dense_plan_ok(rows, split, sstride, smem, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && c > 0 && hkv > 0) {
     const DenseArgs a{q, kn, vn, ks, kz, vs, vz, k_pool, v_pool, tables,
                       ctx_lens, q_lens, out, scratch, c, g, hkv, np, ps,
-                      sstride};
+                      sstride, q_bf16, 0};
     const cudaError_t e =
-        rows == 8 ? launch_dense<1>(a, b, split, smem, stream)
-        : rows == 16 ? launch_dense<2>(a, b, split, smem, stream)
-                     : launch_dense<4>(a, b, split, smem, stream);
+        rows == 8 ? launch_dense<1, true>(a, b, split, smem, stream)
+        : rows == 16 ? launch_dense<2, true>(a, b, split, smem, stream)
+                     : launch_dense<4, true>(a, b, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -3,8 +3,13 @@
 //
 //   paged_kv4_decode      — replaces repro/kernels/paged_attention.py:
 //                           paged_kv4_decode_attention (dense schedule,
-//                           _paged_kv4_decode_kernel): one block per
-//                           (b, kv head) row walks the row's block table.
+//                           _paged_kv4_decode_kernel): the dense kernel of
+//                           dense_attention.cuh (shared with K7) with C = 1
+//                           and no chunk keys — scores once on the f64
+//                           tensor cores, kept in shared memory, the keys
+//                           of one (b, kv head) row split over a
+//                           thread-block cluster that dense_plan sizes on
+//                           the host from B·Hkv and the longest row.
 //   paged_kv4_decode_wq   — replaces paged_kv4_decode_attention_wq
 //                           (work-queue schedule, _paged_kv4_decode_wq_kernel):
 //                           one warp per descriptor item (one page of one
@@ -21,36 +26,19 @@
 //
 // Bound on the H100: bytes, 2·64 B of int4 K and V per valid key and kv
 // head (~4 MB for one Llama-3-8B layer at B = 8 and ~512 tokens, ~1.3 µs at
-// 3.35 TB/s): at decode batch sizes the launch and occupancy decide the
-// time. Dense: one block of 256 threads per (b, kv head) row splits the
-// row's keys, with the query, the dequantization and the V scale in the
-// kernel: one launch per layer. Work queue: 4 items per 128-thread block,
-// one warp each (pages of up to 64 keys), on pre-folded queries with the
-// reference's nibble-space partials, so a long row's pages run on many
-// SMs at once. Both compute exactly as their plain versions do on the card
-// (f64 sums, each rounded once): see decode_attention.cuh.
+// 3.35 TB/s): at decode batch sizes the launch and the latency of a
+// block's phases decide the time. The first dense design gave each (b, kv
+// head) row one 256-thread block (64 blocks on 132 SMs) that walked its
+// keys three times with f64 FMAs on the CUDA cores; the dense kernel
+// splits the row over up to 8 blocks and scores each key once. Work queue:
+// 4 items per 128-thread block, one warp each (pages of up to 64 keys), on
+// pre-folded queries with the reference's nibble-space partials, so a long
+// row's pages run on many SMs at once. Both compute exactly as their plain
+// versions do on the card (f64 sums, each rounded once).
+#include "dense_attention.cuh"
 #include "decode_attention.cuh"
 
 namespace {
-
-template <int G>
-__global__ void __launch_bounds__(DWARPS * 32) paged_decode_kernel(
-    const float* __restrict__ q, const uint8_t* __restrict__ k_pool,
-    const uint8_t* __restrict__ v_pool, const float* __restrict__ ks,
-    const float* __restrict__ kz, const float* __restrict__ vs,
-    const float* __restrict__ vz, int sstride, const int* __restrict__ tables,
-    const int* __restrict__ length, float* __restrict__ out, int hkv, int np,
-    int ps) {
-  const int bh = blockIdx.x, b = bh / hkv, h = bh % hkv;
-  const long soff = static_cast<long>(b) * sstride + h * DD;
-  const int* tbl = tables + static_cast<long>(b) * np;
-  auto row_off = [=](int t) {
-    const int page = max(tbl[t / ps], 0);
-    return ((static_cast<long>(page) * ps + t % ps) * hkv + h) * (DD / 2);
-  };
-  decode_row<G>(q, k_pool, v_pool, ks + soff, kz + soff, vs + soff, vz + soff,
-                row_off, min(length[b], np * ps), b, h, hkv * G, out);
-}
 
 constexpr int IPB = 4;      // work items (warps) per block
 constexpr int PSMAX = 64;   // the largest page the work-queue kernel takes
@@ -152,23 +140,27 @@ __global__ void __launch_bounds__(IPB * 32) paged_decode_wq_kernel(
 
 }  // namespace
 
-// q [B, Hq, D] f32; pools uint8 [P, ps, hkv, D/2]; scales/zeros f32
-// [Hkv, D] (sstride 0) or [B, Hkv, D] (sstride Hkv·D); tables [B, np]
-// int32; length [B] int32 → out [B, Hq, D] f32. d must be 128, g ∈ {1, 2,
-// 4, 8}; every pointer is contiguous.
+// q [B, Hq, D] (q_bf16: bf16, else f32); pools uint8 [P, ps, hkv, D/2];
+// scales/zeros f32 [Hkv, D] (sb 0) or [B, Hkv, D] (sb Hkv·D); tables
+// [B, np] int32; length [B] int32 → out [B, Hq, D] f32. d must be 128,
+// g ≤ 8; every pointer is contiguous. The launch plan
+// (kernels/paged_attention.py:dense_plan at C = 1; rows 8) as
+// dense_plan_ok says; scratch null or f32 [B·hkv·split·8·sstride].
 extern "C" int paged_kv4_decode(
-    const float* q, const uint8_t* k_pool, const uint8_t* v_pool,
+    const void* q, int q_bf16, const uint8_t* k_pool, const uint8_t* v_pool,
     const float* ks, const float* kz, const float* vs, const float* vz,
-    int sstride, const int* tables, const int* length, float* out, int b,
-    int hkv, int g, int np, int ps, int d, cudaStream_t stream) {
-  if (d != DD) return static_cast<int>(cudaErrorInvalidValue);
+    int sb, const int* tables, const int* length, float* out,
+    float* scratch, int b, int hkv, int g, int np, int ps, int d, int rows,
+    int split, int sstride, int smem, cudaStream_t stream) {
+  if (d != D || g < 1 || g > 8 || rows != 8 ||
+      !dense_plan_ok(rows, split, sstride, smem, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
-#define LAUNCH(G)                                                          \
-  paged_decode_kernel<G><<<b * hkv, DWARPS * 32, 0, stream>>>(             \
-      q, k_pool, v_pool, ks, kz, vs, vz, sstride, tables, length, out, hkv, \
-      np, ps)
-    DISPATCH_G(g, LAUNCH)
-#undef LAUNCH
+    const DenseArgs a{q, nullptr, nullptr, ks, kz, vs, vz, k_pool, v_pool,
+                      tables, length, nullptr, out, scratch, 1, g, hkv, np,
+                      ps, sstride, q_bf16, sb};
+    const cudaError_t e = launch_dense<1, false>(a, b, split, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@ matches on the CPU), while the kernel computes in f32 and is held to the
 f32 plain version on the card.
 
 Exact mode. On a CUDA tensor the plain versions of the KV4 attention
-kernels (this one and K6, K7, K8 in ``paged_attention``) accumulate every
+kernels (this one and K6–K9 in ``paged_attention``) accumulate every
 contraction and sum in float64 and round it once to float32, and take the
 float64 exponential rounded — as the kernels do — so kernel and plain
 version agree bit for bit whatever order either sums in. On the CPU they

@@ -30,7 +30,7 @@ BLOCK_K = WK.BLOCK_K
 __all__ = ["act_quant", "w4ax_matmul", "paged_kv4_prefill_attention_wq",
            "paged_kv4_prefill_attention", "paged_kv4_decode_attention",
            "paged_kv4_decode_attention_wq", "kv4_decode_attention",
-           "combine_plan", "use_kernel", "KERNELS"]
+           "combine_plan", "work_plan", "use_kernel", "KERNELS"]
 
 # every kernel wrapper of the ported path, by the name its launch count is
 # reported under
@@ -40,13 +40,14 @@ KERNELS = {
     "w4a4_matmul": WK.w4a4_matmul,
     "w4a8_matmul": WK.w4a8_matmul,
     "w4ax_matmul_mixed": WK.w4ax_matmul_mixed,
-    "paged_kv4_prefill_attention_wq": PA.paged_kv4_partials,
+    "paged_kv4_prefill_attention_wq": PA.paged_kv4_prefill_attention_wq,
     "paged_kv4_decode_attention": PA.paged_kv4_decode_attention,
     "paged_kv4_prefill_attention": PA.paged_kv4_prefill_attention,
     "paged_kv4_decode_attention_wq": PA.paged_kv4_decode_partials,
     "kv4_decode_attention": KA.kv4_decode_attention,
 }
 combine_plan = PA.combine_plan
+work_plan = PA.work_plan
 
 
 def use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -119,8 +120,10 @@ def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
     """Work-queue chunked-prefill attention over int4 paged history plus
     each row's causal in-flight fp chunk → [B, C, Hq, D] f32 (rows past a
     row's q_len are padding garbage; mask outside). ``plan`` is the
-    combine's :func:`combine_plan` of the descriptor rows, built on the
-    host; without it the combine reads the rows back once."""
+    :func:`work_plan` of the descriptors (the kernel's jobs and the plain
+    combine's :func:`combine_plan`), built on the host; the plain version
+    also takes a bare :func:`combine_plan`. Without one the descriptors
+    are read back once."""
     fn = (PA.paged_kv4_prefill_attention_wq if use_kernel(impl, q)
           else PA.paged_kv4_prefill_attention_wq_ref)
     return fn(q, k_new, v_new, k_pool, k_scale, k_zero, v_pool, v_scale,

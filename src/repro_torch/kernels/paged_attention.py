@@ -1,22 +1,24 @@
 """Paged KV4 attention straight off the int4 page pools, under the
-reference's two grid schedules: the CUDA kernels, their plain versions,
-and the PyTorch pre-fold and split-KV combine around the work-queue ones.
+reference's two grid schedules: the CUDA kernels and their plain versions.
 
 Kernels (each replaces the ``repro/kernels/paged_attention.py`` function
 of the same name; see the source notes for what bounds each on the H100
 and how its design answers that):
 
 * ``paged_kv4_prefill_attention_wq`` (K9, ``csrc/paged_attention.cu``) —
-  work-queue chunked prefill: one flash partial per descriptor item;
-* ``paged_kv4_prefill_attention`` (K7, ``csrc/paged_attention.cu``) —
-  dense chunked prefill: each (row, query tile) scores its keys once on
-  the f64 tensor cores, the keys of a row split across a thread-block
-  cluster (:func:`dense_plan`); one launch, no glue;
-* ``paged_kv4_decode_attention`` (K6, ``csrc/paged_decode.cu``) — dense
-  flash-decode over block tables, one block per (sequence, kv head) row;
+  work-queue chunked prefill, the whole op in one launch: one block per
+  (descriptor item, query-row tile) folds its queries, computes the item's
+  flash partial on the f64 tensor cores and leaves it in a scratch buffer;
+  the last block of each (row, tile) to arrive combines the row's
+  partials (:func:`work_plan`, built on the host once per step);
+* ``paged_kv4_prefill_attention`` (K7) and ``paged_kv4_decode_attention``
+  (K6) — the dense schedule, one kernel for both
+  (``csrc/dense_attention.cuh``): each (row, query tile) scores its keys
+  once on the f64 tensor cores, the keys of a row split across a
+  thread-block cluster (:func:`dense_plan`); one launch, no glue;
 * ``paged_kv4_decode_attention_wq`` (K8, ``csrc/paged_decode.cu``) —
-  work-queue decode: one partial per page item in nibble space, the V
-  affine after the combine.
+  work-queue decode: one partial per page item in nibble space, with the
+  PyTorch pre-fold, combine and V affine around it.
 
 The host flattens a work-queue batch into ``[W, 4]`` int32 descriptors
 ``(row, phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``).
@@ -27,12 +29,15 @@ history page, kind 1 the row's causal in-flight fp chunk.
     M_r = max_i m_i,   out_r = Σ_i e^{m_i−M_r}·acc_i / Σ_i e^{m_i−M_r}·l_i
 
 Padding items carry a sentinel row ``≥ num_rows`` and ``count = 0``; the
-combine drops them. The work-queue wrappers whose ``launches`` count the
-kernels are :func:`paged_kv4_partials` (K9) and
-:func:`paged_kv4_decode_partials` (K8), on pre-folded inputs; the ops
-compose each with both PyTorch ends. Dense block tables hold −1 for
-unmapped pages: every version clamps them to page 0, which is never read
-for its values (it lies at or past the row's length).
+combine drops them. Dense block tables hold −1 for unmapped pages: every
+version clamps them to page 0, which is never read for its values (it
+lies at or past the row's length).
+
+Exact mode (``kv4_attention``): on a CUDA tensor every plain version here
+sums in float64 and rounds once, as its kernel does, so the two agree bit
+for bit; each K9 and combine piece takes ``exact`` to choose the mode
+explicitly (default: the input's device), so the CPU tests can run the
+card's arithmetic.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from repro_torch.kernels import kv4_attention as KA
 NEG_INF = -1e30
 
 __all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
-           "prefold", "paged_kv4_partials", "paged_kv4_partials_ref",
+           "WorkPlan", "work_plan", "prefold", "paged_kv4_partials_ref",
            "paged_kv4_prefill_attention_wq_ref",
            "paged_kv4_prefill_attention_wq",
            "paged_kv4_prefill_attention_ref", "paged_kv4_prefill_attention",
@@ -91,7 +96,8 @@ def combine_plan(rows, num_rows: int, device) -> CombinePlan:
 
 
 def combine_work_partials(acc, l, m, rows, num_rows: int,
-                          plan: Optional[CombinePlan] = None) -> torch.Tensor:
+                          plan: Optional[CombinePlan] = None,
+                          exact: Optional[bool] = None) -> torch.Tensor:
     """Split-KV log-sum-exp combine of per-item partials.
 
     acc ``[W, R, D]``, l/m ``[W, R, 1]``, rows ``[W]`` segment ids (ids
@@ -101,8 +107,11 @@ def combine_work_partials(acc, l, m, rows, num_rows: int,
 
     Deterministic: each row's items are summed in descriptor order, one
     add at a time (the order of the reference's segment sum), instead of
-    with atomics, so two runs on the card agree bit for bit."""
+    with atomics, so two runs on the card agree bit for bit. Exact mode:
+    w = f32(exp_f64(m − M)), and Σ w·acc and Σ w·l are float64 sums of
+    the exact products, each rounded once; the division stays f32."""
     dev = acc.device
+    ex = KA.exact(acc) if exact is None else exact
     if plan is None:
         plan = combine_plan(rows.cpu().numpy(), num_rows, dev)
     order, seg = plan.order, plan.seg
@@ -114,7 +123,7 @@ def combine_work_partials(acc, l, m, rows, num_rows: int,
     # rows with no items keep -inf; clamp to the finite NEG_INF so a
     # fully-masked partial weighs exp(0) instead of exp(+inf)
     mmax = mmax.clamp_min(NEG_INF)
-    w = torch.exp(m - mmax[seg])
+    w = KA.exp(m - mmax[seg], ex)
 
     def segment_sum(x):
         # dropped items all land on slot 0 of a scratch row num_rows, one
@@ -127,16 +136,23 @@ def combine_work_partials(acc, l, m, rows, num_rows: int,
             out = out + buf[:num_rows, k]
         return out
 
+    if ex:
+        w = w.double()
+        return (segment_sum(acc[order].double() * w).float()
+                / segment_sum(l[order].double() * w).float().clamp_min(1e-30))
     return (segment_sum(acc[order] * w)
             / segment_sum(l[order] * w).clamp_min(1e-30))
 
 
-def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero):
-    """Affine pre-fold outside the kernel (reference ``:648-661``).
+def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero,
+            exact: Optional[bool] = None):
+    """Affine pre-fold of the plain version (reference ``:648-661``).
 
-    → qt2 = q·s_k/√D and c2 = Σ qt·z_k (history pages), qs2 = q/√D (fp
-    chunk), all ``[B·Hkv, C·G, ·]``; kn2/vn2 ``[B·Hkv, C, D]`` f32; v
-    scale/zero ``[Hkv, D]``."""
+    → qt2 = (q·s_k)·(1/√D) and c2 = Σ qt·z_k (history pages), qs2 =
+    q·(1/√D) (fp chunk), all ``[B·Hkv, C·G, ·]``; kn2/vn2 ``[B·Hkv, C, D]``
+    f32; v scale/zero ``[Hkv, D]``. Exact mode: c2 a float64 sum of the
+    exact products, rounded once."""
+    ex = KA.exact(q) if exact is None else exact
     b, c, hq, d = q.shape
     hkv = k_new.shape[2]
     g = hq // hkv
@@ -146,7 +162,8 @@ def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero):
     ksb = k_scale.expand(hkv, 1, d).reshape(1, hkv, 1, 1, d)
     kzb = k_zero.expand(hkv, 1, d).reshape(1, hkv, 1, 1, d)
     qt = qg * ksb * sm
-    cterm = (qt * kzb).sum(-1, keepdim=True)
+    cterm = (KA.row_sum(qt.double() * kzb.double(), True) if ex
+             else (qt * kzb).sum(-1, keepdim=True))
     return (qt.reshape(nrows, c * g, d).contiguous(),
             cterm.reshape(nrows, c * g, 1).contiguous(),
             (qg * sm).reshape(nrows, c * g, d).contiguous(),
@@ -157,9 +174,13 @@ def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero):
 
 
 def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
-                           v_pool, g: int):
-    """Plain version of the kernel: every item's partial for both kinds,
-    selected by ``kind`` (reference ``ref.py:341-395``)."""
+                           v_pool, g: int, exact: Optional[bool] = None):
+    """Every item's partial for both kinds, selected by ``kind`` (reference
+    ``ref.py:341-395``), on pre-folded inputs (:func:`prefold`) → acc
+    ``[W, C·G, D]``, l and m ``[W, C·G, 1]``. Exact mode: the contractions
+    and Σp in float64 rounded once, p = f32(exp_f64(s − m)); the V affine
+    ``acc·s_v − l·(s_v·z_v)`` in f32 as before."""
+    ex = KA.exact(qt2) if exact is None else exact
     nrows, cg, d = qt2.shape
     c = kn2.shape[1]
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
@@ -172,91 +193,178 @@ def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
 
     nk = Q.unpack_kv_nibbles(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
     nv = Q.unpack_kv_nibbles(v_pool[desc[:, 1], :, heads])
-    s_h = torch.einsum("wgd,wpd->wgp", qt2[rcl], nk) - c2[rcl]
+    s_h = KA.contract("wgd,wpd->wgp", qt2[rcl], nk, ex) - c2[rcl]
     pos = torch.arange(ps, device=desc.device)[None, None, :]
     s_h = torch.where(pos < counts, s_h, NEG_INF)
     m_h = s_h.amax(-1, keepdim=True)
-    p_h = torch.exp(s_h - m_h)
-    l_h = p_h.sum(-1, keepdim=True)
-    pv = torch.einsum("wgp,wpd->wgd", p_h, nv)
+    p_h = KA.exp(s_h - m_h, ex)
+    l_h = KA.row_sum(p_h, ex)
+    pv = KA.contract("wgp,wpd->wgd", p_h, nv, ex)
     acc_h = pv * vsb - l_h * (vsb * vzb)
 
-    s_c = torch.einsum("wgd,wcd->wgc", qs2[rcl], kn2[rcl])
+    s_c = KA.contract("wgd,wcd->wgc", qs2[rcl], kn2[rcl], ex)
     qi = (torch.arange(cg, device=desc.device) // g)[None, :, None]
     kj = torch.arange(c, device=desc.device)[None, None, :]
     s_c = torch.where((kj <= qi) & (kj < counts), s_c, NEG_INF)
     m_c = s_c.amax(-1, keepdim=True)
-    p_c = torch.exp(s_c - m_c)
-    l_c = p_c.sum(-1, keepdim=True)
-    acc_c = torch.einsum("wgc,wcd->wgd", p_c, vn2[rcl])
+    p_c = KA.exp(s_c - m_c, ex)
+    l_c = KA.row_sum(p_c, ex)
+    acc_c = KA.contract("wgc,wcd->wgd", p_c, vn2[rcl], ex)
     return (torch.where(sel, acc_c, acc_h), torch.where(sel, l_c, l_h),
             torch.where(sel, m_c, m_h))
 
 
-def paged_kv4_partials(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
-                       v_pool, g: int):
-    """The K9 kernel on pre-folded inputs (:func:`prefold`) → one partial
-    per descriptor: acc ``[W, C·G, D]``, l and m ``[W, C·G, 1]`` f32.
-    Same arguments and result as :func:`paged_kv4_partials_ref`; D = 128."""
-    nrows, cg, d = qt2.shape
-    c = kn2.shape[1]
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    for name, t in (("qt2", qt2), ("kn2", kn2), ("vn2", vn2),
-                    ("k_pool", k_pool), ("v_pool", v_pool), ("desc", desc)):
-        if not t.is_cuda:
-            raise ValueError(f"paged attention kernel needs CUDA tensors "
-                             f"({name} is not)")
-    if d != 128:
-        raise ValueError(f"the kernel is built for head_dim 128, got {d}")
-    if (k_pool.dtype != torch.uint8 or v_pool.dtype != torch.uint8
-            or not k_pool.is_contiguous() or not v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous uint8 [P, ps, Hkv, D/2]")
-    desc = desc.to(torch.int32).contiguous()
-    w = desc.shape[0]
-    acc = torch.empty((w, cg, d), dtype=torch.float32, device=qt2.device)
-    l = torch.empty((w, cg, 1), dtype=torch.float32, device=qt2.device)
-    m = torch.empty((w, cg, 1), dtype=torch.float32, device=qt2.device)
-    _build.call("paged_attention", "paged_kv4_prefill_wq", qt2.device, desc,
-                w, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool, v_pool, acc, l,
-                m, nrows, cg, c, g, ps, hkv, d)
-    paged_kv4_partials.launches += 1
-    return acc, l, m
-
-
-paged_kv4_partials.launches = 0
-
-
-def _attend(partials, q, k_new, v_new, k_pool, k_scale, k_zero, v_pool,
-            v_scale, v_zero, work_items, plan):
-    """Pre-fold → per-item partials → combine → ``[B, C, Hq, D]``."""
+def paged_kv4_prefill_attention_wq_ref(q, k_new, v_new, k_pool, k_scale,
+                                       k_zero, v_pool, v_scale, v_zero,
+                                       work_items, plan=None,
+                                       exact: Optional[bool] = None
+                                       ) -> torch.Tensor:
+    """Plain version: q ``[B, C, Hq, D]``, in-flight k/v ``[B, C, Hkv, D]``,
+    pools ``[P, ps, Hkv, D/2]`` uint8, scales/zeros ``[Hkv, 1, D]``,
+    descriptors ``[W, 4]``, optional :class:`CombinePlan` (or
+    :class:`WorkPlan`) of their rows → f32 ``[B, C, Hq, D]``: pre-fold →
+    per-item partials → combine. Rows past a row's q_len are padding
+    garbage; the caller masks them."""
     b, c, hq, d = q.shape
     hkv = k_pool.shape[2]
-    folded = prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero)
-    acc, l, m = partials(work_items, *folded, k_pool, v_pool, hq // hkv)
-    out = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan)
+    ex = KA.exact(q) if exact is None else exact
+    folded = prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero, ex)
+    acc, l, m = paged_kv4_partials_ref(work_items, *folded, k_pool, v_pool,
+                                       hq // hkv, ex)
+    if isinstance(plan, WorkPlan):
+        plan = plan.combine
+    out = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan,
+                                ex)
     out = out.reshape(b, hkv, c, hq // hkv, d).movedim(2, 1)
     return out.reshape(b, c, hq, d)
 
 
-def paged_kv4_prefill_attention_wq_ref(q, k_new, v_new, k_pool, k_scale,
-                                       k_zero, v_pool, v_scale, v_zero,
-                                       work_items, plan=None) -> torch.Tensor:
-    """Plain version: q ``[B, C, Hq, D]``, in-flight k/v ``[B, C, Hkv, D]``,
-    pools ``[P, ps, Hkv, D/2]`` uint8, scales/zeros ``[Hkv, 1, D]``,
-    descriptors ``[W, 4]``, optional :class:`CombinePlan` of their rows →
-    f32 ``[B, C, Hq, D]``. Rows past a row's q_len are padding garbage;
-    the caller masks them."""
-    return _attend(paged_kv4_partials_ref, q, k_new, v_new, k_pool, k_scale,
-                   k_zero, v_pool, v_scale, v_zero, work_items, plan)
+class WorkPlan(NamedTuple):
+    """How the K9 kernel is launched for one descriptor array: ``jobs``
+    ``[J, 4]`` int32 on the device — first the ``ncompute`` compute jobs
+    ``(item, tile, first, count)``, ordered by (row, tile, descriptor
+    order), ``first`` the first job of the item's (row, tile) group (its
+    partials' first scratch slot and its arrival counter) and ``count``
+    the row's items; then zero jobs ``(−1, first tile, row, end tile)`` for
+    the output rows no item covers — over query-row tiles of ``rows``
+    rows of a ``cg`` = C·G row block; ``combine`` the plain version's
+    :class:`CombinePlan` of the same descriptors."""
+    jobs: torch.Tensor
+    rows: int
+    ncompute: int
+    cg: int
+    combine: CombinePlan
+
+
+WQ_FIXED_SMEM = 78608    # K9's shared bytes besides the scores (WQ_FIXED)
+WQ_ZERO_ROWS = 256       # query rows one zero job clears
+
+
+def work_plan(desc, num_rows: int, c: int, g: int, device) -> WorkPlan:
+    """K9's jobs for the descriptors ``desc`` (numpy ``[W, 4]``), worked out
+    on the host from the descriptors alone: the engine builds it once per
+    step, so no layer waits for the card. Items with ``count ≤ 0`` or a
+    row outside ``[0, num_rows)`` are dropped. A row's valid query rows
+    are its chunk item's ``min(count, C)·G`` (all C·G if it has none); the
+    tile height is the smallest of 8, 16, 32 that holds the largest, and
+    a row gets compute jobs for the tiles its valid rows reach."""
+    desc = np.asarray(desc, np.int64).reshape(-1, 4)
+    row, cnt, kind = desc[:, 0], desc[:, 2], desc[:, 3]
+    cg = c * g
+    items = np.nonzero((cnt > 0) & (row >= 0) & (row < num_rows))[0]
+    items = items[np.argsort(row[items], kind="stable")]
+    per_row = np.bincount(row[items], minlength=num_rows)[:num_rows]
+    qrows = np.where(per_row > 0, cg, 0)
+    chunk = items[kind[items] != 0]
+    qrows[row[chunk]] = np.minimum(cnt[chunk], c) * g
+    top = int(qrows.max(initial=0))
+    rows = 8 if top <= 8 else 16 if top <= 16 else 32
+    ntile = -(-cg // rows)
+    tiles = -(-qrows // rows)
+    n = tiles * per_row                          # compute jobs of each row
+    base = np.cumsum(n) - n
+    k = np.repeat(per_row, n)
+    local = np.arange(int(n.sum())) - np.repeat(base, n)
+    tile = local // np.maximum(k, 1)
+    start = np.cumsum(per_row) - per_row         # the row's first item
+    compute = np.stack([items[np.repeat(start, n) + local % np.maximum(k, 1)],
+                        tile, np.repeat(base, n) + tile * k, k], 1)
+    zt = max(1, WQ_ZERO_ROWS // rows)            # tiles per zero job
+    nz = -(-(ntile - tiles) // zt)
+    z0 = (np.repeat(tiles, nz)
+          + (np.arange(int(nz.sum())) - np.repeat(np.cumsum(nz) - nz, nz))
+          * zt)
+    zero = np.stack([np.full_like(z0, -1), z0,
+                     np.repeat(np.arange(num_rows), nz),
+                     np.minimum(z0 + zt, ntile)], 1)
+    jobs = np.concatenate([compute, zero]).astype(np.int32).reshape(-1, 4)
+    return WorkPlan(torch.from_numpy(jobs).to(device), rows, len(compute),
+                    cg, combine_plan(desc[:, 0], num_rows, device))
+
+
+_ARRIVE: dict = {}
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """K9's per-(row, tile) arrival counters on ``device``: zero between
+    launches (the last block of each group resets its own), so one
+    zeroed buffer serves every launch on the device's stream; it grows
+    when a plan needs more."""
+    buf = _ARRIVE.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _ARRIVE[device] = buf
+    return buf
 
 
 def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
                                    v_pool, v_scale, v_zero, work_items,
                                    plan=None) -> torch.Tensor:
-    """On the card: pre-fold (PyTorch) → the K9 kernel → combine
-    (PyTorch). Same arguments and result as the plain version."""
-    return _attend(paged_kv4_partials, q, k_new, v_new, k_pool, k_scale,
-                   k_zero, v_pool, v_scale, v_zero, work_items, plan)
+    """The K9 kernel: the whole op — pre-fold, per-item partials and
+    combine — in one launch. Same arguments and result as the plain
+    version (bit for bit on the card for the rows below each row's
+    q_len·G; the rest of the output is finite: combined garbage or 0).
+    ``plan`` is the :class:`WorkPlan` of these descriptors (:func:`work_plan`,
+    built on the host); without one (or with a :class:`CombinePlan`) the
+    descriptors are read back to the host to build it. q f32 or bf16;
+    D = 128; the scores of one job stay in shared memory up to
+    max(ps, C) = 1,152 keys at 32-row tiles, beyond that in a scratch
+    buffer. Launches on the op's stream; the arrival counters are shared,
+    so two launches must not run at once on different streams."""
+    b, c, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    g = hq // hkv
+    KA.check_kv4_inputs(q, k_pool, v_pool, d,
+                        "paged_kv4_prefill_attention_wq")
+    dev = q.device
+    if not isinstance(plan, WorkPlan) or plan.cg != c * g:
+        plan = work_plan(work_items.cpu().numpy(), b * hkv, c, g, dev)
+    ks, kz, vs, vz = _head_scales((k_scale, k_zero, v_scale, v_zero), hkv, d)
+    desc = work_items.to(device=dev, dtype=torch.int32).contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    q = (q if q_bf16 else q.float()).contiguous()
+    k_new = k_new.float().contiguous()
+    v_new = v_new.float().contiguous()
+    rows, nc = plan.rows, plan.ncompute
+    sstride = _round_up(max(ps, c), DENSE_KEY_TILE) + 8
+    smem = WQ_FIXED_SMEM + rows * sstride * 4
+    scratch = None
+    if smem > DENSE_SMEM_MAX:
+        smem = WQ_FIXED_SMEM
+        scratch = torch.empty(nc * rows * sstride, dtype=torch.float32,
+                              device=dev)
+    part = torch.empty(nc * rows * (d + 2), dtype=torch.float32, device=dev)
+    out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
+    _build.call("paged_attention", "paged_kv4_prefill_wq", dev, desc,
+                plan.jobs, plan.jobs.shape[0], q, int(q_bf16), k_new, v_new,
+                ks, kz, vs, vz, k_pool, v_pool, out, part,
+                _arrival_counters(dev, nc), scratch, c, g, hkv, ps, d, rows,
+                sstride, smem)
+    paged_kv4_prefill_attention_wq.launches += 1
+    return out
+
+
+paged_kv4_prefill_attention_wq.launches = 0
 
 
 # ------------------------------------------------- dense chunked prefill (K7)
@@ -400,7 +508,8 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
     dev = q.device
     ks, kz, vs, vz = _head_scales((k_scale, k_zero, v_scale, v_zero), hkv, d)
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    q = q.float().contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    q = (q if q_bf16 else q.float()).contiguous()
     k_new = k_new.float().contiguous()
     v_new = v_new.float().contiguous()
     ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -409,9 +518,10 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
-    _build.call("paged_attention", "paged_kv4_prefill_dense", dev, q, k_new,
-                v_new, ks, kz, vs, vz, k_pool, v_pool, tables, ctx, ql, out,
-                scratch, b, c, hq // hkv, hkv, tables.shape[1], ps, d,
+    _build.call("paged_attention", "paged_kv4_prefill_dense", dev, q,
+                int(q_bf16), k_new, v_new, ks, kz, vs, vz, k_pool, v_pool,
+                tables, ctx, ql, out, scratch, b, c, hq // hkv, hkv,
+                tables.shape[1], ps, d,
                 plan.rows, plan.split, plan.sstride, plan.smem)
     paged_kv4_prefill_attention.launches += 1
     return out
@@ -446,21 +556,28 @@ def paged_kv4_decode_attention_ref(q, k_pool, k_scale, k_zero, v_pool,
 def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
                                v_zero, block_tables, length) -> torch.Tensor:
     """The K6 kernel: same arguments and result as the plain version (bit
-    for bit on the card), in one launch. Hq/Hkv ∈ {1, 2, 4, 8}."""
+    for bit on the card), in one launch of the dense kernel K7 runs, at
+    C = 1 with no chunk keys (:func:`dense_plan` sizes its cluster split).
+    Hq/Hkv ∈ {1, 2, 4, 8}; q f32 or bf16."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention",
                         hq // hkv)
     dev = q.device
-    (ks, kz, vs, vz), sstride = KA.shared_scales(
+    (ks, kz, vs, vz), sb = KA.shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     length = length.to(device=dev, dtype=torch.int32).contiguous()
-    q = q.float().contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    q = (q if q_bf16 else q.float()).contiguous()
+    plan = dense_plan(b, 1, hq // hkv, hkv, tables.shape[1], ps)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
-    _build.call("paged_decode", "paged_kv4_decode", dev, q, k_pool, v_pool,
-                ks, kz, vs, vz, sstride, tables, length, out, b, hkv,
-                hq // hkv, tables.shape[1], ps, d)
+    _build.call("paged_decode", "paged_kv4_decode", dev, q, int(q_bf16),
+                k_pool, v_pool, ks, kz, vs, vz, sb, tables, length, out,
+                scratch, b, hkv, hq // hkv, tables.shape[1], ps, d,
+                plan.rows, plan.split, plan.sstride, plan.smem)
     paged_kv4_decode_attention.launches += 1
     return out
 

@@ -538,8 +538,9 @@ class Engine:
                 desc_np = self.cache.work_queue_np(slots, starts, takes,
                                                    pad_row=nb * hkv)
                 attn = dict(desc=torch.from_numpy(desc_np).to(self.device),
-                            combine=ops.combine_plan(desc_np[:, 0], nb * hkv,
-                                                     self.device))
+                            plan=ops.work_plan(
+                                desc_np, nb * hkv, cb,
+                                self.cfg.num_heads // hkv, self.device))
                 self.attn_grid_items += desc_np.shape[0]
 
         logits = self._unified_body(
@@ -559,12 +560,13 @@ class Engine:
     @torch.no_grad()
     def _unified_body(self, cb: int, nb: int, no_history: bool, *, tokens,
                       positions, pages, offs, tseq, toff, dq_mask, last_idx,
-                      desc=None, combine=None, tables=None, ctx=None,
+                      desc=None, plan=None, tables=None, ctx=None,
                       qlens=None) -> torch.Tensor:
         """The forward over the packed ``[1, Tb]`` stream → f32 logits
         ``[nb, V]`` (one row per packed row's last token). Attention takes
-        the work-queue descriptors ``desc`` (and the combine's host plan),
-        or the dense schedule's ``tables`` with per-row ``ctx``/``qlens``."""
+        the work-queue descriptors ``desc`` (and their host-built
+        ``ops.work_plan``), or the dense schedule's ``tables`` with per-row
+        ``ctx``/``qlens``."""
         cfg, params, quant, cache = self.cfg, self.params, self.quant, \
             self.cache
         scales = (cache.k_scale, cache.k_zero, cache.v_scale, cache.v_zero)
@@ -596,7 +598,7 @@ class Engine:
                     pad(q), pad(k_att), pad(v_att),
                     cache.k_pool[li], cache.k_scale, cache.k_zero,
                     cache.v_pool[li], cache.v_scale, cache.v_zero,
-                    desc, plan=combine, impl=quant.impl)
+                    desc, plan=plan, impl=quant.impl)
             else:
                 out = ops.paged_kv4_prefill_attention(
                     pad(q), pad(k_att), pad(v_att),

@@ -66,9 +66,11 @@ def test_kernels_match_plain_on_card():
                                pools[1], stats[2], stats[3], desc)]
     got = PA.paged_kv4_prefill_attention_wq(*args)
     want = PA.paged_kv4_prefill_attention_wq_ref(*args)
+    torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert float((got - want).abs().max()) <= 1e-4 * max(
-        1.0, float(want.abs().max()))
+    for bi, ql in enumerate(qls):                # the valid rows, exactly
+        assert torch.equal(got[bi, :ql], want[bi, :ql]), (
+            bi, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
 
 
 def _within(got, want):
@@ -284,3 +286,156 @@ def test_dense_prefill_tiles_exact_on_card():
     plan = PA.dense_plan(2, 8, 4, hkv, args[9].shape[1], 128)
     assert plan.rows == 32 and plan.scratch > 0, plan
     _dense_exact(args, qls)
+
+
+def _wq_case(rng, ctx, qls, c, hq, hkv, ps, nb):
+    """K9 inputs: one row per (history, q_len) — its pages scattered over
+    the pool — plus q_len-0 pad rows up to ``nb``; bf16-valued queries as
+    the engine hands them over."""
+    d = 128
+    need = [max(1, -(-(cx + ql) // ps)) for cx, ql in zip(ctx, qls)]
+    num_pages = sum(need) + 2
+    tbl = np.full((len(ctx), max(need) + 1), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, npg in enumerate(need):
+        tbl[bi, :npg] = perm[i:i + npg]
+        i += npg
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    ks, kz, vs, vz = [_cuda(rng.uniform(lo, hi, (hkv, 1, d))
+                            .astype(np.float32))
+                      for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2),
+                                     (6, 9))]
+    q = _cuda(rng.normal(size=(nb, c, hq, d)).astype(np.float32)
+              ).bfloat16()
+    kn, vn = [_cuda(rng.normal(size=(nb, c, hkv, d)).astype(np.float32) * 4)
+              for _ in range(2)]
+    desc = build_work_queue(tbl, ctx, ps, hkv, qls, pad_row=nb * hkv)
+    return (q, kn, vn, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc)), desc
+
+
+def _wq_exact(args, desc, qls):
+    b, c, hq, _ = args[0].shape
+    hkv = args[3].shape[2]
+    plan = PA.work_plan(desc, b * hkv, c, hq // hkv, "cuda")
+    before = PA.paged_kv4_prefill_attention_wq.launches
+    got = PA.paged_kv4_prefill_attention_wq(*args, plan=plan)
+    assert PA.paged_kv4_prefill_attention_wq.launches == before + 1
+    again = PA.paged_kv4_prefill_attention_wq(*args)   # plan from desc
+    want = PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)      # deterministic, whoever arrives last
+    for bi, ql in enumerate(qls):
+        assert torch.equal(got[bi, :ql], want[bi, :ql]), (
+            bi, ql, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
+    for bi in range(len(qls), b):       # q_len-0 pad rows: zeros
+        assert not got[bi].any()
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("c", [1, 4, 37, 256])
+def test_wq_prefill_exact_on_card(c, ps):
+    """K9 bit for bit against its plain version on the valid rows: a row
+    with no history beside rows with history, a row with many page items
+    (kmax ≥ 9), q_len-0 pad rows, the power-of-two pad items of the
+    descriptor array, and chunks of C = 1 (decode), 4, 37 and 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(10 * c + ps)
+    hq, hkv = 8, 2
+    long_ctx = 10 * ps + 3                       # 11 page items
+    if c == 1:
+        ctx, qls = [40, long_ctx, 0, ps], [1, 1, 1, 1]
+    else:
+        ctx, qls = [0, long_ctx, 17, ps - 1], [c, max(1, c // 2), c, 1]
+    args, desc = _wq_case(rng, ctx, qls, c, hq, hkv, ps, len(ctx) + 2)
+    plan = _wq_exact(args, desc, qls)
+    kmax = np.bincount(desc[desc[:, 2] > 0, 0]).max()
+    assert kmax >= 9 and (desc[:, 2] == 0).any(), (kmax, desc.shape)
+    assert plan.rows == (8 if c == 1 else 16 if c == 4 else 32)
+
+
+@pytest.mark.cuda
+def test_wq_prefill_scratch_scores_exact_on_card():
+    """K9 with a chunk longer than its scores' shared-memory room (C =
+    1,300 at 32-row tiles): the scores go to the scratch buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(11)
+    args, desc = _wq_case(rng, [70, 0], [1300, 5], 1300, 4, 1, 64, 2)
+    _wq_exact(args, desc, [1300, 5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_dense_decode_exact_on_card(g):
+    """K6 bit for bit against its plain version: lengths 1, ps−1, ps,
+    ps+1, 487 and a long row, −1 table entries past each row's pages,
+    shared and per-row scales."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(20 + g)
+    hkv, ps, d = 2, 64, 128
+    lens = [1, ps - 1, ps, ps + 1, 487, 6000]
+    need = [-(-n // ps) for n in lens]
+    num_pages = sum(need) + 3
+    tbl = np.full((len(lens), max(need) + 2), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, n in enumerate(need):
+        tbl[bi, :n] = perm[i:i + n]
+        i += n
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    stats = [_cuda(rng.uniform(lo, hi, (hkv, 1, d)).astype(np.float32))
+             for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2), (6, 9))]
+    q = _cuda(rng.normal(size=(len(lens), g * hkv, d)).astype(np.float32))
+    lengths = _cuda(np.asarray(lens, np.int32))
+    per_row = [_cuda(rng.uniform(lo, hi, (len(lens), hkv, 1, d))
+                     .astype(np.float32))
+               for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2), (6, 9))]
+    for ks, kz, vs, vz in (stats, per_row):
+        args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(tbl), lengths)
+        got = PA.paged_kv4_decode_attention(*args)
+        want = PA.paged_kv4_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_wq_decode_exact_combine_on_card():
+    """K8's op (kernel partials, then the exact combine and V affine)
+    bit for bit against its plain version, with and without a host
+    combine plan: the combine it shares with K9's plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(30)
+    hq, hkv, ps, d = 8, 2, 64, 128
+    lens = [487, 405, 1, 64, 700]
+    need = [-(-n // ps) for n in lens]
+    num_pages = sum(need) + 1
+    tbl = np.full((len(lens), max(need)), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, n in enumerate(need):
+        tbl[bi, :n] = perm[i:i + n]
+        i += n
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    ks, kz, vs, vz = [_cuda(rng.uniform(lo, hi, (hkv, 1, d))
+                            .astype(np.float32))
+                      for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2),
+                                     (6, 9))]
+    q = _cuda(rng.normal(size=(len(lens), hq, d)).astype(np.float32))
+    desc = build_work_queue(tbl, lens, ps, hkv)
+    plan = PA.combine_plan(desc[:, 0], len(lens) * hkv, "cuda")
+    args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc))
+    want = PA.paged_kv4_decode_attention_wq_ref(*args, plan=plan)
+    for p in (plan, None):
+        got = PA.paged_kv4_decode_attention_wq(*args, plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())

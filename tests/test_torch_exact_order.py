@@ -23,7 +23,7 @@ order the hardware's DMMA and reductions actually take (its internal
 accumulation within one MMA is not specified), and that the kernel is
 bit-equal to its plain version there (``tests/test_torch_card.py``,
 ``chip_smoke.py``). Also here: :func:`dense_plan`, the host-side launch
-plan of K7, against a direct computation from its rules.
+plan of K7 and K6 (C = 1), against a direct computation from its rules.
 """
 import math
 from fractions import Fraction
@@ -203,6 +203,10 @@ def _direct_plan(b, c, g, hkv, np_, ps):
     (1, 1, 4, 2, 800, 64),      # scores past shared memory at C = 1
     (2, 8, 4, 2, 95, 128),      # … and at 32 rows
     (64, 256, 4, 8, 64, 64),    # many blocks, long history
+    (8, 1, 1, 8, 8, 64),        # K6 (dense decode), G = 1, 2, 8
+    (8, 1, 2, 8, 8, 64),
+    (8, 1, 8, 8, 8, 64),
+    (6, 1, 4, 2, 96, 64),       # K6 with a 6,000-key row
 ])
 def test_dense_plan_matches_direct_computation(shape):
     plan = PA.dense_plan(*shape)

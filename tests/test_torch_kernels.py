@@ -207,9 +207,9 @@ def test_attention_kernel_wrapper_refuses_cpu_tensors():
     rng = np.random.default_rng(2)
     args, _ = _paged_case(rng, 8, 2, 128, 16, [20, 0], [1, 9], 16, 2)
     q, kn, vn, kp, ks, kz, vp, vs, vz, desc = [_t(a) for a in args]
-    folded = PA.prefold(q, kn, vn, ks, kz, vs, vz)
     with pytest.raises(ValueError):
-        PA.paged_kv4_partials(desc, *folded, kp, vp, 4)
+        PA.paged_kv4_prefill_attention_wq(q, kn, vn, kp, ks, kz, vp, vs, vz,
+                                          desc)
     with pytest.raises(ValueError):
         OPS.paged_kv4_prefill_attention_wq(q, kn, vn, kp, ks, kz, vp, vs, vz,
                                            desc, impl="cuda")
