@@ -16,24 +16,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
    paged dense and work-queue decode, contiguous decode) on real cache
    states with ragged lengths, zero-history and q_len-0 rows: each
    computes exactly as its plain version does on the card (f64 sums
-   rounded once) and must agree bit for bit on the valid rows, but the
-   contiguous decode kernel, held to 1e-4·max(1, max|ref|) — with
+   rounded once) and must agree bit for bit on the valid rows — with
    CUDA-event times (median of 20) of kernel, plain version, a library
    yardstick (bf16 ``torch.matmul`` on dequantized weights, SDPA on
-   gathered dequantized KV) and the roofline bound (for the work-queue
-   decode kernel, of the kernel alone on pre-folded inputs, with the whole
-   op beside it as ``op_ms``/``op_plain_ms``; for the mixed kernel the
-   split pair on the same inputs as ``split_ms``); the GEMMs are timed at
-   M = 256 and, under their row's ``decode`` key, M = 8, and both prefill
-   attention ops (K7 dense, K9 work queue — the whole op, which must run
-   in at most two kernel launches, counted by ``torch.profiler``) at
-   C = 256 and, under ``decode``, at C = 1 on the decode kernels' inputs;
+   gathered dequantized KV) and the roofline bound (for the mixed kernel
+   also the split pair on the same inputs as ``split_ms``); the GEMMs are
+   timed at M = 256 and, under their row's ``decode`` key, M = 8, and both
+   prefill attention ops (K7 dense, K9 work queue — the whole op, which
+   must run in at most two kernel launches, counted by
+   ``torch.profiler``) at C = 256 and, under ``decode``, at C = 1 on the
+   decode kernels' inputs; the work-queue decode op (K8) is the whole op
+   in one launch, counted the same way;
 3. parity: a 2-layer d_model-1024 model served on the card in every
    engine configuration (the unified step under both attention
-   schedules, the split step under both, whole-prompt prefill with
-   gather decode, the unified step under the mixed W4Ax schedule), twice
-   each, with the kernels and with ``impl="ref"``: first logits to
-   2e-2·max|logit|, greedy agreement ≥ 0.9;
+   schedules, the split step under both and under the work queue with
+   pages of 128 keys, whole-prompt prefill with gather decode, the
+   unified step under the mixed W4Ax schedule), twice each, with the
+   kernels and with ``impl="ref"``: first logits to 2e-2·max|logit|,
+   greedy agreement ≥ 0.9;
 4. slice: Llama-3-8B at full width and depth (random seeded weights),
    default ``EngineConfig`` but ``prefill_chunk_tokens=256``, 8 requests
    of 128–512 prompt tokens × 32 new tokens, greedy, to completion; every
@@ -54,8 +54,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    tokens, with no failed step, internal or callback error.
 
 ``--phases times`` (not among the defaults) prints unchecked times of
-K9's op (C = 256, C = 1) and K6 on the kernels phase's inputs through the
-API every tree of the port has, to time two trees in turns in one call.
+K9's op (C = 256, C = 1), K6, K8's op and K10 on the kernels phase's
+inputs through the API every tree of the port has, to time two trees in
+turns in one call.
 ``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
 with the kernel launch calls per engine step.
 
@@ -415,11 +416,13 @@ def prefill_bound(ctx, qls, hkv: int, g: int, d: int, q_bytes: int = 2):
 
 def decode_bound(lengths, hq: int, hkv: int, d: int, extra_bytes: int = 0):
     """Bytes and f32 operations of decode attention over these lengths:
-    the int4 K and V of every valid key of every kv head read once, the
-    queries and outputs once (plus ``extra_bytes``), 4·D operations per
-    (query head, key)."""
+    the int4 K and V of every valid key of every kv head read once, each
+    bf16 query read and each f32 output written once, plus
+    ``extra_bytes`` (the op's own inputs: scales, tables, descriptors);
+    4·D operations per (query head, key)."""
     keys = int(sum(lengths))
-    nbytes = keys * hkv * (d // 2) * 2 + extra_bytes
+    nbytes = (keys * hkv * (d // 2) * 2 + len(lengths) * hq * d * (2 + 4)
+              + extra_bytes)
     return nbytes, keys * hq * 4 * d
 
 
@@ -445,10 +448,10 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
                       PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan),
                       valid)
     n = device_launches(torch, op)
-    if n > 2:
-        fail(f"paged_kv4_prefill_attention_wq: {n} kernel launches a call")
+    if not 1 <= n <= 2:
+        fail(f"paged_kv4_prefill_attention_wq: {n:g} kernel launches a call")
     say(f"[kernels] paged_kv4_prefill_attention_wq W={desc.shape[0]} "
-        f"C={c}: max err {err:.3g}; {n} launch(es) a call, "
+        f"C={c}: max err {err:.3g}; {n:g} launch(es) a call, "
         f"{plan.jobs.shape[0]} blocks of {plan.rows} rows")
     rows["paged_kv4_prefill_attention_wq"] = {
         "name": "paged_kv4_prefill_attention_wq", "route": "cuda",
@@ -484,17 +487,31 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
     }
 
 
-def device_launches(torch, fn) -> int:
+def device_launches(torch, fn, calls: int = 3, tries: int = 5) -> float:
     """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``
-    (after a warm-up call)."""
+    (after a warm-up call): ``calls`` calls traced between two marker
+    kernels (``torch.cuda._sleep``). A later profiling session of a
+    process now and then comes back without the card's activity (seen on
+    the H100: 0 kernels for an op that had just run); a trace that does
+    not hold both markers lost activity, so it is taken again, at most
+    ``tries`` times, and never counted."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        seen = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(n for k, n in seen if "spin_kernel" in k) == 2:
+            return sum(n for k, n in seen if "spin_kernel" not in k) / calls
+        say(f"[kernels] a torch.profiler trace lost the card's activity "
+            f"(saw {sum(n for _, n in seen)} kernels); taken again")
+    fail(f"torch.profiler lost the card's activity in {tries} traces")
 
 
 def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
@@ -522,9 +539,8 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
     k10 = (q, kp, bc[0], bc[1], vp, bc[2], bc[3], lengths)
     k6 = (q,) + pools + (cache.block_tables_device(slots, max_len), lengths)
     desc = cache.work_queue_np(slots, lens_np)
-    desc_t = torch.from_numpy(desc).cuda()
-    plan = PA.combine_plan(desc[:, 0], b * hkv, "cuda")
-    k8 = (q,) + pools + (desc_t,)
+    plan = PA.work_plan(desc, b * hkv, 1, g, "cuda")
+    k8 = (q,) + pools + (torch.from_numpy(desc).cuda(),)
 
     mask = (torch.arange(max_len, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
@@ -534,11 +550,20 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
     yq = q[:, :, None, :].contiguous()
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         yq, yk, yv, attn_mask=mask))
-    io = 2 * b * hq * d * 4
+    # each op's inputs besides q and the KV: the four scale tensors the
+    # batch shares, the lengths (K10, K6), K6's block table, K8's
+    # descriptors and jobs
+    scales = sum(pools[i].nbytes for i in (1, 2, 4, 5))
+    extra = {"kv4_decode_attention": scales + lengths.nbytes,
+             "paged_kv4_decode_attention": (scales + lengths.nbytes
+                                            + k6[7].nbytes),
+             "paged_kv4_decode_attention_wq": (scales + desc.nbytes
+                                               + plan.jobs.nbytes)}
     shape = f"B={b} Hq={hq} D={d} T={max_len}"
 
-    err = check("kv4_decode_attention", KA.kv4_decode_attention(*k10),
-                KA.kv4_decode_attention_ref(*k10))
+    err = check_exact("kv4_decode_attention", KA.kv4_decode_attention(*k10),
+                      KA.kv4_decode_attention_ref(*k10),
+                      [(i, hq) for i in range(b)])
     say(f"[kernels] kv4_decode_attention {shape}: max err {err:.3g}")
     rows["kv4_decode_attention"] = {
         "name": "kv4_decode_attention", "route": "cuda",
@@ -547,7 +572,8 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "shape": shape, "max_abs_err": err,
         "ms": time_ms(torch, lambda: KA.kv4_decode_attention(*k10)),
         "plain_ms": time_ms(torch, lambda: KA.kv4_decode_attention_ref(*k10)),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d, io)),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
+                              extra["kv4_decode_attention"])),
         "library_ms": library_ms,
     }
 
@@ -564,7 +590,8 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "ms": time_ms(torch, lambda: PA.paged_kv4_decode_attention(*k6)),
         "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_decode_attention_ref(*k6)),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d, io)),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
+                              extra["paged_kv4_decode_attention"])),
         "library_ms": library_ms,
     }
 
@@ -613,54 +640,45 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
         "library_ms": library_ms,
     }
 
-    err = check_exact("paged_kv4_decode_attention_wq",
-                      PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
+    # the whole op (pre-fold, partials, combine, V affine) in one launch,
+    # with the engine's host plan
+    op8 = lambda: PA.paged_kv4_decode_attention_wq(*k8, plan=plan)  # noqa: E731
+    err = check_exact("paged_kv4_decode_attention_wq", op8(),
                       PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan),
                       [(i, hq) for i in range(b)])
-    say(f"[kernels] paged_kv4_decode_attention_wq {shape} "
-        f"W={desc.shape[0]}: max err {err:.3g}")
-    # the kernel alone on pre-folded queries; the whole op beside it
-    qt2, c2 = PA.decode_prefold(q, pools[1], pools[2], hkv)
+    n = device_launches(torch, op8)
+    if n != 1:
+        fail(f"paged_kv4_decode_attention_wq: {n:g} kernel launches a call")
     w = desc.shape[0]
+    say(f"[kernels] paged_kv4_decode_attention_wq {shape} W={w}: max err "
+        f"{err:.3g}; {n:g} launch a call, {plan.jobs.shape[0]} blocks")
     rows["paged_kv4_decode_attention_wq"] = {
         "name": "paged_kv4_decode_attention_wq", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:477",
         "shape": f"{shape} W={w}", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: PA.paged_kv4_decode_partials(
-            desc_t, qt2, c2, pools[0], pools[3])),
-        "plain_ms": time_ms(torch, lambda: PA.paged_kv4_decode_partials_ref(
-            desc_t, qt2, c2, pools[0], pools[3])),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
-                              b * hq * (d + 1) * 4 + w * 16
-                              + w * g * (d + 2) * 4)),
-        "library_ms": library_ms,
-        "op_ms": time_ms(torch, lambda: PA.paged_kv4_decode_attention_wq(
-            *k8, plan=plan)),
-        "op_plain_ms": time_ms(
+        "ms": time_ms(torch, op8),
+        "plain_ms": time_ms(
             torch, lambda: PA.paged_kv4_decode_attention_wq_ref(
                 *k8, plan=plan)),
+        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
+                              extra["paged_kv4_decode_attention_wq"])),
+        "library_ms": library_ms,
+        "launches_per_call": n,
     }
 
 
-def wq_plan(PA, desc, num_rows: int, c: int, g: int):
-    """The K9 op's host plan for ``desc``: its work plan, or in a package
-    whose op takes the combine's plan, that."""
-    if hasattr(PA, "work_plan"):
-        return PA.work_plan(desc, num_rows, c, g, "cuda")
-    return PA.combine_plan(desc[:, 0], num_rows, "cuda")
-
-
-def phase_times(torch, cfg, KVC, PA):
-    """Unchecked times of the attention ops this package's path runs, on
-    the kernels phase's inputs, through the API every tree of the port
-    has (so two trees can be timed in turns in one call): K9's whole op
-    at B = 8, C = 256 and at C = 1 on the decode rows, and K6."""
+def phase_times(torch, cfg, KVC, PA, KA):
+    """Unchecked times of the attention ops this package's paths run, on
+    the kernels phase's inputs (so two trees can be timed in turns in one
+    call, when both have these ops' signatures): K9's whole op
+    at B = 8, C = 256 and at C = 1 on the decode rows, K6, K8's whole op
+    and K10 on those rows."""
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     args, desc, _, _, _ = attention_case(torch, cfg, KVC)
     b, c = args[0].shape[:2]
-    plan = wq_plan(PA, desc, b * hkv, c, g)
+    plan = PA.work_plan(desc, b * hkv, c, g, "cuda")
     cache, gen = llama_cache(torch, cfg, KVC, [(n, 1) for n in DECODE_LENS],
                              4)
     slots = list(range(len(DECODE_LENS)))
@@ -673,9 +691,18 @@ def phase_times(torch, cfg, KVC, PA):
                 for _ in range(2))
     desc9 = cache.work_queue_np(slots, np.asarray(DECODE_LENS), [1] * b1)
     k9 = (q[:, None], kn1, vn1) + pools + (torch.from_numpy(desc9).cuda(),)
-    plan9 = wq_plan(PA, desc9, b1 * hkv, 1, g)
+    plan9 = PA.work_plan(desc9, b1 * hkv, 1, g, "cuda")
     k6 = (q,) + pools + (cache.block_tables_device(slots, max(DECODE_LENS)),
                          lens)
+    desc8 = cache.work_queue_np(slots, np.asarray(DECODE_LENS))
+    k8 = (q,) + pools + (torch.from_numpy(desc8).cuda(),)
+    plan8 = PA.work_plan(desc8, b1 * hkv, 1, g, "cuda")
+    kp, vp, _ = cache.gather_kv(0, slots, max(DECODE_LENS))
+    k10 = (q, kp.contiguous(), *[
+        torch.broadcast_to(s[None], (b1,) + tuple(s.shape))
+        for s in pools[1:3]], vp.contiguous(), *[
+        torch.broadcast_to(s[None], (b1,) + tuple(s.shape))
+        for s in pools[4:6]], lens)
     times = {
         "paged_kv4_prefill_attention_wq C=256": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_wq(*args,
@@ -685,6 +712,11 @@ def phase_times(torch, cfg, KVC, PA):
                                                              plan=plan9)),
         "paged_kv4_decode_attention": time_ms(
             torch, lambda: PA.paged_kv4_decode_attention(*k6)),
+        "paged_kv4_decode_attention_wq": time_ms(
+            torch, lambda: PA.paged_kv4_decode_attention_wq(*k8,
+                                                            plan=plan8)),
+        "kv4_decode_attention": time_ms(
+            torch, lambda: KA.kv4_decode_attention(*k10)),
     }
     say(f"[times] {HERE} {json.dumps(times)}")
 
@@ -746,6 +778,7 @@ CONFIGS = {
     "unified work_queue": {},
     "split work_queue": dict(unified_step=False),
     "split dense": dict(unified_step=False, attention_schedule="dense"),
+    "split work_queue ps128": dict(unified_step=False, page_size=128),
     "whole gather": dict(prefill_mode="whole", decode_attention="gather"),
     "unified dense": dict(attention_schedule="dense"),
     "unified work_queue mixed": {},
@@ -768,9 +801,10 @@ def phase_parity(torch, np, mods):
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (40, 7, 23, 64, 13, 29)]
     for label, kw in CONFIGS.items():
-        ecfg = EngineConfig(max_batch=8, num_pages=128, page_size=64,
-                            max_pages_per_seq=16, prefill_chunk_tokens=48,
-                            kv_range=4.0, **kw)
+        ecfg = EngineConfig(**{**dict(max_batch=8, num_pages=128,
+                                      page_size=64, max_pages_per_seq=16,
+                                      prefill_chunk_tokens=48, kv_range=4.0),
+                               **kw})
         res = {}
         for impl in ("auto", "ref"):
             eng, first, _ = serve(torch, np, Engine, EngineConfig,
@@ -1014,7 +1048,7 @@ def main():
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
     if "times" in phases:
-        phase_times(torch, cfg8b, KVC, PA)
+        phase_times(torch, cfg8b, KVC, PA, KA)
     mods = (ModelConfig, LM, Engine, EngineConfig, QuantConfig)
     if "parity" in phases:
         phase_parity(torch, np, mods)

@@ -1,7 +1,6 @@
 // Shared by every kernel library: the C error-string export the ctypes
 // binding (kernels/_build.py) reads when an entry point returns non-zero,
-// the warp reductions and exponential of the attention kernels, and the
-// cp.async helpers.
+// the exponential of the attention kernels, and the cp.async helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,24 +9,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;   // finite mask value, as the reference's
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // exp(x) rounded once to f32 from the f64 exponential: the value the
 // plain versions compute as ``torch.exp(x.double()).float()``.

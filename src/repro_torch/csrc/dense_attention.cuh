@@ -1,7 +1,8 @@
-// Paged KV4 attention on the f64 tensor cores, one launch per call: the
-// dense-schedule kernel shared by K7 (chunked prefill, paged_attention.cu)
-// and K6 (decode, paged_decode.cu), and the pieces K9 (the work-queue
-// kernel, paged_attention.cu) builds on — the f64 MMA, the query load, the
+// KV4 attention on the f64 tensor cores, one launch per call: the
+// dense-schedule kernel shared by K7 (chunked prefill, paged_attention.cu),
+// K6 (paged decode, paged_decode.cu) and K10 (decode over a contiguous
+// cache, kv4_attention.cu), and the pieces the work-queue kernel of K9 and
+// K8 (paged_attention.cu) builds on — the f64 MMA, the query load, the
 // tile constants.
 #pragma once
 
@@ -15,16 +16,20 @@ namespace {
 // paged_kv4_prefill_attention (K7, _paged_kv4_prefill_kernel; CHUNK true)
 // and paged_kv4_decode_attention (K6, _paged_kv4_decode_kernel; CHUNK
 // false: C = 1, no chunk keys, history [0, length), scales per batch row
-// or shared). Query row r = qi·G + gi of (b, kv head h) attends over the
-// int4 history [0, ctx),
-// gathered through the block table and dequantized to (n − z)·s, and the
+// or shared), and in repro/kernels/kv4_attention.py kv4_decode_attention
+// (K10, _kv4_decode_kernel: K6's function with PAGED false, key t of
+// (b, h) read from the contiguous [B, Hkv, T, D/2] cache at row
+// (b·Hkv + h)·T + t, with np = 1 and ps = T). Query row r = qi·G + gi of
+// (b, kv head h) attends over the int4 history [0, ctx),
+// read through the block table and dequantized to (n − z)·s, and the
 // chunk's keys j ≤ qi, j < q_len, in exact arithmetic: every dot product
 // and sum in f64 rounded once to f32, the exponential the f64 one rounded
 // (e = f32(exp(s − M)), L = f32(Σ e), p = e / L in f32, out = f32(Σ p·v)),
 // as the plain version computes on the card, so the two agree bit for bit
 // (an f64 sum rounded once does not depend on its order) and a token served
 // through the kernel is the token of the plain version. K6's plain version
-// masks with −inf where K7's uses NEG_INF = −1e30: both give e = 0.
+// (and K10's) masks with −inf where K7's uses NEG_INF = −1e30: both give
+// e = 0.
 //
 // Bound on the H100: operations, ~4·D per (valid query, valid key), at the
 // f64 rate the exact contract asks for, for a prefill chunk; bytes (the
@@ -39,7 +44,7 @@ namespace {
 //   tensor cores (mma m16n8k8: f32 products are exact in f64, so only the
 //   summation order changes, and it is free), keys as the MMA's rows and
 //   8 query rows as its columns. The scores stay in shared memory — or,
-//   when rows × keys do not fit (dense_plan in kernels/paged_attention.py
+//   when rows × keys do not fit (dense_plan in kernels/kv4_attention.py
 //   decides), in a scratch buffer the wrapper allocates — for the max,
 //   the exponentials and Σe, then Oᵀ = Vᵀ·Pᵀ on the tensor cores over V
 //   tiles staged once.
@@ -101,8 +106,9 @@ __device__ __forceinline__ float4 load_q4(const void* q, long i, bool bf16) {
 }
 
 // q [B, C, Hq, D] (q_bf16: bf16, else f32); scales/zeros [Hkv, D] at batch
-// stride sb floats (0: shared); ctx_lens [B] (K6: the lengths); q_lens and
-// kn/vn read only with CHUNK.
+// stride sb floats (0: shared); ctx_lens [B] (K6, K10: the lengths); q_lens
+// and kn/vn read only with CHUNK, tables only with PAGED (K10: null, np 1,
+// ps T, the pools the contiguous [B, Hkv, T, D/2] cache).
 struct DenseArgs {
   const void* q; const float* kn; const float* vn;
   const float* ks; const float* kz; const float* vs; const float* vz;
@@ -116,7 +122,8 @@ struct DenseArgs {
 // gridDim = (split, row tiles, B·Hkv), the cluster spans the split.
 // Products are taken transposed, keys (or head channels) as the MMA's 16
 // rows and the warp's 8 query rows as its 8 columns: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ.
-template <int WR, bool CHUNK>
+// PAGED: history keys through the block table; else the contiguous cache.
+template <int WR, bool CHUNK, bool PAGED>
 __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
     DenseArgs a) {
   constexpr int R = 8 * WR, WK = dn_wk(WR), DN_THREADS = dn_threads(WR);
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
                      nsplit + rank) * R * a.sstride;
   const int rbase = 8 * wr;                 // the warp's first row
   const int warp_qi = (min(r0 + rbase + 7, cg_rows - 1)) / grp;
-  const int* tbl = a.tables + static_cast<long>(b) * a.np;
+  const int* tbl = PAGED ? a.tables + static_cast<long>(b) * a.np : nullptr;
   const float sqrt_d = sqrtf(static_cast<float>(D));
 
   for (int i = tid; i < 4 * D; i += DN_THREADS) {
@@ -193,14 +200,23 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
                     : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   // the physical pages of this block's history keys, at hand
-  const int p_first = lo / a.ps;
-  const int p_count = lo < ctx ? (min(lo + nloc, ctx) - 1) / a.ps - p_first + 1
-                               : 0;
-  for (int i = tid; i < min(p_count, DN_MAXP); i += DN_THREADS)
-    sPage[i] = max(tbl[p_first + i], 0);
-  auto page_of = [&](int tg) {
-    const int i = tg / a.ps - p_first;
-    return i < DN_MAXP ? sPage[i] : max(tbl[tg / a.ps], 0);
+  const int p_first = PAGED ? lo / a.ps : 0;
+  if constexpr (PAGED) {
+    const int p_count =
+        lo < ctx ? (min(lo + nloc, ctx) - 1) / a.ps - p_first + 1 : 0;
+    for (int i = tid; i < min(p_count, DN_MAXP); i += DN_THREADS)
+      sPage[i] = max(tbl[p_first + i], 0);
+  }
+  // the packed row of history key tg: on its page, or at (b·Hkv + h)·T + tg
+  // of the contiguous cache (ps = T)
+  auto key_row = [&](int tg) -> long {
+    if constexpr (PAGED) {
+      const int i = tg / a.ps - p_first;
+      const int page = i < DN_MAXP ? sPage[i] : max(tbl[tg / a.ps], 0);
+      return (static_cast<long>(page) * a.ps + tg % a.ps) * a.hkv + h;
+    } else {
+      return static_cast<long>(bh) * a.ps + tg;
+    }
   };
   // a key step [k, ..) of local keys that no row of this warp sees
   auto dead = [&](int k) {
@@ -219,8 +235,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
       const int i = tid + u * DN_THREADS;
       const int j = i >> 2, c16 = i & 3, kl = k0 + j, tg = lo + kl;
       if (kl < nloc && tg < ctx) {
-        const long off = ((static_cast<long>(page_of(tg)) * a.ps + tg % a.ps)
-                          * a.hkv + h) * (D / 2) + 16 * c16;
+        const long off = key_row(tg) * (D / 2) + 16 * c16;
         cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
       }
     }
@@ -450,11 +465,11 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
   if (nsplit > 1) cg::this_cluster().sync();   // peers may still read us
 }
 
-template <int WR, bool CHUNK>
+template <int WR, bool CHUNK, bool PAGED = true>
 cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
                          cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_attention_kernel<WR, CHUNK>,
+      dense_attention_kernel<WR, CHUNK, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, DN_SMEM_MAX);
   if (attr != cudaSuccess) return attr;
   const int rows = 8 * WR;
@@ -470,10 +485,11 @@ cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
   attrs[0].val.clusterDim.z = 1;
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dense_attention_kernel<WR, CHUNK>, a);
+  return cudaLaunchKernelEx(&cfg, dense_attention_kernel<WR, CHUNK, PAGED>,
+                            a);
 }
 
-// The plan dense_plan (kernels/paged_attention.py) worked out: rows per
+// The plan dense_plan (kernels/kv4_attention.py) worked out: rows per
 // block (8, 16 or 32), split (cluster size, 1..8), sstride (the score
 // rows' stride in floats), smem (dynamic shared bytes); scores in scratch
 // (non-null) or in shared memory.

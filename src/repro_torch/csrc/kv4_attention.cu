@@ -4,57 +4,48 @@
 // (_kv4_decode_kernel). The whole op runs in one launch: the
 // dequantization (n − z)·s of K and V, the scores, the softmax and p·V.
 //
-// Inputs: q [B, Hq, D] f32; k/v [B, Hkv, T, D/2] uint8 (byte j = channel j
-// | channel j + D/2 << 4); scales/zeros f32 [Hkv, D] shared by the batch
-// (batch stride 0) or [B, Hkv, D]; length [B] int32. Key t of row b is
+// Inputs: q [B, Hq, D] f32 or bf16; k/v [B, Hkv, T, D/2] uint8 (byte j =
+// channel j | channel j + D/2 << 4); scales/zeros f32 [Hkv, D] shared by the
+// batch (batch stride 0) or [B, Hkv, D]; length [B] int32. Key t of row b is
 // read only if t < min(length[b], T): T is the gather's max_len, not a
-// page multiple. → out [B, Hq, D] f32.
+// multiple of 8 or of the key tile. → out [B, Hq, D] f32.
 //
 // Bound on the H100: bytes, 2·64 B of int4 K and V per valid key and kv
 // head (~4 MB for one Llama-3-8B layer at B = 8 and ~512 tokens, ~1.3 µs
-// at 3.35 TB/s), so at decode batch sizes the launch and the occupancy of
-// B·Hkv = 64 blocks on 132 SMs set the time, not the bytes. Design: one
-// block of 256 threads per (b, kv head) row, which splits the row's keys
-// (a block-wide loop instead of a split-KV grid with a second combine
-// pass: one launch per layer), with the plain version's three-pass
-// softmax in exact arithmetic (f64 sums, each rounded once), so kernel and
-// plain version agree bit for bit: see decode_attention.cuh.
-#include "decode_attention.cuh"
+// at 3.35 TB/s), so at decode batch sizes the launch and the latency of a
+// block's phases set the time, not the bytes. Design: the dense kernel of
+// dense_attention.cuh, which K6 runs on the page pools, with contiguous
+// addressing (PAGED false): a 64-key tile of one (b, kv head) is one run
+// of 4 KB, staged by cp.async one tile ahead; each key scored once on the
+// f64 tensor cores; the keys of a row split over a thread-block cluster
+// that dense_plan (kernels/kv4_attention.py) sizes on the host from
+// B·Hkv and T. It computes K6's plain version, which is K10's, in exact
+// arithmetic (f64 sums rounded once), so kernel and plain version agree
+// bit for bit.
+#include "dense_attention.cuh"
 
-namespace {
-
-template <int G>
-__global__ void __launch_bounds__(DWARPS * 32) kv4_decode_kernel(
-    const float* __restrict__ q, const uint8_t* __restrict__ k_packed,
-    const uint8_t* __restrict__ v_packed, const float* __restrict__ ks,
-    const float* __restrict__ kz, const float* __restrict__ vs,
-    const float* __restrict__ vz, int sstride, const int* __restrict__ length,
-    float* __restrict__ out, int hkv, int t_len) {
-  const int bh = blockIdx.x, b = bh / hkv, h = bh % hkv;
-  const long soff = static_cast<long>(b) * sstride + h * DD;
-  const long base = static_cast<long>(bh) * t_len * (DD / 2);
-  auto row_off = [](int t) { return static_cast<long>(t) * (DD / 2); };
-  decode_row<G>(q, k_packed + base, v_packed + base, ks + soff, kz + soff,
-                vs + soff, vz + soff, row_off, min(length[b], t_len), b, h,
-                hkv * G, out);
-}
-
-}  // namespace
-
-// d must be 128 and g ∈ {1, 2, 4, 8}; every pointer is contiguous.
+// q [B, Hq, D] (q_bf16: bf16, else f32); k/v uint8 [B, hkv, t_len, D/2];
+// scales/zeros f32 [hkv, D] (sb 0) or [B, hkv, D] (sb hkv·D); length [B]
+// int32 → out [B, Hq, D] f32. d must be 128, g ≤ 8; every pointer is
+// contiguous. The launch plan (dense_plan at C = 1 with one "page" of
+// t_len keys; rows 8) as dense_plan_ok says; scratch null or f32
+// [B·hkv·split·8·sstride].
 extern "C" int kv4_decode_attention(
-    const float* q, const uint8_t* k_packed, const uint8_t* v_packed,
-    const float* ks, const float* kz, const float* vs, const float* vz,
-    int sstride, const int* length, float* out, int b, int hkv, int g,
-    int t_len, int d, cudaStream_t stream) {
-  if (d != DD) return static_cast<int>(cudaErrorInvalidValue);
+    const void* q, int q_bf16, const uint8_t* k_packed,
+    const uint8_t* v_packed, const float* ks, const float* kz,
+    const float* vs, const float* vz, int sb, const int* length, float* out,
+    float* scratch, int b, int hkv, int g, int t_len, int d, int rows,
+    int split, int sstride, int smem, cudaStream_t stream) {
+  if (d != D || g < 1 || g > 8 || rows != 8 ||
+      !dense_plan_ok(rows, split, sstride, smem, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
-#define LAUNCH(G)                                                        \
-  kv4_decode_kernel<G><<<b * hkv, DWARPS * 32, 0, stream>>>(             \
-      q, k_packed, v_packed, ks, kz, vs, vz, sstride, length, out, hkv,  \
-      t_len)
-    DISPATCH_G(g, LAUNCH)
-#undef LAUNCH
+    const DenseArgs a{q, nullptr, nullptr, ks, kz, vs, vz, k_packed,
+                      v_packed, nullptr, length, nullptr, out, scratch, 1, g,
+                      hkv, 1, t_len, sstride, q_bf16, sb};
+    const cudaError_t e =
+        launch_dense<1, false, false>(a, b, split, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

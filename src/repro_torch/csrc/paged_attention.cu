@@ -1,5 +1,5 @@
 // Paged KV4 chunked-prefill attention under the reference's two grid
-// schedules.
+// schedules, and the work-queue decode on the work-queue kernel.
 //
 // paged_kv4_prefill_wq (K9) — replaces repro/kernels/paged_attention.py:
 // paged_kv4_prefill_attention_wq (_paged_kv4_prefill_wq_kernel and the
@@ -42,6 +42,22 @@
 // does not change a bit. Spreading over items is the point of the work
 // queue: a long row's pages run on many SMs at once.
 //
+// paged_kv4_decode_wq (K8) — replaces paged_kv4_decode_attention_wq
+// (_paged_kv4_decode_wq_kernel, with the pre-fold before it and the
+// combine and V affine after it): the same kernel with DECODE set, at
+// C = 1 over page items only (work_plan at C = 1: one 8-row job per item,
+// G query rows valid; zero jobs for the rows no item covers). Unlike K9's
+// page items, the partial stays in nibble space, (Σ p·n_v, Σ p, m), as the
+// reference's; the last block of a row combines its partials and then
+// applies the V affine s_v·comb − s_v·z_v (two f32 products, one f32
+// subtraction), and a zero job writes the affine of an empty combine,
+// s_v·0 − s_v·z_v. The scales may differ per batch row (batch stride sb).
+// Any page size: a page of more than 64 keys is several key tiles, and
+// its scores go to scratch past shared memory, as K9's do. Bound on the
+// H100: bytes, the int4 K and V of every valid key read once (~0.8 µs for
+// the Llama-3-8B decode batch of chip_smoke.py), so the launch and the
+// latency of one job's phases set the time.
+//
 // paged_kv4_prefill_dense (K7) — replaces paged_kv4_prefill_attention
 // (dense schedule): see dense_attention.cuh.
 #include "dense_attention.cuh"
@@ -56,25 +72,28 @@ constexpr int WQ_FIXED = DN_KV + DN_RAW + 4 * D * 4 + DN_MAXWR * 4 +
 static_assert(WQ_WCH * DN_MAXR * 4 <= DN_KV, "combine weights fit");
 
 // desc [W, 4], jobs [J, 4] (work_plan); q [B, C, Hq, D] f32 or bf16;
-// kn/vn f32 [B, C, Hkv, D]; ks/kz/vs/vz f32 [Hkv, D]; part f32 [compute
-// jobs][R][D + 2] (acc, l, m); arrive int32 [≥ compute jobs], zero at
-// launch and left zero; scratch f32 [compute jobs][R][sstride] when the
-// scores do not fit in shared memory, else null.
+// kn/vn f32 [B, C, Hkv, D] (K9 only); ks/kz/vs/vz f32 [Hkv, D] at batch
+// stride sb floats (0: shared); part f32 [compute jobs][R][D + 2] (acc,
+// l, m); arrive int32 [≥ compute jobs], zero at launch and left zero;
+// scratch f32 [compute jobs][R][sstride] when the scores do not fit in
+// shared memory, else null.
 struct WqArgs {
   const int* desc; const int* jobs;
   const void* q; const float* kn; const float* vn;
   const float* ks; const float* kz; const float* vs; const float* vz;
   const uint8_t* k_pool; const uint8_t* v_pool;
   float* out; float* part; int* arrive; float* scratch;
-  int c, g, hkv, ps, sstride, q_bf16;
+  int c, g, hkv, ps, sstride, q_bf16, sb;
 };
 
 // Job (item, tile, first, count): the partial of descriptor item `item`
 // for query rows [tile·R, tile·R + R) of its row, then — if last of the
 // `count` jobs first.. of that (row, tile) — their combine. Job (−1, t0,
-// row, t1): zeros for tiles [t0, t1) of row `row`. gridDim.x = J; the
-// compute jobs come first, job j's partial in scratch slot j.
-template <int WR>
+// row, t1): zeros (DECODE: −s_v·z_v) for tiles [t0, t1) of row `row`.
+// gridDim.x = J; the compute jobs come first, job j's partial in scratch
+// slot j. DECODE (K8): every item is a page, its partial in nibble space,
+// the V affine after the combine.
+template <int WR, bool DECODE>
 __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
     WqArgs a) {
   constexpr int R = 8 * WR, WK = dn_wk(WR), NT = dn_threads(WR);
@@ -104,19 +123,32 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
            * D;
   };
 
-  if (job.x < 0) {            // zero job
+  // the V affine of the plain version, s_v·o − s_v·z_v in f32
+  auto v_affine = [](float o, float vsc, float vzc) {
+    return __fsub_rn(__fmul_rn(vsc, o), __fmul_rn(vsc, vzc));
+  };
+  if (job.x < 0) {            // zero job: an empty combine's output
     const int b = job.z / a.hkv, h = job.z % a.hkv;
+    const long so = static_cast<long>(b) * a.sb + h * D;
     const int end = min(job.w * R, cg_rows) * (D / 4);
-    for (int i = job.y * R * (D / 4) + tid; i < end; i += NT)
-      *reinterpret_cast<float4*>(a.out + qrow(b, h, i / (D / 4)) +
-                                 4 * (i % (D / 4))) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = job.y * R * (D / 4) + tid; i < end; i += NT) {
+      const int c4 = 4 * (i % (D / 4));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (DECODE) {
+        const float4 s = *reinterpret_cast<const float4*>(a.vs + so + c4);
+        const float4 z = *reinterpret_cast<const float4*>(a.vz + so + c4);
+        v = make_float4(v_affine(0.f, s.x, z.x), v_affine(0.f, s.y, z.y),
+                        v_affine(0.f, s.z, z.z), v_affine(0.f, s.w, z.w));
+      }
+      *reinterpret_cast<float4*>(a.out + qrow(b, h, i / (D / 4)) + c4) = v;
+    }
     return;
   }
   const int4 it = reinterpret_cast<const int4*>(a.desc)[job.x];
   const int page = it.y, count = it.z;
-  const bool hist = it.w == 0;
+  const bool hist = DECODE || it.w == 0;
   const int b = it.x / a.hkv, h = it.x % a.hkv;
+  const long so = static_cast<long>(b) * a.sb + h * D;   // the row's scales
   const int r0 = job.y * R, first = job.z, cnt = job.w;
   const float sm = __frcp_rn(__fsqrt_rn(static_cast<float>(D)));   // 1/√D
   const int last_qi = (min(r0 + R, cg_rows) - 1) / grp;
@@ -131,7 +163,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   for (int i = tid; i < 4 * D; i += NT) {
     const float* src = i < D ? a.ks : i < 2 * D ? a.kz : i < 3 * D ? a.vs
                                                                    : a.vz;
-    sScale[i] = src[h * D + i % D];
+    sScale[i] = src[so + i % D];
   }
   // the pre-fold of the tile's queries: (q·s_k)·(1/√D) for a history
   // page, q·(1/√D) for the chunk — the plain version's two roundings
@@ -141,7 +173,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
     if (r < cg_rows) {
       v = load_q4(a.q, qrow(b, h, r) + c4, a.q_bf16);
       if (hist) {
-        const float4 s = *reinterpret_cast<const float4*>(a.ks + h * D + c4);
+        const float4 s = *reinterpret_cast<const float4*>(a.ks + so + c4);
         v = make_float4(__fmul_rn(v.x, s.x), __fmul_rn(v.y, s.y),
                         __fmul_rn(v.z, s.z), __fmul_rn(v.w, s.w));
       }
@@ -362,14 +394,14 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   __syncthreads();
 
   // ---- the partial, rounded as the plain version rounds it: acc =
-  // f32(Σ e·v), for a page then acc·s_v − l·(s_v·z_v) in f32
+  // f32(Σ e·v), for a K9 page then acc·s_v − l·(s_v·z_v) in f32
   float* pj = a.part + static_cast<long>(blockIdx.x) * PSZ;
   for (int i = tid; i < R * D; i += NT) {
     double v = sOut[i];
 #pragma unroll
     for (int w = 1; w < WK; ++w) v += sOut[w * R * D + i];
     float o = static_cast<float>(v);
-    if (hist) {
+    if (hist && !DECODE) {
       const float vsc = sScale[2 * D + i % D], vzc = sScale[3 * D + i % D];
       o = __fsub_rn(__fmul_rn(o, vsc),
                     __fmul_rn(sL[i / D], __fmul_rn(vsc, vzc)));
@@ -432,22 +464,35 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
 #pragma unroll
   for (int k = 0; k < EPT; ++k) {
     const int e = tid + k * NT, r = r0 + e / D;
-    if (r < cg_rows)
-      a.out[qrow(b, h, r) + e % D] =
-          __fdiv_rn(static_cast<float>(num[k]), sDen[e / D]);
+    if (r < cg_rows) {
+      float o = __fdiv_rn(static_cast<float>(num[k]), sDen[e / D]);
+      if constexpr (DECODE)
+        o = v_affine(o, sScale[2 * D + e % D], sScale[3 * D + e % D]);
+      a.out[qrow(b, h, r) + e % D] = o;
+    }
   }
   if (tid == 0 && cnt > 1) a.arrive[first] = 0;
 }
 
-template <int WR>
+template <int WR, bool DECODE = false>
 cudaError_t launch_wq(const WqArgs& a, int njobs, int smem,
                       cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_wq_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DN_SMEM_MAX);
+      prefill_wq_kernel<WR, DECODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DN_SMEM_MAX);
   if (attr != cudaSuccess) return attr;
-  prefill_wq_kernel<WR><<<njobs, dn_threads(WR), smem, stream>>>(a);
+  prefill_wq_kernel<WR, DECODE><<<njobs, dn_threads(WR), smem, stream>>>(a);
   return cudaSuccess;
+}
+
+// The work_plan (kernels/paged_attention.py) of the jobs: rows per job (8,
+// 16 or 32), sstride the score rows' stride in floats (≥ every job's keys
+// rounded to 64, + 8), smem the dynamic shared bytes; scores in scratch
+// (non-null) or in shared memory.
+bool wq_plan_ok(int rows, int sstride, int smem, bool scratch) {
+  return (rows == 8 || rows == 16 || rows == 32) && sstride % 32 == 8 &&
+         smem <= DN_SMEM_MAX &&
+         smem == WQ_FIXED + (scratch ? 0 : rows * sstride * 4);
 }
 
 }  // namespace
@@ -455,9 +500,8 @@ cudaError_t launch_wq(const WqArgs& a, int njobs, int smem,
 // desc int32 [W, 4]; jobs int32 [njobs, 4] (work_plan); q [B, C, Hq, D]
 // (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32
 // [hkv, D]; pools uint8 [P, ps, hkv, D/2] → out f32 [B, C, Hq, D]. part,
-// arrive and scratch as WqArgs says; rows (8, 16 or 32) the jobs' tile,
-// sstride the score rows' stride in floats (≥ every job's keys rounded to
-// 64, + 8), smem the dynamic shared bytes. All contiguous; d must be 128.
+// arrive and scratch as WqArgs says; the plan (rows, sstride, smem) as
+// wq_plan_ok says. All contiguous; d must be 128.
 extern "C" int paged_kv4_prefill_wq(
     const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
     const float* kn, const float* vn, const float* ks, const float* kz,
@@ -465,15 +509,12 @@ extern "C" int paged_kv4_prefill_wq(
     const uint8_t* v_pool, float* out, float* part, int* arrive,
     float* scratch, int c, int g, int hkv, int ps, int d, int rows,
     int sstride, int smem, cudaStream_t stream) {
-  const bool plan_ok =
-      (rows == 8 || rows == 16 || rows == 32) && sstride % 32 == 8 &&
-      smem <= DN_SMEM_MAX &&
-      smem == WQ_FIXED + (scratch ? 0 : rows * sstride * 4);
-  if (d != D || !plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != D || !wq_plan_ok(rows, sstride, smem, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (njobs > 0) {
     const WqArgs a{desc, jobs, q, kn, vn, ks, kz, vs, vz, k_pool, v_pool,
                    out, part, arrive, scratch, c, g, hkv, ps, sstride,
-                   q_bf16};
+                   q_bf16, 0};
     const cudaError_t e =
         rows == 8 ? launch_wq<1>(a, njobs, smem, stream)
         : rows == 16 ? launch_wq<2>(a, njobs, smem, stream)
@@ -483,11 +524,35 @@ extern "C" int paged_kv4_prefill_wq(
   return static_cast<int>(cudaGetLastError());
 }
 
+// desc int32 [W, 4] (page items); jobs int32 [njobs, 4] (work_plan at
+// C = 1); q [B, Hq, D] (q_bf16: bf16, else f32); ks/kz/vs/vz f32 [hkv, D]
+// (sb 0) or [B, hkv, D] (sb hkv·D); pools uint8 [P, ps, hkv, D/2] → out f32
+// [B, Hq, D]. part, arrive and scratch as WqArgs says; rows must be 8, g
+// ≤ 8, the plan as wq_plan_ok says. All contiguous; d must be 128.
+extern "C" int paged_kv4_decode_wq(
+    const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
+    const float* ks, const float* kz, const float* vs, const float* vz,
+    int sb, const uint8_t* k_pool, const uint8_t* v_pool, float* out,
+    float* part, int* arrive, float* scratch, int g, int hkv, int ps, int d,
+    int rows, int sstride, int smem, cudaStream_t stream) {
+  if (d != D || g < 1 || g > 8 || rows != 8 ||
+      !wq_plan_ok(rows, sstride, smem, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (njobs > 0) {
+    const WqArgs a{desc, jobs, q, nullptr, nullptr, ks, kz, vs, vz, k_pool,
+                   v_pool, out, part, arrive, scratch, 1, g, hkv, ps,
+                   sstride, q_bf16, sb};
+    const cudaError_t e = launch_wq<1, true>(a, njobs, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q [B, C, Hq, D] (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D];
 // ks/kz/vs/vz f32 [hkv, D]; pools uint8 [P, ps, hkv, D/2]; tables int32
 // [B, np]; ctx/q_len int32 [B] → out f32 [B, C, Hq, D] (rows at or past
 // q_len·G: 0). All contiguous; d must be 128. The launch plan
-// (kernels/paged_attention.py:dense_plan) as dense_plan_ok says; scratch is
+// (kernels/kv4_attention.py:dense_plan) as dense_plan_ok says; scratch is
 // null when the scores live in shared memory, else f32
 // [B·hkv·tiles·split·rows·sstride].
 extern "C" int paged_kv4_prefill_dense(

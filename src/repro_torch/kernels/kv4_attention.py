@@ -2,10 +2,14 @@
 CUDA kernel and its plain version.
 
 Kernel: ``csrc/kv4_attention.cu`` (replaces ``repro/kernels/
-kv4_attention.py`` ``kv4_decode_attention``; bound by bytes, but at decode
-batch sizes by the launch; one block per (sequence, kv head) row whose
-threads split the keys, the whole op in one launch — see the source
-note).
+kv4_attention.py`` ``kv4_decode_attention``): the dense kernel of
+``csrc/dense_attention.cuh`` that K6 runs on the page pools, reading the
+contiguous ``[B, Hkv, T, D/2]`` cache instead — each key scored once on
+the f64 tensor cores, the keys of one (sequence, kv head) row split over
+a thread-block cluster that :func:`dense_plan` (the dense kernel's
+launch planner, here for K6, K7 and K10 alike) sizes from B·Hkv and T,
+the whole op in one launch. Bound by bytes, but at decode
+batch sizes by the launch (see the source note).
 
 The plain version takes ``compute_dtype`` like the reference's oracle:
 the reference's ops run it in bf16 on its ref path (so the gather engine
@@ -25,7 +29,7 @@ quantization codes, and at a near-tied logit into another token.)
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,7 +38,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["kv4_decode_attention_ref", "kv4_decode_attention",
            "shared_scales", "check_kv4_inputs", "exact", "contract", "exp",
-           "row_sum", "softmax", "sqrt_d"]
+           "row_sum", "softmax", "sqrt_d", "DensePlan", "dense_plan",
+           "round_up"]
 
 
 def exact(t: torch.Tensor) -> bool:
@@ -136,23 +141,96 @@ def check_kv4_inputs(q, k, v, d: int, what: str, g=None):
                          f"kv head, got {g}")
 
 
+class DensePlan(NamedTuple):
+    """How the dense kernel (K7, K6, K10) is launched: ``rows`` query
+    rows per block, ``split`` blocks (one thread-block cluster) per (b,
+    kv head, row tile) sharing its keys, score rows ``sstride`` floats apart,
+    ``smem`` dynamic shared bytes, and ``scratch`` floats of device
+    memory for the scores when they do not fit in shared memory (else
+    0)."""
+    rows: int
+    split: int
+    sstride: int
+    smem: int
+    scratch: int
+
+
+DENSE_KEY_TILE = 64          # keys per staged tile (csrc KT)
+DENSE_FIXED_SMEM = 80640     # shared bytes besides the scores (DN_FIXED)
+DENSE_SMEM_MAX = 232448      # the H100's per-block opt-in
+DENSE_SM_SMEM = 233472       # shared memory of one H100 SM
+DENSE_SMS = 132
+# blocks of each tile height one SM holds by its registers (4 warps at
+# ≤ 128 registers; 8 warps at ≤ 128; 8 warps at ~160)
+DENSE_REG_BLOCKS = {8: 4, 16: 2, 32: 1}
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
+               ps: int) -> DensePlan:
+    """The dense kernel's launch for these shapes, from shapes alone (no
+    device read). Rows: the smallest of 8, 16, 32 that holds C·G. Split: the
+    least number of blocks per (b, h, tile) whose scores for ``NP·ps + C``
+    keys fit in shared memory (at most 8, a portable cluster), widened
+    while the wider grid still runs in one wave on the card and every
+    block keeps a key tile. The scores go to scratch when 8 does not
+    fit."""
+    cg = c * g
+    rows = 8 if cg <= 8 else 16 if cg <= 16 else 32
+    blocks = b * hkv * -(-cg // rows)
+    tmax = np_ * ps + c
+
+    def stride(split):     # key columns of one block, + 8 (banks)
+        per = round_up(-(-tmax // split), 8)
+        return round_up(round_up(per, DENSE_KEY_TILE), 32) + 8
+
+    def smem(split):
+        return DENSE_FIXED_SMEM + rows * stride(split) * 4
+
+    def resident(split):   # blocks the card holds at once
+        per_sm = min(DENSE_REG_BLOCKS[rows],
+                     DENSE_SM_SMEM // (min(smem(split), DENSE_SMEM_MAX)
+                                       + 1024))
+        return DENSE_SMS * per_sm
+
+    split = next((s for s in range(1, 9) if smem(s) <= DENSE_SMEM_MAX), 8)
+    while (split < min(8, -(-tmax // DENSE_KEY_TILE))
+           and blocks * (split + 1) <= resident(split + 1)):
+        split += 1
+    sstride = stride(split)
+    if smem(split) <= DENSE_SMEM_MAX:
+        return DensePlan(rows, split, sstride, smem(split), 0)
+    return DensePlan(rows, split, sstride, DENSE_FIXED_SMEM,
+                     blocks * split * rows * sstride)
+
+
 def kv4_decode_attention(q, k_packed, k_scale, k_zero, v_packed, v_scale,
                          v_zero, length) -> torch.Tensor:
     """The K10 kernel: same arguments as :func:`kv4_decode_attention_ref`
-    (``length`` required), computed in f32. Hq/Hkv ∈ {1, 2, 4, 8}."""
+    (``length`` required) and its f32 result, bit for bit on the card. q
+    f32 or bf16; Hq/Hkv ∈ {1, 2, 4, 8}; T any length (keys at or past
+    ``min(length, T)`` are never read)."""
     b, hq, d = q.shape
     hkv, t = k_packed.shape[1], k_packed.shape[2]
     k_packed, v_packed = k_packed.contiguous(), v_packed.contiguous()
     check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention",
                      hq // hkv)
-    (ks, kz, vs, vz), sstride = shared_scales(
+    (ks, kz, vs, vz), sb = shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
-    q = q.float().contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    q = (q if q_bf16 else q.float()).contiguous()
     length = length.to(device=q.device, dtype=torch.int32).contiguous()
+    plan = dense_plan(b, 1, hq // hkv, hkv, 1, t)    # one "page" of T keys
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32,
+                           device=q.device) if plan.scratch else None)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     _build.call("kv4_attention", "kv4_decode_attention", q.device, q,
-                k_packed, v_packed, ks, kz, vs, vz, sstride, length, out, b,
-                hkv, hq // hkv, t, d)
+                int(q_bf16), k_packed, v_packed, ks, kz, vs, vz, sb, length,
+                out, scratch, b, hkv, hq // hkv, t, d, plan.rows, plan.split,
+                plan.sstride, plan.smem)
     kv4_decode_attention.launches += 1
     return out
 

@@ -43,7 +43,7 @@ KERNELS = {
     "paged_kv4_prefill_attention_wq": PA.paged_kv4_prefill_attention_wq,
     "paged_kv4_decode_attention": PA.paged_kv4_decode_attention,
     "paged_kv4_prefill_attention": PA.paged_kv4_prefill_attention,
-    "paged_kv4_decode_attention_wq": PA.paged_kv4_decode_partials,
+    "paged_kv4_decode_attention_wq": PA.paged_kv4_decode_attention_wq,
     "kv4_decode_attention": KA.kv4_decode_attention,
 }
 combine_plan = PA.combine_plan
@@ -159,8 +159,12 @@ def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
                                   v_scale, v_zero, work_items, *, plan=None,
                                   impl: str = "auto") -> torch.Tensor:
     """Work-queue flash-decode: one partial per page item of the
-    descriptors ``[W, 4]``, split-KV combine (``plan`` built on the host,
-    as for the prefill op), V affine after → ``[B, Hq, D]`` f32."""
+    descriptors ``[W, 4]``, split-KV combine, V affine after → ``[B, Hq,
+    D]`` f32. ``plan`` is the :func:`work_plan` of the descriptors at
+    C = 1 (the kernel's jobs and the plain combine's :func:`combine_plan`),
+    built on the host; the plain version also takes a bare
+    :func:`combine_plan`. Without one the descriptors are read back
+    once."""
     fn = (PA.paged_kv4_decode_attention_wq if use_kernel(impl, q)
           else PA.paged_kv4_decode_attention_wq_ref)
     return fn(q, k_pool, k_scale, k_zero, v_pool, v_scale, v_zero,

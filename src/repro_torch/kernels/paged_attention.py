@@ -15,10 +15,15 @@ and how its design answers that):
   (K6) — the dense schedule, one kernel for both
   (``csrc/dense_attention.cuh``): each (row, query tile) scores its keys
   once on the f64 tensor cores, the keys of a row split across a
-  thread-block cluster (:func:`dense_plan`); one launch, no glue;
-* ``paged_kv4_decode_attention_wq`` (K8, ``csrc/paged_decode.cu``) —
-  work-queue decode: one partial per page item in nibble space, with the
-  PyTorch pre-fold, combine and V affine around it.
+  thread-block cluster (:func:`kv4_attention.dense_plan`); one launch,
+  no glue;
+* ``paged_kv4_decode_attention_wq`` (K8, ``csrc/paged_attention.cu``) —
+  work-queue decode, the whole op in one launch of K9's kernel at C = 1
+  (its ``DECODE`` form): one block per page item folds the row's queries
+  and leaves a nibble-space partial in scratch; the last block of each
+  row combines them and applies the V affine after the combine
+  (:func:`work_plan` at C = 1, built by the engine once per decode
+  forward).
 
 The host flattens a work-queue batch into ``[W, 4]`` int32 descriptors
 ``(row, phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``).
@@ -35,7 +40,7 @@ lies at or past the row's length).
 
 Exact mode (``kv4_attention``): on a CUDA tensor every plain version here
 sums in float64 and rounds once, as its kernel does, so the two agree bit
-for bit; each K9 and combine piece takes ``exact`` to choose the mode
+for bit; each K8, K9 and combine piece takes ``exact`` to choose the mode
 explicitly (default: the input's device), so the CPU tests can run the
 card's arithmetic.
 """
@@ -58,10 +63,9 @@ __all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
            "paged_kv4_prefill_attention_wq_ref",
            "paged_kv4_prefill_attention_wq",
            "paged_kv4_prefill_attention_ref", "paged_kv4_prefill_attention",
-           "DensePlan", "dense_plan",
            "paged_kv4_decode_attention_ref", "paged_kv4_decode_attention",
            "decode_prefold", "paged_kv4_decode_partials_ref",
-           "paged_kv4_decode_partials", "paged_kv4_decode_attention_wq_ref",
+           "paged_kv4_decode_attention_wq_ref",
            "paged_kv4_decode_attention_wq"]
 
 
@@ -317,6 +321,24 @@ def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def _wq_buffers(plan: WorkPlan, keys: int, d: int, device):
+    """The work-queue kernel's buffers for ``plan``, whose jobs each score
+    at most ``keys`` keys → (score row stride in floats, dynamic shared
+    bytes, the scores' scratch buffer — None while they fit in shared
+    memory — and the partials' buffer, f32 [compute jobs][rows][D + 2])."""
+    rows, nc = plan.rows, plan.ncompute
+    sstride = KA.round_up(keys, KA.DENSE_KEY_TILE) + 8
+    smem = WQ_FIXED_SMEM + rows * sstride * 4
+    scratch = None
+    if smem > KA.DENSE_SMEM_MAX:
+        smem = WQ_FIXED_SMEM
+        scratch = torch.empty(nc * rows * sstride, dtype=torch.float32,
+                              device=device)
+    part = torch.empty(nc * rows * (d + 2), dtype=torch.float32,
+                       device=device)
+    return sstride, smem, scratch, part
+
+
 def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
                                    v_pool, v_scale, v_zero, work_items,
                                    plan=None) -> torch.Tensor:
@@ -345,21 +367,13 @@ def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
     q = (q if q_bf16 else q.float()).contiguous()
     k_new = k_new.float().contiguous()
     v_new = v_new.float().contiguous()
-    rows, nc = plan.rows, plan.ncompute
-    sstride = _round_up(max(ps, c), DENSE_KEY_TILE) + 8
-    smem = WQ_FIXED_SMEM + rows * sstride * 4
-    scratch = None
-    if smem > DENSE_SMEM_MAX:
-        smem = WQ_FIXED_SMEM
-        scratch = torch.empty(nc * rows * sstride, dtype=torch.float32,
-                              device=dev)
-    part = torch.empty(nc * rows * (d + 2), dtype=torch.float32, device=dev)
+    sstride, smem, scratch, part = _wq_buffers(plan, max(ps, c), d, dev)
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
     _build.call("paged_attention", "paged_kv4_prefill_wq", dev, desc,
                 plan.jobs, plan.jobs.shape[0], q, int(q_bf16), k_new, v_new,
                 ks, kz, vs, vz, k_pool, v_pool, out, part,
-                _arrival_counters(dev, nc), scratch, c, g, hkv, ps, d, rows,
-                sstride, smem)
+                _arrival_counters(dev, plan.ncompute), scratch, c, g, hkv,
+                ps, d, plan.rows, sstride, smem)
     paged_kv4_prefill_attention_wq.launches += 1
     return out
 
@@ -430,77 +444,11 @@ def _head_scales(scales, hkv: int, d: int):
             .contiguous() for s in scales]
 
 
-class DensePlan(NamedTuple):
-    """How the K7 kernel is launched: ``rows`` query rows per block,
-    ``split`` blocks (one thread-block cluster) per (b, kv head, row
-    tile) sharing its keys, score rows ``sstride`` floats apart,
-    ``smem`` dynamic shared bytes, and ``scratch`` floats of device
-    memory for the scores when they do not fit in shared memory (else
-    0)."""
-    rows: int
-    split: int
-    sstride: int
-    smem: int
-    scratch: int
-
-
-DENSE_KEY_TILE = 64          # keys per staged tile (csrc KT)
-DENSE_FIXED_SMEM = 80640     # shared bytes besides the scores (DN_FIXED)
-DENSE_SMEM_MAX = 232448      # the H100's per-block opt-in
-DENSE_SM_SMEM = 233472       # shared memory of one H100 SM
-DENSE_SMS = 132
-# blocks of each tile height one SM holds by its registers (4 warps at
-# ≤ 128 registers; 8 warps at ≤ 128; 8 warps at ~160)
-DENSE_REG_BLOCKS = {8: 4, 16: 2, 32: 1}
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
-               ps: int) -> DensePlan:
-    """The K7 launch for these shapes, from shapes alone (no device
-    read). Rows: the smallest of 8, 16, 32 that holds C·G. Split: the
-    least number of blocks per (b, h, tile) whose scores for ``NP·ps + C``
-    keys fit in shared memory (at most 8, a portable cluster), widened
-    while the wider grid still runs in one wave on the card and every
-    block keeps a key tile. The scores go to scratch when 8 does not
-    fit."""
-    cg = c * g
-    rows = 8 if cg <= 8 else 16 if cg <= 16 else 32
-    blocks = b * hkv * -(-cg // rows)
-    tmax = np_ * ps + c
-
-    def stride(split):     # key columns of one block, + 8 (banks)
-        per = _round_up(-(-tmax // split), 8)
-        return _round_up(_round_up(per, DENSE_KEY_TILE), 32) + 8
-
-    def smem(split):
-        return DENSE_FIXED_SMEM + rows * stride(split) * 4
-
-    def resident(split):   # blocks the card holds at once
-        per_sm = min(DENSE_REG_BLOCKS[rows],
-                     DENSE_SM_SMEM // (min(smem(split), DENSE_SMEM_MAX)
-                                       + 1024))
-        return DENSE_SMS * per_sm
-
-    split = next((s for s in range(1, 9) if smem(s) <= DENSE_SMEM_MAX), 8)
-    while (split < min(8, -(-tmax // DENSE_KEY_TILE))
-           and blocks * (split + 1) <= resident(split + 1)):
-        split += 1
-    sstride = stride(split)
-    if smem(split) <= DENSE_SMEM_MAX:
-        return DensePlan(rows, split, sstride, smem(split), 0)
-    return DensePlan(rows, split, sstride, DENSE_FIXED_SMEM,
-                     blocks * split * rows * sstride)
-
-
 def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
                                 v_pool, v_scale, v_zero, block_tables,
                                 ctx_lens, q_lens) -> torch.Tensor:
     """The K7 kernel: same arguments and result as the plain version (bit
-    for bit on the card), in one launch (:func:`dense_plan`). Rows at or
+    for bit on the card), in one launch (:func:`kv4_attention.dense_plan`). Rows at or
     past ``q_len·G`` come back 0."""
     b, c, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
@@ -514,7 +462,7 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
     v_new = v_new.float().contiguous()
     ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
     ql = q_lens.to(device=dev, dtype=torch.int32).contiguous()
-    plan = dense_plan(b, c, hq // hkv, hkv, tables.shape[1], ps)
+    plan = KA.dense_plan(b, c, hq // hkv, hkv, tables.shape[1], ps)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
@@ -557,7 +505,7 @@ def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
                                v_zero, block_tables, length) -> torch.Tensor:
     """The K6 kernel: same arguments and result as the plain version (bit
     for bit on the card), in one launch of the dense kernel K7 runs, at
-    C = 1 with no chunk keys (:func:`dense_plan` sizes its cluster split).
+    C = 1 with no chunk keys (:func:`kv4_attention.dense_plan` sizes its cluster split).
     Hq/Hkv ∈ {1, 2, 4, 8}; q f32 or bf16."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
@@ -570,7 +518,7 @@ def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
     length = length.to(device=dev, dtype=torch.int32).contiguous()
     q_bf16 = q.dtype == torch.bfloat16
     q = (q if q_bf16 else q.float()).contiguous()
-    plan = dense_plan(b, 1, hq // hkv, hkv, tables.shape[1], ps)
+    plan = KA.dense_plan(b, 1, hq // hkv, hkv, tables.shape[1], ps)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
@@ -587,22 +535,32 @@ paged_kv4_decode_attention.launches = 0
 
 # ------------------------------------------------- work-queue decode (K8)
 
-def decode_prefold(q, k_scale, k_zero, hkv: int):
-    """q ``[B, Hq, D]`` → q̃ = q·s_k/√D ``[B·Hkv, G, D]`` and c = Σ q̃·z_k
-    ``[B·Hkv, G, 1]`` (reference ``paged_attention.py:508-514``)."""
+def decode_prefold(q, k_scale, k_zero, hkv: int,
+                   exact: Optional[bool] = None):
+    """q ``[B, Hq, D]`` → q̃ = (q·s_k)·(1/√D) ``[B·Hkv, G, D]`` and c = Σ
+    q̃·z_k ``[B·Hkv, G, 1]`` (reference ``paged_attention.py:508-514``);
+    scales ``[Hkv, 1, D]`` or per batch row ``[B, Hkv, 1, D]``. Exact mode:
+    c a float64 sum of the exact products, rounded once."""
+    ex = KA.exact(q) if exact is None else exact
     b, hq, d = q.shape
     g = hq // hkv
     qt = (q.reshape(b, hkv, g, d).float() * _bcast(k_scale, b, hkv, d)
           * _inv_sqrt(d))
-    c = (qt * _bcast(k_zero, b, hkv, d)).sum(-1, keepdim=True)
+    kz = _bcast(k_zero, b, hkv, d)
+    c = (KA.row_sum(qt.double() * kz.double(), True) if ex
+         else (qt * kz).sum(-1, keepdim=True))
     return (qt.reshape(b * hkv, g, d).contiguous(),
             c.reshape(b * hkv, g, 1).contiguous())
 
 
-def paged_kv4_decode_partials_ref(desc, qt2, c2, k_pool, v_pool):
-    """Plain version of the K8 kernel: each item's partial over its page's
-    first ``count`` keys, in nibble space (reference ``ref.py:287-307``;
-    exact mode on the card, see ``kv4_attention``)."""
+def paged_kv4_decode_partials_ref(desc, qt2, c2, k_pool, v_pool,
+                                  exact: Optional[bool] = None):
+    """Each item's partial over its page's first ``count`` keys, in nibble
+    space (reference ``ref.py:287-307``), on pre-folded queries
+    (:func:`decode_prefold`) → acc ``[W, G, D]``, l and m ``[W, G, 1]``.
+    Exact mode: the contractions and Σp in float64 rounded once, p =
+    f32(exp_f64(s − m))."""
+    ex = KA.exact(qt2) if exact is None else exact
     nrows = qt2.shape[0]
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     desc = desc.long()
@@ -610,7 +568,6 @@ def paged_kv4_decode_partials_ref(desc, qt2, c2, k_pool, v_pool):
     heads = rcl % hkv
     nk = Q.unpack_kv_nibbles(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
     nv = Q.unpack_kv_nibbles(v_pool[desc[:, 1], :, heads])
-    ex = KA.exact(qt2)
     s = KA.contract("wgd,wpd->wgp", qt2[rcl], nk, ex) - c2[rcl]
     pos = torch.arange(ps, device=desc.device)[None, None, :]
     s = torch.where(pos < desc[:, 2][:, None, None], s, NEG_INF)
@@ -619,59 +576,64 @@ def paged_kv4_decode_partials_ref(desc, qt2, c2, k_pool, v_pool):
     return KA.contract("wgp,wpd->wgd", p, nv, ex), KA.row_sum(p, ex), m
 
 
-def paged_kv4_decode_partials(desc, qt2, c2, k_pool, v_pool):
-    """The K8 kernel on pre-folded queries (:func:`decode_prefold`) → one
-    nibble-space partial per descriptor: acc ``[W, G, D]``, l and m
-    ``[W, G, 1]`` f32. Same arguments and result as the plain version
-    (bit for bit on the card for real items); pages of at most 64 keys."""
-    nrows, g, d = qt2.shape
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    KA.check_kv4_inputs(qt2, k_pool, v_pool, d, "paged_kv4_decode_wq", g)
-    if ps > 64:
-        raise ValueError(f"paged_kv4_decode_wq: pages of at most 64 keys, "
-                         f"got {ps}")
-    desc = desc.to(device=qt2.device, dtype=torch.int32).contiguous()
-    w = desc.shape[0]
-    acc = torch.empty((w, g, d), dtype=torch.float32, device=qt2.device)
-    l = torch.empty((w, g, 1), dtype=torch.float32, device=qt2.device)
-    m = torch.empty((w, g, 1), dtype=torch.float32, device=qt2.device)
-    _build.call("paged_decode", "paged_kv4_decode_wq", qt2.device, desc, w,
-                qt2.float().contiguous(), c2.float().contiguous(), k_pool,
-                v_pool, acc, l, m, nrows, g, ps, hkv, d)
-    paged_kv4_decode_partials.launches += 1
-    return acc, l, m
-
-
-paged_kv4_decode_partials.launches = 0
-
-
-def _attend_decode(partials, q, k_pool, k_scale, k_zero, v_pool, v_scale,
-                   v_zero, work_items, plan):
-    """Pre-fold → per-item partials → combine → V affine → ``[B, Hq, D]``."""
+def paged_kv4_decode_attention_wq_ref(q, k_pool, k_scale, k_zero, v_pool,
+                                      v_scale, v_zero, work_items, plan=None,
+                                      exact: Optional[bool] = None
+                                      ) -> torch.Tensor:
+    """Plain version: q ``[B, Hq, D]``, descriptors ``[W, 4]`` (page items;
+    ``kind`` is not read), scales/zeros ``[Hkv, 1, D]`` or ``[B, Hkv, 1,
+    D]``, optional :class:`WorkPlan` or :class:`CombinePlan` of the
+    descriptors → f32 ``[B, Hq, D]``: pre-fold → per-item partials →
+    combine → s_v·comb − s_v·z_v (rows with no items: −s_v·z_v)."""
     b, hq, d = q.shape
     hkv = k_pool.shape[2]
-    qt2, c2 = decode_prefold(q, k_scale, k_zero, hkv)
-    acc, l, m = partials(work_items, qt2, c2, k_pool, v_pool)
-    comb = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan)
+    ex = KA.exact(q) if exact is None else exact
+    qt2, c2 = decode_prefold(q, k_scale, k_zero, hkv, ex)
+    acc, l, m = paged_kv4_decode_partials_ref(work_items, qt2, c2, k_pool,
+                                              v_pool, ex)
+    if isinstance(plan, WorkPlan):
+        plan = plan.combine
+    comb = combine_work_partials(acc, l, m, work_items[:, 0], b * hkv, plan,
+                                 ex)
     sv = _bcast(v_scale, b, hkv, d)
     out = sv * comb.reshape(b, hkv, hq // hkv, d) - sv * _bcast(v_zero, b, hkv, d)
     return out.reshape(b, hq, d)
 
 
-def paged_kv4_decode_attention_wq_ref(q, k_pool, k_scale, k_zero, v_pool,
-                                      v_scale, v_zero, work_items,
-                                      plan=None) -> torch.Tensor:
-    """Plain version: q ``[B, Hq, D]``, descriptors ``[W, 4]`` (page items
-    only), optional :class:`CombinePlan` of their rows → f32
-    ``[B, Hq, D]`` = s_v·comb − s_v·z_v."""
-    return _attend_decode(paged_kv4_decode_partials_ref, q, k_pool, k_scale,
-                          k_zero, v_pool, v_scale, v_zero, work_items, plan)
-
-
 def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
                                   v_scale, v_zero, work_items,
                                   plan=None) -> torch.Tensor:
-    """On the card: pre-fold (PyTorch) → the K8 kernel → combine and V
-    affine (PyTorch). Same arguments and result as the plain version."""
-    return _attend_decode(paged_kv4_decode_partials, q, k_pool, k_scale,
-                          k_zero, v_pool, v_scale, v_zero, work_items, plan)
+    """The K8 kernel: the whole op — pre-fold, per-item partials, combine
+    and V affine — in one launch of K9's kernel at C = 1. Same arguments
+    and result as the plain version (bit for bit on the card, every output
+    row). ``plan`` is the :class:`WorkPlan` of these descriptors at C = 1
+    (:func:`work_plan`, built on the host); without one (or with a
+    :class:`CombinePlan`) the descriptors are read back to build it. q f32
+    or bf16; Hq/Hkv ∈ {1, 2, 4, 8}; any page size (a job's scores stay in
+    shared memory up to 4,736 keys, beyond that in a scratch buffer). The
+    arrival counters are K9's (one launch at a time per device)."""
+    b, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    g = hq // hkv
+    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention_wq",
+                        g)
+    dev = q.device
+    if not isinstance(plan, WorkPlan) or plan.cg != g:
+        plan = work_plan(work_items.cpu().numpy(), b * hkv, 1, g, dev)
+    (ks, kz, vs, vz), sb = KA.shared_scales(
+        (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
+    desc = work_items.to(device=dev, dtype=torch.int32).contiguous()
+    q_bf16 = q.dtype == torch.bfloat16
+    q = (q if q_bf16 else q.float()).contiguous()
+    sstride, smem, scratch, part = _wq_buffers(plan, ps, d, dev)
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    _build.call("paged_attention", "paged_kv4_decode_wq", dev, desc,
+                plan.jobs, plan.jobs.shape[0], q, int(q_bf16), ks, kz, vs, vz,
+                sb, k_pool, v_pool, out, part,
+                _arrival_counters(dev, plan.ncompute), scratch, g, hkv, ps, d,
+                plan.rows, sstride, smem)
+    paged_kv4_decode_attention_wq.launches += 1
+    return out
+
+
+paged_kv4_decode_attention_wq.launches = 0

@@ -787,7 +787,8 @@ class Engine:
                 # descriptors cover exactly those real pages
                 desc_np = cache.work_queue_np(slots, lengths_np + 1)
                 desc = torch.from_numpy(desc_np).to(dev)
-                combine = ops.combine_plan(desc_np[:, 0], bsz * hkv, dev)
+                plan = ops.work_plan(desc_np, bsz * hkv, 1,
+                                     self.cfg.num_heads // hkv, dev)
                 self.attn_grid_items += desc_np.shape[0]
             else:
                 tables = cache.block_tables_device(slots, max_len)
@@ -810,7 +811,7 @@ class Engine:
                 return ops.paged_kv4_decode_attention_wq(
                     q, cache.k_pool[li], cache.k_scale, cache.k_zero,
                     cache.v_pool[li], cache.v_scale, cache.v_zero, desc,
-                    plan=combine, impl=self.quant.impl)
+                    plan=plan, impl=self.quant.impl)
             return ops.paged_kv4_decode_attention(
                 q, cache.k_pool[li], cache.k_scale, cache.k_zero,
                 cache.v_pool[li], cache.v_scale, cache.v_zero, tables,

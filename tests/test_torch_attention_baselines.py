@@ -290,9 +290,7 @@ def test_impl_cuda_on_cpu_tensors_raises():
         lambda: OPS.paged_kv4_prefill_attention(*k7, impl="cuda"),
         lambda: KA.kv4_decode_attention(*k10),
         lambda: PA.paged_kv4_decode_attention(*k6),
-        lambda: PA.paged_kv4_decode_partials(
-            desc, *PA.decode_prefold(k6[0], k6[2], k6[3], 2),
-            k6[1], k6[4]),
+        lambda: PA.paged_kv4_decode_attention_wq(*k6[:7], desc),
         lambda: PA.paged_kv4_prefill_attention(*k7),
     ]
     for call in calls:

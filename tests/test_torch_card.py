@@ -22,6 +22,30 @@ def _cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
 
+def _device_launches(fn, calls: int = 3, tries: int = 5) -> float:
+    """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``:
+    ``calls`` calls traced between two marker kernels
+    (``torch.cuda._sleep``). A later profiling session of a process now
+    and then comes back without the card's activity; a trace that does not
+    hold both markers is taken again, at most ``tries`` times, and never
+    counted."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        seen = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(n for k, n in seen if "spin_kernel" in k) == 2:
+            return sum(n for k, n in seen if "spin_kernel" not in k) / calls
+    pytest.fail(f"torch.profiler lost the card's activity in {tries} traces")
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -73,18 +97,19 @@ def test_kernels_match_plain_on_card():
             bi, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
 
 
-def _within(got, want):
+def _exact(got, want):
+    torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    err = float((got - want).abs().max())
-    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 @pytest.mark.cuda
 def test_baseline_attention_kernels_match_plain_on_card():
     """K10 (contiguous), K6 (dense paged) and K8 (work-queue) decode and
-    K7 (dense prefill) against their f32 plain versions: ragged lengths
-    that are not page multiples, −1 table entries, a ctx-0 row beside rows
-    with history, q_len-0 pad rows and count-0 pad items."""
+    K7 (dense prefill) bit for bit against their f32 plain versions:
+    ragged lengths that are not page multiples, −1 table entries, a ctx-0
+    row beside rows with history, q_len-0 pad rows and count-0 pad
+    items."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
     rng = np.random.default_rng(2)
@@ -99,7 +124,7 @@ def test_baseline_attention_kernels_match_plain_on_card():
     q = _cuda(rng.normal(size=(3, hq, d)).astype(np.float32))
     bc = [s.expand(3, hkv, 1, d) for s in stats]
     args = (q, kp, bc[0], bc[1], vp, bc[2], bc[3], _cuda(lens))
-    _within(KA.kv4_decode_attention(*args), KA.kv4_decode_attention_ref(*args))
+    _exact(KA.kv4_decode_attention(*args), KA.kv4_decode_attention_ref(*args))
 
     lens = [40, 17, 1]                                 # K6, K8
     need = [-(-n // ps) for n in lens]
@@ -114,12 +139,12 @@ def test_baseline_attention_kernels_match_plain_on_card():
                    .astype(np.uint8)) for _ in range(2)]
     args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(tbl),
             _cuda(np.asarray(lens, np.int32)))
-    _within(PA.paged_kv4_decode_attention(*args),
-            PA.paged_kv4_decode_attention_ref(*args))
+    _exact(PA.paged_kv4_decode_attention(*args),
+           PA.paged_kv4_decode_attention_ref(*args))
     desc = _cuda(build_work_queue(tbl, lens, ps, hkv))
     args = (q, pools[0], ks, kz, pools[1], vs, vz, desc)
-    _within(PA.paged_kv4_decode_attention_wq(*args),
-            PA.paged_kv4_decode_attention_wq_ref(*args))
+    _exact(PA.paged_kv4_decode_attention_wq(*args),
+           PA.paged_kv4_decode_attention_wq_ref(*args))
 
     ctx, qls, c = [40, 0, 17, 0], [1, 12, 5, 0], 16    # K7, one pad row
     qc, kn, vn = [_cuda(rng.normal(size=(4, c, h, d)).astype(np.float32))
@@ -133,7 +158,7 @@ def test_baseline_attention_kernels_match_plain_on_card():
     assert torch.isfinite(got).all()
     for bi, ql in enumerate(qls):
         if ql:
-            _within(got[bi, :ql], want[bi, :ql])
+            _exact(got[bi, :ql], want[bi, :ql])
 
 
 @pytest.mark.cuda
@@ -256,12 +281,12 @@ def test_dense_prefill_decode_shape_exact_on_card():
     hq, hkv, ps = 8, 2, 64
     ctx = [1, ps - 1, ps, ps + 1, 487]
     args = _dense_case(rng, ctx, [1] * len(ctx), 1, hq, hkv, ps)
-    assert PA.dense_plan(len(ctx), 1, 4, hkv, args[9].shape[1], ps).split > 1
+    assert KA.dense_plan(len(ctx), 1, 4, hkv, args[9].shape[1], ps).split > 1
     _dense_exact(args, [1] * len(ctx))
 
     big = [50_000, 3]
     args = _dense_case(rng, big, [1, 1], 1, hq, hkv, ps)
-    plan = PA.dense_plan(2, 1, 4, hkv, args[9].shape[1], ps)
+    plan = KA.dense_plan(2, 1, 4, hkv, args[9].shape[1], ps)
     assert plan.scratch > 0 and plan.split == 8, plan
     _dense_exact(args, [1, 1])
 
@@ -283,7 +308,7 @@ def test_dense_prefill_tiles_exact_on_card():
         _dense_exact(args, qls)
     ctx, qls = [12_000, 7], [8, 8]
     args = _dense_case(rng, ctx, qls, 8, hq, hkv, 128)
-    plan = PA.dense_plan(2, 8, 4, hkv, args[9].shape[1], 128)
+    plan = KA.dense_plan(2, 8, 4, hkv, args[9].shape[1], 128)
     assert plan.rows == 32 and plan.scratch > 0, plan
     _dense_exact(args, qls)
 
@@ -408,9 +433,10 @@ def test_dense_decode_exact_on_card(g):
 
 @pytest.mark.cuda
 def test_wq_decode_exact_combine_on_card():
-    """K8's op (kernel partials, then the exact combine and V affine)
-    bit for bit against its plain version, with and without a host
-    combine plan: the combine it shares with K9's plain version."""
+    """K8's op (partials, the exact combine and the V affine in one
+    launch) bit for bit against its plain version, with the host's work
+    plan, with a bare combine plan and with none (both: the plan is built
+    from the descriptors)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
     rng = np.random.default_rng(30)
@@ -435,7 +461,116 @@ def test_wq_decode_exact_combine_on_card():
     plan = PA.combine_plan(desc[:, 0], len(lens) * hkv, "cuda")
     args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc))
     want = PA.paged_kv4_decode_attention_wq_ref(*args, plan=plan)
-    for p in (plan, None):
+    wplan = PA.work_plan(desc, len(lens) * hkv, 1, hq // hkv, "cuda")
+    for p in (wplan, plan, None):
         got = PA.paged_kv4_decode_attention_wq(*args, plan=p)
         torch.cuda.synchronize()
         assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _decode_pools(rng, lens, ps, hkv, d=128):
+    """Pools holding ``lens`` tokens per row on scattered pages, a table
+    with −1 past each row's pages, and the rows' work-queue descriptors
+    (a length-0 row has no items; count-0 pad items fill the power of
+    two)."""
+    need = [-(-n // ps) for n in lens]
+    num_pages = sum(need) + 3
+    tbl = np.full((len(lens), max(need) + 1), -1, np.int32)
+    perm = rng.permutation(num_pages)
+    i = 0
+    for bi, n in enumerate(need):
+        tbl[bi, :n] = perm[i:i + n]
+        i += n
+    pools = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                   .astype(np.uint8)) for _ in range(2)]
+    return pools, tbl, build_work_queue(tbl, lens, ps, hkv)
+
+
+def _scale_sets(rng, b, hkv, d=128):
+    """Shared [Hkv, 1, D] and per-batch [B, Hkv, 1, D] scales and zeros."""
+    ranges = ((0.05, 0.2), (6, 9), (0.05, 0.2), (6, 9))
+    return ([_cuda(rng.uniform(lo, hi, (hkv, 1, d)).astype(np.float32))
+             for lo, hi in ranges],
+            [_cuda(rng.uniform(lo, hi, (b, hkv, 1, d)).astype(np.float32))
+             for lo, hi in ranges])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("ps", [16, 64, 128])
+def test_wq_decode_exact_on_card(ps, g):
+    """K8 bit for bit against its plain version on every output row, in
+    one launch a call: pages of 16, 64 and 128 keys, lengths 1, 63, 64,
+    65, 487 and 6,000 (rows of 11+ items), a row with no items (the
+    affine of an empty combine, −s_v·z_v), count-0 pad items, shared and
+    per-batch scales, the engine's host plan and none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(40 + 10 * g + ps)
+    hkv, d = 2, 128
+    lens = [1, 63, 64, 65, 487, 6000, 0]
+    pools, _, desc = _decode_pools(rng, lens, ps, hkv)
+    assert (desc[:, 2] == 0).any()
+    assert np.bincount(desc[desc[:, 2] > 0, 0]).max() >= 11
+    b = len(lens)
+    q = _cuda(rng.normal(size=(b, g * hkv, d)).astype(np.float32))
+    plan = PA.work_plan(desc, b * hkv, 1, g, "cuda")
+    for ks, kz, vs, vz in _scale_sets(rng, b, hkv):
+        args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc))
+        before = PA.paged_kv4_decode_attention_wq.launches
+        got = PA.paged_kv4_decode_attention_wq(*args, plan=plan)
+        assert PA.paged_kv4_decode_attention_wq.launches == before + 1
+        again = PA.paged_kv4_decode_attention_wq(*args)   # plan from desc
+        want = PA.paged_kv4_decode_attention_wq_ref(*args, plan=plan)
+        _exact(got, want)
+        assert torch.equal(got, again)   # deterministic, whoever arrives last
+        assert torch.equal(got[-1], (-(vs * vz)).expand(
+            b, hkv, g, d)[-1].reshape(g * hkv, d))
+
+
+@pytest.mark.cuda
+def test_wq_decode_is_one_launch_on_card():
+    """K8's whole op puts one kernel on the card (``torch.profiler``),
+    with bf16 queries and the host plan, as the engine calls it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(50)
+    hkv, g, ps, d = 2, 4, 128, 128
+    lens = [487, 40, 300]
+    pools, _, desc = _decode_pools(rng, lens, ps, hkv)
+    (ks, kz, vs, vz), _ = _scale_sets(rng, len(lens), hkv)
+    q = _cuda(rng.normal(size=(len(lens), g * hkv, d)).astype(np.float32)
+              ).bfloat16()
+    plan = PA.work_plan(desc, len(lens) * hkv, 1, g, "cuda")
+    args = (q, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc))
+    assert _device_launches(
+        lambda: PA.paged_kv4_decode_attention_wq(*args, plan=plan)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_contiguous_decode_exact_on_card(g):
+    """K10 on the dense kernel bit for bit against its plain version: T
+    not a multiple of 8 (70, 487), lengths 1 and below T, T = 6,000, and
+    T = 50,000, whose scores go to scratch (checked through
+    :func:`dense_plan`); shared and per-batch scales, f32 and bf16
+    queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(60 + g)
+    hkv, d = 2, 128
+    for t, lens in ((70, [70, 1, 33]), (487, [487, 1, 486, 200]),
+                    (6000, [6000, 5999, 64]), (50_000, [50_000, 3])):
+        b = len(lens)
+        plan = KA.dense_plan(b, 1, g, hkv, 1, t)
+        assert (plan.scratch > 0) == (t == 50_000), plan
+        kp, vp = [_cuda(rng.integers(0, 256, (b, hkv, t, d // 2))
+                        .astype(np.uint8)) for _ in range(2)]
+        q = _cuda(rng.normal(size=(b, g * hkv, d)).astype(np.float32))
+        lengths = _cuda(np.asarray(lens, np.int32))
+        for (ks, kz, vs, vz), qq in zip(_scale_sets(rng, b, hkv),
+                                        (q, q.bfloat16())):
+            args = (qq, kp, ks, kz, vp, vs, vz, lengths)
+            _exact(KA.kv4_decode_attention(*args),
+                   KA.kv4_decode_attention_ref(*args))
+

@@ -31,7 +31,7 @@ from fractions import Fraction
 import numpy as np
 import pytest
 
-from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import kv4_attention as KA
 
 D = 128
 
@@ -168,14 +168,14 @@ def _direct_plan(b, c, g, hkv, np_, ps):
     rows = min(next(r for r in (8, 16, 32, 10 ** 9) if cg <= r), 32)
     blocks = b * hkv * math.ceil(cg / rows)
     tmax = np_ * ps + c
-    kt = PA.DENSE_KEY_TILE
+    kt = KA.DENSE_KEY_TILE
 
     def stride(s):
         per = 8 * math.ceil(math.ceil(tmax / s) / 8)
         return 32 * math.ceil(kt * math.ceil(per / kt) / 32) + 8
 
     def smem(s):
-        return PA.DENSE_FIXED_SMEM + rows * stride(s) * 4
+        return KA.DENSE_FIXED_SMEM + rows * stride(s) * 4
 
     def one_wave(s):
         per_sm = min({8: 4, 16: 2, 32: 1}[rows],
@@ -209,10 +209,10 @@ def _direct_plan(b, c, g, hkv, np_, ps):
     (6, 1, 4, 2, 96, 64),       # K6 with a 6,000-key row
 ])
 def test_dense_plan_matches_direct_computation(shape):
-    plan = PA.dense_plan(*shape)
+    plan = KA.dense_plan(*shape)
     rows, split, stride, fits, blocks = _direct_plan(*shape)
     assert (plan.rows, plan.split, plan.sstride) == (rows, split, stride)
-    fixed = PA.DENSE_FIXED_SMEM
+    fixed = KA.DENSE_FIXED_SMEM
     if fits:
         assert plan.scratch == 0
         assert plan.smem == fixed + rows * stride * 4 <= 232448
@@ -223,6 +223,6 @@ def test_dense_plan_matches_direct_computation(shape):
     # rounded to its key tiles, fits in a score row
     tmax = shape[4] * shape[5] + shape[1]
     per = 8 * math.ceil(math.ceil(tmax / split) / 8)
-    kt = PA.DENSE_KEY_TILE
+    kt = KA.DENSE_KEY_TILE
     assert kt * math.ceil(per / kt) <= stride - 8
     assert stride % 32 == 8 and 1 <= split <= 8

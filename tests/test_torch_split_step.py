@@ -29,6 +29,8 @@ COUNTERS = ("forward_calls", "interleaved_steps", "attn_forwards",
 CONFIGS = {
     "split_work_queue": dict(unified_step=False),
     "split_dense": dict(unified_step=False, attention_schedule="dense"),
+    # pages of 128 keys: more than a 64-key tile per work-queue decode item
+    "split_work_queue_ps128": dict(unified_step=False, page_size=128),
 }
 
 
@@ -53,14 +55,16 @@ def _capture_first(eng, first: list):
 
 def serve_pair(model, kw: dict, lens=PROMPT_LENS, max_new=MAX_NEW) -> dict:
     """Serve the same requests on the JAX engine (``impl="ref"``, eager)
-    and on the port (plain versions, CPU) under ``EngineConfig(**ENGINE,
-    **kw)`` → {"j": ..., "t": ...}, each with the tokens by request, the
-    first forward's logits, the counters and the engine."""
+    and on the port (plain versions, CPU) under ``EngineConfig`` of
+    ``ENGINE`` updated by ``kw`` → {"j": ..., "t": ...}, each with the
+    tokens by request, the first forward's logits, the counters and the
+    engine."""
     jcfg, cfg, jqc, qparams, tparams = model
-    je = JEngine(jcfg, qparams, jqc, JEngineConfig(**ENGINE, **kw))
+    kw = {**ENGINE, **kw}
+    je = JEngine(jcfg, qparams, jqc, JEngineConfig(**kw))
     je._fwd = je._unified_forward       # eager: see test_torch_engine.py
-    te = Engine(cfg, tparams, QuantConfig(impl="ref"),
-                EngineConfig(**ENGINE, **kw), device="cpu")
+    te = Engine(cfg, tparams, QuantConfig(impl="ref"), EngineConfig(**kw),
+                device="cpu")
     out = {}
     for key, eng in (("j", je), ("t", te)):
         first: list = []
