@@ -9,14 +9,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the Llama-3-8B widths — act-quant byte-exact (M ∈ {1, 16, 256}), the
-   W4Ax GEMMs (W4A4, W4A8 and the mixed kernel, which adds
-   ``(d·a_s)·w_s`` in its plain version's order) bit for bit at M ∈ {1,
-   8, 16, 256}, the attention kernels (work-queue and dense prefill,
-   paged dense and work-queue decode, contiguous decode) on real cache
-   states with ragged lengths, zero-history and q_len-0 rows: each
-   computes exactly as its plain version does on the card (f64 sums
-   rounded once) and must agree bit for bit on the valid rows — with
+   the Llama-3-8B widths — the fused act-quant (K1 and K2 in one launch
+   on bf16 input; K = 4,096 and 14,336, M ∈ {1, 8, 16, 256}, a strided
+   view; K1 and K2 alone too) byte-exact, one launch a call, timed per
+   call and as 100 calls between one event pair beside the parent's
+   route (two f32 copies + K1 + K2), the W4Ax GEMMs (W4A4, W4A8 and
+   the mixed kernel, which adds ``(d·a_s)·w_s`` in its plain version's
+   order) bit for bit at M ∈ {1, 8, 16, 256}, the attention kernels
+   (work-queue and dense prefill, paged dense and work-queue decode,
+   contiguous decode) on real cache states with ragged lengths,
+   zero-history and q_len-0 rows: each computes exactly as its plain
+   version does on the card (f64 sums rounded once) and must agree bit
+   for bit on the valid rows — with
    CUDA-event times (median of 20) of kernel, plain version, a library
    yardstick (bf16 ``torch.matmul`` on dequantized weights, SDPA on
    gathered dequantized KV) and the roofline bound (for the mixed kernel
@@ -37,9 +41,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
 4. slice: Llama-3-8B at full width and depth (random seeded weights),
    default ``EngineConfig`` but ``prefill_chunk_tokens=256``, 8 requests
    of 128–512 prompt tokens × 32 new tokens, greedy, to completion; every
-   request must finish with 32 tokens, no failed or internal errors, and
+   request must finish with 32 tokens, no failed or internal errors,
    every kernel of the path must have launched (launch counts reset just
-   before);
+   before), the fused act-quant exactly 4 × 32 × forwards times (one per
+   distinct projection input) and K1, K2 alone never;
 5. baselines: the same weights and workload served in the reference's
    measured baselines — (a) split step, work queue; (b) split step,
    dense; (c) whole-prompt prefill, gather decode; (d) unified step,
@@ -54,9 +59,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    tokens, with no failed step, internal or callback error.
 
 ``--phases times`` (not among the defaults) prints unchecked times of
-K9's op (C = 256, C = 1), K6, K8's op and K10 on the kernels phase's
-inputs through the API every tree of the port has, to time two trees in
-turns in one call.
+one projection input's act-quant (``ops.act_quant`` per channel range,
+and the fused op where the tree has it), K9's op (C = 256, C = 1), K6,
+K8's op and K10 on the kernels phase's inputs through the API every tree
+of the port has, to time two trees in turns in one call.
 ``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
 with the kernel launch calls per engine step.
 
@@ -128,51 +134,146 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def time_ms_100(torch, fn, calls: int = 100, warmup: int = 3) -> float:
+    """CUDA-event time of ``calls`` runs of ``fn`` back to back between
+    one event pair, ÷ ``calls``: for work shorter than one event pair's
+    own floor. Queued behind a sleeping kernel, as in :func:`time_ms`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 # --------------------------------------------------------------- phase 2
 
+# (K, k4) of the Llama-3-8B projections at int4_fraction 0.875: q/k/v, wo
+# and up/gate read K = 4,096, down reads K = 14,336
+ACT_SHAPES = ((4096, 3584), (14336, 12544))
+ACT_M = (1, 8, 16, 256)
+ACT_PER_LAYER = 4      # h (q/k/v), attention output (wo), h (up/gate), down
+
+
+def act_input(torch, gen, m: int, k: int, k4: int):
+    """bf16 activations, as the projections hand them over, with a block
+    in each range whose scale is exactly 1 holding every odd multiple of
+    0.5 (rounding ties, half to even) and an all-zero block."""
+    x = torch.randn((m, k), generator=gen, device="cuda") * 3
+    tie = ((torch.arange(128, device="cuda") % 15) - 7) * 0.5
+    for lo, qmax in ((0, 7.0), (k4, 127.0)):
+        x[0, lo:lo + 128] = tie
+        x[0, lo] = qmax
+    x[-1, -128:] = 0.0
+    return x.bfloat16()
+
+
+def parent_route(torch, AQ, x, k4: int):
+    """The parent's act-quant of one projection, on the same bf16 input
+    and with this tree's kernel: an f32 copy of each channel range, then
+    one single-range launch each (K1, K2)."""
+    a4, s4 = AQ.act_quant_int4(x[:, :k4].to(torch.float32).contiguous())
+    a8, s8 = AQ.act_quant_int8(x[:, k4:].to(torch.float32).contiguous())
+    return a4, s4, a8, s8
+
+
+def act_bytes(m: int, k: int, k4: int, in_bytes: int = 2) -> int:
+    """The input read once; the int4 and int8 codes and the f32 scales
+    written once."""
+    return (m * k * in_bytes + m * k4 // 2 + m * (k - k4)
+            + m * (k // 128) * 4)
+
+
+def act_times(torch, AQ, x, k4: int) -> dict:
+    """The fused op, the parent's route and the plain version on ``x``,
+    each event-timed per call (median of 20) and, beneath one event
+    pair's floor, as 100 calls back to back (``_100``); the byte bound."""
+    m, k = x.shape
+    fused = lambda: AQ.act_quant_w4ax(x, k4)            # noqa: E731
+    route = lambda: parent_route(torch, AQ, x, k4)      # noqa: E731
+    return {"shape": f"M={m} K={k} k4={k4} bf16",
+            "ms": time_ms(torch, fused), "ms_100": time_ms_100(torch, fused),
+            "earlier_ms": time_ms(torch, route),
+            "earlier_ms_100": time_ms_100(torch, route),
+            "plain_ms": time_ms(torch,
+                                lambda: AQ.act_quant_w4ax_ref(x, k4)),
+            "bound_ms": act_bytes(m, k, k4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
 def check_act_quant(torch, AQ, rows: dict):
+    """The fused act-quant (K1 and K2 in one launch, bf16 read directly)
+    byte for byte against its plain version at the Llama-3-8B widths ×
+    ``ACT_M`` and on a strided-row view, one launch a call; K1 and K2
+    alone (the kernel over one range) and the parent's route likewise.
+    K1's and K2's rows both give the fused op's times at M = 256, K =
+    4,096 (``down``: K = 14,336; ``decode``: M = 8) and, under
+    ``alone``, their own over their range of that input."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for bits, kern, ks in ((4, AQ.act_quant_int4, (3584, 12544)),
-                           (8, AQ.act_quant_int8, (512, 1792))):
-        name = f"act_quant_int{bits}"
-        worst = 0.0
-        for k in ks:
-            for m in (1, 16, 256):
-                # bf16-valued activations, as the projections hand them over
-                x = torch.randn((m, k), generator=gen, device="cuda")
-                x = (x * 3).bfloat16().float()
-                # a block whose scale is exactly 1: every odd multiple of
-                # 0.5 is a rounding tie (half to even)
-                x[0, :128] = ((torch.arange(128, device="cuda") % 15) - 7) * 0.5
-                x[0, 0] = 7.0 if bits == 4 else 127.0
-                x[-1, -128:] = 0.0                  # an all-zero block
-                pk, sk = kern(x)
-                pr, sr = AQ.act_quant_ref(x, bits=bits)
-                torch.cuda.synchronize()
-                if not (torch.equal(pk, pr) and torch.equal(sk, sr)):
-                    bad = int((pk != pr).sum())
-                    fail(f"{name} M={m} K={k}: not byte-exact ({bad} bytes "
-                         f"differ, scale max err "
-                         f"{float((sk - sr).abs().max())})")
-                worst = max(worst, float((pk.int() - pr.int()).abs().max()),
-                            float((sk - sr).abs().max()))
-                say(f"[kernels] {name} M={m} K={k}: byte-exact")
-        m, k = 256, ks[0]
-        x = torch.randn((m, k), generator=gen, device="cuda")
-        out_bytes = m * k // 2 if bits == 4 else m * k
-        nbytes = m * k * 4 + out_bytes + m * (k // 128) * 4
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                fail(f"{label}: shape {tuple(g.shape)}, plain version's "
+                     f"{tuple(w.shape)}")
+            if not torch.equal(g, w):
+                fail(f"{label}: not byte-exact against its plain version "
+                     f"({int((g != w).sum())} elements differ)")
+
+    for k, k4 in ACT_SHAPES:
+        for m in ACT_M:
+            x = act_input(torch, gen, m, k, k4)
+            same(f"act_quant_w4ax M={m} K={k} k4={k4}",
+                 AQ.act_quant_w4ax(x, k4), AQ.act_quant_w4ax_ref(x, k4))
+            same(f"act_quant_int4 M={m} K={k4}", AQ.act_quant_int4(x[:, :k4]),
+                 AQ.act_quant_ref(x[:, :k4].float(), bits=4))
+            same(f"act_quant_int8 M={m} K={k - k4}",
+                 AQ.act_quant_int8(x[:, k4:]),
+                 AQ.act_quant_ref(x[:, k4:].float(), bits=8))
+            same(f"parent route M={m} K={k}", parent_route(torch, AQ, x, k4),
+                 AQ.act_quant_w4ax_ref(x, k4))
+            say(f"[kernels] act_quant_w4ax M={m} K={k} k4={k4}: byte-exact "
+                f"(and K1, K2 alone, the parent's route)")
+    wide = act_input(torch, gen, 64, 4096 + 256, 3584)
+    view = wide[:, 128:128 + 4096]          # row stride 4,352, offset 256 B
+    same("act_quant_w4ax strided rows", AQ.act_quant_w4ax(view, 3584),
+         AQ.act_quant_w4ax_ref(view, 3584))
+    n = device_launches(torch, lambda: AQ.act_quant_w4ax(view, 3584))
+    if n != 1:
+        fail(f"act_quant_w4ax: {n:g} kernel launches a call")
+    say(f"[kernels] act_quant_w4ax strided rows M=64 K=4096 (row stride "
+        f"{view.stride(0)}): byte-exact; {n:g} launch a call")
+
+    (k, k4), (kd, kd4) = ACT_SHAPES
+    x = act_input(torch, gen, 256, k, k4)
+    main = act_times(torch, AQ, x, k4)
+    down = act_times(torch, AQ, act_input(torch, gen, 256, kd, kd4), kd4)
+    dec = act_times(torch, AQ, act_input(torch, gen, 8, k, k4), k4)
+    for name, kern, part, bits, line in (
+            ("act_quant_int4", AQ.act_quant_int4, x[:, :k4], 4, 52),
+            ("act_quant_int8", AQ.act_quant_int8, x[:, k4:], 8, 82)):
+        mm, kk = part.shape
+        out = mm * kk // 2 if bits == 4 else mm * kk
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/act_quant.cu",
-            "replaces": ("src/repro/kernels/act_quant.py:52" if bits == 4
-                         else "src/repro/kernels/act_quant.py:82"),
-            "shape": f"M={m} K={k}",
-            "max_abs_err": worst,
-            "ms": time_ms(torch, lambda: kern(x)),
-            "plain_ms": time_ms(torch, lambda: AQ.act_quant_ref(x, bits=bits)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None,
+            "replaces": f"src/repro/kernels/act_quant.py:{line}",
+            "kernel": "act_quant_w4ax", "max_abs_err": 0.0, **main,
+            "library_ms": None, "launches_per_call": n,
+            "down": down, "decode": dec,
+            "alone": {"shape": f"M={mm} K={kk} bf16 (row stride {k})",
+                      "ms": time_ms(torch, lambda: kern(part)),
+                      "ms_100": time_ms_100(torch, lambda: kern(part)),
+                      "bound_ms": (mm * kk * 2 + out + mm * (kk // 128) * 4)
+                      / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
         }
+    say(f"[kernels] act_quant_w4ax times: {json.dumps(main)}")
 
 
 GEMM_M = (1, 8, 16, 256)      # decode widths, the prefill tile's
@@ -668,12 +769,35 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
     }
 
 
-def phase_times(torch, cfg, KVC, PA, KA):
-    """Unchecked times of the attention ops this package's paths run, on
-    the kernels phase's inputs (so two trees can be timed in turns in one
-    call, when both have these ops' signatures): K9's whole op
-    at B = 8, C = 256 and at C = 1 on the decode rows, K6, K8's whole op
-    and K10 on those rows."""
+def act_route_times(torch, ops) -> dict:
+    """Unchecked times of one projection input's act-quant on bf16 at
+    M = 256 (K = 4,096 and 14,336) and M = 8 (K = 4,096), per call and
+    as 100 calls back to back: ``ops.act_quant`` once per channel range
+    (the route every tree of the port has; before the fused op it made an
+    f32 copy of each range) and, where the tree has it, the fused op."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    times = {}
+    for m, (k, k4) in ((256, ACT_SHAPES[0]), (256, ACT_SHAPES[1]),
+                       (8, ACT_SHAPES[0])):
+        x = act_input(torch, gen, m, k, k4)
+        fns = {"ops.act_quant per range": lambda: (
+            ops.act_quant(x[:, :k4], bits=4),
+            ops.act_quant(x[:, k4:], bits=8))}
+        if hasattr(ops, "act_quant_w4ax"):
+            fns["act_quant_w4ax"] = lambda: ops.act_quant_w4ax(x, k4)
+        for name, fn in fns.items():
+            times[f"{name} M={m} K={k}"] = time_ms(torch, fn)
+            times[f"{name} M={m} K={k} x100"] = time_ms_100(torch, fn)
+    return times
+
+
+def phase_times(torch, cfg, KVC, PA, KA, ops):
+    """Unchecked times of the ops this package's paths run, on the
+    kernels phase's inputs (so two trees can be timed in turns in one
+    call, when both have these ops' signatures): the act-quant of one
+    projection input (:func:`act_route_times`), K9's whole op at B = 8,
+    C = 256 and at C = 1 on the decode rows, K6, K8's whole op and K10
+    on those rows."""
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     args, desc, _, _, _ = attention_case(torch, cfg, KVC)
@@ -704,6 +828,7 @@ def phase_times(torch, cfg, KVC, PA, KA):
         torch.broadcast_to(s[None], (b1,) + tuple(s.shape))
         for s in pools[4:6]], lens)
     times = {
+        **act_route_times(torch, ops),
         "paged_kv4_prefill_attention_wq C=256": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_wq(*args,
                                                              plan=plan)),
@@ -863,27 +988,34 @@ def profile_table(torch, prof, wall_s: float, steps: int):
     return "\n".join(lines)
 
 
-ACT = ("act_quant_int4", "act_quant_int8")
+ACT = ("act_quant_w4ax",)
+SINGLE = ("act_quant_int4", "act_quant_int8")   # K1, K2 alone: off the path
 SPLIT = ACT + ("w4a4_matmul", "w4a8_matmul")
 MIXED = ACT + ("w4ax_matmul_mixed",)
 # (run, configuration, the kernels it must launch, the kernels it must not)
 RUNS = (
     ("slice", "unified work_queue",
-     SPLIT + ("paged_kv4_prefill_attention_wq",), ("w4ax_matmul_mixed",)),
+     SPLIT + ("paged_kv4_prefill_attention_wq",),
+     SINGLE + ("w4ax_matmul_mixed",)),
     ("a", "split work_queue", SPLIT + ("paged_kv4_prefill_attention",
-                                       "paged_kv4_decode_attention_wq"), ()),
+                                       "paged_kv4_decode_attention_wq"),
+     SINGLE),
     ("b", "split dense", SPLIT + ("paged_kv4_prefill_attention",
-                                  "paged_kv4_decode_attention"), ()),
-    ("c", "whole gather", SPLIT + ("kv4_decode_attention",), ()),
-    ("d", "unified dense", SPLIT + ("paged_kv4_prefill_attention",), ()),
+                                  "paged_kv4_decode_attention"), SINGLE),
+    ("c", "whole gather", SPLIT + ("kv4_decode_attention",), SINGLE),
+    ("d", "unified dense", SPLIT + ("paged_kv4_prefill_attention",), SINGLE),
     ("e", "unified work_queue mixed",
      MIXED + ("paged_kv4_prefill_attention_wq",),
-     ("w4a4_matmul", "w4a8_matmul")),
+     SINGLE + ("w4a4_matmul", "w4a8_matmul")),
 )
 # the run whose launches a kernel's row reports: the path it serves
 PATH_OF = {"paged_kv4_decode_attention_wq": "a",
            "paged_kv4_decode_attention": "b", "kv4_decode_attention": "c",
            "paged_kv4_prefill_attention": "d", "w4ax_matmul_mixed": "e"}
+# K1 and K2 run on the path as one launch of the fused op: their rows
+# report its launches (and their own, 0, as ``launches_alone``)
+COUNTED_AS = {"act_quant_int4": "act_quant_w4ax",
+              "act_quant_int8": "act_quant_w4ax"}
 
 
 def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
@@ -932,6 +1064,11 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
         if launches[name]:
             fail(f"{tag}: kernel {name} launched {launches[name]} times; "
                  f"this configuration must not reach it")
+    want = ACT_PER_LAYER * cfg.num_layers * eng.forward_calls
+    if launches["act_quant_w4ax"] != want:
+        fail(f"{tag}: act_quant_w4ax launched {launches['act_quant_w4ax']} "
+             f"times, not {ACT_PER_LAYER} × {cfg.num_layers} layers × "
+             f"{eng.forward_calls} forwards = {want}")
     if eng.attn_forwards <= 0 and label != "whole gather":
         fail(f"{tag}: no forward attended over paged history")
     toks = eng.tokens_generated
@@ -1048,7 +1185,7 @@ def main():
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
     if "times" in phases:
-        phase_times(torch, cfg8b, KVC, PA, KA)
+        phase_times(torch, cfg8b, KVC, PA, KA, ops)
     mods = (ModelConfig, LM, Engine, EngineConfig, QuantConfig)
     if "parity" in phases:
         phase_parity(torch, np, mods)
@@ -1072,9 +1209,14 @@ def main():
         torch.cuda.empty_cache()     # the cli phase's process needs the room
     if "cli" in phases:
         phase_cli()
-    table = [dict(rows[n], launches=runs.get(PATH_OF.get(n, "slice"),
-                                             {}).get(n))
-             for n in ops.KERNELS if n in rows]
+    table = []
+    for n in ops.KERNELS:
+        if n in rows:
+            counts = runs.get(PATH_OF.get(n, "slice"), {})
+            row = dict(rows[n], launches=counts.get(COUNTED_AS.get(n, n)))
+            if n in COUNTED_AS:
+                row["launches_alone"] = counts.get(n)
+            table.append(row)
     say(smi)
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

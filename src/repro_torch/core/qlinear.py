@@ -1,13 +1,17 @@
 """QLinear — the W4Ax projection of the serving path (``repro/core/
 qlinear.py``, the W4Ax branch of ``_dispatch_qlinear``).
 
-Online: quantize the INT4 and INT8 channel ranges of the activation on
-the fly (two act-quant launches) and run the W4Ax GEMM under the
-configured schedule: ``split`` (the default: W4A4 and W4A8 kernels over
-the two ranges, summed) or ``mixed`` (the paper's single kernel whose K
-loop switches precision per block). The channel order is the identity
-(``quantize_linear_fraction``'s synthetic plan: no permutation); the INT8
-tail is the trailing ``K − K4`` channels with
+Online, in two steps: quantize the activation's INT4 and INT8 channel
+ranges on the fly (:func:`quantize_act`, one act-quant launch for both),
+then run the W4Ax GEMM under the configured schedule
+(:func:`qlinear_gemm`): ``split`` (the default: W4A4 and W4A8 kernels
+over the two ranges, summed) or ``mixed`` (the paper's single kernel whose
+K loop switches precision per block). Projections of one input whose
+specs agree on ``(k, k4)`` share its quantization
+(:func:`qlinear_apply_many`): act-quant is a deterministic per-row
+function, so the codes are the ones each would compute alone. The channel
+order is the identity (``quantize_linear_fraction``'s synthetic plan: no
+permutation); the INT8 tail is the trailing ``K − K4`` channels with
 ``K4 = round(int4_fraction · K/128) · 128``.
 """
 
@@ -21,7 +25,9 @@ from repro_torch.kernels import ops
 
 BLOCK_K = 128
 
-__all__ = ["QLinearSpec", "qlinear_apply", "dispatch_qlinear", "BLOCK_K"]
+__all__ = ["QLinearSpec", "QuantAct", "qlinear_spec", "quantize_act",
+           "qlinear_gemm", "qlinear_apply", "qlinear_apply_many",
+           "dispatch_qlinear", "BLOCK_K"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,34 +45,63 @@ class QLinearSpec:
         return self.k - self.k4
 
 
-def qlinear_apply(spec: QLinearSpec, qparams, x: torch.Tensor) -> torch.Tensor:
-    """x: [..., K] float → [..., N] in x's dtype."""
-    in_dtype = x.dtype
-    lead = x.shape[:-1]
-    dev = x.device
-    if spec.k4 > 0:
-        a4, s4 = ops.act_quant(x[..., :spec.k4], bits=4, impl=spec.impl)
-    else:
-        a4 = torch.zeros((*lead, 0), dtype=torch.uint8, device=dev)
-        s4 = torch.zeros((*lead, 0), dtype=torch.float32, device=dev)
-    if spec.k8 > 0:
-        a8, s8 = ops.act_quant(x[..., spec.k4:], bits=8, impl=spec.impl)
-    else:
-        a8 = torch.zeros((*lead, 0), dtype=torch.int8, device=dev)
-        s8 = torch.zeros((*lead, 0), dtype=torch.float32, device=dev)
-    out = ops.w4ax_matmul(a4, s4, a8, s8, qparams["w_packed"],
+@dataclasses.dataclass(frozen=True)
+class QuantAct:
+    """One activation quantized for the W4Ax GEMM (leading dims kept):
+    packed int4 codes and scales of channels [0, k4), int8 codes and
+    scales of [k4, K), and the input's dtype, which the projection
+    returns."""
+
+    a4: torch.Tensor
+    s4: torch.Tensor
+    a8: torch.Tensor
+    s8: torch.Tensor
+    dtype: torch.dtype
+
+
+def quantize_act(spec: QLinearSpec, x: torch.Tensor) -> QuantAct:
+    """x: [..., K] float → its two channel ranges quantized."""
+    return QuantAct(*ops.act_quant_w4ax(x, spec.k4, impl=spec.impl),
+                    dtype=x.dtype)
+
+
+def qlinear_gemm(spec: QLinearSpec, qparams, qa: QuantAct) -> torch.Tensor:
+    """The W4Ax GEMM of a quantized activation → [..., N] in its dtype."""
+    out = ops.w4ax_matmul(qa.a4, qa.s4, qa.a8, qa.s8, qparams["w_packed"],
                           qparams["w_scale"], schedule=spec.schedule,
                           impl=spec.impl)
-    return out.to(in_dtype)
+    return out.to(qa.dtype)
 
 
-def dispatch_qlinear(params, x: torch.Tensor, quant) -> torch.Tensor:
-    """A packed projection under a quant config (``int4_fraction``,
-    ``schedule``, ``impl``) → :func:`qlinear_apply`."""
+def qlinear_apply(spec: QLinearSpec, qparams, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., K] float → [..., N] in x's dtype."""
+    return qlinear_gemm(spec, qparams, quantize_act(spec, x))
+
+
+def qlinear_apply_many(specs, qparams_list, x: torch.Tensor) -> list:
+    """Several projections of one input → their outputs, in order; ``x``
+    is quantized once per distinct ``(k, k4, impl)`` among the specs."""
+    acts: dict = {}
+    outs = []
+    for spec, qparams in zip(specs, qparams_list):
+        key = (spec.k, spec.k4, spec.impl)
+        if key not in acts:
+            acts[key] = quantize_act(spec, x)
+        outs.append(qlinear_gemm(spec, qparams, acts[key]))
+    return outs
+
+
+def qlinear_spec(params, quant) -> QLinearSpec:
+    """The spec of a packed projection under a quant config
+    (``int4_fraction``, ``schedule``, ``impl``)."""
     k = 2 * params["w_packed"].shape[-2]
     nb = k // BLOCK_K
     nb4 = max(0, min(nb, int(round(quant.int4_fraction * nb))))
-    spec = QLinearSpec(k=k, n=params["w_packed"].shape[-1],
+    return QLinearSpec(k=k, n=params["w_packed"].shape[-1],
                        k4=nb4 * BLOCK_K, schedule=quant.schedule,
                        impl=quant.impl)
-    return qlinear_apply(spec, params, x)
+
+
+def dispatch_qlinear(params, x: torch.Tensor, quant) -> torch.Tensor:
+    """A packed projection under a quant config → :func:`qlinear_apply`."""
+    return qlinear_apply(qlinear_spec(params, quant), params, x)

@@ -27,14 +27,16 @@ from repro_torch.kernels import w4ax_matmul as WK
 
 BLOCK_K = WK.BLOCK_K
 
-__all__ = ["act_quant", "w4ax_matmul", "paged_kv4_prefill_attention_wq",
-           "paged_kv4_prefill_attention", "paged_kv4_decode_attention",
-           "paged_kv4_decode_attention_wq", "kv4_decode_attention",
+__all__ = ["act_quant", "act_quant_w4ax", "w4ax_matmul",
+           "paged_kv4_prefill_attention_wq", "paged_kv4_prefill_attention",
+           "paged_kv4_decode_attention", "paged_kv4_decode_attention_wq",
+           "kv4_decode_attention",
            "combine_plan", "work_plan", "use_kernel", "KERNELS"]
 
 # every kernel wrapper of the ported path, by the name its launch count is
 # reported under
 KERNELS = {
+    "act_quant_w4ax": AQ.act_quant_w4ax,
     "act_quant_int4": AQ.act_quant_int4,
     "act_quant_int8": AQ.act_quant_int8,
     "w4a4_matmul": WK.w4a4_matmul,
@@ -64,19 +66,38 @@ def use_kernel(impl: str, t: torch.Tensor) -> bool:
     raise ValueError(f"impl must be auto|cuda|ref, got {impl!r}")
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """[..., K] → [M, K], a view where the layout allows; the kernel reads
+    bf16 and f32 where they lie, other types are upcast to f32 first."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return x2 if x2.dtype in AQ.DTYPE_TAG else x2.float()
+
+
 def act_quant(x: torch.Tensor, *, bits: int = 4, impl: str = "auto"):
     """[..., K] float → (payload, scales [..., K/128]); bits=4 gives
-    packed uint8 [..., K/2], bits=8 int8 [..., K]. The input is upcast to
-    f32 first, as the reference does."""
+    packed uint8 [..., K/2], bits=8 int8 [..., K]. The values are
+    quantized from ``x`` upcast to f32, as the reference does."""
     lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    x2 = _rows(x)
     if use_kernel(impl, x2):
         kern = AQ.act_quant_int4 if bits == 4 else AQ.act_quant_int8
         payload, scale = kern(x2)
     else:
-        payload, scale = AQ.act_quant_ref(x2, block_size=BLOCK_K, bits=bits)
+        payload, scale = AQ.act_quant_ref(x2.float(), block_size=BLOCK_K,
+                                          bits=bits)
     return (payload.reshape(*lead, payload.shape[-1]),
             scale.reshape(*lead, k // BLOCK_K))
+
+
+def act_quant_w4ax(x: torch.Tensor, k4: int, *, impl: str = "auto"):
+    """[..., K] float → (a4 packed uint8 [..., k4/2], s4 [..., k4/128],
+    a8 int8 [..., K−k4], s8 [..., (K−k4)/128]): the int4 range [0, k4)
+    and the int8 range [k4, K) of one W4Ax activation, each as
+    :func:`act_quant` gives it, in one kernel launch."""
+    lead = x.shape[:-1]
+    x2 = _rows(x)
+    fn = AQ.act_quant_w4ax if use_kernel(impl, x2) else AQ.act_quant_w4ax_ref
+    return tuple(t.reshape(*lead, t.shape[-1]) for t in fn(x2, k4))
 
 
 def w4ax_matmul(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, *,

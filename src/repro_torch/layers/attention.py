@@ -18,14 +18,13 @@ __all__ = ["project_qkv", "flash_attention"]
 def project_qkv(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, quant=None):
     """x: [B, S, d_model] → q [B, S, Hq, D], k/v [B, S, Hkv, D] (bf16,
-    RoPE applied to q and k)."""
+    RoPE applied to q and k); the three projections share one act-quant
+    of x."""
     b = x.shape[0]
-    q = C.linear(params["wq"], x, quant).reshape(b, -1, cfg.num_heads,
-                                                 cfg.head_dim)
-    k = C.linear(params["wk"], x, quant).reshape(b, -1, cfg.num_kv_heads,
-                                                 cfg.head_dim)
-    v = C.linear(params["wv"], x, quant).reshape(b, -1, cfg.num_kv_heads,
-                                                 cfg.head_dim)
+    q, k, v = C.linears([params["wq"], params["wk"], params["wv"]], x, quant)
+    q = q.reshape(b, -1, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
     return (C.apply_rope(q, positions, cfg.rope_theta),
             C.apply_rope(k, positions, cfg.rope_theta), v)
 

@@ -1,5 +1,6 @@
 """Shared layer primitives (``repro/layers/common.py``): RMSNorm, RoPE and
-the linear dispatch (packed W4 params → W4Ax; plain ``w`` → bf16 matmul).
+the linear dispatch (packed W4 params → W4Ax; plain ``w`` → bf16 matmul),
+one projection at a time or several of one input sharing its act-quant.
 
 Rounding points follow the reference: norms and RoPE compute in f32 and
 return the input dtype; every projection returns bf16.
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.core import qlinear as QL
 
-__all__ = ["rmsnorm", "rope_frequencies", "apply_rope", "linear",
+__all__ = ["rmsnorm", "rope_frequencies", "apply_rope", "linear", "linears",
            "resolve_device", "no_tf32"]
 
 
@@ -64,3 +65,13 @@ def linear(params, x: torch.Tensor, quant=None) -> torch.Tensor:
     if "w_packed" in params:
         return QL.dispatch_qlinear(params, x, quant).to(torch.bfloat16)
     return x.to(torch.bfloat16) @ params["w"].to(torch.bfloat16)
+
+
+def linears(params_list, x: torch.Tensor, quant=None) -> list:
+    """Projections of one input, in order; packed W4 ones share the
+    quantization of ``x`` (:func:`QL.qlinear_apply_many`)."""
+    if all("w_packed" in p for p in params_list):
+        specs = [QL.qlinear_spec(p, quant) for p in params_list]
+        return [y.to(torch.bfloat16)
+                for y in QL.qlinear_apply_many(specs, params_list, x)]
+    return [linear(p, x, quant) for p in params_list]

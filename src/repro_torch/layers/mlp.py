@@ -18,6 +18,6 @@ def silu_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params, x: torch.Tensor, quant=None) -> torch.Tensor:
-    up = C.linear(params["w_up"], x, quant)
-    gate = C.linear(params["w_gate"], x, quant)
+    """SwiGLU; up and gate share one act-quant of x."""
+    up, gate = C.linears([params["w_up"], params["w_gate"]], x, quant)
     return C.linear(params["w_down"], silu_bf16(gate) * up, quant)

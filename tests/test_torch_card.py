@@ -97,6 +97,67 @@ def test_kernels_match_plain_on_card():
             bi, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
 
 
+# (K, k4): the test model's 1,024 (7 + 1 blocks) and Llama-3-8B's q/k/v,
+# wo, up/gate and down projections at int4_fraction 0.875
+FUSED_K = ((1024, 896), (4096, 3584), (14336, 12544))
+
+
+def _act_input(gen, m: int, k: int, k4: int, dtype):
+    """Random activations with, in each range, a block whose scale is
+    exactly 1 holding every odd multiple of 0.5 (rounding ties), and an
+    all-zero block."""
+    x = torch.randn((m, k), generator=gen, device="cuda") * 3
+    tie = ((torch.arange(128, device="cuda") % 15) - 7) * 0.5
+    for lo, qmax in ((0, 7.0), (k4, 127.0)):
+        if lo < k:
+            x[0, lo:lo + 128] = tie
+            x[0, lo] = qmax
+    x[-1, -128:] = 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,k4", FUSED_K)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_act_quant_exact_on_card(dtype, k, k4):
+    """Both ranges in one launch, byte for byte its plain version, also
+    with one range empty (k4 = 0: K2 alone; k4 = K: K1 alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    for m in (1, 8, 257, 4096):
+        x = _act_input(gen, m, k, k4, dtype)
+        for split in (k4, 0, k):
+            got = AQ.act_quant_w4ax(x, split)
+            want = AQ.act_quant_w4ax_ref(x, split)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and torch.equal(g, w), (
+                    m, split, int((g != w).sum()))
+
+
+@pytest.mark.cuda
+def test_fused_act_quant_views_and_launches_on_card():
+    """A strided-row view is read where it lies; a base or row stride off
+    16-byte alignment raises; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    buf = _act_input(gen, 33, 4096 + 256, 3584, torch.bfloat16)
+    x = buf[:, 128:128 + 4096]               # row stride 4,352, offset 256 B
+    assert x.stride(0) == 4096 + 256
+    for got, want in zip(AQ.act_quant_w4ax(x, 3584),
+                         AQ.act_quant_w4ax_ref(x, 3584)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="16-byte"):
+        AQ.act_quant_w4ax(buf[:, 1:1 + 4096], 3584)        # base + 2 B
+    with pytest.raises(ValueError, match="16-byte"):
+        AQ.act_quant_w4ax(torch.zeros((4, 4100), dtype=torch.bfloat16,
+                                      device="cuda")[:, :4096], 3584)
+    assert _device_launches(lambda: AQ.act_quant_w4ax(x, 3584)) == 1
+
+
 def _exact(got, want):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()

@@ -62,7 +62,8 @@ def test_kernel_sources_present():
     for name in _build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file()
     assert set(ops.KERNELS) == {
-        "act_quant_int4", "act_quant_int8", "w4a4_matmul", "w4a8_matmul",
+        "act_quant_w4ax", "act_quant_int4", "act_quant_int8", "w4a4_matmul",
+        "w4a8_matmul",
         "w4ax_matmul_mixed", "paged_kv4_prefill_attention_wq",
         "paged_kv4_decode_attention",
         "paged_kv4_prefill_attention", "paged_kv4_decode_attention_wq",

@@ -133,10 +133,8 @@ def test_schedule_and_impl_are_validated():
 # ------------------------------------------------------------- routing
 
 PLAIN = {
-    "act_quant_int4": lambda x, p, s, m, k: [
-        t.copy_(r) for t, r in zip((p, s), AQ.act_quant_ref(x, bits=4))],
-    "act_quant_int8": lambda x, q, s, m, k: [
-        t.copy_(r) for t, r in zip((q, s), AQ.act_quant_ref(x, bits=8))],
+    "act_quant_w4ax": lambda x, tag, stride, m, k, k4, *out: [
+        t.copy_(r) for t, r in zip(out, AQ.act_quant_w4ax_ref(x, k4))],
     "w4a4_matmul": lambda a, s, w, ws, out, *_: out.copy_(
         WK.w4a4_matmul_ref(a, s, w, ws)),
     "w4a8_matmul": lambda a, s, w, ws, out, *_: out.copy_(
@@ -163,19 +161,19 @@ def stand_ins(monkeypatch):
 
 
 @pytest.mark.parametrize("k,schedule,fraction,want", [
-    (1024, "mixed", 0.875, {"act_quant_int4": 1, "act_quant_int8": 1,
-                            "w4ax_matmul_mixed": 1}),
-    (1024, "split", 0.875, {"act_quant_int4": 1, "act_quant_int8": 1,
-                            "w4a4_matmul": 1, "w4a8_matmul": 1}),
-    (128, "mixed", 0.875, {"act_quant_int4": 1, "w4a4_matmul": 1}),
-    (256, "mixed", 0.0, {"act_quant_int8": 1, "w4a8_matmul": 1}),
+    (1024, "mixed", 0.875, {"act_quant_w4ax": 1, "w4ax_matmul_mixed": 1}),
+    (1024, "split", 0.875, {"act_quant_w4ax": 1, "w4a4_matmul": 1,
+                            "w4a8_matmul": 1}),
+    (128, "mixed", 0.875, {"act_quant_w4ax": 1, "w4a4_matmul": 1}),
+    (256, "mixed", 0.0, {"act_quant_w4ax": 1, "w4a8_matmul": 1}),
 ])
 def test_qlinear_routes_to_the_schedule_kernels(stand_ins, k, schedule,
                                                 fraction, want):
     """K = 1024 at 0.875 is 7 + 1 blocks: the mixed schedule launches K5
     once and neither uniform kernel; the split schedule K3 and K4. A
     uniform projection (K = 128 at 0.875, or fraction 0) falls back to the
-    one uniform kernel under ``mixed``, as the reference does."""
+    one uniform kernel under ``mixed``, as the reference does. Either
+    way the activation's two channel ranges are one act-quant launch."""
     rng = np.random.default_rng(k)
     n = 64
     w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) / 30)
