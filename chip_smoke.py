@@ -15,7 +15,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    call and as 100 calls between one event pair beside the parent's
    route (two f32 copies + K1 + K2), the W4Ax GEMMs (W4A4, W4A8 and
    the mixed kernel, which adds ``(d·a_s)·w_s`` in its plain version's
-   order) bit for bit at M ∈ {1, 8, 16, 256}, the attention kernels
+   order) bit for bit at M ∈ {1, 8, 16, 256} (K3, K4 also at Llama-3-70B's
+   FFN widths and Qwen2-72B's down projection, M ∈ {8, 256}, timed
+   under ``archs``), the attention kernels
    (work-queue and dense prefill, paged dense and work-queue decode,
    contiguous decode) on real cache states with ragged lengths,
    zero-history and q_len-0 rows: each computes exactly as its plain
@@ -30,8 +32,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    must run in at most two kernel launches, counted by
    ``torch.profiler``) at C = 256 and, under ``decode``, at C = 1 on the
    decode kernels' inputs; the work-queue decode op (K8) is the whole op
-   in one launch, counted the same way;
-3. parity: a 2-layer d_model-1024 model served on the card in every
+   in one launch, counted the same way; K6, K8, K10 and K9 (C = 1) again
+   at GQA groups 5 and 12 on 40/8- and 48/4-head decode batches, K9 at
+   G = 12 and C = 256 (under ``G=5``, ``G=12``, ``G=12 C=256``);
+3. parity: three 2-layer d_model-1024 models (Llama-shaped; Qwen2.5-
+   shaped, 10/2 heads, QKV bias; StarCoder2-shaped, 12/1 heads, QKV bias,
+   LayerNorm, GELU; biases seeded non-zero) served on the card in every
    engine configuration (the unified step under both attention
    schedules, the split step under both and under the work queue with
    pages of 128 keys, whole-prompt prefill with gather decode, the
@@ -51,7 +57,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    dense; (e) the default step under the paper's mixed W4Ax schedule —
    with the same checks, each run launching its own kernels ((e) the
    mixed GEMM and never the W4A4/W4A8 pair);
-6. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
+6. archs: Llama-3-70B at full width and depth (80 layers) serving the
+   ``slice`` workload with its checks (the fused act-quant exactly 4 × 80
+   × forwards times), after the time to make its weights, the packed
+   model's bytes against the ≈ 40.5 GB reckoned by hand and the peak
+   device memory; then Mistral-NeMo-12B, Qwen2-72B, Qwen2.5-32B (G = 5,
+   QKV bias) and StarCoder2-15B (G = 12, QKV bias, LayerNorm, tanh-GELU)
+   at full width and 4 layers, biases and LayerNorm parameters seeded
+   non-zero, each serving the same workload (Qwen2.5-32B and
+   StarCoder2-15B also in baselines a, b and c: every decode kernel at G
+   = 5 and 12);
+7. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
    subprocess on Llama-3-8B at full width and depth under the mixed
    schedule, 8 requests of 384–640 prompt tokens (128 shared) × 32 new
    tokens with a 6-deep waiting queue and every 4th request aborted: 2
@@ -66,13 +82,15 @@ of the port has, to time two trees in turns in one call.
 ``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
 with the kernel launch calls per engine step.
 
-The last two lines are the kernel table and
+Each phase prints its seconds (``[time]``). The last two lines are the
+kernel table and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -86,7 +104,7 @@ import time
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernels", "parity", "slice", "baselines", "cli")
+PHASES = ("kernels", "parity", "slice", "baselines", "archs", "cli")
 EXTRA_PHASES = ("times",)      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -156,6 +174,11 @@ def time_ms_100(torch, fn, calls: int = 100, warmup: int = 3) -> float:
 # (K, k4) of the Llama-3-8B projections at int4_fraction 0.875: q/k/v, wo
 # and up/gate read K = 4,096, down reads K = 14,336
 ACT_SHAPES = ((4096, 3584), (14336, 12544))
+# (K, k4) of the other dense configurations' projections: d_model 5,120,
+# 6,144 and 8,192, d_ff 24,576, 27,648, 28,672 and Qwen2-72B's 29,568
+# (231 blocks: an odd 202 int4 + 29 int8)
+ARCH_ACT_SHAPES = ((5120, 4480), (6144, 5376), (8192, 7168), (24576, 21504),
+                   (27648, 24192), (28672, 25088), (29568, 25856))
 ACT_M = (1, 8, 16, 256)
 ACT_PER_LAYER = 4      # h (q/k/v), attention output (wo), h (up/gate), down
 
@@ -208,9 +231,11 @@ def act_times(torch, AQ, x, k4: int) -> dict:
 
 def check_act_quant(torch, AQ, rows: dict):
     """The fused act-quant (K1 and K2 in one launch, bf16 read directly)
-    byte for byte against its plain version at the Llama-3-8B widths ×
-    ``ACT_M`` and on a strided-row view, one launch a call; K1 and K2
-    alone (the kernel over one range) and the parent's route likewise.
+    byte for byte against its plain version at the Llama-3-8B widths and
+    the other dense configurations' (``ARCH_ACT_SHAPES``) × ``ACT_M`` and
+    on a strided-row view, one launch a call; at the Llama-3-8B widths K1
+    and K2 alone (the kernel over one range) and the parent's route
+    likewise.
     K1's and K2's rows both give the fused op's times at M = 256, K =
     4,096 (``down``: K = 14,336; ``decode``: M = 8) and, under
     ``alone``, their own over their range of that input."""
@@ -240,6 +265,12 @@ def check_act_quant(torch, AQ, rows: dict):
                  AQ.act_quant_w4ax_ref(x, k4))
             say(f"[kernels] act_quant_w4ax M={m} K={k} k4={k4}: byte-exact "
                 f"(and K1, K2 alone, the parent's route)")
+    for k, k4 in ARCH_ACT_SHAPES:
+        for m in ACT_M:
+            x = act_input(torch, gen, m, k, k4)
+            same(f"act_quant_w4ax M={m} K={k} k4={k4}",
+                 AQ.act_quant_w4ax(x, k4), AQ.act_quant_w4ax_ref(x, k4))
+        say(f"[kernels] act_quant_w4ax M={ACT_M} K={k} k4={k4}: byte-exact")
     wide = act_input(torch, gen, 64, 4096 + 256, 3584)
     view = wide[:, 128:128 + 4096]          # row stride 4,352, offset 256 B
     same("act_quant_w4ax strided rows", AQ.act_quant_w4ax(view, 3584),
@@ -527,9 +558,46 @@ def decode_bound(lengths, hq: int, hkv: int, d: int, extra_bytes: int = 0):
     return nbytes, keys * hq * 4 * d
 
 
-def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
+META = {  # each attention kernel's source and the TPU kernel it replaces
+    "paged_kv4_prefill_attention_wq": ("paged_attention.cu",
+                                       "paged_attention.py:622"),
+    "paged_kv4_prefill_attention": ("paged_attention.cu",
+                                    "paged_attention.py:336"),
+    "kv4_decode_attention": ("kv4_attention.cu", "kv4_attention.py:111"),
+    "paged_kv4_decode_attention": ("paged_decode.cu",
+                                   "paged_attention.py:163"),
+    "paged_kv4_decode_attention_wq": ("paged_attention.cu",
+                                      "paged_attention.py:477"),
+}
+
+
+def put(rows: dict, name: str, key, entry: dict):
+    """A kernel-table entry: the kernel's row itself (``key`` None), else
+    under ``key`` of its row."""
+    if key is not None:
+        rows[name][key] = entry
+        return
+    src, at = META[name]
+    rows[name] = {"name": name, "route": "cuda",
+                  "source": f"src/repro_torch/csrc/{src}",
+                  "replaces": f"src/repro/kernels/{at}", **entry}
+
+
+# (kv heads, G) held beside Llama-3-8B's 32/8 heads (Mistral-NeMo-12B's
+# too): Qwen2.5-32B's 40/8, Llama-3-70B's and Qwen2-72B's 64/8,
+# StarCoder2-15B's 48/4 (16-row tiles at C = 1)
+GQA = ((8, 5), (8, 8), (4, 12))
+
+
+def gqa_cfg(cfg, hkv: int, g: int):
+    return dataclasses.replace(cfg, num_heads=hkv * g, num_kv_heads=hkv)
+
+
+def check_attention(torch, cfg, KVC, PA, Q, rows: dict, key=None):
     """K9 (work-queue prefill) and K7 (dense prefill) on one real cache
-    state, against their plain versions and one library yardstick."""
+    state at ``cfg``'s heads, bit for bit against their plain versions,
+    with one library yardstick; the kernels' rows, or entries under
+    ``key``."""
     import torch.nn.functional as F
     args, desc, takes, dense, cache = attention_case(torch, cfg, KVC)
     b, c, hq, d = args[0].shape
@@ -539,87 +607,85 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict):
     yard = sdpa_prefill_inputs(torch, Q, cache, dense, hq)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         yard[0], yard[1], yard[2], attn_mask=yard[3]))
+    del yard
+    shape = f"B={b} C={c} Hq={hq} Hkv={hkv} G={g} D={d}"
+    ctx = [cx for cx, _ in PREFILL_ROWS]
 
     # the whole op (pre-fold, partials, combine) in one launch, with the
     # engine's host plan, against its plain version
-    ctx = [cx for cx, _ in PREFILL_ROWS]
     plan = PA.work_plan(desc, b * hkv, c, g, "cuda")
     op = lambda: PA.paged_kv4_prefill_attention_wq(*args, plan=plan)  # noqa: E731
-    err = check_exact("paged_kv4_prefill_attention_wq", op(),
-                      PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan),
-                      valid)
+    ref = lambda: PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan)  # noqa: E731
+    tag = f" {key}" if key else ""
+    label = "paged_kv4_prefill_attention_wq" + tag
+    err = check_exact(label, op(), ref(), valid)
     n = device_launches(torch, op)
     if not 1 <= n <= 2:
-        fail(f"paged_kv4_prefill_attention_wq: {n:g} kernel launches a call")
-    say(f"[kernels] paged_kv4_prefill_attention_wq W={desc.shape[0]} "
-        f"C={c}: max err {err:.3g}; {n:g} launch(es) a call, "
+        fail(f"{label}: {n:g} kernel launches a call")
+    say(f"[kernels] paged_kv4_prefill_attention_wq {shape} W={desc.shape[0]}"
+        f": max err {err:.3g}; {n:g} launch(es) a call, "
         f"{plan.jobs.shape[0]} blocks of {plan.rows} rows")
-    rows["paged_kv4_prefill_attention_wq"] = {
-        "name": "paged_kv4_prefill_attention_wq", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:622",
-        "shape": f"B={b} C={c} Hq={hq} D={d} W={desc.shape[0]}",
-        "max_abs_err": err,
-        "ms": time_ms(torch, op),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_prefill_attention_wq_ref(
-                *args, plan=plan)),
+    put(rows, "paged_kv4_prefill_attention_wq", key, {
+        "shape": f"{shape} W={desc.shape[0]}", "max_abs_err": err,
+        "rows": plan.rows, "ms": time_ms(torch, op),
+        "plain_ms": time_ms(torch, ref),
         **bound(*prefill_bound(ctx, takes, hkv, g, d)),
-        "library_ms": library_ms,
-        "launches_per_call": n,
-    }
+        "library_ms": library_ms, "launches_per_call": n})
 
-    err = check_exact("paged_kv4_prefill_attention",
-                      PA.paged_kv4_prefill_attention(*dense),
-                      PA.paged_kv4_prefill_attention_ref(*dense), valid)
-    say(f"[kernels] paged_kv4_prefill_attention B={b} C={c} "
+    op = lambda: PA.paged_kv4_prefill_attention(*dense)  # noqa: E731
+    ref = lambda: PA.paged_kv4_prefill_attention_ref(*dense)  # noqa: E731
+    err = check_exact("paged_kv4_prefill_attention" + tag, op(), ref(),
+                      valid)
+    say(f"[kernels] paged_kv4_prefill_attention {shape} "
         f"NP={dense[9].shape[1]}: max err {err:.3g}")
-    rows["paged_kv4_prefill_attention"] = {
-        "name": "paged_kv4_prefill_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:336",
-        "shape": f"B={b} C={c} Hq={hq} D={d} NP={dense[9].shape[1]}",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*dense)),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_prefill_attention_ref(*dense)),
+    put(rows, "paged_kv4_prefill_attention", key, {
+        "shape": f"{shape} NP={dense[9].shape[1]}", "max_abs_err": err,
+        "ms": time_ms(torch, op), "plain_ms": time_ms(torch, ref),
         **bound(*prefill_bound(ctx, takes, hkv, g, d)),
-        "library_ms": library_ms,
-    }
+        "library_ms": library_ms})
 
 
 def device_launches(torch, fn, calls: int = 3, tries: int = 5) -> float:
     """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``
-    (after a warm-up call): ``calls`` calls traced between two marker
-    kernels (``torch.cuda._sleep``). A later profiling session of a
-    process now and then comes back without the card's activity (seen on
-    the H100: 0 kernels for an op that had just run); a trace that does
-    not hold both markers lost activity, so it is taken again, at most
-    ``tries`` times, and never counted."""
+    (after a warm-up call): ``calls`` calls traced between marker kernels
+    (``torch.cuda._sleep``), two before and one after, and counted on the
+    trace's timeline between the last leading marker and the trailing
+    one. A profiling session of a process can miss the first kernel it
+    should see (on the H100: the first leading marker, consistently, once
+    the process has run the kernels phase's GEMMs) or come back without
+    the card's activity; a trace whose op kernels are not bracketed by
+    markers is taken again, at most ``tries`` times, and never counted."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        seen = [(e.key, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(n for k, n in seen if "spin_kernel" in k) == 2:
-            return sum(n for k, n in seen if "spin_kernel" not in k) / calls
+        marks = [("spin_kernel" in e.name) for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        op = [i for i, m in enumerate(marks) if not m]
+        if (len(marks) >= 2 and marks[0] and marks[-1]
+                and not (op and any(marks[op[0]:op[-1] + 1]))):
+            return len(op) / calls
         say(f"[kernels] a torch.profiler trace lost the card's activity "
-            f"(saw {sum(n for _, n in seen)} kernels); taken again")
+            f"(saw {len(marks)} kernels, {sum(marks)} markers); taken again")
     fail(f"torch.profiler lost the card's activity in {tries} traces")
 
 
-def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
-    """K6, K8 and K10 on one decode batch of a real cache state (8 rows,
-    lengths that are not page multiples), against their f32 plain
-    versions, with one SDPA yardstick on the gathered, dequantized bf16
-    KV."""
+def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict, key=None):
+    """K6, K8 and K10, and K7 and K9 at C = 1, on one decode batch of a
+    real cache state (8 rows, lengths that are not page multiples) at
+    ``cfg``'s heads, bit for bit against their plain versions, with one
+    SDPA yardstick on the gathered, dequantized bf16 KV; the decode
+    kernels' rows (K7's and K9's under ``decode``), or entries under
+    ``key`` (K7's and K9's under ``<key> C=1``)."""
     import torch.nn.functional as F
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -637,11 +703,23 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
     kp, vp = kp.contiguous(), vp.contiguous()
     bc = [torch.broadcast_to(s[None], (b,) + tuple(s.shape))
           for s in pools[1:3] + pools[4:6]]
+    tables = cache.block_tables_device(slots, max_len)
     k10 = (q, kp, bc[0], bc[1], vp, bc[2], bc[3], lengths)
-    k6 = (q,) + pools + (cache.block_tables_device(slots, max_len), lengths)
+    k6 = (q,) + pools + (tables, lengths)
     desc = cache.work_queue_np(slots, lens_np)
     plan = PA.work_plan(desc, b * hkv, 1, g, "cuda")
     k8 = (q,) + pools + (torch.from_numpy(desc).cuda(),)
+    # K7 and K9 at decode shape: the same rows as one new token each over
+    # their history (the unified step's decode rows), C = 1; K9 with one
+    # page item per history page and a one-key chunk item per (row, head)
+    kn1, vn1 = (torch.randn((b, 1, hkv, d), generator=gen, device="cuda") * 4
+                for _ in range(2))
+    k7 = ((q[:, None], kn1, vn1) + pools
+          + (tables, lengths, torch.ones(b, dtype=torch.int32,
+                                         device="cuda")))
+    desc9 = cache.work_queue_np(slots, lens_np, [1] * b)
+    k9 = ((q[:, None], kn1, vn1) + pools + (torch.from_numpy(desc9).cuda(),))
+    plan9 = PA.work_plan(desc9, b * hkv, 1, g, "cuda")
 
     mask = (torch.arange(max_len, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
@@ -651,122 +729,106 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict):
     yq = q[:, :, None, :].contiguous()
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         yq, yk, yv, attn_mask=mask))
-    # each op's inputs besides q and the KV: the four scale tensors the
-    # batch shares, the lengths (K10, K6), K6's block table, K8's
+    del yk, yv
+    # each decode op's inputs besides q and the KV: the four scale tensors
+    # the batch shares, the lengths (K10, K6), K6's block table, K8's
     # descriptors and jobs
     scales = sum(pools[i].nbytes for i in (1, 2, 4, 5))
-    extra = {"kv4_decode_attention": scales + lengths.nbytes,
-             "paged_kv4_decode_attention": (scales + lengths.nbytes
-                                            + k6[7].nbytes),
-             "paged_kv4_decode_attention_wq": (scales + desc.nbytes
-                                               + plan.jobs.nbytes)}
-    shape = f"B={b} Hq={hq} D={d} T={max_len}"
+    shape = f"B={b} Hq={hq} Hkv={hkv} G={g} D={d} T={max_len}"
+    heads = [(i, hq) for i in range(b)]
+    ones = [(i, 1) for i in range(b)]
+    c1 = "decode" if key is None else f"{key} C=1"
+    cases = (   # name, kernel, plain version, valid rows, key, shape, bound
+        ("kv4_decode_attention", lambda: KA.kv4_decode_attention(*k10),
+         lambda: KA.kv4_decode_attention_ref(*k10), heads, key, shape,
+         decode_bound(DECODE_LENS, hq, hkv, d, scales + lengths.nbytes),
+         KA.dense_plan(b, 1, g, hkv, 1, max_len).rows),
+        ("paged_kv4_decode_attention",
+         lambda: PA.paged_kv4_decode_attention(*k6),
+         lambda: PA.paged_kv4_decode_attention_ref(*k6), heads, key, shape,
+         decode_bound(DECODE_LENS, hq, hkv, d,
+                      scales + lengths.nbytes + tables.nbytes),
+         KA.dense_plan(b, 1, g, hkv, tables.shape[1],
+                       cache.pcfg.page_size).rows),
+        ("paged_kv4_prefill_attention",
+         lambda: PA.paged_kv4_prefill_attention(*k7),
+         lambda: PA.paged_kv4_prefill_attention_ref(*k7), ones, c1,
+         f"{shape} C=1", prefill_bound(DECODE_LENS, [1] * b, hkv, g, d),
+         KA.dense_plan(b, 1, g, hkv, tables.shape[1],
+                       cache.pcfg.page_size).rows),
+        ("paged_kv4_prefill_attention_wq",
+         lambda: PA.paged_kv4_prefill_attention_wq(*k9, plan=plan9),
+         lambda: PA.paged_kv4_prefill_attention_wq_ref(*k9, plan=plan9),
+         ones, c1, f"{shape} C=1 W={desc9.shape[0]}",
+         prefill_bound(DECODE_LENS, [1] * b, hkv, g, d), plan9.rows),
+        # the whole op (pre-fold, partials, combine, V affine) in one
+        # launch, with the engine's host plan
+        ("paged_kv4_decode_attention_wq",
+         lambda: PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
+         lambda: PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan),
+         heads, key, f"{shape} W={desc.shape[0]}",
+         decode_bound(DECODE_LENS, hq, hkv, d,
+                      scales + desc.nbytes + plan.jobs.nbytes), plan.rows))
+    for name, op, ref, valid, at, shp, bnd, nrows in cases:
+        label = name + (f" {at}" if at else "")
+        err = check_exact(label, op(), ref(), valid)
+        entry = {"shape": shp, "max_abs_err": err, "rows": nrows,
+                 "ms": time_ms(torch, op), "plain_ms": time_ms(torch, ref),
+                 **bound(*bnd), "library_ms": library_ms}
+        extra = ""
+        if name == "paged_kv4_decode_attention_wq":
+            n = device_launches(torch, op)
+            if n != 1:
+                fail(f"{label}: {n:g} kernel launches a call")
+            entry["launches_per_call"] = n
+            extra = f"; {n:g} launch a call"
+        say(f"[kernels] {name} {shp}: max err {err:.3g}; tiles of {nrows} "
+            f"rows{extra}")
+        put(rows, name, at, entry)
 
-    err = check_exact("kv4_decode_attention", KA.kv4_decode_attention(*k10),
-                      KA.kv4_decode_attention_ref(*k10),
-                      [(i, hq) for i in range(b)])
-    say(f"[kernels] kv4_decode_attention {shape}: max err {err:.3g}")
-    rows["kv4_decode_attention"] = {
-        "name": "kv4_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/kv4_attention.cu",
-        "replaces": "src/repro/kernels/kv4_attention.py:111",
-        "shape": shape, "max_abs_err": err,
-        "ms": time_ms(torch, lambda: KA.kv4_decode_attention(*k10)),
-        "plain_ms": time_ms(torch, lambda: KA.kv4_decode_attention_ref(*k10)),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
-                              extra["kv4_decode_attention"])),
-        "library_ms": library_ms,
-    }
 
-    err = check_exact("paged_kv4_decode_attention",
-                      PA.paged_kv4_decode_attention(*k6),
-                      PA.paged_kv4_decode_attention_ref(*k6),
-                      [(i, hq) for i in range(b)])
-    say(f"[kernels] paged_kv4_decode_attention {shape}: max err {err:.3g}")
-    rows["paged_kv4_decode_attention"] = {
-        "name": "paged_kv4_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_decode.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:163",
-        "shape": shape, "max_abs_err": err,
-        "ms": time_ms(torch, lambda: PA.paged_kv4_decode_attention(*k6)),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_decode_attention_ref(*k6)),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
-                              extra["paged_kv4_decode_attention"])),
-        "library_ms": library_ms,
-    }
+# (N, K) of the new configurations' widest projections: Llama-3-70B's
+# up/gate and down, Qwen2-72B's down (231 blocks: 202 int4 and an odd 29
+# int8 at int4_fraction 0.875)
+ARCH_GEMMS = ((28672, 8192), (8192, 28672), (8192, 29568))
 
-    # K7 at decode shape: the same rows as one new token each over their
-    # history (the unified dense step's decode rows), C = 1
-    kn1, vn1 = (torch.randn((b, 1, hkv, d), generator=gen, device="cuda") * 4
-                for _ in range(2))
-    k7 = ((q[:, None], kn1, vn1) + pools
-          + (cache.block_tables_device(slots, max_len), lengths,
-             torch.ones(b, dtype=torch.int32, device="cuda")))
-    err = check_exact("paged_kv4_prefill_attention (C=1)",
-                      PA.paged_kv4_prefill_attention(*k7),
-                      PA.paged_kv4_prefill_attention_ref(*k7),
-                      [(i, 1) for i in range(b)])
-    say(f"[kernels] paged_kv4_prefill_attention {shape} C=1: max err "
-        f"{err:.3g}")
-    rows["paged_kv4_prefill_attention"]["decode"] = {
-        "shape": f"{shape} C=1", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: PA.paged_kv4_prefill_attention(*k7)),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_prefill_attention_ref(*k7)),
-        **bound(*prefill_bound(DECODE_LENS, [1] * b, hkv, g, d)),
-        "library_ms": library_ms,
-    }
 
-    # K9 at decode shape on the same rows: one page item per history page
-    # and a one-key chunk item per (row, kv head), the unified step's
-    # decode rows
-    desc9 = cache.work_queue_np(slots, lens_np, [1] * b)
-    k9 = ((q[:, None], kn1, vn1) + pools + (torch.from_numpy(desc9).cuda(),))
-    plan9 = PA.work_plan(desc9, b * hkv, 1, g, "cuda")
-    op9 = lambda: PA.paged_kv4_prefill_attention_wq(*k9, plan=plan9)  # noqa: E731
-    err = check_exact("paged_kv4_prefill_attention_wq (C=1)", op9(),
-                      PA.paged_kv4_prefill_attention_wq_ref(*k9, plan=plan9),
-                      [(i, 1) for i in range(b)])
-    say(f"[kernels] paged_kv4_prefill_attention_wq {shape} C=1 "
-        f"W={desc9.shape[0]}: max err {err:.3g}; {plan9.jobs.shape[0]} "
-        f"blocks of {plan9.rows} rows")
-    rows["paged_kv4_prefill_attention_wq"]["decode"] = {
-        "shape": f"{shape} C=1 W={desc9.shape[0]}", "max_abs_err": err,
-        "ms": time_ms(torch, op9),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_prefill_attention_wq_ref(
-                *k9, plan=plan9)),
-        **bound(*prefill_bound(DECODE_LENS, [1] * b, hkv, g, d)),
-        "library_ms": library_ms,
-    }
-
-    # the whole op (pre-fold, partials, combine, V affine) in one launch,
-    # with the engine's host plan
-    op8 = lambda: PA.paged_kv4_decode_attention_wq(*k8, plan=plan)  # noqa: E731
-    err = check_exact("paged_kv4_decode_attention_wq", op8(),
-                      PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan),
-                      [(i, hq) for i in range(b)])
-    n = device_launches(torch, op8)
-    if n != 1:
-        fail(f"paged_kv4_decode_attention_wq: {n:g} kernel launches a call")
-    w = desc.shape[0]
-    say(f"[kernels] paged_kv4_decode_attention_wq {shape} W={w}: max err "
-        f"{err:.3g}; {n:g} launch a call, {plan.jobs.shape[0]} blocks")
-    rows["paged_kv4_decode_attention_wq"] = {
-        "name": "paged_kv4_decode_attention_wq", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:477",
-        "shape": f"{shape} W={w}", "max_abs_err": err,
-        "ms": time_ms(torch, op8),
-        "plain_ms": time_ms(
-            torch, lambda: PA.paged_kv4_decode_attention_wq_ref(
-                *k8, plan=plan)),
-        **bound(*decode_bound(DECODE_LENS, hq, hkv, d,
-                              extra["paged_kv4_decode_attention_wq"])),
-        "library_ms": library_ms,
-        "launches_per_call": n,
-    }
+def check_gemm_archs(torch, AQ, WK, Q, rows: dict):
+    """K3 and K4 bit for bit against their plain versions at
+    ``ARCH_GEMMS`` × M ∈ {8, 256}, each timed beside its plain version,
+    its bound and a bf16 ``torch.matmul``; rows under ``archs``."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for n, k in ARCH_GEMMS:
+        nb = k // 128
+        nb4 = int(round(0.875 * nb))
+        k4 = nb4 * 128
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        wp, ws = Q.quantize_weight_int4(w, group_size=128)
+        del w
+        for m in GEMM_TIMED_M:
+            x = (torch.randn((m, k), generator=gen, device="cuda")
+                 .bfloat16().float())
+            a4, s4 = AQ.act_quant_ref(x[:, :k4].contiguous(), bits=4)
+            a8, s8 = AQ.act_quant_ref(x[:, k4:].contiguous(), bits=8)
+            for name, kern, ref, args in (
+                    ("w4a4_matmul", WK.w4a4_matmul, WK.w4a4_matmul_ref,
+                     (a4, s4, wp[:k4 // 2], ws[:nb4])),
+                    ("w4a8_matmul", WK.w4a8_matmul, WK.w4a8_matmul_ref,
+                     (a8, s8, wp[k4 // 2:], ws[nb4:]))):
+                out, want = kern(*args), ref(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    fail(f"{name} M={m} N={n} K={k}: not bit-exact against "
+                         f"its plain version (max err "
+                         f"{float((out - want).abs().max())})")
+                row = gemm_times(torch, WK, Q, gen, name, args)
+                say(f"[kernels] {name} {row['shape']} (of N={n} K={k}): "
+                    f"exact; {row['ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f}, bf16 matmul "
+                    f"{row['library_ms']:.4f}")
+                rows[name].setdefault("archs", []).append(
+                    dict(row, max_abs_err=0.0))
+        del wp, ws
 
 
 def act_route_times(torch, ops) -> dict:
@@ -912,45 +974,89 @@ CONFIGS = {
 QUANT = {"unified work_queue mixed": dict(schedule="mixed")}
 
 
+def seed_biases(torch, params, seed: int):
+    """Seeded non-zero q/k/v biases, LayerNorm biases and norm scales off
+    1, in place: the initializers' zeros and ones would let a dropped
+    bias or norm parameter pass unseen."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(t, scale, base=0.0):
+        t.copy_(base + scale * torch.randn(t.shape, generator=gen,
+                                           device="cuda"))
+
+    norms = [params["final_norm"]]
+    for bp in params["blocks"]:
+        norms += [bp["attn_norm"], bp["mlp_norm"]]
+        for key in ("wq", "wk", "wv"):
+            if "b" in bp["attn"][key]:
+                fill(bp["attn"][key]["b"], 0.5)
+    for nrm in norms:
+        if "bias" in nrm:
+            fill(nrm["bias"], 0.1)
+            fill(nrm["scale"], 0.1, 1.0)
+
+
+# the parity phase's 2-layer d_model-1024 models: Llama-shaped, and shaped
+# like Qwen2.5-32B (G = 5, QKV bias) and StarCoder2-15B (G = 12, QKV bias,
+# LayerNorm, tanh-GELU)
+PARITY_MODELS = {
+    "llama-shaped": dict(num_heads=8, num_kv_heads=2, rope_theta=500_000.0),
+    "qwen2.5-shaped": dict(num_heads=10, num_kv_heads=2, qkv_bias=True),
+    "starcoder2-shaped": dict(num_heads=12, num_kv_heads=1, qkv_bias=True,
+                              norm="layernorm", mlp_act="gelu",
+                              rope_theta=100_000.0),
+}
+
+
 def phase_parity(torch, np, mods):
-    """Each configuration served twice on a 2-layer d_model-1024 model,
-    with the kernels and with ``impl="ref"``: first logits within
-    2e-2·max|logit|, greedy agreement ≥ 0.9."""
+    """Each configuration served twice on each of ``PARITY_MODELS`` (2
+    layers, d_model 1024, head_dim 128; the new shapes with seeded
+    non-zero biases), with the kernels and with ``impl="ref"``: first
+    logits within 2e-2·max|logit|, greedy agreement ≥ 0.9."""
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
-    cfg = ModelConfig(name="parity", family="dense", num_layers=2,
-                      d_model=1024, num_heads=8, num_kv_heads=2,
-                      head_dim=128, d_ff=2048, vocab_size=512,
-                      rope_theta=500_000.0)
-    params = LM(cfg).init(seed=0, device="cuda")
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in (40, 7, 23, 64, 13, 29)]
-    for label, kw in CONFIGS.items():
-        ecfg = EngineConfig(**{**dict(max_batch=8, num_pages=128,
-                                      page_size=64, max_pages_per_seq=16,
-                                      prefill_chunk_tokens=48, kv_range=4.0),
-                               **kw})
-        res = {}
-        for impl in ("auto", "ref"):
-            eng, first, _ = serve(torch, np, Engine, EngineConfig,
-                                  QuantConfig, cfg, params, impl, prompts,
-                                  16, ecfg, QUANT.get(label, {}))
-            res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
-                                   f"parity[{label}, {impl}]"), first)
-        (tk, lk), (tr, lr) = res["auto"], res["ref"]
-        if lk is None or lk.shape != lr.shape:
-            fail(f"parity[{label}]: first logits missing or mis-shaped")
-        err = float(np.abs(lk - lr).max())
-        tol = 2e-2 * float(np.abs(lr).max())
-        if not err <= tol:
-            fail(f"parity[{label}]: first logits max err {err} > {tol}")
-        total = sum(len(v) for v in tr.values())
-        agree = sum(a == b for i in tr for a, b in zip(tk[i], tr[i])) / total
-        say(f"[parity] {label}: first logits max err {err:.4g} "
-            f"(tol {tol:.4g}); greedy agreement {agree:.4f} over {total} "
-            f"tokens")
-        if agree < 0.9:
-            fail(f"parity[{label}]: greedy agreement {agree} < 0.9")
+    for model, dims in PARITY_MODELS.items():
+        cfg = ModelConfig(**{**dict(name=model, family="dense",
+                                    num_layers=2, d_model=1024, head_dim=128,
+                                    d_ff=2048, vocab_size=512), **dims})
+        params = LM(cfg).init(seed=0, device="cuda")
+        if model != "llama-shaped":
+            seed_biases(torch, params, 11)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (40, 7, 23, 64, 13, 29)]
+        for label, kw in CONFIGS.items():
+            ecfg = EngineConfig(**{**dict(max_batch=8, num_pages=128,
+                                          page_size=64, max_pages_per_seq=16,
+                                          prefill_chunk_tokens=48,
+                                          kv_range=4.0), **kw})
+            res = {}
+            for impl in ("auto", "ref"):
+                eng, first, _ = serve(torch, np, Engine, EngineConfig,
+                                      QuantConfig, cfg, params, impl,
+                                      prompts, 16, ecfg,
+                                      QUANT.get(label, {}))
+                res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
+                                       f"parity[{model}, {label}, {impl}]"),
+                             first)
+            (tk, lk), (tr, lr) = res["auto"], res["ref"]
+            if lk is None or lk.shape != lr.shape:
+                fail(f"parity[{model}, {label}]: first logits missing or "
+                     f"mis-shaped")
+            err = float(np.abs(lk - lr).max())
+            tol = 2e-2 * float(np.abs(lr).max())
+            if not err <= tol:
+                fail(f"parity[{model}, {label}]: first logits max err {err} "
+                     f"> {tol}")
+            total = sum(len(v) for v in tr.values())
+            agree = sum(a == b for i in tr
+                        for a, b in zip(tk[i], tr[i])) / total
+            say(f"[parity] {model} {label}: first logits max err {err:.4g} "
+                f"(tol {tol:.4g}); greedy agreement {agree:.4f} over "
+                f"{total} tokens")
+            if agree < 0.9:
+                fail(f"parity[{model}, {label}]: greedy agreement {agree} "
+                     f"< 0.9")
+        del params
 
 
 def profile_table(torch, prof, wall_s: float, steps: int):
@@ -1019,9 +1125,10 @@ COUNTED_AS = {"act_quant_int4": "act_quant_w4ax",
 
 
 def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
-                profile=False):
-    """One run of the ``slice`` workload on Llama-3-8B at full width and
-    depth: 8 requests of 128–512 prompt tokens × 32 new tokens, greedy,
+                profile=False, phase=None):
+    """One run of the ``slice`` workload on ``cfg`` (Llama-3-8B at full
+    width and depth; under ``phase="archs"`` another configuration): 8
+    requests of 128–512 prompt tokens × 32 new tokens, greedy,
     ``prefill_chunk_tokens=256``, in the run's configuration. Launch
     counts are set to 0 just before and read just after; every request
     must finish with 32 tokens, with no failed or internal errors, every
@@ -1049,7 +1156,9 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
                                QUANT.get(label, {}))
     wall = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    tag = f"[{'slice' if run == 'slice' else 'baselines'}] {run} ({label})"
+    tag = (f"[{phase}] {cfg.name} × {cfg.num_layers} layers: {run} ({label})"
+           if phase else
+           f"[{'slice' if run == 'slice' else 'baselines'}] {run} ({label})")
     if prof is not None:
         prof.__exit__(None, None, None)
         say(f"{tag} profiled run (times include profiler overhead):\n"
@@ -1081,6 +1190,72 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     say(f"{tag} launches {json.dumps(launches)}")
     say(f"{tag} counters {json.dumps(eng.counters())}")
     return launches
+
+
+# the archs phase: Llama-3-70B at full depth; the others at full width,
+# their depth cut to ARCH_DEPTH layers, in these runs (Qwen2.5-32B at
+# G = 5 and StarCoder2-15B at G = 12 through every decode path)
+ARCH_DEPTH = 4
+ARCH_RUNS = (("mistral_nemo_12b", ("slice",)), ("qwen2_72b", ("slice",)),
+             ("qwen2p5_32b", ("slice", "a", "b", "c")),
+             ("starcoder2_15b", ("slice", "a", "b", "c")))
+LLAMA70B_PACKED_GB = 40.5   # 68.45 B params at 4 bits + f32 scales + bf16
+                            # embedding and head, reckoned by hand
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.nbytes
+
+
+def phase_archs(torch, np, mods, KERNELS, get_config, profile=False):
+    """Llama-3-70B at full width and depth (80 layers), then the other
+    dense configurations at full width and ``ARCH_DEPTH`` layers, random
+    seeded weights (biases and LayerNorm parameters seeded non-zero),
+    each serving the ``slice`` workload with the checks of
+    :func:`serve_llama` (every request 32 tokens, finite logits, the
+    path's kernels launched, the fused act-quant 4 × layers × forwards
+    times, K1 and K2 alone never)."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    cfg = get_config("llama3_70b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    packed = tree_bytes(params)
+    say(f"[archs] {cfg.name}: random W4 weights ({cfg.num_layers} layers) "
+        f"made in {made:.1f} s; packed model {packed / 1e9:.2f} GB "
+        f"(reckoned ≈ {LLAMA70B_PACKED_GB} GB); peak device memory while "
+        f"making them {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    serve_llama(torch, np, mods, KERNELS, cfg, params, "slice", profile,
+                phase="archs")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, runs in ARCH_RUNS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=ARCH_DEPTH)
+        t0 = time.perf_counter()
+        params = LM(cfg).init(seed=0, device="cuda")
+        seed_biases(torch, params, 12)
+        torch.cuda.synchronize()
+        say(f"[archs] {cfg.name}: full width (d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, norm {cfg.norm}, MLP {cfg.mlp_act}, "
+            f"QKV bias {cfg.qkv_bias}), depth cut {full.num_layers} → "
+            f"{cfg.num_layers} layers; weights made in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{tree_bytes(params) / 1e9:.2f} GB")
+        for run in runs:
+            serve_llama(torch, np, mods, KERNELS, cfg, params, run,
+                        phase="archs")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # the cli phase's launcher flags, and what they must lead to: 8 requests
@@ -1141,9 +1316,10 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace each Llama-3-8B run (slice, baselines) with "
-                         "torch.profiler and print the device busy share, "
-                         "top kernels and host ops")
+                    help="trace each Llama-3-8B run (slice, baselines) and "
+                         "the Llama-3-70B run (archs) with torch.profiler "
+                         "and print the device busy share, top kernels and "
+                         "host ops")
     ap.add_argument("--runs", default="",
                     help="the Llama-3-8B runs to make, in this order, "
                          "repeats allowed (e.g. slice,e,e,slice to compare "
@@ -1179,16 +1355,31 @@ def main():
 
     rows: dict = {}
     cfg8b = get_config("llama3_8b")
+    clock = [time.perf_counter()]
+
+    def lap(phase: str):
+        now = time.perf_counter()
+        say(f"[time] {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     if "kernels" in phases:
         check_act_quant(torch, AQ, rows)
         check_gemm(torch, AQ, WK, Q, rows)
+        check_gemm_archs(torch, AQ, WK, Q, rows)
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
+        for hkv, g in GQA:
+            cfg = gqa_cfg(cfg8b, hkv, g)
+            check_attention(torch, cfg, KVC, PA, Q, rows, f"G={g} C=256")
+            check_decode(torch, cfg, KVC, PA, KA, Q, rows, f"G={g}")
+        lap("kernels")
     if "times" in phases:
         phase_times(torch, cfg8b, KVC, PA, KA, ops)
+        lap("times")
     mods = (ModelConfig, LM, Engine, EngineConfig, QuantConfig)
     if "parity" in phases:
         phase_parity(torch, np, mods)
+        lap("parity")
     order = (args.runs.split(",") if args.runs else
              [r for r, *_ in RUNS
               if ("slice" if r == "slice" else "baselines") in phases])
@@ -1206,9 +1397,14 @@ def main():
                                     params, run, args.profile)
         del params
         gc.collect()
-        torch.cuda.empty_cache()     # the cli phase's process needs the room
+        torch.cuda.empty_cache()     # the 70B model and the cli phase's
+        lap("slice and baselines")   # process need the room
+    if "archs" in phases:
+        phase_archs(torch, np, mods, ops.KERNELS, get_config, args.profile)
+        lap("archs")
     if "cli" in phases:
         phase_cli()
+        lap("cli")
     table = []
     for n in ops.KERNELS:
         if n in rows:

@@ -1,7 +1,8 @@
 """Model configuration (dense family) and the architecture registry.
 
 Counterpart of ``repro/configs/base.py``, cut to the fields the dense
-serving path reads: RMSNorm, SwiGLU MLP, RoPE, GQA, no biases, untied head.
+serving path reads: RMSNorm or LayerNorm, SwiGLU or tanh-GELU MLP, RoPE,
+GQA, optional q/k/v bias, untied head.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     rope_theta: float = 1_000_000.0
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    mlp_act: str = "swiglu"      # swiglu | gelu
     norm_eps: float = 1e-5
 
     @property
@@ -35,7 +39,8 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
 
-ARCH_IDS = ["llama3_8b"]
+ARCH_IDS = ["llama3_8b", "llama3_70b", "mistral_nemo_12b", "qwen2_72b",
+            "qwen2p5_32b", "starcoder2_15b"]
 
 
 def _module(arch: str):

@@ -66,10 +66,14 @@ def quantize_act(spec: QLinearSpec, x: torch.Tensor) -> QuantAct:
 
 
 def qlinear_gemm(spec: QLinearSpec, qparams, qa: QuantAct) -> torch.Tensor:
-    """The W4Ax GEMM of a quantized activation → [..., N] in its dtype."""
+    """The W4Ax GEMM of a quantized activation → [..., N] in its dtype;
+    a projection's f32 bias ``b`` is added to the f32 GEMM output before
+    that one cast (under the split schedule ``(K3 + K4) + b``)."""
     out = ops.w4ax_matmul(qa.a4, qa.s4, qa.a8, qa.s8, qparams["w_packed"],
                           qparams["w_scale"], schedule=spec.schedule,
                           impl=spec.impl)
+    if "b" in qparams:
+        out = out + qparams["b"]
     return out.to(qa.dtype)
 
 

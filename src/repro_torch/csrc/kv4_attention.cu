@@ -26,17 +26,17 @@
 
 // q [B, Hq, D] (q_bf16: bf16, else f32); k/v uint8 [B, hkv, t_len, D/2];
 // scales/zeros f32 [hkv, D] (sb 0) or [B, hkv, D] (sb hkv·D); length [B]
-// int32 → out [B, Hq, D] f32. d must be 128, g ≤ 8; every pointer is
-// contiguous. The launch plan (dense_plan at C = 1 with one "page" of
-// t_len keys; rows 8) as dense_plan_ok says; scratch null or f32
-// [B·hkv·split·8·sstride].
+// int32 → out [B, Hq, D] f32. d must be 128, g ≥ 1 (any GQA group); every
+// pointer is contiguous. The launch plan (dense_plan at C = 1 with one
+// "page" of t_len keys) as dense_plan_ok says; scratch null or f32
+// [B·hkv·tiles·split·rows·sstride].
 extern "C" int kv4_decode_attention(
     const void* q, int q_bf16, const uint8_t* k_packed,
     const uint8_t* v_packed, const float* ks, const float* kz,
     const float* vs, const float* vz, int sb, const int* length, float* out,
     float* scratch, int b, int hkv, int g, int t_len, int d, int rows,
     int split, int sstride, int smem, cudaStream_t stream) {
-  if (d != D || g < 1 || g > 8 || rows != 8 ||
+  if (d != D || g < 1 ||
       !dense_plan_ok(rows, split, sstride, smem, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
@@ -44,7 +44,10 @@ extern "C" int kv4_decode_attention(
                       v_packed, nullptr, length, nullptr, out, scratch, 1, g,
                       hkv, 1, t_len, sstride, q_bf16, sb};
     const cudaError_t e =
-        launch_dense<1, false, false>(a, b, split, smem, stream);
+        rows == 8 ? launch_dense<1, false, false>(a, b, split, smem, stream)
+        : rows == 16
+            ? launch_dense<2, false, false>(a, b, split, smem, stream)
+            : launch_dense<4, false, false>(a, b, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

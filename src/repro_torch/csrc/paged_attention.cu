@@ -45,8 +45,9 @@
 // paged_kv4_decode_wq (K8) — replaces paged_kv4_decode_attention_wq
 // (_paged_kv4_decode_wq_kernel, with the pre-fold before it and the
 // combine and V affine after it): the same kernel with DECODE set, at
-// C = 1 over page items only (work_plan at C = 1: one 8-row job per item,
-// G query rows valid; zero jobs for the rows no item covers). Unlike K9's
+// C = 1 over page items only (work_plan at C = 1: one job per item and
+// row tile of 8, 16 or 32 rows, G query rows valid, any G; zero jobs for
+// the rows no item covers). Unlike K9's
 // page items, the partial stays in nibble space, (Σ p·n_v, Σ p, m), as the
 // reference's; the last block of a row combines its partials and then
 // applies the V affine s_v·comb − s_v·z_v (two f32 products, one f32
@@ -527,22 +528,25 @@ extern "C" int paged_kv4_prefill_wq(
 // desc int32 [W, 4] (page items); jobs int32 [njobs, 4] (work_plan at
 // C = 1); q [B, Hq, D] (q_bf16: bf16, else f32); ks/kz/vs/vz f32 [hkv, D]
 // (sb 0) or [B, hkv, D] (sb hkv·D); pools uint8 [P, ps, hkv, D/2] → out f32
-// [B, Hq, D]. part, arrive and scratch as WqArgs says; rows must be 8, g
-// ≤ 8, the plan as wq_plan_ok says. All contiguous; d must be 128.
+// [B, Hq, D]. part, arrive and scratch as WqArgs says; g ≥ 1 (any GQA
+// group: the plan's rows are 8, 16 or 32, several tiles past 32), the plan
+// as wq_plan_ok says. All contiguous; d must be 128.
 extern "C" int paged_kv4_decode_wq(
     const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
     const float* ks, const float* kz, const float* vs, const float* vz,
     int sb, const uint8_t* k_pool, const uint8_t* v_pool, float* out,
     float* part, int* arrive, float* scratch, int g, int hkv, int ps, int d,
     int rows, int sstride, int smem, cudaStream_t stream) {
-  if (d != D || g < 1 || g > 8 || rows != 8 ||
-      !wq_plan_ok(rows, sstride, smem, scratch))
+  if (d != D || g < 1 || !wq_plan_ok(rows, sstride, smem, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (njobs > 0) {
     const WqArgs a{desc, jobs, q, nullptr, nullptr, ks, kz, vs, vz, k_pool,
                    v_pool, out, part, arrive, scratch, 1, g, hkv, ps,
                    sstride, q_bf16, sb};
-    const cudaError_t e = launch_wq<1, true>(a, njobs, smem, stream);
+    const cudaError_t e =
+        rows == 8 ? launch_wq<1, true>(a, njobs, smem, stream)
+        : rows == 16 ? launch_wq<2, true>(a, njobs, smem, stream)
+                     : launch_wq<4, true>(a, njobs, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -27,23 +27,27 @@
 // q [B, Hq, D] (q_bf16: bf16, else f32); pools uint8 [P, ps, hkv, D/2];
 // scales/zeros f32 [Hkv, D] (sb 0) or [B, Hkv, D] (sb Hkv·D); tables
 // [B, np] int32; length [B] int32 → out [B, Hq, D] f32. d must be 128,
-// g ≤ 8; every pointer is contiguous. The launch plan
-// (kernels/kv4_attention.py:dense_plan at C = 1; rows 8) as
-// dense_plan_ok says; scratch null or f32 [B·hkv·split·8·sstride].
+// g ≥ 1 (any GQA group: rows of 8, 16 or 32, several row tiles past 32);
+// every pointer is contiguous. The launch plan
+// (kernels/kv4_attention.py:dense_plan at C = 1) as dense_plan_ok says;
+// scratch null or f32 [B·hkv·tiles·split·rows·sstride].
 extern "C" int paged_kv4_decode(
     const void* q, int q_bf16, const uint8_t* k_pool, const uint8_t* v_pool,
     const float* ks, const float* kz, const float* vs, const float* vz,
     int sb, const int* tables, const int* length, float* out,
     float* scratch, int b, int hkv, int g, int np, int ps, int d, int rows,
     int split, int sstride, int smem, cudaStream_t stream) {
-  if (d != D || g < 1 || g > 8 || rows != 8 ||
+  if (d != D || g < 1 ||
       !dense_plan_ok(rows, split, sstride, smem, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
     const DenseArgs a{q, nullptr, nullptr, ks, kz, vs, vz, k_pool, v_pool,
                       tables, length, nullptr, out, scratch, 1, g, hkv, np,
                       ps, sstride, q_bf16, sb};
-    const cudaError_t e = launch_dense<1, false>(a, b, split, smem, stream);
+    const cudaError_t e =
+        rows == 8 ? launch_dense<1, false>(a, b, split, smem, stream)
+        : rows == 16 ? launch_dense<2, false>(a, b, split, smem, stream)
+                     : launch_dense<4, false>(a, b, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -123,10 +123,10 @@ def shared_scales(scales, b: int, hkv: int, d: int):
             .contiguous() for s in scales], hkv * d
 
 
-def check_kv4_inputs(q, k, v, d: int, what: str, g=None):
+def check_kv4_inputs(q, k, v, d: int, what: str):
     """What every KV4 attention kernel takes: CUDA tensors, head_dim 128,
-    contiguous uint8 KV; for the decode kernels (``g`` given) a GQA group
-    of 1, 2, 4 or 8 query heads per kv head."""
+    contiguous uint8 KV. Any GQA group: the launch plans size the row
+    tiles to C·G."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{what} kernel needs CUDA tensors ({name} is "
@@ -136,9 +136,6 @@ def check_kv4_inputs(q, k, v, d: int, what: str, g=None):
     if (k.dtype != torch.uint8 or v.dtype != torch.uint8
             or not k.is_contiguous() or not v.is_contiguous()):
         raise ValueError(f"{what}: packed KV must be contiguous uint8")
-    if g is not None and g not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: built for 1, 2, 4 or 8 query heads per "
-                         f"kv head, got {g}")
 
 
 class DensePlan(NamedTuple):
@@ -211,13 +208,12 @@ def kv4_decode_attention(q, k_packed, k_scale, k_zero, v_packed, v_scale,
                          v_zero, length) -> torch.Tensor:
     """The K10 kernel: same arguments as :func:`kv4_decode_attention_ref`
     (``length`` required) and its f32 result, bit for bit on the card. q
-    f32 or bf16; Hq/Hkv ∈ {1, 2, 4, 8}; T any length (keys at or past
+    f32 or bf16; any Hq/Hkv; T any length (keys at or past
     ``min(length, T)`` are never read)."""
     b, hq, d = q.shape
     hkv, t = k_packed.shape[1], k_packed.shape[2]
     k_packed, v_packed = k_packed.contiguous(), v_packed.contiguous()
-    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention",
-                     hq // hkv)
+    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention")
     (ks, kz, vs, vz), sb = shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
     q_bf16 = q.dtype == torch.bfloat16

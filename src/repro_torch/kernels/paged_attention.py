@@ -506,11 +506,10 @@ def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
     """The K6 kernel: same arguments and result as the plain version (bit
     for bit on the card), in one launch of the dense kernel K7 runs, at
     C = 1 with no chunk keys (:func:`kv4_attention.dense_plan` sizes its cluster split).
-    Hq/Hkv ∈ {1, 2, 4, 8}; q f32 or bf16."""
+    Any Hq/Hkv (rows of 8, 16 or 32 sized to G); q f32 or bf16."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention",
-                        hq // hkv)
+    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention")
     dev = q.device
     (ks, kz, vs, vz), sb = KA.shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
@@ -609,14 +608,14 @@ def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
     row). ``plan`` is the :class:`WorkPlan` of these descriptors at C = 1
     (:func:`work_plan`, built on the host); without one (or with a
     :class:`CombinePlan`) the descriptors are read back to build it. q f32
-    or bf16; Hq/Hkv ∈ {1, 2, 4, 8}; any page size (a job's scores stay in
+    or bf16; any Hq/Hkv; any page size (a job's scores stay in
     shared memory up to 4,736 keys, beyond that in a scratch buffer). The
     arrival counters are K9's (one launch at a time per device)."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     g = hq // hkv
-    KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention_wq",
-                        g)
+    KA.check_kv4_inputs(q, k_pool, v_pool, d,
+                        "paged_kv4_decode_attention_wq")
     dev = q.device
     if not isinstance(plan, WorkPlan) or plan.cg != g:
         plan = work_plan(work_items.cpu().numpy(), b * hkv, 1, g, dev)

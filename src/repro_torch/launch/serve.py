@@ -39,6 +39,8 @@ Usage:
       --schedule mixed --requests 8 --prompt-len 512 --max-new 32 \\
       --prefill-chunk 256 --shared-prefix 128 --abort-every 4 \\
       --max-waiting 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b \\
+      --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.models.lm import LM, QuantConfig
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 
@@ -67,7 +70,8 @@ def _ms_stats(xs: list) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"one of {', '.join(ARCH_IDS)}")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke configuration")
     ap.add_argument("--device", default="cuda",

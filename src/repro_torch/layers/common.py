@@ -1,9 +1,12 @@
-"""Shared layer primitives (``repro/layers/common.py``): RMSNorm, RoPE and
-the linear dispatch (packed W4 params → W4Ax; plain ``w`` → bf16 matmul),
-one projection at a time or several of one input sharing its act-quant.
+"""Shared layer primitives (``repro/layers/common.py``): RMSNorm,
+LayerNorm, RoPE and the linear dispatch (packed W4 params → W4Ax; plain
+``w`` → bf16 matmul), one projection at a time or several of one input
+sharing its act-quant.
 
 Rounding points follow the reference: norms and RoPE compute in f32 and
-return the input dtype; every projection returns bf16.
+return the input dtype; every projection returns bf16 (a plain ``w``
+projection adds its bias ``b`` in bf16, a packed one in f32 before its
+one cast).
 """
 
 from __future__ import annotations
@@ -12,8 +15,8 @@ import torch
 
 from repro_torch.core import qlinear as QL
 
-__all__ = ["rmsnorm", "rope_frequencies", "apply_rope", "linear", "linears",
-           "resolve_device", "no_tf32"]
+__all__ = ["rmsnorm", "layernorm", "apply_norm", "rope_frequencies",
+           "apply_rope", "linear", "linears", "resolve_device", "no_tf32"]
 
 
 def resolve_device(device) -> torch.device:
@@ -41,11 +44,31 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (x * torch.rsqrt(var + eps) * scale).to(dt)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
+
+
+def apply_norm(params, x: torch.Tensor, kind: str, eps: float = 1e-5):
+    """The config's norm (``ModelConfig.norm``) with its parameters."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"], eps)
+    return layernorm(x, params["scale"], params["bias"], eps)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None):
+    """1/θ^(i/half) in f32. The power is taken in f64 and rounded once:
+    the reference's f32 ``theta ** e`` is the correctly rounded power,
+    which an f32 ``torch.pow`` misses by one ulp on some exponents (one of
+    64 at θ = 10⁶, head_dim 128)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    theta32 = torch.tensor(theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(theta32.double(), exps.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -64,7 +87,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 def linear(params, x: torch.Tensor, quant=None) -> torch.Tensor:
     if "w_packed" in params:
         return QL.dispatch_qlinear(params, x, quant).to(torch.bfloat16)
-    return x.to(torch.bfloat16) @ params["w"].to(torch.bfloat16)
+    y = x.to(torch.bfloat16) @ params["w"].to(torch.bfloat16)
+    if "b" in params:
+        y = y + params["b"].to(torch.bfloat16)
+    return y
 
 
 def linears(params_list, x: torch.Tensor, quant=None) -> list:

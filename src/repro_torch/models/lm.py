@@ -13,8 +13,12 @@ leading axis (the engine walks layers in a Python loop)::
 
 where each projection is ``{"w": f32 [K, N]}`` before :meth:`LM.quantize`
 and ``{"w_packed": uint8 [K/2, N], "w_scale": f32 [K/128, N]}`` after.
+The config adds: a ``"bias"`` to every norm under ``norm="layernorm"``, an
+f32 ``"b"`` [N] to ``wq``/``wk``/``wv`` under ``qkv_bias`` (kept through
+quantization), and no ``w_gate`` under ``mlp_act="gelu"``.
 Random weights follow the reference's initializers (truncated normal in
-[-2, 2] scaled by 1/√fan_in; unit-scale embedding) from a seeded
+[-2, 2] scaled by 1/√fan_in; unit-scale embedding; norm scales 1, norm
+and projection biases 0) from a seeded
 ``torch.Generator`` — the same distribution, not the same numbers.
 """
 
@@ -62,28 +66,36 @@ class LM:
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return w.mul_(scale)
 
-    def _linear(self, d_in, d_out, gen, device):
-        return {"w": self._trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in),
-                                        gen, device)}
+    def _linear(self, d_in, d_out, gen, device, bias=False):
+        p = {"w": self._trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in),
+                                     gen, device)}
+        if bias:
+            p["b"] = torch.zeros(d_out, device=device)
+        return p
+
+    def _norm(self, device) -> dict:
+        d = self.cfg.d_model
+        p = {"scale": torch.ones(d, device=device)}
+        if self.cfg.norm == "layernorm":
+            p["bias"] = torch.zeros(d, device=device)
+        return p
 
     def init_block(self, gen: torch.Generator, device) -> dict:
         """One fp block (f32 weights) on ``device``."""
         cfg = self.cfg
-        d = cfg.d_model
-
-        def ones():
-            return {"scale": torch.ones(d, device=device)}
-
+        d, qb = cfg.d_model, cfg.qkv_bias
+        mlp = {"w_up": self._linear(d, cfg.d_ff, gen, device),
+               "w_down": self._linear(cfg.d_ff, d, gen, device)}
+        if cfg.mlp_act == "swiglu":
+            mlp["w_gate"] = self._linear(d, cfg.d_ff, gen, device)
         return {
-            "attn_norm": ones(),
-            "attn": {"wq": self._linear(d, cfg.q_dim, gen, device),
-                     "wk": self._linear(d, cfg.kv_dim, gen, device),
-                     "wv": self._linear(d, cfg.kv_dim, gen, device),
+            "attn_norm": self._norm(device),
+            "attn": {"wq": self._linear(d, cfg.q_dim, gen, device, qb),
+                     "wk": self._linear(d, cfg.kv_dim, gen, device, qb),
+                     "wv": self._linear(d, cfg.kv_dim, gen, device, qb),
                      "wo": self._linear(cfg.q_dim, d, gen, device)},
-            "mlp_norm": ones(),
-            "mlp": {"w_up": self._linear(d, cfg.d_ff, gen, device),
-                    "w_down": self._linear(cfg.d_ff, d, gen, device),
-                    "w_gate": self._linear(d, cfg.d_ff, gen, device)},
+            "mlp_norm": self._norm(device),
+            "mlp": mlp,
         }
 
     def init(self, seed: int = 0, device="cuda"):
@@ -97,7 +109,7 @@ class LM:
         params = {
             "embed": {"table": self._trunc_normal(
                 (cfg.vocab_size, cfg.d_model), 1.0, gen, dev)},
-            "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
+            "final_norm": self._norm(dev),
             "lm_head": self._linear(cfg.d_model, cfg.vocab_size, gen, dev),
             "blocks": [],
         }
@@ -111,13 +123,16 @@ class LM:
     # ------------------------------------------------------ offline PTQ
 
     def quantize_block(self, block: dict) -> dict:
-        """Replace every projection ``{"w"}`` of a block by packed W4."""
+        """Replace every projection ``{"w"}`` of a block by packed W4 (its
+        bias ``b``, if any, kept in f32)."""
         def tx(tree):
             out = {}
             for key, val in tree.items():
                 if key in QUANT_KEYS and "w" in val:
                     packed, scale = Q.quantize_weight_int4(val["w"])
                     out[key] = {"w_packed": packed, "w_scale": scale}
+                    if "b" in val:
+                        out[key]["b"] = val["b"]
                 elif isinstance(val, dict):
                     out[key] = tx(val)
                 else:

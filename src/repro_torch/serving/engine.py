@@ -3,11 +3,13 @@
 The default step (``unified_step=True``, chunked prefill, paged decode)
 issues ONE forward for the union of decode rows (a chunk of 1 with int4
 paged history) and prompt chunks of partially prefilled requests, packed
-into a ragged token stream. Per layer: RMSNorm → q/k/v through W4Ax
-(act-quant int4 + int8 → W4A4 + W4A8) → RoPE → quantize the step's KV and
-write it into the int4 pools (in place) → paged attention (fp chunk
-queries over int4 history pages plus each row's causal fp chunk) → wo →
-SwiGLU MLP, both W4Ax. Attention follows ``attention_schedule``: the
+into a ragged token stream. Per layer: the config's norm (RMSNorm or
+LayerNorm) → q/k/v through W4Ax (act-quant int4 + int8 → W4A4 + W4A8,
+plus the q/k/v bias where the config has one) → RoPE → quantize the
+step's KV and write it into the int4 pools (in place) → paged attention
+(fp chunk queries over int4 history pages plus each row's causal fp
+chunk) → wo → the MLP (SwiGLU, or StarCoder2's tanh-GELU), both W4Ax.
+Attention follows ``attention_schedule``: the
 work-queue kernel with its split-KV combine, or the dense block-table
 kernel. A step in which no row has history yet uses plain fp causal
 attention instead. The head runs on the last token of each row and greedy
@@ -583,7 +585,7 @@ class Engine:
         x = self.lm.embed(params, tokens[None, :])
         pos2 = positions[None, :]
         for li, bp in enumerate(params["blocks"]):
-            h = C.rmsnorm(x, bp["attn_norm"]["scale"], cfg.norm_eps)
+            h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
             q, k, v = ATT.project_qkv(bp["attn"], cfg, h, pos2, quant)
             kq, vq = KVC.quantize_kv_with(k, v, *scales)  # [1, Hkv, Tb, D/2]
             cache.write_kv(li, pages, offs, kq[0].transpose(0, 1),
@@ -607,10 +609,10 @@ class Engine:
                     tables, ctx, qlens, impl=quant.impl)
             a = out[gseq, toff][None].to(x.dtype).reshape(1, -1, cfg.q_dim)
             x = x + C.linear(bp["attn"]["wo"], a, quant)
-            h = C.rmsnorm(x, bp["mlp_norm"]["scale"], cfg.norm_eps)
-            x = x + MLP.mlp_apply(bp["mlp"], h, quant)
-        h = C.rmsnorm(x[:, last_idx], params["final_norm"]["scale"],
-                      cfg.norm_eps)
+            h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+            x = x + MLP.mlp_apply(bp["mlp"], h, quant, cfg.mlp_act)
+        h = C.apply_norm(params["final_norm"], x[:, last_idx], cfg.norm,
+                         cfg.norm_eps)
         return self.lm.head(params, h)[0]
 
     # ----------------------------------------- split-step baselines
@@ -650,22 +652,22 @@ class Engine:
 
     def _layers(self, x, positions, attend):
         """Every layer around ``attend(li, q, k, v)`` → the attention
-        output ``[..., Hq, D]`` (RMSNorm, q/k/v with RoPE, wo, SwiGLU
-        MLP) → the last hidden state."""
+        output ``[..., Hq, D]`` (the config's norm, q/k/v with RoPE, wo,
+        the config's MLP) → the last hidden state."""
         cfg, quant = self.cfg, self.quant
         for li, bp in enumerate(self.params["blocks"]):
-            h = C.rmsnorm(x, bp["attn_norm"]["scale"], cfg.norm_eps)
+            h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
             q, k, v = ATT.project_qkv(bp["attn"], cfg, h, positions, quant)
             a = attend(li, q, k, v).to(x.dtype).reshape(*x.shape[:2],
                                                          cfg.q_dim)
             x = x + C.linear(bp["attn"]["wo"], a, quant)
-            h = C.rmsnorm(x, bp["mlp_norm"]["scale"], cfg.norm_eps)
-            x = x + MLP.mlp_apply(bp["mlp"], h, quant)
+            h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+            x = x + MLP.mlp_apply(bp["mlp"], h, quant, cfg.mlp_act)
         return x
 
     def _logits(self, x) -> np.ndarray:
-        h = C.rmsnorm(x, self.params["final_norm"]["scale"],
-                      self.cfg.norm_eps)
+        h = C.apply_norm(self.params["final_norm"], x, self.cfg.norm,
+                         self.cfg.norm_eps)
         return self.lm.head(self.params, h).cpu().numpy()
 
     @torch.no_grad()

@@ -18,31 +18,43 @@ from repro_torch.kernels import w4ax_matmul as WK
 from repro_torch.serving.kv_cache import build_work_queue
 
 
+# GQA groups: the powers of two, then Qwen2.5-32B's 5, StarCoder2-15B's 12
+# and 3 and 16 (the decode kernels' 16-row tile, full and partial)
+GROUPS = [1, 2, 4, 8, 3, 5, 12, 16]
+
+
 def _cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
 
 def _device_launches(fn, calls: int = 3, tries: int = 5) -> float:
     """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``:
-    ``calls`` calls traced between two marker kernels
-    (``torch.cuda._sleep``). A later profiling session of a process now
-    and then comes back without the card's activity; a trace that does not
-    hold both markers is taken again, at most ``tries`` times, and never
-    counted."""
+    ``calls`` calls traced between marker kernels (``torch.cuda._sleep``),
+    two before and one after, counted on the trace's timeline between
+    them. A profiling session of a process can miss the first kernel it
+    should see (the first leading marker, after many earlier tests) or
+    come back without the card's activity; a trace whose op kernels are
+    not bracketed by markers is taken again, at most ``tries`` times, and
+    never counted."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        seen = [(e.key, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(n for k, n in seen if "spin_kernel" in k) == 2:
-            return sum(n for k, n in seen if "spin_kernel" not in k) / calls
+        marks = [("spin_kernel" in e.name) for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        op = [i for i, m in enumerate(marks) if not m]
+        if (len(marks) >= 2 and marks[0] and marks[-1]
+                and not (op and any(marks[op[0]:op[-1] + 1]))):
+            return len(op) / calls
     pytest.fail(f"torch.profiler lost the card's activity in {tries} traces")
 
 
@@ -97,9 +109,13 @@ def test_kernels_match_plain_on_card():
             bi, float((got[bi, :ql] - want[bi, :ql]).abs().max()))
 
 
-# (K, k4): the test model's 1,024 (7 + 1 blocks) and Llama-3-8B's q/k/v,
-# wo, up/gate and down projections at int4_fraction 0.875
-FUSED_K = ((1024, 896), (4096, 3584), (14336, 12544))
+# (K, k4): the test model's 1,024 (7 + 1 blocks), Llama-3-8B's q/k/v, wo,
+# up/gate and down projections at int4_fraction 0.875, and the other
+# dense configurations' d_model and d_ff (5,120, 6,144, 8,192; 24,576,
+# 27,648, 28,672 and Qwen2-72B's 29,568: 231 blocks, an odd 202 + 29)
+FUSED_K = ((1024, 896), (4096, 3584), (14336, 12544), (5120, 4480),
+           (6144, 5376), (8192, 7168), (24576, 21504), (27648, 24192),
+           (28672, 25088), (29568, 25856))
 
 
 def _act_input(gen, m: int, k: int, k4: int, dtype):
@@ -292,6 +308,32 @@ def test_w4ax_tiles_match_plain_exactly_on_card(n):
         assert torch.equal(got, want), ("mixed", m, n, nb4, nb8)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(28672, 8192), (8192, 28672),
+                                 (8192, 29568)])
+def test_w4ax_archs_shapes_exact_on_card(n, k):
+    """K3 and K4 bit for bit at the new configurations' widest
+    projections — Llama-3-70B's up/gate (N 28,672, K 8,192) and down
+    (K 28,672), Qwen2-72B's down (K 29,568: 202 int4 blocks and an odd 29
+    int8 blocks) — at M = 8 (decode tile) and 256 (prefill tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(n + k)
+    nb = k // 128
+    nb4 = int(round(0.875 * nb))
+    for m in (8, 256):
+        a4, s4, a8, s8, w, ws = _gemm_operands(rng, m, nb4, nb - nb4, n)
+        w4, ws4 = w[:nb4 * 64], ws[:nb4]
+        w8, ws8 = w[nb4 * 64:], ws[nb4:]
+        got = WK.w4a4_matmul(a4, s4, w4, ws4)
+        assert torch.equal(got, WK.w4a4_matmul_ref(a4, s4, w4, ws4)), (
+            "w4a4", m)
+        got = WK.w4a8_matmul(a8, s8, w8, ws8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, WK.w4a8_matmul_ref(a8, s8, w8, ws8)), (
+            "w4a8", m)
+
+
 def _dense_case(rng, ctx, qls, c, hq, hkv, ps, extra_pages=2):
     """K7 inputs: one row per (history, q_len), its pages scattered over
     the pool, −1 past each row's pages; f32 query and chunk."""
@@ -446,6 +488,23 @@ def test_wq_prefill_exact_on_card(c, ps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4, 256])
+def test_wq_prefill_group12_exact_on_card(c):
+    """K9 at StarCoder2-15B's GQA group (G = 12; C·G rows on 16- and
+    32-row tiles, several tiles a row at C = 4 and 256) bit for bit on
+    the valid rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(200 + c)
+    hq, hkv, ps = 24, 2, 64
+    ctx, qls = ([40, 10 * ps + 3, 0, ps], [1, 1, 1, 1]) if c == 1 else (
+        [0, 10 * ps + 3, 17], [c, max(1, c // 2), 1])
+    args, desc = _wq_case(rng, ctx, qls, c, hq, hkv, ps, len(ctx) + 1)
+    plan = _wq_exact(args, desc, qls)
+    assert plan.rows == (16 if c == 1 else 32)
+
+
+@pytest.mark.cuda
 def test_wq_prefill_scratch_scores_exact_on_card():
     """K9 with a chunk longer than its scores' shared-memory room (C =
     1,300 at 32-row tiles): the scores go to the scratch buffer."""
@@ -457,7 +516,7 @@ def test_wq_prefill_scratch_scores_exact_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", GROUPS)
 def test_dense_decode_exact_on_card(g):
     """K6 bit for bit against its plain version: lengths 1, ps−1, ps,
     ps+1, 487 and a long row, −1 table entries past each row's pages,
@@ -557,7 +616,7 @@ def _scale_sets(rng, b, hkv, d=128):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", GROUPS)
 @pytest.mark.parametrize("ps", [16, 64, 128])
 def test_wq_decode_exact_on_card(ps, g):
     """K8 bit for bit against its plain version on every output row, in
@@ -609,7 +668,7 @@ def test_wq_decode_is_one_launch_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", GROUPS)
 def test_contiguous_decode_exact_on_card(g):
     """K10 on the dense kernel bit for bit against its plain version: T
     not a multiple of 8 (70, 487), lengths 1 and below T, T = 6,000, and
