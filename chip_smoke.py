@@ -34,16 +34,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    decode kernels' inputs; the work-queue decode op (K8) is the whole op
    in one launch, counted the same way; K6, K8, K10 and K9 (C = 1) again
    at GQA groups 5 and 12 on 40/8- and 48/4-head decode batches, K9 at
-   G = 12 and C = 256 (under ``G=5``, ``G=12``, ``G=12 C=256``);
+   G = 12 and C = 256 (under ``G=5``, ``G=12``, ``G=12 C=256``), and K9
+   at speculative decode's verify shape, the decode batch's rows each a
+   chunk of 5 queries padded to 8 (under ``C=5 spec``);
 3. parity: three 2-layer d_model-1024 models (Llama-shaped; Qwen2.5-
    shaped, 10/2 heads, QKV bias; StarCoder2-shaped, 12/1 heads, QKV bias,
    LayerNorm, GELU; biases seeded non-zero) served on the card in every
    engine configuration (the unified step under both attention
    schedules, the split step under both and under the work queue with
    pages of 128 keys, whole-prompt prefill with gather decode, the
-   unified step under the mixed W4Ax schedule), twice each, with the
-   kernels and with ``impl="ref"``: first logits to 2e-2·max|logit|,
-   greedy agreement ≥ 0.9;
+   unified step under the mixed W4Ax schedule, the unified step with every
+   request sampled at T = 0.8 from its top 40 with 4 drafts a decode row),
+   twice each, with the kernels and with ``impl="ref"``: first logits to
+   2e-2·max|logit|, token agreement ≥ 0.9, drafted = accepted + rolled
+   back;
 4. slice: Llama-3-8B at full width and depth (random seeded weights),
    default ``EngineConfig`` but ``prefill_chunk_tokens=256``, 8 requests
    of 128–512 prompt tokens × 32 new tokens, greedy, to completion; every
@@ -57,7 +61,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    dense; (e) the default step under the paper's mixed W4Ax schedule —
    with the same checks, each run launching its own kernels ((e) the
    mixed GEMM and never the W4A4/W4A8 pair);
-6. archs: Llama-3-70B at full width and depth (80 layers) serving the
+6. spec: Llama-3-8B at full width and depth, 8 requests whose prompts
+   repeat one seeded 24-token pattern up to 128–512 tokens × 32 new
+   tokens, ``prefill_chunk_tokens=256``, the sanitizers on, served (a)
+   greedy, (b) greedy with 4 drafts a row, (c) at T = 0.8, top_k 40 with
+   3 drafts, twice, and (d) as (b) under an injected schedule (a raising
+   draft source, a failing verification, NaN logits): no internal error,
+   a sanitizer pass every step, the pages back to the pool, the path's
+   kernels launched; (b) accepts drafts in fewer forwards than (a), (c)
+   replays its tokens, (d) fails exactly the requests its faults hit;
+7. archs: Llama-3-70B at full width and depth (80 layers) serving the
    ``slice`` workload with its checks (the fused act-quant exactly 4 × 80
    × forwards times), after the time to make its weights, the packed
    model's bytes against the ≈ 40.5 GB reckoned by hand and the peak
@@ -67,12 +80,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    non-zero, each serving the same workload (Qwen2.5-32B and
    StarCoder2-15B also in baselines a, b and c: every decode kernel at G
    = 5 and 12);
-7. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
+8. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
    subprocess on Llama-3-8B at full width and depth under the mixed
    schedule, 8 requests of 384–640 prompt tokens (128 shared) × 32 new
    tokens with a 6-deep waiting queue and every 4th request aborted: 2
    must be rejected (``queue_full``), 1 aborted and 5 finish with 32
-   tokens, with no failed step, internal or callback error.
+   tokens, with no failed step, internal or callback error; then again
+   with ``--temperature 0.8 --top-k 40 --speculation 3 --sanitize``: the
+   same counts, the speculation line (drafted = accepted + rolled back)
+   and a sanitizer check every step.
 
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
@@ -104,8 +120,8 @@ import time
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernels", "parity", "slice", "baselines", "archs", "cli")
-EXTRA_PHASES = ("times",)      # only when named
+PHASES = ("kernels", "parity", "slice", "baselines", "spec", "archs", "cli")
+EXTRA_PHASES = ("times", "specdiag")      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -645,6 +661,64 @@ def check_attention(torch, cfg, KVC, PA, Q, rows: dict, key=None):
         "library_ms": library_ms})
 
 
+SPEC_C, SPEC_CB = 5, 8     # a k = 4 verify chunk, padded to its bucket
+
+
+def check_spec_attention(torch, cfg, KVC, PA, Q, rows: dict):
+    """K9 at the verify shape of speculative decode: the decode batch's
+    rows (histories ``DECODE_LENS``), each a chunk of ``SPEC_C`` valid
+    queries (the last sampled token and 4 drafts) padded to ``SPEC_CB``,
+    bit for bit against its plain version, one or two launches a call,
+    with SDPA on the same keys; an entry under K9's row, ``C=5 spec``."""
+    import torch.nn.functional as F
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    cache, gen = llama_cache(torch, cfg, KVC,
+                             [(n, SPEC_C) for n in DECODE_LENS], 5)
+    slots = list(range(len(DECODE_LENS)))
+    b = len(slots)
+    takes = [SPEC_C] * b
+    desc = cache.work_queue_np(slots, DECODE_LENS, takes, pad_row=b * hkv)
+    q = torch.zeros((b, SPEC_CB, hq, d), device="cuda", dtype=torch.bfloat16)
+    q[:, :SPEC_C] = torch.randn((b, SPEC_C, hq, d), generator=gen,
+                                device="cuda").bfloat16()
+    kn, vn = (torch.zeros((b, SPEC_CB, hkv, d), device="cuda")
+              for _ in range(2))
+    for x in (kn, vn):
+        x[:, :SPEC_C] = torch.randn((b, SPEC_C, hkv, d), generator=gen,
+                                    device="cuda") * 4
+    pools = (cache.k_pool[0], cache.k_scale, cache.k_zero,
+             cache.v_pool[0], cache.v_scale, cache.v_zero)
+    args = (q, kn, vn) + pools + (torch.from_numpy(desc).cuda(),)
+    plan = PA.work_plan(desc, b * hkv, SPEC_CB, g, "cuda")
+    npb = 1 << (cache.pages_needed(max(DECODE_LENS)) - 1).bit_length()
+    tables = torch.from_numpy(cache.block_tables_np(slots, npb)).cuda()
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    qls = torch.full((b,), SPEC_C, dtype=torch.int32, device="cuda")
+    yard = sdpa_prefill_inputs(torch, Q, cache,
+                               (q, kn, vn) + pools + (tables, lens, qls), hq)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        yard[0], yard[1], yard[2], attn_mask=yard[3]))
+    del yard
+    op = lambda: PA.paged_kv4_prefill_attention_wq(*args, plan=plan)  # noqa: E731
+    ref = lambda: PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan)  # noqa: E731
+    label = "paged_kv4_prefill_attention_wq C=5 spec"
+    err = check_exact(label, op(), ref(), [(i, SPEC_C) for i in range(b)])
+    n = device_launches(torch, op)
+    if not 1 <= n <= 2:
+        fail(f"{label}: {n:g} kernel launches a call")
+    shape = (f"B={b} C={SPEC_C} (of {SPEC_CB}) Hq={hq} Hkv={hkv} G={g} D={d} "
+             f"T={max(DECODE_LENS)} W={desc.shape[0]}")
+    say(f"[kernels] paged_kv4_prefill_attention_wq {shape}: max err {err:.3g}"
+        f"; {n:g} launch(es) a call, {plan.jobs.shape[0]} blocks of "
+        f"{plan.rows} rows")
+    put(rows, "paged_kv4_prefill_attention_wq", "C=5 spec", {
+        "shape": shape, "max_abs_err": err, "rows": plan.rows,
+        "ms": time_ms(torch, op), "plain_ms": time_ms(torch, ref),
+        **bound(*prefill_bound(DECODE_LENS, takes, hkv, g, d)),
+        "library_ms": library_ms, "launches_per_call": n})
+
+
 def device_launches(torch, fn, calls: int = 3, tries: int = 5) -> float:
     """Kernels one call of ``fn`` puts on the card, by ``torch.profiler``
     (after a warm-up call): ``calls`` calls traced between marker kernels
@@ -911,14 +985,20 @@ def phase_times(torch, cfg, KVC, PA, KA, ops):
 # ------------------------------------------------------- phases 3 and 4
 
 def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
-          prompts, max_new, ecfg, quant_kw):
+          prompts, max_new, ecfg, quant_kw, sampling=None, faults=None):
     """Serve ``prompts`` to completion under ``QuantConfig(impl=impl,
-    **quant_kw)``; → (engine, the first logits the engine produced, host
+    **quant_kw)``, each request greedy or with ``SamplingParams`` fields
+    ``sampling`` (temperature, top_k, speculation); ``faults``: a fault
+    injector to arm; → (engine, the first logits the engine produced, host
     seconds per step). The unified step's logits come from
     ``_guarded_forward``, the split forwards' from the rows they hand to
-    ``_sample_batch``."""
+    ``_sample_batch``. A ``SanitizerError`` (``ecfg.sanitize``) fails the
+    script."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.sanitize import SanitizerError
     eng = Engine(cfg, params, QuantConfig(impl=impl, **quant_kw), ecfg,
-                 device="cuda")
+                 device="cuda", **({} if faults is None
+                                   else {"faults": faults}))
     first = []
     for name in ("_guarded_forward", "_sample_batch"):
         inner = getattr(eng, name)
@@ -932,14 +1012,50 @@ def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
 
         setattr(eng, name, capture)
     for i, p in enumerate(prompts):
-        eng.add_request(i, p, max_new)
+        if sampling is None:
+            eng.add_request(i, p, max_new)
+        else:
+            eng.submit(p, SamplingParams(max_new_tokens=max_new, **sampling),
+                       request_id=i)
+    # decode rows of each unified forward (tokens per decode row-forward)
+    eng.smoke_decode_rows = rows = []
+    inner_step = eng._forward_step
+
+    def forward_step(plan, decode, inner_step=inner_step):
+        rows.append(len(decode))
+        return inner_step(plan, decode)
+
+    eng._forward_step = forward_step
+    # host seconds in the sampler (the batched draw, and the verifier's
+    # walk over each verify chunk)
+    eng.smoke_sampler_s = {"sample": 0.0, "verify": 0.0}
+    for name, key in (("_sample_batch", "sample"),
+                      ("_verify_tokens", "verify")):
+        def timed(*a, inner=getattr(eng, name), key=key, **k):
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            eng.smoke_sampler_s[key] += time.perf_counter() - t0
+            return out
+
+        setattr(eng, name, timed)
     step_s = []
     while eng.sched.has_work and eng.steps < 10_000:
         t0 = time.perf_counter()
-        eng.step()
+        try:
+            eng.step()
+        except SanitizerError as e:
+            fail(f"sanitizer at step {eng.steps}: {e}")
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     return eng, first[0] if first else None, step_s
+
+
+def check_spec_counts(eng, label: str):
+    """Every drafted token was accepted or rolled back."""
+    d, a, r = (eng.spec_draft_tokens, eng.spec_accepted_tokens,
+               eng.spec_rollback_tokens)
+    if d != a + r:
+        fail(f"{label}: drafted {d} != accepted {a} + rolled back {r}")
 
 
 def check_run(eng, n_req: int, max_new: int, vocab: int, label: str):
@@ -969,9 +1085,13 @@ CONFIGS = {
     "whole gather": dict(prefill_mode="whole", decode_attention="gather"),
     "unified dense": dict(attention_schedule="dense"),
     "unified work_queue mixed": {},
+    "unified work_queue spec": {},
 }
 # the QuantConfig fields of a configuration beside impl
 QUANT = {"unified work_queue mixed": dict(schedule="mixed")}
+# the SamplingParams fields of a configuration beside max_new_tokens
+SAMPLING = {"unified work_queue spec": dict(temperature=0.8, top_k=40,
+                                            speculation=4)}
 
 
 def seed_biases(torch, params, seed: int):
@@ -1034,10 +1154,12 @@ def phase_parity(torch, np, mods):
                 eng, first, _ = serve(torch, np, Engine, EngineConfig,
                                       QuantConfig, cfg, params, impl,
                                       prompts, 16, ecfg,
-                                      QUANT.get(label, {}))
+                                      QUANT.get(label, {}),
+                                      SAMPLING.get(label))
+                tag = f"parity[{model}, {label}, {impl}]"
                 res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
-                                       f"parity[{model}, {label}, {impl}]"),
-                             first)
+                                       tag), first)
+                check_spec_counts(eng, tag)
             (tk, lk), (tr, lr) = res["auto"], res["ref"]
             if lk is None or lk.shape != lr.shape:
                 fail(f"parity[{model}, {label}]: first logits missing or "
@@ -1051,8 +1173,8 @@ def phase_parity(torch, np, mods):
             agree = sum(a == b for i in tr
                         for a, b in zip(tk[i], tr[i])) / total
             say(f"[parity] {model} {label}: first logits max err {err:.4g} "
-                f"(tol {tol:.4g}); greedy agreement {agree:.4f} over "
-                f"{total} tokens")
+                f"(tol {tol:.4g}); {'token' if label in SAMPLING else 'greedy'}"
+                f" agreement {agree:.4f} over {total} tokens")
             if agree < 0.9:
                 fail(f"parity[{model}, {label}]: greedy agreement {agree} "
                      f"< 0.9")
@@ -1192,6 +1314,245 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     return launches
 
 
+# the spec phase: Llama-3-8B, 8 requests whose prompts repeat one seeded
+# 24-token pattern up to 128–512 tokens, 32 new tokens each, sanitizers on
+SPEC_PATTERN = 24
+SPEC_FAULTS = "draft:nth=3,action=raise;verify:nth=2;forward:step=14,action=nan"
+SPEC_RUNS = (   # run, SamplingParams fields, fault schedule
+    ("a", dict(speculation=0), None),
+    ("b", dict(speculation=4), None),
+    ("c", dict(temperature=0.8, top_k=40, speculation=3), None),
+    ("c again", dict(temperature=0.8, top_k=40, speculation=3), None),
+    ("d", dict(speculation=4), SPEC_FAULTS),
+)
+SPEC_MUST = SPLIT + ("paged_kv4_prefill_attention_wq",)
+
+
+def spec_prompts(np, vocab: int):
+    rng = np.random.default_rng(0)
+    pattern = rng.integers(1, vocab, SPEC_PATTERN).tolist()
+    lens = rng.integers(128, 513, 8)
+    return [(pattern * (int(n) // SPEC_PATTERN + 1))[:int(n)]
+            for n in lens], lens
+
+
+def phase_spec(torch, np, mods, KERNELS, cfg, params):
+    """Speculative decode, stochastic sampling and fault injection on the
+    unified step at Llama-3-8B's full width and depth, under the
+    sanitizers (``SPEC_RUNS``): (a) greedy; (b) greedy with 4 drafts a
+    row; (c) T = 0.8, top_k 40, 3 drafts, served twice; (d) (b) under
+    ``SPEC_FAULTS``. Each run: no internal error, a sanitizer pass every
+    step, the pages back to the pool, the path's kernels launched and
+    the fused act-quant 4 × layers × forwards times; (a)–(c) every
+    request 32 tokens; (b) accepted drafts, drafted = accepted + rolled
+    back, fewer forwards than (a); (c) the same tokens twice; (d) one
+    draft error and exactly the failures its fired faults cause. → the
+    launches of run (b)."""
+    from repro_torch.serving.faults import FaultInjector
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    prompts, lens = spec_prompts(np, cfg.vocab_size)
+    n_req, max_new = len(prompts), 32
+    out, forwards = {}, {}
+    for run, sampling, schedule in SPEC_RUNS:
+        tag = f"[spec] {run}"
+        ecfg = EngineConfig(prefill_chunk_tokens=256, sanitize=True)
+        fi = FaultInjector.from_spec(schedule) if schedule else None
+        gc.collect()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        eng, first, step_s = serve(torch, np, Engine, EngineConfig,
+                                   QuantConfig, cfg, params, "auto", prompts,
+                                   max_new, ecfg, {}, sampling, fi)
+        wall = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        c = eng.counters()
+        if c["internal_errors"] or c["sanitize_checks"] != c["steps"]:
+            fail(f"{tag}: internal_errors={c['internal_errors']} "
+                 f"sanitize_checks={c['sanitize_checks']} of {c['steps']} "
+                 f"steps; last_error={c['last_error']}")
+        check_spec_counts(eng, tag)
+        if eng.cache.pages_free != ecfg.num_pages:
+            fail(f"{tag}: {eng.cache.pages_free} pages free or reclaimable "
+                 f"after the run, of {ecfg.num_pages}")
+        if first is None or not np.isfinite(first).all():
+            fail(f"{tag}: first logits missing or not finite")
+        for name in SPEC_MUST:
+            if launches[name] <= 0:
+                fail(f"{tag}: kernel {name} was never launched")
+        want = ACT_PER_LAYER * cfg.num_layers * eng.forward_calls
+        if launches["act_quant_w4ax"] != want:
+            fail(f"{tag}: act_quant_w4ax launched "
+                 f"{launches['act_quant_w4ax']} times, not {want}")
+        done = {r.request_id: r for r in eng.sched.finished}
+        if schedule is None:
+            toks = check_run(eng, n_req, max_new, cfg.vocab_size, tag)
+        else:
+            fired = fi.fired
+            want_failed = sum(1 for p, a, _ in fired
+                              if p == "verify" or (p == "forward"
+                                                   and a == "nan"))
+            if c["draft_errors"] != 1 or c["failed_count"] != want_failed:
+                fail(f"{tag}: draft_errors={c['draft_errors']} (want 1), "
+                     f"failed_count={c['failed_count']} (fired {fired})")
+            for i in range(n_req):
+                r = done.get(i)
+                if r is None or (r.state.value != "failed"
+                                 and len(r.generated) != max_new):
+                    fail(f"{tag}: request {i} neither failed nor finished "
+                         f"with {max_new} tokens")
+            toks = {i: list(done[i].generated) for i in range(n_req)}
+        decode_rows = sum(eng.smoke_decode_rows)
+        per_row = (eng.tokens_generated - n_req) / max(decode_rows, 1)
+        acc = c["spec_accepted_tokens"] / max(c["spec_draft_tokens"], 1)
+        line = (f"{tag} {sampling}{' faults ' + schedule if schedule else ''}"
+                f": {eng.steps} steps, {eng.forward_calls} forwards, "
+                f"{eng.tokens_generated} tokens in {wall:.3f} s = "
+                f"{eng.tokens_generated / wall:.2f} tok/s; median step "
+                f"{statistics.median(step_s) * 1e3:.2f} ms; "
+                f"{per_row:.4f} tokens per decode row-forward "
+                f"({decode_rows} decode row-forwards); drafted "
+                f"{c['spec_draft_tokens']} accepted "
+                f"{c['spec_accepted_tokens']} (acceptance {acc:.4f}) rolled "
+                f"back {c['spec_rollback_tokens']}; host sampler "
+                f"{eng.smoke_sampler_s['sample'] * 1e3 / eng.steps:.3f} + "
+                f"verifier {eng.smoke_sampler_s['verify'] * 1e3 / eng.steps:.3f}"
+                f" ms a step")
+        if (run != "a" and "a" in out and schedule is None
+                and not sampling.get("temperature")):
+            ref = out["a"]
+            total = sum(len(v) for v in ref.values())
+            agree = sum(x == y for i in ref
+                        for x, y in zip(ref[i], toks[i])) / total
+            line += f"; agreement with (a) {agree:.4f}"
+        say(line)
+        say(f"{tag} launches {json.dumps(launches)}")
+        if schedule:
+            say(f"{tag} fired {fi.fired}; counters {json.dumps(c)}")
+        out[run], forwards[run] = toks, eng.forward_calls
+        if run == "b":
+            launches_b = launches
+        if run == "b":
+            if c["spec_accepted_tokens"] <= 0:
+                fail(f"{tag}: no draft was accepted")
+            if forwards["b"] >= forwards["a"]:
+                fail(f"{tag}: {forwards['b']} forwards, not fewer than "
+                     f"(a)'s {forwards['a']}")
+        if run == "c again" and toks != out["c"]:
+            fail(f"{tag}: the stochastic run did not replay its tokens")
+        del eng
+    return launches_b
+
+
+def phase_specdiag(torch, np, mods, cfg, params):
+    """Where a token's computation as a qlen-1 decode row and as a position
+    of a verify chunk part: the ``spec`` workload served greedily until
+    all 8 rows decode; then, over the same state, forwards of the unified
+    body with the output of every op recorded (norms, projections, RoPE,
+    in-flight fake-quant, attention, SiLU, the lm head): (A) every row its
+    last token alone, (B) every row that token and 4 drafts, (A1) every
+    row its first draft alone, one position later, over the history B
+    wrote. A's token is held against B's position 0, A1's against B's
+    position 1: per op, in call order, the largest difference and the rows
+    that differ, then the first op that differs. Last, the norm and the lm
+    head on rows 0–7 of a 64-row input against the same rows alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers import common as C
+    from repro_torch.layers import mlp as MLP
+    from repro_torch.serving import kv_cache as KVC
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    eng = Engine(cfg, params, QuantConfig(), EngineConfig(
+        prefill_chunk_tokens=256), device="cuda")
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, 32)
+    while not (len(eng.sched.running) == len(prompts) and all(
+            r.prefilled and r.generated for r in eng.sched.running)):
+        eng.step()
+    rows = list(eng.sched.running)
+    n, ndraft = len(rows), SPEC_C - 1
+    ctx = np.asarray([int(eng.cache.seq_len[r.seq_slot]) for r in rows])
+    for r, c in zip(rows, ctx):
+        eng.cache.grow_to(r.seq_slot, int(c) + 1 + ndraft)
+    chunks = [[r.generated[-1]] + r.prompt[:ndraft] for r in rows]
+
+    def forward(offset: int, take: int):
+        """Every row's chunk tokens [offset, offset + take) at positions
+        ctx + offset.., over ctx + offset keys of history."""
+        starts = ctx + offset
+        takes = np.full(n, take)
+        cum = np.concatenate([[0], np.cumsum(takes)])
+        tok_seq = np.repeat(np.arange(n), takes)
+        tok_off = np.concatenate([np.arange(t) for t in takes])
+        tokens = np.concatenate([c[offset:offset + take] for c in chunks])
+        return eng._guarded_forward(
+            [], starts, takes, np.asarray([r.seq_slot for r in rows]), cum,
+            tok_seq, tok_off, starts[tok_seq] + tok_off,
+            tokens.astype(np.int64), np.arange(int(cum[-1])), [])
+
+    targets = [(C, "apply_norm"), (C, "linear"), (C, "linears"),
+               (C, "apply_rope"), (KVC, "qdq_kv_with"), (MLP, "silu_bf16"),
+               (ops, "paged_kv4_prefill_attention_wq")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    recs = {}
+    # A, then B (its chunk's KV written at ctx.. ctx + 4), then A1
+    for key, offset, take in (("A", 0, 1), ("B", 0, 1 + ndraft),
+                              ("A1", 1, 1)):
+        rec = recs[key] = []
+        for mod, name, fn in saved:
+            def wrapped(*a, fn=fn, name=name, rec=rec, **kw):
+                out = fn(*a, **kw)
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                rec.append((name, [o.detach().clone() for o in outs]))
+                return out
+
+            setattr(mod, name, wrapped)
+        try:
+            forward(offset, take)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def compare(key, pos):
+        """``key``'s single tokens against B's chunk position ``pos``."""
+        if [nm for nm, _ in recs[key]] != [nm for nm, _ in recs["B"]]:
+            fail("specdiag: the forwards called different ops")
+        first, norms = None, 0      # two norms a layer, then the final one
+        for (name, outs_a), (_, outs_b) in zip(recs[key], recs["B"]):
+            norms += name == "apply_norm"
+            layer = (norms - 1) // 2
+            for oa, ob in zip(outs_a, outs_b):
+                if name == "paged_kv4_prefill_attention_wq":
+                    ta, tb = oa[:n, 0], ob[:n, pos]
+                else:
+                    ta, tb = oa[0, :n], ob[0, pos:n * SPEC_C:SPEC_C]
+                diff = float((ta.float() - tb.float()).abs().max())
+                nrows = int(sum(not torch.equal(ta[j], tb[j])
+                                for j in range(n)))
+                say(f"[specdiag] {key} vs B position {pos}: layer {layer} "
+                    f"{name}: max diff {diff:.6g}, {nrows} of {n} rows "
+                    f"differ")
+                if nrows and first is None:
+                    first = f"layer {layer} {name}"
+        say(f"[specdiag] {key} vs B position {pos}: first op whose output "
+            f"differs: {first}")
+
+    compare("A", 0)
+    compare("A1", 1)
+    gen = torch.Generator(device=eng.device).manual_seed(9)
+    x = (torch.randn((1, 64, cfg.d_model), generator=gen, device=eng.device)
+         * 2).bfloat16()
+    norm = params["final_norm"]
+    for label, fn in (
+            ("rmsnorm", lambda t: C.apply_norm(norm, t, cfg.norm,
+                                               cfg.norm_eps)),
+            ("lm head", lambda t: eng.lm.head(params, t))):
+        alone, inside = fn(x[:, :8]), fn(x)[:, :8]
+        say(f"[specdiag] {label}: rows 0-7 alone vs inside 64 rows: "
+            f"equal={torch.equal(alone, inside)} max diff "
+            f"{float((alone.float() - inside.float()).abs().max()):.6g}")
+
+
 # the archs phase: Llama-3-70B at full depth; the others at full width,
 # their depth cut to ARCH_DEPTH layers, in these runs (Qwen2.5-32B at
 # G = 5 and StarCoder2-15B at G = 12 through every decode path)
@@ -1269,21 +1630,28 @@ CLI_EXPECT = {"failed": 0, "callback_errors": 0, "internal_errors": 0,
               "rejected": 2, "aborted": 1, "states": "aborted=1 failed=2 "
               "finished=5", "reasons": "aborted=1 queue_full=2",
               "tokens": ",".join(["32"] * 5)}
+# the second call: the same flags, sampled at T = 0.8 from the top 40 with
+# 3 drafts a decode row and the sanitizers on; the same counts follow
+CLI_SPEC = ("--temperature", "0.8", "--top-k", "40", "--speculation", "3",
+            "--sanitize")
 
 
-def phase_cli(timeout_s: float = 600.0):
+def phase_cli(extra=(), timeout_s: float = 600.0):
     """The serve launcher in a subprocess at full width and depth under
-    the mixed schedule; its lines are printed, and the counts must follow
-    from the flags (``CLI_EXPECT``)."""
+    the mixed schedule, with ``CLI`` and ``extra`` flags; its lines are
+    printed, and the counts must follow from the flags (``CLI_EXPECT``;
+    with ``--speculation``, its summary line with drafted = accepted +
+    rolled back; with ``--sanitize``, a check every step)."""
+    cli = CLI + tuple(extra)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
-    say(f"[cli] python -m repro_torch.launch.serve {' '.join(CLI)}")
+    say(f"[cli] python -m repro_torch.launch.serve {' '.join(cli)}")
     t0 = time.perf_counter()
     try:
         out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *CLI],
+            [sys.executable, "-m", "repro_torch.launch.serve", *cli],
             cwd=HERE, env=env, capture_output=True, text=True,
             timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -1307,6 +1675,18 @@ def phase_cli(timeout_s: float = 600.0):
            "states": states[1], "reasons": states[2], "tokens": states[3]}
     if got != CLI_EXPECT:
         fail(f"cli: got {got}, expected {CLI_EXPECT}")
+    if "--speculation" in cli:
+        spec = re.search(r"\[sched\] speculation: drafted=(\d+) "
+                         r"accepted=(\d+) .* rollback=(\d+)", text)
+        if not spec or int(spec[1]) != int(spec[2]) + int(spec[3]):
+            fail(f"cli: speculation line missing or drafted != accepted + "
+                 f"rolled back ({spec and spec.groups()})")
+    if "--sanitize" in cli:
+        steps = re.search(r"\[done\] .*\(steps=(\d+),", text)
+        checks = re.search(r"sanitize_checks=(\d+)", text)
+        if not (steps and checks) or steps[1] != checks[1]:
+            fail(f"cli: sanitizer checks {checks and checks[1]} in "
+                 f"{steps and steps[1]} steps")
     say(f"[cli] counts as the flags say ({time.perf_counter() - t0:.1f} s "
         f"with the launcher's start-up)")
 
@@ -1368,6 +1748,7 @@ def main():
         check_gemm_archs(torch, AQ, WK, Q, rows)
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
+        check_spec_attention(torch, cfg8b, KVC, PA, Q, rows)
         for hkv, g in GQA:
             cfg = gqa_cfg(cfg8b, hkv, g)
             check_attention(torch, cfg, KVC, PA, Q, rows, f"G={g} C=256")
@@ -1386,7 +1767,7 @@ def main():
     if set(order) - {r for r, *_ in RUNS}:
         fail(f"--runs takes runs of {[r for r, *_ in RUNS]}")
     runs = {}
-    if order:
+    if order or "spec" in phases or "specdiag" in phases:
         t0 = time.perf_counter()
         params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
         torch.cuda.synchronize()
@@ -1395,15 +1776,29 @@ def main():
         for run in order:
             runs[run] = serve_llama(torch, np, mods, ops.KERNELS, cfg8b,
                                     params, run, args.profile)
+        if order:
+            lap("slice and baselines")
+        if "spec" in phases:
+            spec_launches = phase_spec(torch, np, mods, ops.KERNELS, cfg8b,
+                                       params)
+            k9 = rows.get("paged_kv4_prefill_attention_wq", {})
+            if "C=5 spec" in k9:    # K9's verify shape runs in run (b)
+                k9["C=5 spec"]["launches"] = spec_launches[
+                    "paged_kv4_prefill_attention_wq"]
+            lap("spec")
+        if "specdiag" in phases:
+            phase_specdiag(torch, np, mods, cfg8b, params)
+            lap("specdiag")
         del params
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's
-        lap("slice and baselines")   # process need the room
+        #                              process need the room
     if "archs" in phases:
         phase_archs(torch, np, mods, ops.KERNELS, get_config, args.profile)
         lap("archs")
     if "cli" in phases:
         phase_cli()
+        phase_cli(CLI_SPEC)
         lap("cli")
     table = []
     for n in ops.KERNELS:

@@ -3,7 +3,10 @@ request-lifecycle engine over a synthetic request trace (the single-engine
 path of ``repro/launch/serve.py``).
 
 Requests go through ``Engine.submit`` with per-request
-:class:`SamplingParams` (greedy). ``--schedule`` picks the W4Ax GEMM
+:class:`SamplingParams`: greedy unless ``--temperature`` > 0 (then from
+the ``--top-k`` best, keyed by request and position), and with
+``--speculation K`` each decode row drafts K tokens by prompt lookup and
+verifies them in one forward. ``--schedule`` picks the W4Ax GEMM
 schedule (``split``: the W4A4 and W4A8 kernels per projection; ``mixed``:
 the paper's single kernel), ``--impl`` the kernels or their plain versions,
 ``--stream`` prints tokens as ``step()`` emits them, ``--prefix-cache``
@@ -13,23 +16,28 @@ LRU), ``--abort-every N`` cancels every Nth request after its first token,
 ``--arrival-every N`` submits one request every N steps. Robustness:
 ``--deadline-ms``/``--ttft-ms`` set per-request deadlines (expired requests
 end ``TIMED_OUT``) and ``--max-waiting`` bounds the waiting queue (submits
-past it end ``FAILED("queue_full")``, preemption victims are shed).
+past it end ``FAILED("queue_full")``, preemption victims are shed),
+``--inject-faults SPEC`` arms a fault schedule (``serving/faults.py``
+grammar, e.g. ``"forward:step=3,action=nan;sample:nth=2"``) and
+``--sanitize`` runs the step-boundary sanitizers after every step.
 
 The summary prints the reference's ``[done]``, ``[cache]``, ``[robust]``,
 ``[slo]`` (TTFT and TPOT mean and p95 from the lifecycle stamps) and
 ``[sched]`` lines without the fields of features the port lacks (the
 reference's ``traces=`` counts jit compiles; the port runs eagerly, so
-``forwards=`` stands alone), then a ``[states]`` line: requests by
+``forwards=`` stands alone), ``[faults]`` (armed, fired, pending) when a
+schedule is armed, ``[sched] speculation:`` (drafted, accepted,
+acceptance, rolled back, no-ops, draft errors) when drafting is on, then
+a ``[states]`` line: requests by
 terminal state, stop reasons, and the tokens of each finished request.
 Prompts come from ``np.random.default_rng(seed)`` in the reference's order,
 so both launchers serve the same prompts.
 
 The reference's flags for what is not ported yet are not defined, so
-argparse refuses them (ROADMAP Queue 1): ``--speculation``,
-``--temperature``, ``--top-k``, ``--inject-faults`` and ``--sanitize``
-(item 9), ``--snapshot-every`` (item 10), ``--replicas``, ``--failover``,
-``--kill-replica-at`` and ``--kill-replica`` (item 13), ``--mesh`` and
-``--head-dim`` (item 14).
+argparse refuses them (ROADMAP Queue 1): ``--snapshot-every``
+(recovery), ``--replicas``, ``--failover``, ``--kill-replica-at`` and
+``--kill-replica`` (replication), ``--mesh`` and ``--head-dim`` (tensor
+parallelism).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -39,6 +47,9 @@ Usage:
       --schedule mixed --requests 8 --prompt-len 512 --max-new 32 \\
       --prefill-chunk 256 --shared-prefix 128 --abort-every 4 \\
       --max-waiting 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256 \\
+      --temperature 0.8 --top-k 40 --speculation 3 --sanitize
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b \\
       --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256
 """
@@ -90,6 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--impl", default="auto", choices=["auto", "cuda", "ref"],
                     help="kernels (cuda; auto = on a CUDA tensor) or their "
                          "plain versions (ref)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request SamplingParams.temperature (0 = "
+                         "greedy)")
+    ap.add_argument("--top-k", type=int, default=40,
+                    help="per-request SamplingParams.top_k")
+    ap.add_argument("--speculation", type=int, default=0,
+                    help="per-request SamplingParams.speculation: draft K "
+                         "tokens per decode row by prompt lookup and "
+                         "verify them in one forward (0 = off)")
     ap.add_argument("--prefill-mode", default="chunked",
                     choices=["chunked", "whole"])
     ap.add_argument("--prefill-chunk", type=int, default=64,
@@ -122,6 +142,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-request first-token budget (0 = none)")
     ap.add_argument("--max-waiting", type=int, default=0,
                     help="bound on the waiting queue (0 = unbounded)")
+    ap.add_argument("--inject-faults", default="",
+                    help="fault schedule (serving/faults.py grammar), e.g. "
+                         "'forward:step=3,action=nan;alloc_page:nth=20'")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the step-boundary sanitizers after every "
+                         "step; a broken invariant aborts the run")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -143,13 +169,16 @@ def main(argv=None) -> Engine:
 
     eng = Engine(cfg, params, quant, EngineConfig(
         max_batch=args.max_batch, num_pages=args.pages,
-        page_size=args.page_size, prefill_mode=args.prefill_mode,
+        page_size=args.page_size, temperature=args.temperature,
+        top_k=args.top_k, prefill_mode=args.prefill_mode,
         prefill_chunk_tokens=args.prefill_chunk, kv_range=args.kv_range,
         unified_step=(args.step_mode == "unified"),
         prefix_cache=(args.prefix_cache == "on"),
         attention_schedule=args.attention_schedule,
         prefix_cache_max_bytes=(args.prefix_cache_max_bytes or None),
-        max_waiting=(args.max_waiting or None)), device=args.device)
+        max_waiting=(args.max_waiting or None),
+        inject_faults=(args.inject_faults or None),
+        sanitize=args.sanitize), device=args.device)
 
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
@@ -159,6 +188,8 @@ def main(argv=None) -> Engine:
               f"{args.page_size}: prefix matching is full-page-granular, "
               "so the shared prefix can never hit", flush=True)
     sp = SamplingParams(max_new_tokens=args.max_new,
+                        temperature=args.temperature, top_k=args.top_k,
+                        speculation=args.speculation,
                         deadline_ms=(args.deadline_ms or None),
                         ttft_ms=(args.ttft_ms or None))
     prompts = []
@@ -214,6 +245,7 @@ def main(argv=None) -> Engine:
           f"shed={eng.shed_count} rejected={eng.rejected_count} "
           f"callback_errors={eng.callback_errors} "
           f"internal_errors={eng.internal_errors} "
+          f"sanitize_checks={eng.sanitize_checks} "
           f"released={eng.sched.released_count}", flush=True)
     # latency from the lifecycle stamps: TTFT from arrival to the first
     # token, TPOT over the decode window
@@ -225,6 +257,11 @@ def main(argv=None) -> Engine:
     print(f"[slo] ttft {_ms_stats(ttft)} | tpot {_ms_stats(tpot)} "
           f"(over {len(ttft)} first tokens / {len(tpot)} decode windows)",
           flush=True)
+    if eng.faults.faults:
+        fired = [f"{p}:{a}@step{s}" for p, a, s in eng.faults.fired]
+        print(f"[faults] armed: {eng.faults.describe()}; "
+              f"fired: {', '.join(fired) or '(none)'}; "
+              f"pending: {len(eng.faults.pending)}", flush=True)
     if eng.attn_forwards:
         waste = eng.attn_grid_items - eng.attn_work_items
         dense_waste = eng.attn_dense_grid_items - eng.attn_work_items
@@ -233,6 +270,14 @@ def main(argv=None) -> Engine:
               f"{eng.attn_forwards} forwards; grid={eng.attn_grid_items} "
               f"(waste {waste}; dense rectangle would waste "
               f"{dense_waste})", flush=True)
+    if args.speculation or eng.spec_draft_tokens:
+        acc = eng.spec_accepted_tokens / max(1, eng.spec_draft_tokens)
+        print(f"[sched] speculation: drafted={eng.spec_draft_tokens} "
+              f"accepted={eng.spec_accepted_tokens} (acceptance {acc:.0%}) "
+              f"rollback={eng.spec_rollback_tokens} "
+              f"noop={eng.spec_noop_count} "
+              f"draft_errors={eng.draft_errors} "
+              f"[{eng.draft_source.describe()}]", flush=True)
     states = collections.Counter(r.state.value for r in finished)
     reasons = collections.Counter(r.stop_reason for r in finished
                                   if r.stop_reason)

@@ -12,8 +12,23 @@ chunk) → wo → the MLP (SwiGLU, or StarCoder2's tanh-GELU), both W4Ax.
 Attention follows ``attention_schedule``: the
 work-queue kernel with its split-KV combine, or the dense block-table
 kernel. A step in which no row has history yet uses plain fp causal
-attention instead. The head runs on the last token of each row and greedy
-sampling is a host argmax.
+attention instead. The head runs on the last token of each row (every
+chunk position of a speculating row) and the sampler runs on the host:
+an argmax for greedy rows, JAX's threefry draw keyed by (request id,
+position) for stochastic ones (``serving/sampling.py``).
+
+Speculative decode (``SamplingParams.speculation=k``, unified step): a
+host draft source (``serving/speculation.py``, n-gram prompt lookup by
+default) proposes up to k tokens per decode row, and the row rides the
+same forward as a qlen-(1+k) chunk (its last sampled token and the
+drafts, in-flight KV fake-quantized like every decode token). Greedy
+rows accept drafts while they match the argmax, stochastic rows by
+rejection sampling against the point-mass draft; the first rejection
+commits the corrected token, full acceptance a bonus token. The cache
+lands the row at its committed length with ``truncate_seq`` (rejected
+drafts' pages released refcount- and prefix-safely). Drafts debit the
+step's token budget; ``spec_draft_tokens`` = ``spec_accepted_tokens`` +
+``spec_rollback_tokens``.
 
 The measured baselines of the reference run too: ``unified_step=False``
 (a prefill forward, then a separate decode forward), ``prefill_mode=
@@ -38,9 +53,16 @@ before admission (``TIMED_OUT``, ``timeout_count``); with
 (``FAILED("queue_full")``, ``rejected_count``) and a preemption victim
 that cannot re-queue is shed (``FAILED("shed")``, ``shed_count``). Every
 lifecycle stamp (arrival, first token, terminal event) comes from the
-injectable ``clock``. Not ported yet: speculation, fault injection,
-sanitizers, snapshot/restore, tensor parallelism, MoE and stochastic
-sampling.
+injectable ``clock``.
+
+Fault injection (``serving/faults.py``; ``EngineConfig.inject_faults`` or
+``Engine(faults=...)``) arms the reference's points: ``alloc_page`` and
+``append_kv`` in the cache, ``forward`` (raise, or NaN one consumed
+logits row), ``sample``, ``emit_event``, ``draft`` and ``verify`` here.
+With ``sanitize=True`` the step-boundary sanitizers
+(``serving/sanitize.py``) run after every step, outside the backstop,
+and raise ``SanitizerError`` on the first broken invariant. Not ported
+yet: snapshot/restore, tensor parallelism and MoE.
 """
 
 from __future__ import annotations
@@ -59,9 +81,13 @@ from repro_torch.layers import common as C
 from repro_torch.layers import mlp as MLP
 from repro_torch.models.lm import LM, QuantConfig
 from repro_torch.serving import kv_cache as KVC
+from repro_torch.serving import sampling as SMP
 from repro_torch.serving.api import (RequestHandle, RequestOutput,
                                      RequestState, SamplingParams)
+from repro_torch.serving.faults import FaultInjector, InjectedFault
+from repro_torch.serving.sanitize import check_engine
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.speculation import DraftSource, PromptLookupDraft
 
 __all__ = ["Engine", "EngineConfig", "SamplingParams", "RequestState",
            "RequestOutput", "RequestHandle"]
@@ -84,6 +110,8 @@ class EngineConfig:
     num_pages: int = 512
     page_size: int = 64
     max_pages_per_seq: int = 64
+    temperature: float = 0.0        # 0 → greedy
+    top_k: int = 40
     decode_attention: str = "paged"  # "paged" (block tables) | "gather"
     prefill_mode: str = "chunked"    # "chunked" (ragged) | "whole"
     prefill_chunk_tokens: int = 64  # per-step token budget (chunks + decode)
@@ -96,6 +124,12 @@ class EngineConfig:
     max_waiting: Optional[int] = None  # bound on the waiting queue: submits
     #                                past it are rejected ("queue_full")
     #                                and preemption victims shed
+    inject_faults: Optional[str] = None  # fault schedule spec
+    #                                (serving/faults.py grammar), e.g.
+    #                                "forward:step=3,action=nan"
+    sanitize: bool = False          # run the step-boundary sanitizers
+    #                                (serving/sanitize.py) after every
+    #                                step; SanitizerError on a violation
 
     def __post_init__(self):
         if self.max_waiting is not None and self.max_waiting < 1:
@@ -132,11 +166,16 @@ class EngineConfig:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, quant: QuantConfig =
                  QuantConfig(), ecfg: EngineConfig = EngineConfig(), *,
-                 device="cuda", clock=time.time):
+                 device="cuda", clock=time.time, faults=None,
+                 draft_source: Optional[DraftSource] = None):
         """``params``: the model's quantized parameters on ``device``
         (``LM.init`` or ``convert.params_from_jax``). ``clock``: the
         wall-clock source of arrival, first-token and terminal stamps and
-        of deadline expiry (injectable, so deadline tests are exact)."""
+        of deadline expiry (injectable, so deadline tests are exact).
+        ``faults``: a :class:`FaultInjector` to ride along (else one built
+        from ``ecfg.inject_faults``). ``draft_source``: the speculative
+        draft proposer (default :class:`PromptLookupDraft`), consulted
+        only for requests with ``SamplingParams.speculation > 0``."""
         self.device = C.resolve_device(device)
         if self.device.type == "cuda":
             C.no_tf32()
@@ -161,6 +200,13 @@ class Engine:
         self.sched = Scheduler(ecfg.max_batch, ecfg.max_batch * 2,
                                max_waiting=ecfg.max_waiting)
         self.clock = clock
+        # shared with the cache, so alloc_page/append_kv fire at their
+        # real call sites
+        if faults is None:
+            faults = (FaultInjector.from_spec(ecfg.inject_faults)
+                      if ecfg.inject_faults else FaultInjector())
+        self.faults = faults
+        self.cache.faults = faults
         self.steps = 0
         self.tokens_generated = 0
         # forwards issued (exactly one per step with work), largest fp
@@ -178,6 +224,18 @@ class Engine:
         self.callback_errors = 0
         self.internal_errors = 0
         self.last_error: Optional[str] = None
+        # step boundaries that passed the sanitizer (ecfg.sanitize)
+        self.sanitize_checks = 0
+        # speculative decode: drafted = accepted + rolled back; noops are
+        # drafts suppressed with at most one token left, draft_errors the
+        # raising or out-of-vocab draft calls degraded to plain decode
+        self.draft_source = (draft_source if draft_source is not None
+                             else PromptLookupDraft())
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rollback_tokens = 0
+        self.spec_noop_count = 0
+        self.draft_errors = 0
         # attention-schedule counters (fig. 10): real work items (Σ real
         # pages + chunk items, per kv head; the same under both
         # schedules), grid items launched (work queue: the pow-2 padded
@@ -190,6 +248,7 @@ class Engine:
         self.attn_forwards = 0
         self._by_id: dict[int, Request] = {}
         self._next_id = 0
+        self._submit_seq = 0        # uid source: request ids are reusable
         self._events: list[RequestOutput] = []
 
     def counters(self) -> dict:
@@ -213,6 +272,12 @@ class Engine:
             "attn_grid_items": self.attn_grid_items,
             "attn_dense_grid_items": self.attn_dense_grid_items,
             "attn_forwards": self.attn_forwards,
+            "sanitize_checks": self.sanitize_checks,
+            "spec_draft_tokens": self.spec_draft_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_rollback_tokens": self.spec_rollback_tokens,
+            "spec_noop_count": self.spec_noop_count,
+            "draft_errors": self.draft_errors,
             **self.sched.counters(),
         }
 
@@ -222,11 +287,24 @@ class Engine:
                params: Optional[SamplingParams] = None,
                request_id: Optional[int] = None,
                on_event=None) -> RequestHandle:
-        """Enqueue a request (QUEUED) and return its handle. Against a full
+        """Enqueue a request (QUEUED) and return its handle; ``params``
+        defaults to the engine-wide temperature and top_k. Against a full
         bounded waiting queue the request is rejected instead: the handle
         resolves to a request already terminal in ``FAILED("queue_full")``,
-        its terminal event emitted."""
-        params = SamplingParams() if params is None else params
+        its terminal event emitted. A speculation k whose k + 1-token
+        verify chunk cannot fit ``prefill_chunk_tokens`` raises."""
+        if params is None:
+            params = SamplingParams(temperature=self.ecfg.temperature,
+                                    top_k=self.ecfg.top_k)
+        if params.speculation + 1 > self.ecfg.prefill_chunk_tokens:
+            raise ValueError(
+                f"speculation={params.speculation} exceeds the per-step "
+                f"token budget: the k+1-token verify chunk must fit "
+                f"prefill_chunk_tokens={self.ecfg.prefill_chunk_tokens}")
+        if params.speculation > 0 and params.max_new_tokens == 1:
+            # its one token comes off the prefill's logits: speculation
+            # can never engage
+            self.spec_noop_count += 1
         if request_id is None:
             while self._next_id in self._by_id:
                 self._next_id += 1
@@ -237,7 +315,8 @@ class Engine:
         req = Request(request_id=request_id, prompt=list(prompt),
                       max_new_tokens=params.max_new_tokens,
                       arrived_at=self.clock(), params=params,
-                      on_event=on_event)
+                      on_event=on_event, uid=self._submit_seq)
+        self._submit_seq += 1
         self._by_id[request_id] = req
         if self.sched.waiting_full:
             self.sched.reject(req)
@@ -297,7 +376,10 @@ class Engine:
     def add_request(self, request_id: int, prompt: list[int],
                     max_new_tokens: int):
         """Batch API: submit with the engine-wide sampling defaults."""
-        self.submit(prompt, SamplingParams(max_new_tokens=max_new_tokens),
+        self.submit(prompt,
+                    SamplingParams(max_new_tokens=max_new_tokens,
+                                   temperature=self.ecfg.temperature,
+                                   top_k=self.ecfg.top_k),
                     request_id=request_id)
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
@@ -309,7 +391,9 @@ class Engine:
     # ----------------------------------------------------------- events
 
     def _emit(self, req: Request, token: Optional[int] = None):
-        """Single event choke point; at most one terminal event."""
+        """Single event choke point; at most one terminal event. A
+        throwing ``on_event`` (or an injected ``emit_event`` fault) is
+        detached and counted; the event log keeps the event."""
         if token is None:
             if req.terminal_emitted:
                 return
@@ -324,6 +408,9 @@ class Engine:
         req.events.append(out)
         if req.on_event is not None:
             try:
+                if self.faults.check("emit_event"):
+                    raise InjectedFault(
+                        "emit_event: injected callback failure")
                 req.on_event(out)
             except Exception:  # noqa: BLE001 — user-callback boundary:
                 # client code may raise anything; detach + count it so
@@ -335,6 +422,7 @@ class Engine:
         if req.state.terminal:
             return              # aborted by a callback earlier this step
         req.generated.append(int(tok))
+        req.emitted += 1
         if not req.first_token_at:      # TTFT survives preemption
             req.first_token_at = self.clock()
         if req.state == RequestState.PREFILLING:
@@ -365,13 +453,19 @@ class Engine:
 
     def step(self):
         """Advance every in-flight request one scheduling quantum. Never
-        raises: unexpected exceptions land in ``internal_errors``."""
+        raises: unexpected exceptions land in ``internal_errors``. The
+        sanitizers (``ecfg.sanitize``) run outside that backstop: a
+        ``SanitizerError`` means the state is already corrupt."""
         self.steps += 1
+        self.faults.begin_step(self.steps)
         try:
             self._step_inner()
         except Exception as e:  # noqa: BLE001 — the serving-loop backstop
             self.internal_errors += 1
             self.last_error = repr(e)
+        if self.ecfg.sanitize:
+            check_engine(self)
+            self.sanitize_checks += 1
 
     def _step_inner(self):
         # expiry runs before admission: a request dead on arrival never
@@ -403,9 +497,13 @@ class Engine:
 
     def _step_unified(self, budget: int):
         """ONE forward for decode rows ∪ prompt chunks; decode slots are
-        reserved before the prefill plan (reservation may preempt)."""
+        reserved before the prefill plan (reservation may preempt), and
+        the drafts of speculating rows are planned between the two and
+        debit the prefill budget."""
         decode = self._reserve_decode_slots(
             [r for r in self.sched.running if r.prefilled and not r.done])
+        drafts = self._plan_speculation(decode, budget)
+        budget = max(1, budget - sum(len(d) for d in drafts))
         plan = self.sched.plan_prefill(self.cache, budget)
         if not plan and not decode:
             stuck = [r for r in self.sched.running if not r.prefilled]
@@ -414,7 +512,61 @@ class Engine:
             return
         if plan and decode:
             self.interleaved_steps += 1
-        self._forward_step(plan, decode)
+        self._forward_step(plan, list(zip(decode, drafts)))
+
+    def _plan_speculation(self, decode: list[Request],
+                          budget: int) -> list[list[int]]:
+        """One draft per decode row (``[]``: plain one-token decode). Host
+        work only: ask the draft source, clamp k to the tokens the request
+        can still commit and to the step budget (one token held back
+        while a prompt is mid-stream), check the proposal, and grow the
+        row's pages to its k+1-token verify chunk — trimming the draft
+        rather than preempting anyone when the pool is short. A raising
+        draft source (or an injected ``draft`` fault) degrades to no
+        draft and counts ``draft_errors``."""
+        drafts: list[list[int]] = [[] for _ in decode]
+        if not any(r.params is not None and r.params.speculation > 0
+                   for r in decode):
+            return drafts
+        avail = budget - 1 if any(not r.prefilled
+                                  for r in self.sched.running) else budget
+        for i, r in enumerate(decode):
+            k = r.params.speculation if r.params is not None else 0
+            if k <= 0:
+                continue
+            remaining = r.max_new_tokens - len(r.generated)
+            if remaining <= 1:
+                # a draft would be rolled back for certain
+                self.spec_noop_count += 1
+                continue
+            k = min(k, remaining - 1, avail)
+            if k <= 0:
+                continue
+            try:
+                fault = self.faults.check("draft")
+                if fault is not None and fault.action == "raise":
+                    raise InjectedFault("draft: injected draft failure")
+                d = ([] if fault is not None
+                     else list(self.draft_source.draft(
+                         r.prompt, r.generated, k))[:k])
+                if any(not 0 <= int(t) < self.cfg.vocab_size for t in d):
+                    raise ValueError(f"draft token out of vocab: {d}")
+            except Exception as e:  # noqa: BLE001 — draft sources are
+                # untrusted; degrade to plain decode, never fail the step
+                self.draft_errors += 1
+                self.last_error = f"draft: {e!r}"
+                d = []
+            if not d:
+                continue
+            # pages for the verify chunk (ctx + last token + k drafts)
+            ctx = int(self.cache.seq_len[r.seq_slot])
+            cap = self.cache.grow_to(r.seq_slot, ctx + 1 + len(d))
+            d = [int(t) for t in d[:max(0, cap - ctx - 1)]]
+            if d:
+                drafts[i] = d
+                avail -= len(d)
+                self.spec_draft_tokens += len(d)
+        return drafts
 
     def _reserve_decode_slots(self, runnable: list[Request]) -> list[Request]:
         """Page headroom for one decode token per runnable sequence,
@@ -447,12 +599,17 @@ class Engine:
     # --------------------------------------------------- unified forward
 
     def _forward_step(self, plan: list[tuple[Request, int, int]],
-                      decode: list[Request]):
-        """Pack prompt-chunk rows and decode rows into one ragged forward,
-        then advance host state and sample. A forward failure quarantines
-        every request of this batch; host state moves only afterwards."""
-        rows = list(plan) + [(r, int(self.cache.seq_len[r.seq_slot]), 1)
-                             for r in decode]
+                      decode: list[tuple[Request, list]]):
+        """Pack prompt-chunk rows and decode rows (each paired with its
+        draft, ``[]`` for none) into one ragged forward, then advance host
+        state, sample and verify. A forward failure quarantines every
+        request of this batch; host state moves only afterwards, so the
+        quarantine frees back to baseline. A speculating row is a chunk
+        of 1 + k tokens whose every position yields logits; other rows
+        yield one (spec-off steps keep the ``[nb, V]`` layout)."""
+        rows = list(plan) + [
+            (r, int(self.cache.seq_len[r.seq_slot]), 1 + len(d))
+            for r, d in decode]
         starts = np.asarray([s for _, s, _ in rows])
         takes = np.asarray([t for _, _, t in rows])
         slots = np.asarray([r.seq_slot for r, _, _ in rows])
@@ -463,12 +620,34 @@ class Engine:
         tok_pos = starts[tok_seq] + tok_off
         tokens = np.concatenate(
             [np.asarray(r.prompt[s:s + t]) for r, s, t in plan]
-            + [[r.generated[-1]] for r in decode]).astype(np.int64)
+            + [[r.generated[-1]] + d for r, d in decode]).astype(np.int64)
+        # logit slots: each row's last token, or every chunk position of
+        # a speculating row (verification reads each drafted position)
+        nplan = len(plan)
+        slot0: list[int] = []
+        logit_idx: list[int] = []
+        for si in range(nseq):
+            slot0.append(len(logit_idx))
+            if si >= nplan and takes[si] > 1:
+                logit_idx.extend(range(int(cum[si]), int(cum[si + 1])))
+            else:
+                logit_idx.append(int(cum[si + 1]) - 1)
+        # the rows sampled (finished prompts, plain decode) and verified
+        need = [(slot0[si], r, len(r.prompt))
+                for si, (r, s, t) in enumerate(plan)
+                if s + t == len(r.prompt)]
+        need += [(slot0[nplan + j], r, r.total_len)
+                 for j, (r, d) in enumerate(decode) if not d]
+        spec = [(slot0[nplan + j], r, int(starts[nplan + j]), d)
+                for j, (r, d) in enumerate(decode) if d]
         try:
             logits = self._guarded_forward(
                 plan, starts, takes, slots, cum, tok_seq, tok_off, tok_pos,
-                tokens)
+                tokens, np.asarray(logit_idx),
+                [si for si, _, _ in need] + [s0 for s0, _, _, _ in spec])
         except Exception as e:  # noqa: BLE001 — batch-granular quarantine
+            # drafts die with the batch, counted as rolled back
+            self.spec_rollback_tokens += sum(len(d) for _, d in decode)
             for r, _, _ in rows:
                 self._fail(r, f"forward: {e!r}")
             return
@@ -478,29 +657,112 @@ class Engine:
             self.cache.seq_len[r.seq_slot] = r.prefill_pos
             if self.ecfg.prefix_caching and r.prefill_pos == len(r.prompt):
                 self.cache.publish_prefix(r.seq_slot, r.prompt)
-        self.cache.advance([r.seq_slot for r in decode])
+        # speculating rows land at their verified length (truncate_seq)
+        self.cache.advance([r.seq_slot for r, d in decode if not d])
 
-        # one logits row per packed row; sample finished-prefill rows and
-        # decode rows, quarantining any row whose logits are not finite
-        need = [(si, r) for si, (r, s, t) in enumerate(plan)
-                if s + t == len(r.prompt)]
-        need += [(len(plan) + j, r) for j, r in enumerate(decode)]
-        if not need:
-            return
-        idx = [si for si, _ in need]
-        finite = np.isfinite(logits[idx]).all(axis=-1)
-        toks = np.argmax(logits[idx], axis=-1)
-        for (_, r), ok, tok in zip(need, finite, toks):
-            if ok:
-                self._record_token(r, int(tok))
+        # a row whose logits are not finite fails; the others sample on
+        if need:
+            finite = np.isfinite(
+                logits[[si for si, _, _ in need]]).all(axis=-1)
+            for (_, r, _), ok in zip(need, finite):
+                if not ok:
+                    self._fail(r, "non_finite_logits")
+            need = [t for t, ok in zip(need, finite) if ok]
+        if need:
+            self._sample_rows(logits, need)
+        for s0, r, ctx, d in spec:
+            if np.isfinite(logits[s0:s0 + len(d) + 1]).all():
+                self._verify_row(logits, s0, r, ctx, d)
             else:
+                self.spec_rollback_tokens += len(d)
                 self._fail(r, "non_finite_logits")
 
+    def _sample_rows(self, logits: np.ndarray, need: list):
+        """One batched sample over ``need`` (logits slot, request,
+        position); a sampler failure (or an injected ``sample`` fault)
+        fails exactly these rows."""
+        try:
+            if self.faults.check("sample"):
+                raise InjectedFault("sample: injected sampler failure")
+            toks = self._sample_batch(
+                logits[[si for si, _, _ in need]],
+                [r for _, r, _ in need], [p for _, _, p in need])
+        except Exception as e:  # noqa: BLE001 — row-granular quarantine
+            for _, r, _ in need:
+                self._fail(r, f"sample: {e!r}")
+            return
+        for (_, r, _), tok in zip(need, toks):
+            self._record_token(r, tok)
+
+    def _verify_row(self, logits: np.ndarray, s0: int, r: Request,
+                    ctx: int, draft: list):
+        """Commit one speculating row's verified prefix: ``truncate_seq``
+        lands the row at ctx + len(committed) first (retracting rejected
+        drafts, advancing over accepted ones), then the tokens emit, so a
+        reentrant ``abort()`` from a callback finds the pages consistent.
+        A verification failure (or an injected ``verify`` fault) fails
+        this request only."""
+        if r.seq_slot < 0 or r.state.terminal:
+            # aborted earlier in this step: the draft died with its pages
+            self.spec_rollback_tokens += len(draft)
+            return
+        try:
+            if self.faults.check("verify"):
+                raise InjectedFault("verify: injected verifier failure")
+            committed, accepted = self._verify_tokens(logits, s0, r, draft)
+            self.cache.truncate_seq(r.seq_slot, ctx + len(committed))
+        except Exception as e:  # noqa: BLE001 — row-granular quarantine
+            self.spec_rollback_tokens += len(draft)
+            self._fail(r, f"verify: {e!r}")
+            return
+        self.spec_accepted_tokens += accepted
+        self.spec_rollback_tokens += len(draft) - accepted
+        for tok in committed:
+            self._record_token(r, tok)
+
+    def _verify_tokens(self, logits: np.ndarray, s0: int, r: Request,
+                       draft: list):
+        """Walk the verify chunk's logits → (committed, accepted). Position
+        i is conditioned on the last sampled token and drafts 0..i-1.
+        Greedy: a draft equal to the row's argmax is accepted, the first
+        mismatch commits the argmax and stops. Stochastic: point-mass
+        rejection sampling per position (``sampling.reject_sample``).
+        After the last accepted draft the next row yields one more token,
+        so a verified step commits at least one."""
+        p = r.params
+        temp = p.temperature if p is not None else self.ecfg.temperature
+        top_k = min(p.top_k if p is not None else self.ecfg.top_k,
+                    logits.shape[1])
+        remaining = r.max_new_tokens - len(r.generated)
+        committed: list[int] = []
+        accepted = 0
+        i = 0
+        while i <= len(draft) and len(committed) < remaining:
+            row = logits[s0 + i]
+            drafted = int(draft[i]) if i < len(draft) else None
+            if temp <= 0.0:
+                tok = int(np.argmax(row))
+                ok = drafted is not None and tok == drafted
+            else:
+                tok, ok = SMP.reject_sample(row, temp, top_k, drafted,
+                                            r.request_id, r.total_len + i)
+            committed.append(tok)
+            if not ok:
+                break
+            accepted += 1
+            i += 1
+        return committed, accepted
+
     def _guarded_forward(self, plan, starts, takes, slots, cum, tok_seq,
-                         tok_off, tok_pos, tokens) -> np.ndarray:
-        """Destinations, shape buckets, counters and the ONE forward →
-        host logits ``[nb, V]`` f32. No scheduler or cache bookkeeping
-        moves in here."""
+                         tok_off, tok_pos, tokens, logit_idx,
+                         consumed) -> np.ndarray:
+        """Destinations (the ``append_kv`` fault point), shape buckets,
+        counters and the ONE forward (the ``forward`` fault point:
+        ``raise`` aborts before it, ``nan`` overwrites the logits slot
+        ``consumed[row]`` after it, clamped) → host logits ``[lb, V]``
+        f32, one row per entry of ``logit_idx`` (its own bucket ``lb``,
+        which is ``nb`` when no row speculates). No scheduler or cache
+        bookkeeping moves in here."""
         pages_np, offs_np = self.cache.token_dests_np(slots[tok_seq], tok_pos)
         nseq, ttot = len(starts), int(takes.sum())
         tb = _bucket(ttot, lo=8)
@@ -545,6 +807,9 @@ class Engine:
                                 self.cfg.num_heads // hkv, self.device))
                 self.attn_grid_items += desc_np.shape[0]
 
+        fault = self.faults.check("forward")
+        if fault is not None and fault.action == "raise":
+            raise InjectedFault("forward: injected forward failure")
         logits = self._unified_body(
             cb, nb, no_history,
             tokens=dev(tokens, tb), positions=dev(tok_pos, tb),
@@ -556,16 +821,21 @@ class Engine:
             # decode tokens (the packed tail) read their in-flight KV
             # fake-quantized, the values their int4 page dequantizes to
             dq_mask=dev(np.arange(ttot) >= cum[len(plan)], tb),
-            last_idx=dev(cum[1:] - 1, nb), **attn)
-        return logits.cpu().numpy()
+            last_idx=dev(logit_idx, _bucket(len(logit_idx))),
+            **attn).cpu().numpy()
+        if fault is not None and len(consumed):
+            # the injected NaN lands on a row the caller consumes
+            logits[consumed[min(fault.row, len(consumed) - 1)]] = np.nan
+        return logits
 
     @torch.no_grad()
     def _unified_body(self, cb: int, nb: int, no_history: bool, *, tokens,
                       positions, pages, offs, tseq, toff, dq_mask, last_idx,
                       desc=None, plan=None, tables=None, ctx=None,
                       qlens=None) -> torch.Tensor:
-        """The forward over the packed ``[1, Tb]`` stream → f32 logits
-        ``[nb, V]`` (one row per packed row's last token). Attention takes
+        """The forward over the packed ``[1, Tb]`` stream → f32 logits, one
+        row per packed token index in ``last_idx`` (each row's last token,
+        or every position of a verify chunk). Attention takes
         the work-queue descriptors ``desc`` (and their host-built
         ``ops.work_plan``), or the dense schedule's ``tables`` with per-row
         ``ctx``/``qlens``."""
@@ -645,10 +915,20 @@ class Engine:
             if prefill_ran:
                 self.interleaved_steps += 1
 
-    def _sample_batch(self, logits: np.ndarray,
-                      reqs: list[Request]) -> list[int]:
-        """Greedy tokens for the split forwards' rows (``logits`` [n, V])."""
-        return [int(t) for t in np.argmax(logits, axis=-1)]
+    def _sample_batch(self, logits: np.ndarray, reqs: list[Request],
+                      positions: list[int]) -> list[int]:
+        """One token per row of ``logits`` ``[n, V]``, each row under its
+        request's own temperature and top_k, keyed by (request id,
+        ``positions``); an all-greedy batch is one argmax."""
+        dflt = self.ecfg
+        temps = np.asarray(
+            [r.params.temperature if r.params else dflt.temperature
+             for r in reqs], np.float32)
+        if (temps <= 0.0).all():
+            return [int(t) for t in np.argmax(logits, axis=-1)]
+        topks = [r.params.top_k if r.params else dflt.top_k for r in reqs]
+        return [int(t) for t in SMP.sample_batch(
+            logits, [r.request_id for r in reqs], positions, temps, topks)]
 
     def _layers(self, x, positions, attend):
         """Every layer around ``attend(li, q, k, v)`` → the attention
@@ -688,7 +968,8 @@ class Engine:
 
         x = self._layers(self.lm.embed(self.params, tokens), positions,
                          attend)
-        tok = self._sample_batch(self._logits(x[:, -1:])[0], [req])[0]
+        tok = self._sample_batch(self._logits(x[:, -1:])[0], [req],
+                                 [t])[0]
         self.cache.extend_seq(req.seq_slot)
         req.prefill_pos = t
         self._record_token(req, tok)
@@ -759,7 +1040,8 @@ class Engine:
             if self.ecfg.prefix_caching and r.prefill_pos == len(r.prompt):
                 cache.publish_prefix(r.seq_slot, r.prompt)
         if finished:
-            toks = self._sample_batch(logits, [r for _, r in finished])
+            toks = self._sample_batch(logits, [r for _, r in finished],
+                                      [len(r.prompt) for _, r in finished])
             for (_, r), tok in zip(finished, toks):
                 self._record_token(r, tok)
 
@@ -826,5 +1108,6 @@ class Engine:
                          attend)
         logits = self._logits(x)[:, -1]
         cache.advance(slots)
-        for r, tok in zip(reqs, self._sample_batch(logits, reqs)):
+        toks = self._sample_batch(logits, reqs, [r.total_len for r in reqs])
+        for r, tok in zip(reqs, toks):
             self._record_token(r, tok)

@@ -20,7 +20,11 @@ The split-step baselines also write whole prompts (:meth:`write_prompt`)
 and scatter a step's tokens at destinations resolved once per step
 (:meth:`token_dests`, :meth:`scatter_tokens`), hand the dense schedule
 block tables with unmapped entries clamped to page 0, and gather a decode
-batch's pages contiguously (:meth:`gather_kv`, the gather baseline). On
+batch's pages contiguously (:meth:`gather_kv`, the gather baseline).
+Speculative decode rolls a sequence's resident length back (or forward,
+over accepted drafts) with :meth:`truncate_seq`. The engine's
+``FaultInjector`` rides along as ``faults``: the ``alloc_page`` point
+in :meth:`_acquire_page`, ``append_kv`` in :meth:`token_dests_np`. On
 the card an out-of-range index is a device-side assert, not JAX's silent
 drop or clamp, so every table handed to the device is clamped first.
 """
@@ -38,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantizer as Q
 from repro_torch.layers.common import resolve_device
+from repro_torch.serving.faults import InjectedFault
 
 __all__ = ["PagedKV4Config", "PagedKV4Cache", "build_work_queue",
            "quantize_kv_with", "qdq_kv_with"]
@@ -175,6 +180,8 @@ class PagedKV4Cache:
         # bytes one page pins in the pools (K + V across the layer stack)
         self.page_bytes = 2 * num_layer_slots * pcfg.page_size * hkv * (d // 2)
         self.prefix_evicted_pages = 0
+        # the engine's fault injector (None: no fault points armed)
+        self.faults = None
 
     # ------------------------------------------------------------ allocator
 
@@ -198,7 +205,10 @@ class PagedKV4Cache:
 
     def _acquire_page(self) -> Optional[int]:
         """A free page, else the LRU reclaimable prefix page (evicted
-        before any preemption can fire); None when both are dry."""
+        before any preemption can fire); None when both are dry, or when
+        an injected ``alloc_page`` fault says so."""
+        if self.faults is not None and self.faults.check("alloc_page"):
+            return None         # injected exhaustion — same shape as dry
         if self.free_pages:
             p = self.free_pages.pop()
         else:
@@ -294,6 +304,37 @@ class PagedKV4Cache:
             have += 1
         self.page_count[seq_id] = have
         return have * self.pcfg.page_size
+
+    def truncate_seq(self, seq_id: int, new_len: int) -> int:
+        """Set the sequence's resident length to ``new_len`` tokens,
+        releasing every page past ``pages_needed(new_len)`` — the
+        speculative-decode rollback: a verify chunk writes int4 KV for
+        the whole k+1-token draft, and the unaccepted tail is retracted
+        here, pages returning to their pre-draft baseline.
+
+        Pages drop through :meth:`_release_page`, as in ``free_seq``, so
+        a shared (adopted) page survives for its other owners and a
+        published page reaching ref 0 goes to the reclaimable LRU, still
+        matchable, instead of the free list. ``new_len`` may lie past
+        ``seq_len``, up to the page-backed capacity: the verify chunk
+        writes KV beyond ``seq_len`` and the accepted length lands here
+        in one move. Stale int4 bytes past ``new_len`` stay in the kept
+        pages; attention masks by length and the next write overwrites
+        them. → the number of page references dropped."""
+        if seq_id not in self.active:
+            raise ValueError(f"truncate_seq: seq {seq_id} not active")
+        have = int(self.page_count[seq_id])
+        if not 0 <= new_len <= have * self.pcfg.page_size:
+            raise ValueError(
+                f"truncate_seq: new_len={new_len} outside the page-backed "
+                f"range [0, {have * self.pcfg.page_size}] of seq {seq_id}")
+        keep = self.pages_needed(new_len)
+        for i in range(keep, have):
+            self._release_page(int(self.block_table[seq_id, i]))
+            self.block_table[seq_id, i] = -1
+        self.page_count[seq_id] = min(have, keep)
+        self.seq_len[seq_id] = new_len
+        return max(0, have - keep)
 
     def free_seq(self, seq_id: int):
         pages = self.block_table[seq_id]
@@ -396,7 +437,10 @@ class PagedKV4Cache:
     # ------------------------------------------------------- step views
 
     def token_dests_np(self, seq_ids, positions):
-        """Validated (physical page, in-page offset) per token."""
+        """Validated (physical page, in-page offset) per token; an injected
+        ``append_kv`` fault raises before any pool write."""
+        if self.faults is not None and self.faults.check("append_kv"):
+            raise InjectedFault("append_kv: injected destination failure")
         seq_ids = np.atleast_1d(np.asarray(seq_ids))
         pos = np.atleast_1d(np.asarray(positions))
         ps = self.pcfg.page_size

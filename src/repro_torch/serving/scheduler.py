@@ -40,6 +40,11 @@ class Request:
     params: Optional[SamplingParams] = None
     state: RequestState = RequestState.QUEUED
     cached_tokens: int = 0         # prefix-cache hit tokens, last admission
+    uid: int = -1                  # incarnation-qualified id: request ids
+    #                                are reusable after release(); this
+    #                                engine-lifetime counter is not
+    emitted: int = 0               # lifetime token events (survives the
+    #                                preemption fold, unlike generated)
     terminal_emitted: bool = dataclasses.field(
         default=False, repr=False, compare=False)
     events: list = dataclasses.field(

@@ -103,9 +103,55 @@ def test_cli_needs_a_card_unless_told_cpu():
         SERVE.main(COMMON + ["--requests", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--speculation", "2"], ["--mesh", "1x2"],
-                                  ["--temperature", "0.7"],
-                                  ["--inject-faults", "forward:step=1"],
+def test_sampling_faults_sanitize_flags_match_reference(capsys,
+                                                       monkeypatch):
+    """Stochastic sampling, an armed fault schedule and the sanitizers:
+    what the flags decide (a NaN row failed at step 3, the sampler's 5th
+    call failing its rows, a check after every step) matches the
+    reference launcher, ``[faults]`` line included."""
+    argv = COMMON + ["--requests", "4", "--prompt-len", "16",
+                     "--temperature", "0.8", "--top-k", "8", "--sanitize",
+                     "--inject-faults",
+                     "forward:step=3,action=nan;sample:nth=5"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eng = SERVE.main(argv + ["--device", "cpu"])
+    port = out.getvalue()
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    JSERVE.main()
+    ref = capsys.readouterr().out
+    assert _summary(port) == _summary(ref), (port, ref)
+
+    def faults_line(text):
+        return next(ln for ln in text.splitlines()
+                    if ln.startswith("[faults]"))
+
+    assert faults_line(port) == faults_line(ref)
+    c = eng.counters()
+    assert c["failed_count"] > 0 and c["internal_errors"] == 0
+    assert c["sanitize_checks"] == c["steps"]
+    assert f"sanitize_checks={c['steps']}" in port
+
+
+def test_speculation_flag_prints_its_line():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eng = SERVE.main(COMMON + ["--requests", "3", "--prompt-len", "16",
+                                   "--speculation", "3", "--sanitize",
+                                   "--device", "cpu"])
+    m = re.search(r"\[sched\] speculation: drafted=(\d+) accepted=(\d+) "
+                  r"\(acceptance \d+%\) rollback=(\d+) noop=(\d+) "
+                  r"draft_errors=(\d+)", out.getvalue())
+    assert m, out.getvalue()
+    drafted, accepted, rollback, noop, errors = map(int, m.groups())
+    assert drafted == accepted + rollback == eng.spec_draft_tokens
+    assert noop == eng.spec_noop_count and errors == 0
+    assert eng.sanitize_checks == eng.steps
+
+
+@pytest.mark.parametrize("flag", [["--failover", "migrate"], ["--mesh", "1x2"],
+                                  ["--kill-replica-at", "3"],
+                                  ["--head-dim", "64"],
                                   ["--replicas", "2"],
                                   ["--snapshot-every", "2"]])
 def test_unported_flags_are_refused(flag, capsys):
