@@ -36,7 +36,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    at GQA groups 5 and 12 on 40/8- and 48/4-head decode batches, K9 at
    G = 12 and C = 256 (under ``G=5``, ``G=12``, ``G=12 C=256``), and K9
    at speculative decode's verify shape, the decode batch's rows each a
-   chunk of 5 queries padded to 8 (under ``C=5 spec``);
+   chunk of 5 queries padded to 8 whose KV is in its pages (under ``C=5
+   spec``: the verify layout the engine uses on the card, each position
+   bit for bit the decode step of its token, and the parent's layout
+   timed beside it);
 3. parity: three 2-layer d_model-1024 models (Llama-shaped; Qwen2.5-
    shaped, 10/2 heads, QKV bias; StarCoder2-shaped, 12/1 heads, QKV bias,
    LayerNorm, GELU; biases seeded non-zero) served on the card in every
@@ -66,11 +69,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
    tokens, ``prefill_chunk_tokens=256``, the sanitizers on, served (a)
    greedy, (b) greedy with 4 drafts a row, (c) at T = 0.8, top_k 40 with
    3 drafts, twice, and (d) as (b) under an injected schedule (a raising
-   draft source, a failing verification, NaN logits): no internal error,
-   a sanitizer pass every step, the pages back to the pool, the path's
-   kernels launched; (b) accepts drafts in fewer forwards than (a), (c)
-   replays its tokens, (d) fails exactly the requests its faults hit;
-7. archs: Llama-3-70B at full width and depth (80 layers) serving the
+   draft source, a failing verification, NaN logits), then (a) and (b)
+   under the dense attention schedule: no internal error, a sanitizer
+   pass every step, the pages back to the pool, the path's kernels
+   launched; (b) accepts drafts in fewer forwards than (a) and emits
+   (a)'s tokens, every one; (c) replays its tokens, (d) fails exactly the
+   requests its faults hit; (b dense)'s agreement with (a dense) printed;
+7. recover: the spec workload greedy with 4 drafts and at T = 0.8, each
+   through a directory-backed ``RecoveryLog(snapshot_every=4)`` stopped
+   two steps past a checkpoint after the first drafts, the engine
+   dropped and rebuilt with
+   ``RecoveryLog.open_dir``: no replay mismatch, replayed events, the
+   uninterrupted run's tokens, pages back; a torn ``snapshot_write``
+   leaves the last good snapshot, which resumes to the same tokens; the
+   snapshot's bytes and seconds printed;
+8. replicas: two replicas on the card (one set of weights) serving the
+   spec workload without a crash, then with replica 1 killed before its
+   6th step under ``standby`` (the crash-free group's tokens) and
+   ``migrate`` (one terminal and 32 tokens per request, work moved);
+   peak device memory printed;
+9. archs: Llama-3-70B at full width and depth (80 layers) serving the
    ``slice`` workload with its checks (the fused act-quant exactly 4 × 80
    × forwards times), after the time to make its weights, the packed
    model's bytes against the ≈ 40.5 GB reckoned by hand and the peak
@@ -80,7 +98,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    non-zero, each serving the same workload (Qwen2.5-32B and
    StarCoder2-15B also in baselines a, b and c: every decode kernel at G
    = 5 and 12);
-8. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
+10. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
    subprocess on Llama-3-8B at full width and depth under the mixed
    schedule, 8 requests of 384–640 prompt tokens (128 shared) × 32 new
    tokens with a 6-deep waiting queue and every 4th request aborted: 2
@@ -88,7 +106,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    tokens, with no failed step, internal or callback error; then again
    with ``--temperature 0.8 --top-k 40 --speculation 3 --sanitize``: the
    same counts, the speculation line (drafted = accepted + rolled back)
-   and a sanitizer check every step.
+   and a sanitizer check every step; then with ``--replicas 2 --failover
+   standby --kill-replica-at 6 --snapshot-every 4``: one failover, replica
+   0 promoted, all 8 requests finished with 32 tokens.
 
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
@@ -120,7 +140,8 @@ import time
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernels", "parity", "slice", "baselines", "spec", "archs", "cli")
+PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
+          "replicas", "archs", "cli")
 EXTRA_PHASES = ("times", "specdiag")      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -668,8 +689,15 @@ def check_spec_attention(torch, cfg, KVC, PA, Q, rows: dict):
     """K9 at the verify shape of speculative decode: the decode batch's
     rows (histories ``DECODE_LENS``), each a chunk of ``SPEC_C`` valid
     queries (the last sampled token and 4 drafts) padded to ``SPEC_CB``,
-    bit for bit against its plain version, one or two launches a call,
-    with SDPA on the same keys; an entry under K9's row, ``C=5 spec``."""
+    the chunk's int4 KV already in its pages and its in-flight keys
+    fake-quantized, as the engine feeds them on the card: under the
+    verify layout (``build_work_queue(verify=...)``, the path's) and the
+    parent's (in-flight reads of the chunk's earlier keys), each bit for
+    bit against its plain version, one or two launches a call, with SDPA
+    on the same keys; then the verify layout's query i must equal, bit for
+    bit, K9 over the decode step of the same token at ctx + i (a chunk of
+    1, every row). An entry under K9's row, ``C=5 spec``; ``earlier_ms``
+    times the parent's layout."""
     import torch.nn.functional as F
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -678,19 +706,24 @@ def check_spec_attention(torch, cfg, KVC, PA, Q, rows: dict):
     slots = list(range(len(DECODE_LENS)))
     b = len(slots)
     takes = [SPEC_C] * b
-    desc = cache.work_queue_np(slots, DECODE_LENS, takes, pad_row=b * hkv)
+    ctx = np.asarray(DECODE_LENS)
     q = torch.zeros((b, SPEC_CB, hq, d), device="cuda", dtype=torch.bfloat16)
     q[:, :SPEC_C] = torch.randn((b, SPEC_C, hq, d), generator=gen,
                                 device="cuda").bfloat16()
+    # the chunk's KV: written to its pages, and fake-quantized in flight
+    k, v = (torch.randn((1, b * SPEC_C, hkv, d), generator=gen,
+                        device="cuda") * 4 for _ in range(2))
+    pos = (ctx[:, None] + np.arange(SPEC_C)).ravel()
+    pages, offs = cache.token_dests(np.repeat(slots, SPEC_C), pos)
+    cache.scatter_tokens(0, pages, offs, k, v)
+    kdq, vdq = KVC.qdq_kv_with(k, v, cache.k_scale, cache.k_zero,
+                               cache.v_scale, cache.v_zero)
     kn, vn = (torch.zeros((b, SPEC_CB, hkv, d), device="cuda")
               for _ in range(2))
-    for x in (kn, vn):
-        x[:, :SPEC_C] = torch.randn((b, SPEC_C, hkv, d), generator=gen,
-                                    device="cuda") * 4
+    kn[:, :SPEC_C] = kdq[0].reshape(b, SPEC_C, hkv, d)
+    vn[:, :SPEC_C] = vdq[0].reshape(b, SPEC_C, hkv, d)
     pools = (cache.k_pool[0], cache.k_scale, cache.k_zero,
              cache.v_pool[0], cache.v_scale, cache.v_zero)
-    args = (q, kn, vn) + pools + (torch.from_numpy(desc).cuda(),)
-    plan = PA.work_plan(desc, b * hkv, SPEC_CB, g, "cuda")
     npb = 1 << (cache.pages_needed(max(DECODE_LENS)) - 1).bit_length()
     tables = torch.from_numpy(cache.block_tables_np(slots, npb)).cuda()
     lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
@@ -700,23 +733,55 @@ def check_spec_attention(torch, cfg, KVC, PA, Q, rows: dict):
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         yard[0], yard[1], yard[2], attn_mask=yard[3]))
     del yard
-    op = lambda: PA.paged_kv4_prefill_attention_wq(*args, plan=plan)  # noqa: E731
-    ref = lambda: PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan)  # noqa: E731
     label = "paged_kv4_prefill_attention_wq C=5 spec"
-    err = check_exact(label, op(), ref(), [(i, SPEC_C) for i in range(b)])
-    n = device_launches(torch, op)
-    if not 1 <= n <= 2:
-        fail(f"{label}: {n:g} kernel launches a call")
+    valid = [(i, SPEC_C) for i in range(b)]
+    timed = {}
+    for layout, verify in (("verify", [True] * b), ("parent", None)):
+        desc = cache.work_queue_np(slots, DECODE_LENS, takes,
+                                   pad_row=b * hkv, verify=verify)
+        args = (q, kn, vn) + pools + (torch.from_numpy(desc).cuda(),)
+        plan = PA.work_plan(desc, b * hkv, SPEC_CB, g, "cuda")
+        op = lambda a=args, p=plan: PA.paged_kv4_prefill_attention_wq(  # noqa: E731
+            *a, plan=p)
+        ref = lambda a=args, p=plan: PA.paged_kv4_prefill_attention_wq_ref(  # noqa: E731
+            *a, plan=p)
+        got = op()
+        err = check_exact(f"{label} ({layout} layout)", got, ref(), valid)
+        n = device_launches(torch, op)
+        if not 1 <= n <= 2:
+            fail(f"{label} ({layout} layout): {n:g} kernel launches a call")
+        timed[layout] = dict(out=got, err=err, n=n, desc=desc, plan=plan,
+                             ms=time_ms(torch, op), plain_ms=time_ms(
+                                 torch, ref))
+    # query i of the verify chunk against the decode step at ctx + i
+    out = timed["verify"]["out"]
+    for i in range(SPEC_C):
+        desc = cache.work_queue_np(slots, ctx + i, [1] * b, pad_row=b * hkv)
+        one = PA.paged_kv4_prefill_attention_wq(
+            q[:, i:i + 1].contiguous(), kn[:, i:i + 1].contiguous(),
+            vn[:, i:i + 1].contiguous(), *pools,
+            torch.from_numpy(desc).cuda(),
+            plan=PA.work_plan(desc, b * hkv, 1, g, "cuda"))
+        if not torch.equal(out[:, i], one[:, 0]):
+            fail(f"{label}: verify position {i} is not the decode step at "
+                 f"ctx + {i} (max diff "
+                 f"{float((out[:, i] - one[:, 0]).abs().max()):.3g})")
+    new = timed["verify"]
     shape = (f"B={b} C={SPEC_C} (of {SPEC_CB}) Hq={hq} Hkv={hkv} G={g} D={d} "
-             f"T={max(DECODE_LENS)} W={desc.shape[0]}")
-    say(f"[kernels] paged_kv4_prefill_attention_wq {shape}: max err {err:.3g}"
-        f"; {n:g} launch(es) a call, {plan.jobs.shape[0]} blocks of "
-        f"{plan.rows} rows")
+             f"T={max(DECODE_LENS)} W={new['desc'].shape[0]}, verify layout")
+    say(f"[kernels] paged_kv4_prefill_attention_wq {shape}: max err "
+        f"{new['err']:.3g}; {new['n']:g} launch(es) a call, "
+        f"{new['plan'].jobs.shape[0]} blocks of {new['plan'].rows} rows; "
+        f"every position equals its decode step; {new['ms']:.6f} ms "
+        f"(parent's layout, W={timed['parent']['desc'].shape[0]}: "
+        f"{timed['parent']['ms']:.6f} ms, max err "
+        f"{timed['parent']['err']:.3g})")
     put(rows, "paged_kv4_prefill_attention_wq", "C=5 spec", {
-        "shape": shape, "max_abs_err": err, "rows": plan.rows,
-        "ms": time_ms(torch, op), "plain_ms": time_ms(torch, ref),
+        "shape": shape, "max_abs_err": new["err"], "rows": new["plan"].rows,
+        "ms": new["ms"], "earlier_ms": timed["parent"]["ms"],
+        "plain_ms": new["plain_ms"],
         **bound(*prefill_bound(DECODE_LENS, takes, hkv, g, d)),
-        "library_ms": library_ms, "launches_per_call": n})
+        "library_ms": library_ms, "launches_per_call": new["n"]})
 
 
 def device_launches(torch, fn, calls: int = 3, tries: int = 5) -> float:
@@ -1318,13 +1383,21 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
 # 24-token pattern up to 128–512 tokens, 32 new tokens each, sanitizers on
 SPEC_PATTERN = 24
 SPEC_FAULTS = "draft:nth=3,action=raise;verify:nth=2;forward:step=14,action=nan"
-SPEC_RUNS = (   # run, SamplingParams fields, fault schedule
-    ("a", dict(speculation=0), None),
-    ("b", dict(speculation=4), None),
-    ("c", dict(temperature=0.8, top_k=40, speculation=3), None),
-    ("c again", dict(temperature=0.8, top_k=40, speculation=3), None),
-    ("d", dict(speculation=4), SPEC_FAULTS),
+SPEC_CHUNK = 256           # the prefill budget a step
+SPEC_RUNS = (   # run, SamplingParams fields, fault schedule, attention
+    #             schedule
+    ("a", dict(speculation=0), None, "work_queue"),
+    ("b", dict(speculation=4), None, "work_queue"),
+    ("c", dict(temperature=0.8, top_k=40, speculation=3), None, "work_queue"),
+    ("c again", dict(temperature=0.8, top_k=40, speculation=3), None,
+     "work_queue"),
+    ("d", dict(speculation=4), SPEC_FAULTS, "work_queue"),
+    ("a dense", dict(speculation=0), None, "dense"),
+    ("b dense", dict(speculation=4), None, "dense"),
 )
+# greedy runs held against the spec-off run of their schedule: (b) must
+# agree token for token, (b dense)'s agreement is reported
+SPEC_AGAINST = {"b": "a", "b dense": "a dense"}
 SPEC_MUST = SPLIT + ("paged_kv4_prefill_attention_wq",)
 
 
@@ -1341,21 +1414,24 @@ def phase_spec(torch, np, mods, KERNELS, cfg, params):
     unified step at Llama-3-8B's full width and depth, under the
     sanitizers (``SPEC_RUNS``): (a) greedy; (b) greedy with 4 drafts a
     row; (c) T = 0.8, top_k 40, 3 drafts, served twice; (d) (b) under
-    ``SPEC_FAULTS``. Each run: no internal error, a sanitizer pass every
-    step, the pages back to the pool, the path's kernels launched and
-    the fused act-quant 4 × layers × forwards times; (a)–(c) every
+    ``SPEC_FAULTS``; (a) and (b) under the dense attention schedule.
+    Each run: no internal error, a sanitizer pass every step, the pages
+    back to the pool, the path's kernels launched and the fused
+    act-quant 4 × layers × forwards times; every run but (d) every
     request 32 tokens; (b) accepted drafts, drafted = accepted + rolled
-    back, fewer forwards than (a); (c) the same tokens twice; (d) one
-    draft error and exactly the failures its fired faults cause. → the
-    launches of run (b)."""
+    back, fewer forwards than (a) and the same tokens as (a), every one;
+    (c) the same tokens twice; (d) one draft error and exactly the
+    failures its fired faults cause; (b dense)'s agreement with (a
+    dense) printed. → the launches of run (b)."""
     from repro_torch.serving.faults import FaultInjector
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
     prompts, lens = spec_prompts(np, cfg.vocab_size)
     n_req, max_new = len(prompts), 32
     out, forwards = {}, {}
-    for run, sampling, schedule in SPEC_RUNS:
+    for run, sampling, schedule, attn in SPEC_RUNS:
         tag = f"[spec] {run}"
-        ecfg = EngineConfig(prefill_chunk_tokens=256, sanitize=True)
+        ecfg = EngineConfig(prefill_chunk_tokens=SPEC_CHUNK, sanitize=True,
+                            attention_schedule=attn)
         fi = FaultInjector.from_spec(schedule) if schedule else None
         gc.collect()
         for kern in KERNELS.values():
@@ -1377,7 +1453,9 @@ def phase_spec(torch, np, mods, KERNELS, cfg, params):
                  f"after the run, of {ecfg.num_pages}")
         if first is None or not np.isfinite(first).all():
             fail(f"{tag}: first logits missing or not finite")
-        for name in SPEC_MUST:
+        must = (SPEC_MUST if attn == "work_queue" else
+                SPLIT + ("paged_kv4_prefill_attention",))
+        for name in must:
             if launches[name] <= 0:
                 fail(f"{tag}: kernel {name} was never launched")
         want = ACT_PER_LAYER * cfg.num_layers * eng.forward_calls
@@ -1418,14 +1496,23 @@ def phase_spec(torch, np, mods, KERNELS, cfg, params):
                 f"{eng.smoke_sampler_s['sample'] * 1e3 / eng.steps:.3f} + "
                 f"verifier {eng.smoke_sampler_s['verify'] * 1e3 / eng.steps:.3f}"
                 f" ms a step")
-        if (run != "a" and "a" in out and schedule is None
-                and not sampling.get("temperature")):
-            ref = out["a"]
+        agree = None
+        if run in SPEC_AGAINST and schedule is None:
+            ref = out[SPEC_AGAINST[run]]
             total = sum(len(v) for v in ref.values())
             agree = sum(x == y for i in ref
                         for x, y in zip(ref[i], toks[i])) / total
-            line += f"; agreement with (a) {agree:.4f}"
+            line += f"; agreement with ({SPEC_AGAINST[run]}) {agree:.4f}"
         say(line)
+        if run == "b" and agree != 1.0:
+            ref = out["a"]
+            first = {i: next(j for j, (x, y) in enumerate(zip(ref[i],
+                                                               toks[i]))
+                             if x != y)
+                     for i in ref if ref[i] != toks[i]}
+            fail(f"{tag}: greedy speculation agrees with (a) on "
+                 f"{agree:.4f} of the tokens, not all (request: first "
+                 f"token that differs {first})")
         say(f"{tag} launches {json.dumps(launches)}")
         if schedule:
             say(f"{tag} fired {fi.fired}; counters {json.dumps(c)}")
@@ -1450,12 +1537,13 @@ def phase_specdiag(torch, np, mods, cfg, params):
     all 8 rows decode; then, over the same state, forwards of the unified
     body with the output of every op recorded (norms, projections, RoPE,
     in-flight fake-quant, attention, SiLU, the lm head): (A) every row its
-    last token alone, (B) every row that token and 4 drafts, (A1) every
-    row its first draft alone, one position later, over the history B
-    wrote. A's token is held against B's position 0, A1's against B's
-    position 1: per op, in call order, the largest difference and the rows
-    that differ, then the first op that differs. Last, the norm and the lm
-    head on rows 0–7 of a 64-row input against the same rows alone."""
+    last token alone, (B) every row that token and 4 drafts, (Ai) every
+    row its i-th draft alone, i positions later, over the history B
+    wrote (i = 1..4). A's token is held against B's position 0, Ai's
+    against B's position i: per op, in call order, the largest difference
+    and the rows that differ, then the first op that differs; any op
+    that differs fails the phase. Last, the norm and the lm head on rows
+    0–7 of a 64-row input against the same rows alone."""
     from repro_torch.kernels import ops
     from repro_torch.layers import common as C
     from repro_torch.layers import mlp as MLP
@@ -1495,9 +1583,10 @@ def phase_specdiag(torch, np, mods, cfg, params):
                (ops, "paged_kv4_prefill_attention_wq")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     recs = {}
-    # A, then B (its chunk's KV written at ctx.. ctx + 4), then A1
-    for key, offset, take in (("A", 0, 1), ("B", 0, 1 + ndraft),
-                              ("A1", 1, 1)):
+    # A, then B (its chunk's KV written at ctx.. ctx + 4), then A1..A4
+    for key, offset, take in ((("A", 0, 1), ("B", 0, 1 + ndraft))
+                              + tuple((f"A{i}", i, 1)
+                                      for i in range(1, 1 + ndraft))):
         rec = recs[key] = []
         for mod, name, fn in saved:
             def wrapped(*a, fn=fn, name=name, rec=rec, **kw):
@@ -1536,21 +1625,423 @@ def phase_specdiag(torch, np, mods, cfg, params):
                     first = f"layer {layer} {name}"
         say(f"[specdiag] {key} vs B position {pos}: first op whose output "
             f"differs: {first}")
+        return first
 
-    compare("A", 0)
-    compare("A1", 1)
+    differ = {pos: compare("A" if pos == 0 else f"A{pos}", pos)
+              for pos in range(1 + ndraft)}
+    # row-wise ops on 8 rows alone against the same rows first and last
+    # in T-row inputs (a step's token count decides T)
     gen = torch.Generator(device=eng.device).manual_seed(9)
-    x = (torch.randn((1, 64, cfg.d_model), generator=gen, device=eng.device)
-         * 2).bfloat16()
+    x = (torch.randn((1, 1024, cfg.d_model), generator=gen,
+                     device=eng.device) * 2).bfloat16()
     norm = params["final_norm"]
+    bp = params["blocks"][0]
+    quant = eng.quant
     for label, fn in (
             ("rmsnorm", lambda t: C.apply_norm(norm, t, cfg.norm,
                                                cfg.norm_eps)),
-            ("lm head", lambda t: eng.lm.head(params, t))):
-        alone, inside = fn(x[:, :8]), fn(x)[:, :8]
-        say(f"[specdiag] {label}: rows 0-7 alone vs inside 64 rows: "
-            f"equal={torch.equal(alone, inside)} max diff "
-            f"{float((alone.float() - inside.float()).abs().max()):.6g}")
+            ("lm head", lambda t: eng.lm.head(params, t)),
+            ("q/k/v", lambda t: torch.cat(C.linears(
+                [bp["attn"][w] for w in ("wq", "wk", "wv")], t, quant), -1)),
+            ("mlp", lambda t: MLP.mlp_apply(bp["mlp"], t, quant,
+                                            cfg.mlp_act))):
+        alone = fn(x[:, :8])
+        for t in (16, 32, 64, 128, 256, 512, 1024):
+            y = x[:, :t].clone()
+            y[:, t - 8:] = x[:, :8]
+            out = fn(y)
+            first, last = out[:, :8], out[:, t - 8:]
+            say(f"[specdiag] {label}: rows alone vs first/last 8 of {t}: "
+                f"equal={torch.equal(alone, first)}/"
+                f"{torch.equal(alone, last)} max diff "
+                f"{float((alone.float() - first.float()).abs().max()):.6g}/"
+                f"{float((alone.float() - last.float()).abs().max()):.6g}")
+    del eng
+    gc.collect()
+    # the spec runs (a) and (b), every op of each decode token traced and
+    # compared where the two runs hold the same tokens
+    sa, ra = spec_trace(torch, np, mods, cfg, params, {}, SPEC_CHUNK)
+    sb, rb = spec_trace(torch, np, mods, cfg, params, dict(speculation=4),
+                        SPEC_CHUNK)
+    say(f"[specdiag] traced (a) and (b): first "
+        f"difference {spec_trace_compare(torch, sa, ra, sb, rb)}")
+    del ra, rb
+    gc.collect()
+    if any(differ.values()):
+        fail(f"specdiag: a verify position is not its decode step: {differ}")
+
+
+def spec_trace(torch, np, mods, cfg, params, sampling, chunk: int):
+    """Serve the spec workload greedily under ``sampling`` and record, for
+    every decode-row token and layer, the residual stream into each norm,
+    K9's query, in-flight key and value and output, the wo projection and
+    the MLP's output, with the chunk the token rode in → (every request's
+    prompt + generated tokens, {(request, position): [(chunk start, chunk
+    tokens, [(op, tensor) per call in layer order])]})."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers import common as C
+    from repro_torch.layers import mlp as MLP
+    from repro_torch.serving.api import SamplingParams
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    eng = Engine(cfg, params, QuantConfig(), EngineConfig(
+        prefill_chunk_tokens=chunk), device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(p, SamplingParams(max_new_tokens=32, **sampling),
+                   request_id=i)
+    rec, calls = {}, []
+    # (module, function, what is recorded: its first argument or output,
+    # packed [1, T] or padded [rows, chunk] token layout)
+    targets = ((C, "apply_norm", "in"), (C, "linear", "out"),
+               (C, "linears", "outs"), (C, "apply_rope", "out"),
+               (MLP, "mlp_apply", "out"),
+               (ops, "paged_kv4_prefill_attention_wq", "k9"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def wrap(fn, name, what):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            if what == "in":
+                calls.append((name, "packed", a[1]))
+                calls.append((name + " out", "packed", out))
+            elif what == "outs":
+                calls.extend((f"{name} {i}", "packed", o)
+                             for i, o in enumerate(out))
+            elif what == "out":
+                calls.append((name, "packed", out))
+            else:
+                calls.append((name + " q", "padded", a[0]))
+                calls.append((name + " k", "padded", a[1]))
+                calls.append((name + " v", "padded", a[2]))
+                calls.append((name + " out", "padded", out))
+            return out
+        return wrapped
+
+    inner_fwd = eng._guarded_forward
+
+    def fwd(plan, starts, takes, slots, cum, tok_seq, tok_off, tok_pos,
+            tokens, *a):
+        calls.clear()
+        out = inner_fwd(plan, starts, takes, slots, cum, tok_seq, tok_off,
+                        tok_pos, tokens, *a)
+        # the layer norms only (the final norm reads the logit rows)
+        norm_at = [k for k, c in enumerate(calls)
+                   if c[0].startswith("apply_norm")]
+        layer_calls = [c for k, c in enumerate(calls)
+                       if k not in norm_at[4 * cfg.num_layers:]]
+        by_slot = {r.seq_slot: r.request_id for r in eng.sched.running}
+        for si in range(len(plan), len(starts)):
+            chunk_toks = tokens[cum[si]:cum[si + 1]].tolist()
+            for off in range(int(takes[si])):
+                j = int(cum[si]) + off
+                rec.setdefault((by_slot[int(slots[si])],
+                                int(starts[si]) + off), []).append(
+                    (int(starts[si]), chunk_toks[:off + 1],
+                     [(name, (t[si, off] if lay == "padded" else t[0, j])
+                       .clone()) for name, lay, t in layer_calls]))
+        return out
+
+    eng._guarded_forward = fwd
+    for mod, name, what in targets:
+        setattr(mod, name, wrap(getattr(mod, name), name, what))
+    try:
+        eng.run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    seqs = {r.request_id: list(r.prompt) + list(r.generated)
+            for r in eng.sched.finished}
+    del eng
+    return seqs, rec
+
+
+def spec_trace_compare(torch, seqs_a, rec_a, seqs_b, rec_b):
+    """The first (request, position) whose recorded tensors differ between
+    two traces, over the positions both runs reached with the same tokens
+    (a record counts if its chunk's tokens are the run's own sequence):
+    → a line naming it and the first op (in call order) that differs, or
+    None."""
+    found = []
+    for rid in sorted(seqs_a):
+        a, b = seqs_a[rid], seqs_b[rid]
+        same = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        for (r, pos), recs in sorted(rec_a.items()):
+            if r != rid or pos >= same:
+                continue
+            ok_b = [x for x in rec_b.get((r, pos), [])
+                    if x[1] == b[x[0]:pos + 1]]
+            ok_a = [x for x in recs if x[1] == a[x[0]:pos + 1]]
+            if not ok_a or not ok_b:
+                continue
+            names = [n for n, _ in ok_a[0][2]]
+            for k, ((name, xa), (_, xb)) in enumerate(zip(ok_a[0][2],
+                                                          ok_b[0][2])):
+                if not torch.equal(xa, xb):
+                    found.append((pos, rid, k, name, names[:k].count(name),
+                                  ok_a[0][0], ok_b[0][0], float(
+                                      (xa.float() - xb.float()).abs().max())))
+                    break
+    if not found:
+        return None
+    pos, rid, k, name, nth, ca, cb, diff = min(found)
+    return (f"request {rid} position {pos} (chunks from {ca} and {cb}): "
+            f"call {nth} of {name} differs by {diff:.6g} ({len(found)} "
+            f"positions differ)")
+
+
+# the recover and replicas phases: the spec workload (8 prompts × 32 new
+# tokens, greedy with 4 drafts a row, again at T = 0.8 from the top 40)
+# on pools sized to it (the default 512 pages would make each snapshot
+# ~1.4 GB of JSON), a checkpoint every 4 engine steps
+RECOVER_PAGES, REPLICA_PAGES, SNAP_EVERY = 80, 48, 4
+RECOVER_RUNS = (("greedy", dict(speculation=4)),
+                ("T=0.8", dict(temperature=0.8, top_k=40, speculation=4)))
+REPLICA_CRASH = 6          # replica 1 dies before its 6th engine step
+
+
+def _serve_plain(torch, Engine, EngineConfig, QuantConfig, cfg, params,
+                 prompts, sp, ecfg):
+    """The uninterrupted run: every request's tokens."""
+    eng = Engine(cfg, params, QuantConfig(), ecfg, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(p, sp, request_id=i)
+    eng.run()
+    check_spec_counts(eng, "[recover] uninterrupted")
+    out = {r.request_id: list(r.generated) for r in eng.sched.finished}
+    del eng
+    return out
+
+
+def _streams(events, n_req: int, label: str):
+    """Each request's delivered tokens from ``events``; exactly one
+    terminal each, ``finished``."""
+    toks = {i: [] for i in range(n_req)}
+    terms = {i: [] for i in range(n_req)}
+    for ev in events:
+        if ev.token is not None:
+            toks[ev.request_id].append(int(ev.token))
+        elif ev.finished:
+            terms[ev.request_id].append(ev)
+    for i, t in terms.items():
+        if len(t) != 1 or t[0].state.value != "finished":
+            fail(f"{label}: request {i} got {len(t)} terminal events "
+                 f"({[e.state.value for e in t]})")
+    return toks
+
+
+def _free_memory(torch):
+    """Return a dropped engine's memory (its pools) to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_recover(torch, np, mods, cfg, params):
+    """Journaled crash recovery at Llama-3-8B's full width and depth: the
+    spec workload (greedy with 4 drafts, then at T = 0.8), each served
+    once uninterrupted and once through a directory-backed
+    ``RecoveryLog(snapshot_every=4)`` stopped, after the first drafts,
+    two steps past a checkpoint; the engine is dropped and its memory
+    freed, the log rebuilt with ``RecoveryLog.open_dir`` and run to the
+    end. No
+    ``ReplayMismatch``, replayed events > 0, the pages back to the pool,
+    and at T = 0.8 every request's delivered stream the uninterrupted
+    run's token for token with one terminal. In the greedy run the
+    resumed log has ``snapshot_write`` (action ``torn``) armed on its
+    second checkpoint: the torn write must leave the last good
+    ``snapshot.json``, and a second ``open_dir`` from it must finish with
+    every request's tokens the uninterrupted run's (the events of the
+    torn step were journaled but never returned, so the reference's log
+    never delivers them: see ROADMAP). Prints the snapshot's bytes and
+    the seconds to take and restore it."""
+    import tempfile
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.faults import Fault, FaultInjector, InjectedFault
+    from repro_torch.serving.recovery import RecoveryLog, ReplayMismatch
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    n_req, max_new = len(prompts), 32
+    ecfg = EngineConfig(prefill_chunk_tokens=256, num_pages=RECOVER_PAGES)
+
+    def open_dir(d, faults=None):
+        return RecoveryLog.open_dir(d, cfg, params, QuantConfig(), ecfg,
+                                    snapshot_every=SNAP_EVERY,
+                                    device="cuda", faults=faults)
+
+    for run, fields in RECOVER_RUNS:
+        tag = f"[recover] {run}"
+        t_run = time.perf_counter()
+        sp = SamplingParams(max_new_tokens=max_new, **fields)
+        want = _serve_plain(torch, Engine, EngineConfig, QuantConfig, cfg,
+                            params, prompts, sp, ecfg)
+        with tempfile.TemporaryDirectory() as d:
+            eng = Engine(cfg, params, QuantConfig(), ecfg, device="cuda")
+            log = RecoveryLog(eng, snapshot_every=SNAP_EVERY, dir=d)
+            for i, p in enumerate(prompts):
+                eng.submit(p, sp, request_id=i)
+            delivered = []
+            # past the first drafts (truncate_seq state in the snapshots),
+            # then to two steps past a checkpoint
+            while not eng.spec_draft_tokens or eng.steps % SNAP_EVERY != 2:
+                delivered.extend(log.step())
+            drafted = eng.spec_draft_tokens
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = eng.snapshot(full=True)
+            snap_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Engine.restore(blob, cfg, params, QuantConfig(), ecfg,
+                           device="cuda")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            pool_bytes = 2 * eng.cache.k_pool.numel()
+            say(f"{tag}: stopped at engine step {eng.steps} (checkpoint at "
+                f"{log.snapshot_step}), {drafted} drafts so far, journal "
+                f"{len(log.journal)} events; a full snapshot is "
+                f"{len(blob)} bytes of JSON for {pool_bytes} pool bytes "
+                f"({RECOVER_PAGES} pages), taken in {snap_s:.3f} s, "
+                f"restored in {restore_s:.3f} s")
+            if not drafted:
+                fail(f"{tag}: no draft before the stop")
+            del blob, eng, log
+            _free_memory(torch)
+            torn = None
+            try:
+                log = open_dir(d, FaultInjector(
+                    [Fault("snapshot_write", nth=3, action="torn")])
+                    if run == "greedy" else None)
+                try:
+                    delivered += log.run()
+                except InjectedFault:
+                    torn = log.engine.steps
+                    with open(os.path.join(d, "snapshot.json")) as f:
+                        good = json.loads(f.read())["steps"]
+                    replayed = log.replayed
+                    say(f"{tag}: snapshot_write torn at the step-{torn} "
+                        f"checkpoint; snapshot.json holds step {good}")
+                    if good >= torn or not os.path.exists(
+                            os.path.join(d, "snapshot.json.tmp")):
+                        fail(f"{tag}: the torn write did not leave the "
+                             f"last good snapshot (step {good}, torn at "
+                             f"{torn})")
+                    del log
+                    _free_memory(torch)
+                    log = open_dir(d)
+                    if log.engine.steps != good:
+                        fail(f"{tag}: resumed at step {log.engine.steps}, "
+                             f"not the last good snapshot's {good}")
+                    delivered += log.run()
+                    replayed += log.replayed
+                else:
+                    replayed = log.replayed
+                    if run == "greedy":
+                        fail(f"{tag}: the armed torn write never fired")
+            except ReplayMismatch as e:
+                fail(f"{tag}: {e}")
+            eng = log.engine
+            if replayed <= 0:
+                fail(f"{tag}: nothing replayed after the restore")
+            if torn is None:
+                got = _streams(delivered, n_req, tag)
+                what = "delivered stream"
+            else:
+                got = {r.request_id: list(r.generated)
+                       for r in eng.sched.finished}
+                what = "tokens"
+            bad = [i for i in range(n_req) if got.get(i) != want[i]]
+            if bad:
+                fail(f"{tag}: requests {bad}: {what} not the uninterrupted "
+                     f"run's")
+            if eng.cache.pages_free != RECOVER_PAGES or eng.internal_errors:
+                fail(f"{tag}: {eng.cache.pages_free} of {RECOVER_PAGES} "
+                     f"pages free, internal_errors {eng.internal_errors}")
+            say(f"{tag}: resumed, {replayed} events replayed and verified "
+                f"bit for bit, every request's {what} equal to the "
+                f"uninterrupted run's, pages back "
+                f"({time.perf_counter() - t_run:.1f} s)")
+            del log, eng
+            _free_memory(torch)
+
+
+def phase_replicas(torch, np, mods, cfg, params):
+    """Two replicas on the one card behind a ``ReplicaGroup``
+    (``snapshot_every=4``, pools of ``REPLICA_PAGES`` pages each, one set
+    of weights) serving the spec workload greedy with 4 drafts: without a
+    crash, then with ``crash`` armed on replica 1 before its 6th engine
+    step under ``standby`` (every request's delivered tokens those of the
+    run without the crash; failovers 1) and under ``migrate`` (one
+    terminal per request, 32 tokens each, failovers 1, requests moved).
+    No internal error, the live replicas' pages back. Prints the peak
+    device memory beside the weights and the pools."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.faults import Fault, FaultInjector
+    from repro_torch.serving.recovery import ReplayMismatch
+    from repro_torch.serving.replication import ReplicaGroup
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    n_req, max_new = len(prompts), 32
+    ecfg = EngineConfig(prefill_chunk_tokens=256, num_pages=REPLICA_PAGES)
+    sp = SamplingParams(max_new_tokens=max_new, speculation=4)
+    weights = tree_bytes(params)
+    ref = None
+    for policy in ("none", "standby", "migrate"):
+        tag = f"[replicas] {policy}"
+        faults = [FaultInjector(), FaultInjector(
+            [Fault("crash", step=REPLICA_CRASH)] if policy != "none" else [])]
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        group = ReplicaGroup(cfg, params, QuantConfig(), ecfg, replicas=2,
+                             failover=("standby" if policy == "none"
+                                       else policy),
+                             snapshot_every=SNAP_EVERY, faults=faults,
+                             device="cuda")
+        rids = [group.submit(p, sp) for p in prompts]
+        try:
+            group.run()
+        except ReplayMismatch as e:
+            fail(f"{tag}: {e}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pools = sum(2 * r.engine.cache._k_pages.numel()
+                    for r in group.replicas)
+        c = group.counters()
+        toks = {rid: group.tokens_for(rid) for rid in rids}
+        say(f"{tag}: {c['replica_steps']} replica steps, failovers "
+            f"{c['failovers']}, migrated {c['migrated_requests']}, "
+            f"duplicates suppressed {c['duplicates_suppressed']}, health "
+            f"{c['health']}, deaths {group.deaths}; {wall:.1f} s; peak "
+            f"device memory {peak} bytes (weights {weights}, two replicas' "
+            f"pools {pools})")
+        if c["internal_errors"]:
+            fail(f"{tag}: internal_errors {c['internal_errors']}")
+        if len(group.terminals) != n_req or any(
+                group.terminal_for(r).state.value != "finished"
+                for r in rids):
+            fail(f"{tag}: not exactly one finished terminal per request")
+        if any(len(t) != max_new for t in toks.values()):
+            fail(f"{tag}: not {max_new} tokens delivered per request")
+        for rep in group.replicas:
+            if rep.alive and rep.engine.cache.pages_free != REPLICA_PAGES:
+                fail(f"{tag}: replica {rep.idx}'s pages not back")
+        if peak >= weights + pools + weights:
+            fail(f"{tag}: peak memory {peak} would hold the weights twice")
+        if policy == "none":
+            if c["failovers"]:
+                fail(f"{tag}: a failover without a crash")
+            ref = toks
+        else:
+            if c["failovers"] != 1:
+                fail(f"{tag}: {c['failovers']} failovers, not 1")
+            if policy == "standby" and toks != ref:
+                bad = [r for r in rids if toks[r] != ref[r]]
+                fail(f"{tag}: requests {bad} delivered other tokens than "
+                     f"the group run without the crash")
+            if policy == "migrate" and c["migrated_requests"] <= 0:
+                fail(f"{tag}: no request migrated")
+        del group
+        _free_memory(torch)
 
 
 # the archs phase: Llama-3-70B at full depth; the others at full width,
@@ -1636,19 +2127,31 @@ CLI_SPEC = ("--temperature", "0.8", "--top-k", "40", "--speculation", "3",
             "--sanitize")
 
 
-def phase_cli(extra=(), timeout_s: float = 600.0):
-    """The serve launcher in a subprocess at full width and depth under
-    the mixed schedule, with ``CLI`` and ``extra`` flags; its lines are
-    printed, and the counts must follow from the flags (``CLI_EXPECT``;
-    with ``--speculation``, its summary line with drafted = accepted +
-    rolled back; with ``--sanitize``, a check every step)."""
-    cli = CLI + tuple(extra)
+# the third call: the same flags behind two replicas, replica 0 killed
+# before its 6th engine step and promoted from its shipped artifacts
+# (the group path serves every request: no abort, and 8 requests spread
+# over two 6-deep queues are never rejected), each replica's pool sized
+# to its 4 requests (96 pages of 32 keys, ~100 MB a snapshot)
+CLI_GROUP = ("--replicas", "2", "--failover", "standby",
+             "--kill-replica-at", "6", "--snapshot-every", "4",
+             "--pages", "96")
+CLI_GROUP_EXPECT = {
+    "done": "8 requests, 256 tokens", "group": "replicas=2 "
+    "failover=standby failovers=1 migrated=0", "health": "r0=promoted "
+    "r1=live", "robust": "failed=0 timed_out=0 shed=0 rejected=0 "
+    "internal_errors=0", "death": "replica 0 at engine step 5 (crash)",
+    "states": "finished=8 | stop reasons: none | tokens of finished "
+    "requests: " + ",".join(["32"] * 8)}
+
+
+def _launch(cli, timeout_s: float) -> str:
+    """The serve launcher in a subprocess with ``cli`` → what it printed
+    (each line printed here too); a non-zero exit fails."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
     say(f"[cli] python -m repro_torch.launch.serve {' '.join(cli)}")
-    t0 = time.perf_counter()
     try:
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", *cli],
@@ -1660,7 +2163,18 @@ def phase_cli(extra=(), timeout_s: float = 600.0):
         say(f"[cli] {line}")
     if out.returncode:
         fail(f"cli: exit code {out.returncode}:\n{out.stderr[-4000:]}")
-    text = out.stdout
+    return out.stdout
+
+
+def phase_cli(extra=(), timeout_s: float = 600.0):
+    """The serve launcher in a subprocess at full width and depth under
+    the mixed schedule, with ``CLI`` and ``extra`` flags; its lines are
+    printed, and the counts must follow from the flags (``CLI_EXPECT``;
+    with ``--speculation``, its summary line with drafted = accepted +
+    rolled back; with ``--sanitize``, a check every step)."""
+    cli = CLI + tuple(extra)
+    t0 = time.perf_counter()
+    text = _launch(cli, timeout_s)
     robust = re.search(r"\[robust\] failed=(\d+) timed_out=\d+ shed=\d+ "
                        r"rejected=(\d+) callback_errors=(\d+) "
                        r"internal_errors=(\d+)", text)
@@ -1689,6 +2203,31 @@ def phase_cli(extra=(), timeout_s: float = 600.0):
                  f"{steps and steps[1]} steps")
     say(f"[cli] counts as the flags say ({time.perf_counter() - t0:.1f} s "
         f"with the launcher's start-up)")
+
+
+def phase_cli_group(timeout_s: float = 600.0):
+    """The launcher with ``CLI`` and ``CLI_GROUP``: its ``[done]``,
+    ``[group]``, ``[robust]``, ``[death]`` and ``[states]`` lines must
+    say what the flags lead to (``CLI_GROUP_EXPECT``)."""
+    t0 = time.perf_counter()
+    text = _launch(CLI + CLI_GROUP, timeout_s)
+    pats = {"done": r"^\[done\] (\d+ requests, \d+ tokens)",
+            "group": r"^\[group\] (replicas=\d+ failover=\w+ "
+                     r"failovers=\d+ migrated=\d+)",
+            "health": r"^\[group\] .* (r0=\S+ r1=\S+)$",
+            "robust": r"^\[robust\] (failed=\d+ timed_out=\d+ shed=\d+ "
+                      r"rejected=\d+ internal_errors=\d+)",
+            "death": r"^\[death\] (.*)$",
+            "states": r"^\[states\] (.*)$"}
+    got = {}
+    for key, pat in pats.items():
+        m = re.search(pat, text, re.M)
+        got[key] = m[1] if m else None
+    if got != CLI_GROUP_EXPECT:
+        fail(f"cli: the replica group's lines {got}, expected "
+             f"{CLI_GROUP_EXPECT}")
+    say(f"[cli] the replica group's counts as the flags say "
+        f"({time.perf_counter() - t0:.1f} s with the launcher's start-up)")
 
 
 def main():
@@ -1767,7 +2306,7 @@ def main():
     if set(order) - {r for r, *_ in RUNS}:
         fail(f"--runs takes runs of {[r for r, *_ in RUNS]}")
     runs = {}
-    if order or "spec" in phases or "specdiag" in phases:
+    if order or phases & {"spec", "specdiag", "recover", "replicas"}:
         t0 = time.perf_counter()
         params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
         torch.cuda.synchronize()
@@ -1789,6 +2328,12 @@ def main():
         if "specdiag" in phases:
             phase_specdiag(torch, np, mods, cfg8b, params)
             lap("specdiag")
+        if "recover" in phases:
+            phase_recover(torch, np, mods, cfg8b, params)
+            lap("recover")
+        if "replicas" in phases:
+            phase_replicas(torch, np, mods, cfg8b, params)
+            lap("replicas")
         del params
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's
@@ -1799,6 +2344,7 @@ def main():
     if "cli" in phases:
         phase_cli()
         phase_cli(CLI_SPEC)
+        phase_cli_group()
         lap("cli")
     table = []
     for n in ops.KERNELS:

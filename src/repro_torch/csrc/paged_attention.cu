@@ -14,6 +14,14 @@
 //            partial value Σ p·n_v·s_v − (Σp)·s_v·z_v (V affine folded in);
 //   kind 1 — the row's in-flight fp chunk: s = (q·(1/√D))·k over keys
 //            kj ≤ qi and kj < count (causal), value Σ p·v;
+//   kind 2 — a speculating decode row's chunk: as kind 1 over kj = qi
+//            alone (each query its own in-flight key);
+//   kind WQ_CAUSAL + o (> 2) — that row's page, as kind 0 over positions
+//            < min(count, qi + o), o = ctx − the page's first position:
+//            query qi of a verify chunk reads the chunk's earlier keys
+//            from the pages they were written to, as the decode step at
+//            ctx + qi reads them, so the two compute the same partials
+//            (a key a query does not see adds an exact 0 to every sum);
 // with p = e^(s − m), m the partial's max, masked scores NEG_INF = −1e30.
 // The combine: M = max m_i, w_i = e^(m_i − M), out = Σ w_i·acc_i /
 // max(Σ w_i·l_i, 1e-30). Exact arithmetic, as the plain version computes
@@ -66,6 +74,8 @@
 namespace {
 
 constexpr int WQ_WCH = 64;   // items whose combine weights one pass stages
+constexpr int WQ_SELF = 2;           // kernels/paged_attention.py KIND_SELF
+constexpr int WQ_CAUSAL = 1 << 16;   // KIND_CAUSAL (any kind past WQ_SELF)
 // shared bytes besides the scores: the staged tile, two raw tiles, the
 // head's scales, the row reductions and the arrival flag
 constexpr int WQ_FIXED = DN_KV + DN_RAW + 4 * D * 4 + DN_MAXWR * 4 +
@@ -147,7 +157,11 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   }
   const int4 it = reinterpret_cast<const int4*>(a.desc)[job.x];
   const int page = it.y, count = it.z;
-  const bool hist = DECODE || it.w == 0;
+  const bool causal = !DECODE && it.w > WQ_SELF;
+  const bool hist = DECODE || it.w == 0 || causal;
+  const bool self_only = !DECODE && it.w == WQ_SELF;
+  // a causal page's keys below qi + off (else every key below count)
+  const int off = causal ? it.w - WQ_CAUSAL : a.ps;
   const int b = it.x / a.hkv, h = it.x % a.hkv;
   const long so = static_cast<long>(b) * a.sb + h * D;   // the row's scales
   const int r0 = job.y * R, first = job.z, cnt = job.w;
@@ -183,8 +197,10 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
     }
     *reinterpret_cast<float4*>(sQ + 4 * i) = v;
   }
-  // a key step [k, ..) that no row of this warp sees
-  auto dead = [&](int k) { return k >= nk || (!hist && k > warp_qi); };
+  // the keys any row of this warp sees lie below wlim: a key step
+  // [k, ..) at or past it is dead
+  const int wlim = DECODE ? nk : min(nk, hist ? warp_qi + off : warp_qi + 1);
+  auto dead = [&](int k) { return k >= wlim; };
 
   // the tile stream: K tiles 0..ntile−1, then V tiles; a page's packed
   // bytes go to raw buffer s & 1 by cp.async one tile ahead, chunk keys
@@ -268,9 +284,16 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
       qb[kk][0] = sQ[(rbase + gi) * D + 8 * kk + t];
       qb[kk][1] = sQ[(rbase + gi) * D + 8 * kk + t + 4];
     }
-    int qi2[2];
+    // the keys [lo, hi) each of the lane's two rows sees: a page's below
+    // count (and, a verify row's, below qi + off), a chunk's up to qi
+    // (kind 2: qi alone)
+    int lo2[2], hi2[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) qi2[i] = (r0 + rbase + 2 * t + i) / grp;
+    for (int i = 0; i < 2; ++i) {
+      const int qi = (r0 + rbase + 2 * t + i) / grp;
+      lo2[i] = self_only ? qi : 0;
+      hi2[i] = DECODE ? nk : min(nk, hist ? qi + off : qi + 1);
+    }
     for (int k0 = 0; k0 < ntile * KT; k0 += KT) {
       stage(k0 / KT);
       const int kw = k0 + 16 * NSUB * wk;    // this warp's first key
@@ -303,7 +326,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
 #pragma unroll
             for (int c = 1; c < NCH; ++c) v += acc[j * NCH + c][e];
             const int kl = kw + 16 * j + gi + 8 * (e >> 1);
-            const bool valid = kl < nk && (hist || kl <= qi2[e & 1]);
+            const bool valid = kl >= lo2[e & 1] && kl < hi2[e & 1];
             const float sv = static_cast<float>(v);
             s4[j][e] = !valid ? NEG_INF
                        : hist ? __fsub_rn(sv, sC[rbase + 2 * t + (e & 1)])

@@ -28,7 +28,13 @@ and how its design answers that):
 The host flattens a work-queue batch into ``[W, 4]`` int32 descriptors
 ``(row, phys_page, count, kind)`` (``serving.kv_cache.build_work_queue``).
 Each item yields one flash partial ``(acc, l, m)``: kind 0 is one int4
-history page, kind 1 the row's causal in-flight fp chunk.
+history page, kind 1 the row's causal in-flight fp chunk. A speculating
+decode row (a verify chunk whose KV is already in its pages) reads its
+history as its decode steps would: kind ``KIND_CAUSAL + (ctx − page
+start)`` is a page whose keys query i sees only below position ctx + i,
+and kind 2 is the chunk item in which each query sees its own key alone
+(``serving.kv_cache.build_work_queue(verify=...)``), so query i of the
+chunk computes what the plain decode step at ctx + i computes.
 :func:`combine_work_partials` merges the partials per row:
 
     M_r = max_i m_i,   out_r = Σ_i e^{m_i−M_r}·acc_i / Σ_i e^{m_i−M_r}·l_i
@@ -57,8 +63,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import kv4_attention as KA
 
 NEG_INF = -1e30
+KIND_PAGE, KIND_CHUNK, KIND_SELF = 0, 1, 2    # descriptor kinds
+KIND_CAUSAL = 1 << 16     # + (ctx − page start): a verify row's causal
+#                           page; every kind past KIND_SELF is one
 
-__all__ = ["NEG_INF", "CombinePlan", "combine_plan", "combine_work_partials",
+__all__ = ["NEG_INF", "KIND_PAGE", "KIND_CHUNK", "KIND_SELF", "KIND_CAUSAL",
+           "CombinePlan", "combine_plan", "combine_work_partials",
            "WorkPlan", "work_plan", "prefold", "paged_kv4_partials_ref",
            "paged_kv4_prefill_attention_wq_ref",
            "paged_kv4_prefill_attention_wq",
@@ -179,8 +189,9 @@ def prefold(q, k_new, v_new, k_scale, k_zero, v_scale, v_zero,
 
 def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
                            v_pool, g: int, exact: Optional[bool] = None):
-    """Every item's partial for both kinds, selected by ``kind`` (reference
-    ``ref.py:341-395``), on pre-folded inputs (:func:`prefold`) → acc
+    """Every item's partial for every kind, selected by ``kind`` (reference
+    ``ref.py:341-395``; the verify row's causal page and own-key chunk
+    kinds are the port's), on pre-folded inputs (:func:`prefold`) → acc
     ``[W, C·G, D]``, l and m ``[W, C·G, 1]``. Exact mode: the contractions
     and Σp in float64 rounded once, p = f32(exp_f64(s − m)); the V affine
     ``acc·s_v − l·(s_v·z_v)`` in f32 as before."""
@@ -192,14 +203,18 @@ def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
     rcl = desc[:, 0].clamp(max=nrows - 1)
     heads = rcl % hkv
     counts = desc[:, 2][:, None, None]
-    sel = (desc[:, 3] != 0)[:, None, None]
+    kind = desc[:, 3][:, None, None]
+    sel = (kind == KIND_CHUNK) | (kind == KIND_SELF)
+    # a causal page's keys below ctx + qi (qi the query's chunk position)
+    off = torch.where(kind > KIND_SELF, kind - KIND_CAUSAL, ps)
+    qi = (torch.arange(cg, device=desc.device) // g)[None, :, None]
     vsb, vzb = vs2[heads][:, None, :], vz2[heads][:, None, :]
 
     nk = Q.unpack_kv_nibbles(k_pool[desc[:, 1], :, heads])     # [W, ps, D]
     nv = Q.unpack_kv_nibbles(v_pool[desc[:, 1], :, heads])
     s_h = KA.contract("wgd,wpd->wgp", qt2[rcl], nk, ex) - c2[rcl]
     pos = torch.arange(ps, device=desc.device)[None, None, :]
-    s_h = torch.where(pos < counts, s_h, NEG_INF)
+    s_h = torch.where((pos < counts) & (pos < qi + off), s_h, NEG_INF)
     m_h = s_h.amax(-1, keepdim=True)
     p_h = KA.exp(s_h - m_h, ex)
     l_h = KA.row_sum(p_h, ex)
@@ -207,9 +222,9 @@ def paged_kv4_partials_ref(desc, qt2, c2, qs2, kn2, vn2, vs2, vz2, k_pool,
     acc_h = pv * vsb - l_h * (vsb * vzb)
 
     s_c = KA.contract("wgd,wcd->wgc", qs2[rcl], kn2[rcl], ex)
-    qi = (torch.arange(cg, device=desc.device) // g)[None, :, None]
     kj = torch.arange(c, device=desc.device)[None, None, :]
-    s_c = torch.where((kj <= qi) & (kj < counts), s_c, NEG_INF)
+    seen = torch.where(kind == KIND_SELF, kj == qi, kj <= qi)
+    s_c = torch.where(seen & (kj < counts), s_c, NEG_INF)
     m_c = s_c.amax(-1, keepdim=True)
     p_c = KA.exp(s_c - m_c, ex)
     l_c = KA.row_sum(p_c, ex)
@@ -279,7 +294,7 @@ def work_plan(desc, num_rows: int, c: int, g: int, device) -> WorkPlan:
     items = items[np.argsort(row[items], kind="stable")]
     per_row = np.bincount(row[items], minlength=num_rows)[:num_rows]
     qrows = np.where(per_row > 0, cg, 0)
-    chunk = items[kind[items] != 0]
+    chunk = items[(kind[items] == KIND_CHUNK) | (kind[items] == KIND_SELF)]
     qrows[row[chunk]] = np.minimum(cnt[chunk], c) * g
     top = int(qrows.max(initial=0))
     rows = 8 if top <= 8 else 16 if top <= 16 else 32

@@ -20,6 +20,19 @@ past it end ``FAILED("queue_full")``, preemption victims are shed),
 ``--inject-faults SPEC`` arms a fault schedule (``serving/faults.py``
 grammar, e.g. ``"forward:step=3,action=nan;sample:nth=2"``) and
 ``--sanitize`` runs the step-boundary sanitizers after every step.
+``--snapshot-every N`` rides a journaled :class:`~repro_torch.serving.
+recovery.RecoveryLog` along with the run (a full engine snapshot every N
+steps and a per-token event journal; the ``[recovery]`` line).
+
+Replicated serving (``serving/replication.py``): ``--replicas N`` runs N
+engine replicas on the one device behind a :class:`ReplicaGroup`
+(least-loaded routing, a health check every step, the RecoveryLog
+artifacts shipped after every healthy step, one set of weights shared by
+all), ``--failover standby|migrate`` picks the death policy and
+``--kill-replica-at STEP`` (``--kill-replica IDX``) arms the ``crash``
+fault on one replica; the summary prints the reference's ``[done]``,
+``[group]`` (failovers, migrations, health), ``[robust]``, ``[faults]``
+and ``[death]`` lines, then ``[states]``.
 
 The summary prints the reference's ``[done]``, ``[cache]``, ``[robust]``,
 ``[slo]`` (TTFT and TPOT mean and p95 from the lifecycle stamps) and
@@ -33,11 +46,9 @@ terminal state, stop reasons, and the tokens of each finished request.
 Prompts come from ``np.random.default_rng(seed)`` in the reference's order,
 so both launchers serve the same prompts.
 
-The reference's flags for what is not ported yet are not defined, so
-argparse refuses them (ROADMAP Queue 1): ``--snapshot-every``
-(recovery), ``--replicas``, ``--failover``, ``--kill-replica-at`` and
-``--kill-replica`` (replication), ``--mesh`` and ``--head-dim`` (tensor
-parallelism).
+The reference's flags for tensor parallelism, not ported yet, are not
+defined, so argparse refuses them (ROADMAP Queue 1): ``--mesh`` and
+``--head-dim``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -50,6 +61,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
       --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256 \\
       --temperature 0.8 --top-k 40 --speculation 3 --sanitize
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch llama3_8b --smoke --requests 4 --max-new 8 --replicas 2 \
+      --failover standby --kill-replica-at 3 --snapshot-every 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b \\
       --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256
 """
@@ -67,6 +81,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ARCH_IDS
 from repro_torch.models.lm import LM, QuantConfig
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+from repro_torch.serving.faults import Fault, FaultInjector
+from repro_torch.serving.recovery import RecoveryLog
+from repro_torch.serving.replication import ReplicaGroup
 
 __all__ = ["main", "build_parser"]
 
@@ -77,6 +94,140 @@ def _ms_stats(xs: list) -> str:
         return "n/a"
     arr = np.asarray(xs) * 1000.0
     return f"mean {arr.mean():.1f}ms p95 {np.percentile(arr, 95):.1f}ms"
+
+
+def _print_states(ends: list):
+    """The ``[states]`` line from (state, stop reason, tokens) per
+    request: requests by terminal state, stop reasons, and the tokens of
+    each finished request."""
+    states = collections.Counter(st for st, _, _ in ends)
+    reasons = collections.Counter(why for _, why, _ in ends if why)
+    done_tokens = [n for st, _, n in ends if st == "finished"]
+    print("[states] " + " ".join(f"{k}={v}" for k, v in sorted(
+              states.items()))
+          + " | stop reasons: " + (" ".join(
+              f"{k}={v}" for k, v in sorted(reasons.items())) or "none")
+          + " | tokens of finished requests: "
+          + (",".join(map(str, done_tokens)) or "none"), flush=True)
+
+
+def _engine_config(args) -> EngineConfig:
+    """The engine's configuration from the flags. A replica group arms
+    fault schedules through one injector per replica (so
+    ``--kill-replica-at`` targets one replica), never ``inject_faults``."""
+    return EngineConfig(
+        max_batch=args.max_batch, num_pages=args.pages,
+        page_size=args.page_size, temperature=args.temperature,
+        top_k=args.top_k, prefill_mode=args.prefill_mode,
+        prefill_chunk_tokens=args.prefill_chunk, kv_range=args.kv_range,
+        unified_step=(args.step_mode == "unified"),
+        prefix_cache=(args.prefix_cache == "on"),
+        attention_schedule=args.attention_schedule,
+        prefix_cache_max_bytes=(args.prefix_cache_max_bytes or None),
+        max_waiting=(args.max_waiting or None),
+        inject_faults=(args.inject_faults or None
+                       if args.replicas <= 1 else None),
+        sanitize=args.sanitize)
+
+
+def _trace(args, cfg):
+    """The per-request sampling parameters and the synthetic prompts,
+    drawn from ``--seed`` in the reference's order."""
+    rng = np.random.default_rng(args.seed)
+    shared = rng.integers(0, cfg.vocab_size,
+                          size=args.shared_prefix).tolist()
+    if 0 < args.shared_prefix < args.page_size:
+        print(f"[warn] --shared-prefix {args.shared_prefix} < --page-size "
+              f"{args.page_size}: prefix matching is full-page-granular, "
+              "so the shared prefix can never hit", flush=True)
+    sp = SamplingParams(max_new_tokens=args.max_new,
+                        temperature=args.temperature, top_k=args.top_k,
+                        speculation=args.speculation,
+                        deadline_ms=(args.deadline_ms or None),
+                        ttft_ms=(args.ttft_ms or None))
+    prompts = []
+    for _ in range(args.requests):
+        plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
+        prompts.append(shared
+                       + rng.integers(0, cfg.vocab_size, size=plen).tolist())
+    return sp, prompts
+
+
+def _run_group(args, cfg, params, quant, ecfg, sp,
+               pending) -> ReplicaGroup:
+    """Serve the trace through a ReplicaGroup (``--replicas N``) and print
+    the reference's group summary → the group."""
+    faults = []
+    for i in range(args.replicas):
+        inj = (FaultInjector.from_spec(args.inject_faults)
+               if args.inject_faults else FaultInjector())
+        if args.kill_replica_at and i == args.kill_replica:
+            inj.faults.append(Fault("crash", step=args.kill_replica_at))
+        faults.append(inj)
+    group = ReplicaGroup(
+        cfg, params, quant, ecfg, replicas=args.replicas,
+        failover=args.failover, snapshot_every=(args.snapshot_every or 4),
+        faults=faults, device=args.device)
+
+    def stream_cb(ev):
+        # the ordinal from the group's record: a migrated request's
+        # engine-local count restarts after the fold
+        if ev.token is not None:
+            n = len(group.delivered.get(ev.request_id, []))
+            print(f"  [stream] req {ev.request_id} +tok {ev.token} "
+                  f"(#{n})", flush=True)
+        elif ev.finished:
+            print(f"  [stream] req {ev.request_id} {ev.state.value}"
+                  + (f" ({ev.stop_reason})" if ev.stop_reason else ""),
+                  flush=True)
+
+    t0 = time.time()
+    gsteps = 0
+    while (pending or group.has_work) and gsteps < 10_000:
+        while pending and pending[0][0] <= gsteps:
+            _, prompt = pending.pop(0)
+            group.submit(prompt, sp,
+                         on_event=stream_cb if args.stream else None)
+        group.step()
+        gsteps += 1
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize(args.device)
+    dt = time.time() - t0
+
+    total_tokens = sum(len(v) for v in group.delivered.values())
+    print(f"[done] {len(group.terminals)} requests, {total_tokens} "
+          f"tokens in {dt:.1f}s → {total_tokens / max(dt, 1e-9):.1f} tok/s "
+          f"(group_steps={gsteps}, replica_steps={group.replica_steps})",
+          flush=True)
+    c = group.counters()
+    health = " ".join(f"r{i}={h}" for i, h in sorted(c["health"].items()))
+    print(f"[group] replicas={args.replicas} failover={args.failover} "
+          f"failovers={c['failovers']} "
+          f"migrated={c['migrated_requests']} "
+          f"replica_steps={c['replica_steps']} "
+          f"dup_suppressed={c['duplicates_suppressed']} "
+          f"internal_errors={c['internal_errors']} {health}", flush=True)
+    live = [r for r in group.replicas if r.alive]
+    print(f"[robust] failed="
+          f"{sum(r.engine.failed_count for r in live)} timed_out="
+          f"{sum(r.engine.timeout_count for r in live)} shed="
+          f"{sum(r.engine.shed_count for r in live)} rejected="
+          f"{sum(r.engine.rejected_count for r in live)} "
+          f"internal_errors={c['internal_errors']} sanitize_checks="
+          f"{sum(r.engine.sanitize_checks for r in live)}", flush=True)
+    for rep in group.replicas:
+        if rep.engine.faults.fired:
+            fired = [f"{p}:{a}@step{s}"
+                     for p, a, s in rep.engine.faults.fired]
+            print(f"[faults] replica {rep.idx}: fired {', '.join(fired)}",
+                  flush=True)
+    for idx, why, step in group.deaths:
+        print(f"[death] replica {idx} at engine step {step} ({why})",
+              flush=True)
+    _print_states([(ev.state.value, ev.stop_reason,
+                    len(group.delivered.get(rid, [])))
+                   for rid, ev in sorted(group.terminals.items())])
+    return group
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,12 +299,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sanitize", action="store_true",
                     help="run the step-boundary sanitizers after every "
                          "step; a broken invariant aborts the run")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="journaled crash recovery: a full engine snapshot "
+                         "every N steps and a per-token event journal (0 = "
+                         "off); with --replicas the group's interval "
+                         "(default 4)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run N engine replicas on the device behind a "
+                         "ReplicaGroup (weights shared, pools and "
+                         "scheduler per replica; least-loaded routing, "
+                         "health checks, failover)")
+    ap.add_argument("--failover", default="migrate",
+                    choices=["standby", "migrate"],
+                    help="replica-death policy: promote an engine resumed "
+                         "from the shipped RecoveryLog artifacts into the "
+                         "dead slot, or migrate the dead replica's "
+                         "in-flight requests to the survivors")
+    ap.add_argument("--kill-replica-at", type=int, default=0,
+                    help="kill one replica before its Nth engine step (the "
+                         "'crash' fault point; 0 = never)")
+    ap.add_argument("--kill-replica", type=int, default=0,
+                    help="which replica --kill-replica-at kills")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
-def main(argv=None) -> Engine:
-    """Serve the synthetic trace and print the summary → the engine."""
+def main(argv=None):
+    """Serve the synthetic trace and print the summary → the engine (the
+    replica group with ``--replicas`` > 1)."""
     args = build_parser().parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     quant = QuantConfig(int4_fraction=args.int4_fraction,
@@ -167,38 +340,16 @@ def main(argv=None) -> Engine:
           f"{where} in {time.time() - t0:.1f}s; schedule={args.schedule} "
           f"impl={args.impl}", flush=True)
 
-    eng = Engine(cfg, params, quant, EngineConfig(
-        max_batch=args.max_batch, num_pages=args.pages,
-        page_size=args.page_size, temperature=args.temperature,
-        top_k=args.top_k, prefill_mode=args.prefill_mode,
-        prefill_chunk_tokens=args.prefill_chunk, kv_range=args.kv_range,
-        unified_step=(args.step_mode == "unified"),
-        prefix_cache=(args.prefix_cache == "on"),
-        attention_schedule=args.attention_schedule,
-        prefix_cache_max_bytes=(args.prefix_cache_max_bytes or None),
-        max_waiting=(args.max_waiting or None),
-        inject_faults=(args.inject_faults or None),
-        sanitize=args.sanitize), device=args.device)
-
-    rng = np.random.default_rng(args.seed)
-    shared = rng.integers(0, cfg.vocab_size,
-                          size=args.shared_prefix).tolist()
-    if 0 < args.shared_prefix < args.page_size:
-        print(f"[warn] --shared-prefix {args.shared_prefix} < --page-size "
-              f"{args.page_size}: prefix matching is full-page-granular, "
-              "so the shared prefix can never hit", flush=True)
-    sp = SamplingParams(max_new_tokens=args.max_new,
-                        temperature=args.temperature, top_k=args.top_k,
-                        speculation=args.speculation,
-                        deadline_ms=(args.deadline_ms or None),
-                        ttft_ms=(args.ttft_ms or None))
-    prompts = []
-    for _ in range(args.requests):
-        plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
-        prompts.append(shared
-                       + rng.integers(0, cfg.vocab_size, size=plen).tolist())
+    ecfg = _engine_config(args)
+    sp, prompts = _trace(args, cfg)
     # arrival trace: request i is submitted at step i·arrival_every
     pending = [(i * args.arrival_every, p) for i, p in enumerate(prompts)]
+    if args.replicas > 1:
+        return _run_group(args, cfg, params, quant, ecfg, sp, pending)
+    eng = Engine(cfg, params, quant, ecfg, device=args.device)
+    log = None
+    if args.snapshot_every:
+        log = RecoveryLog(eng, snapshot_every=args.snapshot_every)
     abort_ids: set = set()
     submitted = 0
 
@@ -210,8 +361,12 @@ def main(argv=None) -> Engine:
             submitted += 1
             if args.abort_every and submitted % args.abort_every == 0:
                 abort_ids.add(h.request_id)
-        eng.step()
-        for ev in eng.events():
+        if log is not None:
+            evs = log.step()
+        else:
+            eng.step()
+            evs = eng.events()
+        for ev in evs:
             if ev.token is not None and ev.request_id in abort_ids:
                 eng.abort(ev.request_id)       # cancel after first token
                 abort_ids.discard(ev.request_id)
@@ -262,6 +417,11 @@ def main(argv=None) -> Engine:
         print(f"[faults] armed: {eng.faults.describe()}; "
               f"fired: {', '.join(fired) or '(none)'}; "
               f"pending: {len(eng.faults.pending)}", flush=True)
+    if log is not None:
+        print(f"[recovery] journal={len(log.journal)} events, "
+              f"snapshot@step{log.snapshot_step} "
+              f"(every {log.snapshot_every}), replayed={log.replayed}",
+              flush=True)
     if eng.attn_forwards:
         waste = eng.attn_grid_items - eng.attn_work_items
         dense_waste = eng.attn_dense_grid_items - eng.attn_work_items
@@ -278,17 +438,8 @@ def main(argv=None) -> Engine:
               f"noop={eng.spec_noop_count} "
               f"draft_errors={eng.draft_errors} "
               f"[{eng.draft_source.describe()}]", flush=True)
-    states = collections.Counter(r.state.value for r in finished)
-    reasons = collections.Counter(r.stop_reason for r in finished
-                                  if r.stop_reason)
-    done_tokens = [len(r.generated) for r in finished
-                   if r.state.value == "finished"]
-    print("[states] " + " ".join(f"{k}={v}" for k, v in sorted(
-              states.items()))
-          + " | stop reasons: " + (" ".join(
-              f"{k}={v}" for k, v in sorted(reasons.items())) or "none")
-          + " | tokens of finished requests: "
-          + (",".join(map(str, done_tokens)) or "none"), flush=True)
+    _print_states([(r.state.value, r.stop_reason, len(r.generated))
+                   for r in finished])
     for r in finished[:4]:
         print(f"  req {r.request_id}: {r.state.value:9s} "
               f"{r.generated[:12]}…", flush=True)

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core import qlinear as QL
 
-__all__ = ["rmsnorm", "layernorm", "apply_norm", "rope_frequencies",
-           "apply_rope", "linear", "linears", "resolve_device", "no_tf32"]
+__all__ = ["row_mean", "rmsnorm", "layernorm", "apply_norm",
+           "rope_frequencies", "apply_rope", "linear", "linears",
+           "resolve_device", "no_tf32"]
 
 
 def resolve_device(device) -> torch.device:
@@ -37,10 +38,23 @@ def no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, kept, of an f32 tensor. On the card it is
+    an f64 sum rounded once: PyTorch's f32 reduction there sums a row in
+    an order that depends on the tensor around it (a row's norm then
+    differs from batch to batch, measured on the H100 in ``chip_smoke.py
+    --phases specdiag``), while an f64 sum of these f32 values is exact
+    or within f64 rounding, so a row's mean no longer depends on the
+    batch. On the CPU the reference's f32 mean."""
+    if x.is_cuda:
+        return (x.double().sum(-1, keepdim=True) / x.shape[-1]).float()
+    return x.mean(-1, keepdim=True)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     x = x.float()
-    var = (x * x).mean(-1, keepdim=True)
+    var = row_mean(x * x)
     return (x * torch.rsqrt(var + eps) * scale).to(dt)
 
 
@@ -48,8 +62,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5):
     dt = x.dtype
     x = x.float()
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    mu = row_mean(x)
+    var = row_mean((x - mu) ** 2)
     return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
 
 

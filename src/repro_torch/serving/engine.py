@@ -61,13 +61,22 @@ Fault injection (``serving/faults.py``; ``EngineConfig.inject_faults`` or
 logits row), ``sample``, ``emit_event``, ``draft`` and ``verify`` here.
 With ``sanitize=True`` the step-boundary sanitizers
 (``serving/sanitize.py``) run after every step, outside the backstop,
-and raise ``SanitizerError`` on the first broken invariant. Not ported
-yet: snapshot/restore, tensor parallelism and MoE.
+and raise ``SanitizerError`` on the first broken invariant.
+
+``snapshot(full=True)`` serializes the engine in the reference's JSON
+blob (the scheduler's exact split and cursors, the cache with its int4
+pool bytes, the step and uid counters) and ``Engine.restore`` resumes
+from it the very next step bit for bit, on the device it is given; the
+legacy ``snapshot()`` demotes running work to waiting. Recovery logs and
+replica groups are built on them (``serving/recovery.py``,
+``serving/replication.py``). Not ported yet: tensor parallelism (so
+``restore`` has no mesh) and MoE.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Optional
 
@@ -164,6 +173,21 @@ class EngineConfig:
 
 
 class Engine:
+    # state a full snapshot leaves out (cometlint R1), as the reference's
+    _SNAPSHOT_EXEMPT = frozenset({
+        # rebuilt by __init__ / only meaningful in-process
+        "lm", "params", "_events", "draft_source",
+        # per-process observability counters
+        "peak_prefill_fp_tokens", "interleaved_steps", "forward_calls",
+        "prefix_hit_tokens", "prefill_tokens", "aborted_count",
+        "failed_count", "timeout_count", "shed_count", "rejected_count",
+        "callback_errors", "internal_errors", "last_error",
+        "sanitize_checks", "attn_work_items", "attn_grid_items",
+        "attn_dense_grid_items", "attn_forwards", "spec_draft_tokens",
+        "spec_accepted_tokens", "spec_rollback_tokens", "spec_noop_count",
+        "draft_errors",
+    })
+
     def __init__(self, cfg: ModelConfig, params, quant: QuantConfig =
                  QuantConfig(), ecfg: EngineConfig = EngineConfig(), *,
                  device="cuda", clock=time.time, faults=None,
@@ -387,6 +411,75 @@ class Engine:
         while self.sched.has_work and self.steps < max_steps:
             self.step()
         return self.sched.finished
+
+    # ------------------------------------------------------ snapshots
+
+    def snapshot(self, full: bool = False) -> str:
+        """Serialize engine state for crash recovery. Legacy (default):
+        the scheduler alone, running work demoted to waiting to
+        re-prefill on restore (plausible, not bit for bit). ``full=True``:
+        the scheduler's exact split and cursors and the whole cache (int4
+        pool bytes, block tables, free-list and prefix-LRU order), so a
+        restore resumes the very next step bit for bit."""
+        if full:
+            rest = json.dumps({
+                "format": "engine_full",
+                "sched": self.sched.snapshot(full=True),
+                "steps": self.steps,
+                "tokens_generated": self.tokens_generated,
+                "next_id": self._next_id,
+                "submit_seq": self._submit_seq,
+            })
+            # the cache's blob (its pools) goes in escaped by KVC.json_str
+            return (rest[:-1] + ', "cache": '
+                    + KVC.json_str(self.cache.snapshot_state()) + "}")
+        return self.sched.snapshot()
+
+    @classmethod
+    def restore(cls, blob: str, cfg: ModelConfig, params,
+                quant: QuantConfig = QuantConfig(),
+                ecfg: EngineConfig = EngineConfig(), *, device="cuda",
+                clock=time.time, faults=None,
+                draft_source: Optional[DraftSource] = None) -> "Engine":
+        """A new engine on ``device`` (the constructor's arguments) with
+        the state of a :meth:`snapshot` blob, this package's or the
+        reference's. A full blob of another pool shape raises."""
+        eng = cls(cfg, params, quant, ecfg, device=device, clock=clock,
+                  faults=faults, draft_source=draft_source)
+        state = json.loads(blob)
+        if isinstance(state, dict) and state.get("format") == "engine_full":
+            eng.sched = Scheduler.restore(
+                state["sched"], ecfg.max_batch, ecfg.max_batch * 2,
+                max_waiting=ecfg.max_waiting)
+            eng.cache.restore_state(state["cache"])
+            eng.steps = state["steps"]
+            eng.tokens_generated = state["tokens_generated"]
+            eng._next_id = state["next_id"]
+            eng._by_id = {r.request_id: r for r in
+                          list(eng.sched.waiting) + eng.sched.running
+                          + eng.sched.finished}
+            eng._restore_uids(state.get("submit_seq"))
+            return eng
+        eng.sched = Scheduler.restore(blob, ecfg.max_batch,
+                                      ecfg.max_batch * 2,
+                                      max_waiting=ecfg.max_waiting)
+        eng._by_id = {r.request_id: r for r in
+                      list(eng.sched.waiting) + eng.sched.finished}
+        eng._restore_uids(None)
+        return eng
+
+    def _restore_uids(self, submit_seq):
+        """Re-establish the incarnation counter after a restore: requests
+        of a blob without uids (the legacy snapshot) get fresh ones, so
+        the recovery journal's ``(uid, ord)`` keys stay unique."""
+        reqs = (list(self.sched.waiting) + self.sched.running
+                + self.sched.finished)
+        top = max((r.uid for r in reqs), default=-1) + 1
+        self._submit_seq = max(top, submit_seq or 0)
+        for r in reqs:
+            if r.uid < 0:
+                r.uid = self._submit_seq
+                self._submit_seq += 1
 
     # ----------------------------------------------------------- events
 
@@ -798,9 +891,16 @@ class Engine:
                 self.attn_grid_items += nb * hkv * (npb + 1)
             else:
                 # the padding sentinel must clear the BUCKETED row count:
-                # rows [nseq, nb) are live (qlen-0) segments in the combine
+                # rows [nseq, nb) are live (qlen-0) segments in the combine.
+                # In exact mode (the card) a verify chunk's query i reads
+                # the chunk's earlier KV from the pages written below, as
+                # the decode step at ctx + i would; the f32 mode keeps the
+                # reference's in-flight reads
+                verify = ((np.arange(nseq) >= len(plan)) & (takes > 1)
+                          if self.device.type == "cuda" else None)
                 desc_np = self.cache.work_queue_np(slots, starts, takes,
-                                                   pad_row=nb * hkv)
+                                                   pad_row=nb * hkv,
+                                                   verify=verify)
                 attn = dict(desc=torch.from_numpy(desc_np).to(self.device),
                             plan=ops.work_plan(
                                 desc_np, nb * hkv, cb,

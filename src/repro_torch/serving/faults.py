@@ -1,10 +1,9 @@
 """Deterministic fault injection for the serving stack
 (``repro/serving/faults.py``, copied: the same points, actions and
 schedule builders, so a seeded schedule fires the same faults in both
-engines). The port has no replica groups or recovery log yet, so nothing
-in it consults the process-level points ``crash`` and
-``snapshot_write``; they stay in ``FAULT_POINTS`` so that the tuples,
-and the schedules drawn from them, are the reference's.
+engines). The process-level points are consulted as in the reference:
+``crash`` by the port's replica groups (``serving/replication.py``) and
+``snapshot_write`` by its recovery log (``serving/recovery.py``).
 
 A production engine's failure modes — allocator exhaustion mid-loop, an
 exception inside the jitted forward, NaN logits, a sampler blow-up, a

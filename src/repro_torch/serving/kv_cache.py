@@ -22,7 +22,9 @@ and scatter a step's tokens at destinations resolved once per step
 block tables with unmapped entries clamped to page 0, and gather a decode
 batch's pages contiguously (:meth:`gather_kv`, the gather baseline).
 Speculative decode rolls a sequence's resident length back (or forward,
-over accepted drafts) with :meth:`truncate_seq`. The engine's
+over accepted drafts) with :meth:`truncate_seq`. :meth:`snapshot_state`
+and :meth:`restore_state` move the whole cache, pools included, in the
+reference's JSON blob (journaled crash recovery). The engine's
 ``FaultInjector`` rides along as ``faults``: the ``alloc_page`` point
 in :meth:`_acquire_page`, ``append_kv`` in :meth:`token_dests_np`. On
 the card an out-of-range index is a device-side assert, not JAX's silent
@@ -31,8 +33,10 @@ drop or clamp, so every table handed to the device is clamped first.
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import hashlib
+import json
 from collections import OrderedDict
 from typing import Optional
 
@@ -41,11 +45,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantizer as Q
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.layers.common import resolve_device
 from repro_torch.serving.faults import InjectedFault
 
 __all__ = ["PagedKV4Config", "PagedKV4Cache", "build_work_queue",
-           "quantize_kv_with", "qdq_kv_with"]
+           "quantize_kv_with", "qdq_kv_with", "json_str"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +68,35 @@ MIN_ITEMS = 8     # the smallest work-queue length (a power of two)
 def build_work_queue(block_tables, ctx_lens, page_size: int,
                      num_kv_heads: int, q_lens=None,
                      pad_row: Optional[int] = None,
-                     seq_ids=None) -> np.ndarray:
+                     seq_ids=None, verify=None) -> np.ndarray:
     """Flatten a ragged batch into ``[W, 4]`` int32 descriptors ``(row,
     phys_page, count, kind)``: one item per (seq, kv head, real history
     page) — kind 0, count = valid tokens in the page — plus, with
     ``q_lens``, one in-flight chunk item per row with q_len > 0 (kind 1,
     count = q_len). Items are row-major (row = seq·Hkv + head). W is
     padded to a power of two ≥ ``MIN_ITEMS`` with ``count = 0`` items on
-    the sentinel row ``pad_row`` (default B·Hkv)."""
+    the sentinel row ``pad_row`` (default B·Hkv).
+
+    ``verify`` (bool ``[B]``, with ``q_lens``) marks speculating decode
+    rows, whose chunk KV is already written to their pages: their page
+    items cover the ctx + q_len − 1 positions the chunk's last query
+    sees, each page that holds a chunk token with kind ``KIND_CAUSAL +
+    (ctx − page start)`` (query i sees its keys below ctx + i), and their
+    chunk item
+    has kind ``KIND_SELF`` (each query its own key): query i then reads
+    the same keys, split at the same pages, as the plain decode step at
+    ctx + i (``kernels/paged_attention.py``)."""
     tables = np.atleast_2d(np.asarray(block_tables))
     ctx = np.atleast_1d(np.asarray(ctx_lens)).astype(np.int64)
     b, ps, hkv = ctx.shape[0], page_size, num_kv_heads
-    npg = -(-ctx // ps)                              # real pages per seq
+    ver = (np.zeros(b, bool) if verify is None
+           else np.atleast_1d(np.asarray(verify, bool)))
+    # positions the row's pages hold for its queries: a verify row's last
+    # query reads the chunk's earlier tokens from the pages too
+    hist = ctx + np.where(ver, np.atleast_1d(np.asarray(
+        q_lens if q_lens is not None else np.zeros(b))).astype(np.int64)
+        - 1, 0)
+    npg = -(-hist // ps)                             # real pages per seq
     has_chunk = (np.zeros(b, np.int64) if q_lens is None else
                  (np.atleast_1d(np.asarray(q_lens)) > 0).astype(np.int64))
     seq_of_pg = np.repeat(np.arange(b), npg)
@@ -88,7 +110,11 @@ def build_work_queue(block_tables, ctx_lens, page_size: int,
         what = "seq slot(s)" if seq_ids is not None else "batch row(s)"
         raise IndexError(f"work queue over unmapped page(s) for {what} "
                          f"{bad} — grow capacity first")
-    counts_flat = np.minimum(ps, ctx[seq_of_pg] - ps * pg_idx)
+    counts_flat = np.minimum(ps, hist[seq_of_pg] - ps * pg_idx)
+    # a page holding a chunk token: the chunk's queries see it causally
+    causal = ver[seq_of_pg] & (ps * pg_idx + counts_flat > ctx[seq_of_pg])
+    kinds_flat = np.where(causal, PA.KIND_CAUSAL + ctx[seq_of_pg]
+                          - ps * pg_idx, PA.KIND_PAGE)
     n_per_seq = npg + has_chunk
     off = np.concatenate([[0], np.cumsum(n_per_seq)])
     tot = int(off[-1])
@@ -98,11 +124,13 @@ def build_work_queue(block_tables, ctx_lens, page_size: int,
     pg_pos = off[seq_of_pg] + pg_idx
     pages_c[pg_pos] = pages_flat
     counts_c[pg_pos] = counts_flat
+    kinds_c[pg_pos] = kinds_flat
     if q_lens is not None:
         ch = np.nonzero(has_chunk)[0]
         counts_c[off[ch] + npg[ch]] = np.atleast_1d(
             np.asarray(q_lens)).astype(np.int64)[ch]
-        kinds_c[off[ch] + npg[ch]] = 1
+        kinds_c[off[ch] + npg[ch]] = np.where(ver[ch], PA.KIND_SELF,
+                                              PA.KIND_CHUNK)
     # tile each seq's item stream across its kv heads, row-major
     reps = np.repeat(n_per_seq, hkv)
     bs = np.cumsum(reps) - reps
@@ -117,6 +145,14 @@ def build_work_queue(block_tables, ctx_lens, page_size: int,
     desc[:len(src), 2] = counts_c[src]
     desc[:len(src), 3] = kinds_c[src]
     return desc
+
+
+def json_str(s: str) -> str:
+    """``json.dumps(s)`` for text ``json.dumps`` wrote (printable ASCII):
+    only its quotes and backslashes need escaping, which ``str.replace``
+    does at memory speed where the encoder's scan of a snapshot with its
+    pools takes seconds."""
+    return '"' + s.replace("\\", "\\\\").replace('"', '\\"') + '"'
 
 
 def quantize_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
@@ -141,6 +177,15 @@ def qdq_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
 class PagedKV4Cache:
     """Host-managed page allocator + device-resident int4 pools (on the
     card unless ``device="cpu"`` is asked for)."""
+
+    # set by __init__ from the configs, or never part of a snapshot
+    # (cometlint R1): the scales are static calibration, the page
+    # storage is serialized through its k_pool/v_pool views (the scratch
+    # page past the pool is not state)
+    _SNAPSHOT_EXEMPT = frozenset({
+        "cfg", "pcfg", "_k_pages", "_v_pages", "k_scale", "k_zero",
+        "v_scale", "v_zero", "page_bytes", "faults",
+    })
 
     def __init__(self, cfg: ModelConfig, pcfg: PagedKV4Config,
                  num_layer_slots: int, kv_range: float = 16.0,
@@ -397,6 +442,71 @@ class PagedKV4Cache:
         for s in np.atleast_1d(seq_ids):
             self.seq_len[s] += 1
 
+    # ------------------------------------------------- full-state snapshot
+
+    def snapshot_state(self) -> str:
+        """The whole cache as the reference's JSON blob, for journaled
+        crash recovery (``serving/recovery.py``): the int4 pool bytes
+        (base64, ``pool_shape`` ``[L, P, ps, Hkv, D/2]``; the scratch page
+        past the pool is not part of it) and every piece of host
+        allocator state in iteration order (free-list and reclaimable-LRU
+        order both steer later page choices). Each pool comes to the host
+        in one copy. A blob from either package restores in the other.
+        The pools' base64 needs no JSON escaping, so it is spliced into
+        the JSON text rather than scanned by the encoder (seconds for the
+        pools of a full-size model)."""
+        def b64(pool):
+            return base64.b64encode(pool.contiguous().cpu().numpy()).decode()
+
+        meta = json.dumps({
+            "block_table": self.block_table.tolist(),
+            "seq_len": self.seq_len.tolist(),
+            "page_count": self.page_count.tolist(),
+            "free_pages": [int(p) for p in self.free_pages],
+            "ref": self.ref.tolist(),
+            "active": sorted(int(s) for s in self.active),
+            "prefix_index": {k.hex(): int(v)
+                             for k, v in self.prefix_index.items()},
+            "page_key": {int(p): k.hex() for p, k in self.page_key.items()},
+            "reclaimable": [[int(p), k.hex()]
+                            for p, k in self._reclaimable.items()],
+            "prefix_evicted_pages": self.prefix_evicted_pages,
+        })
+        return (f'{{"pool_shape": {json.dumps(list(self.k_pool.shape))}, '
+                f'"pools": {{"k": "{b64(self.k_pool)}", '
+                f'"v": "{b64(self.v_pool)}"}}, {meta[1:]}')
+
+    def restore_state(self, blob: str):
+        """Load a :meth:`snapshot_state` blob (this package's or the
+        reference's) into this cache, built with the same configs: a
+        blob of another pool shape raises. Each pool goes to the device
+        in one copy; decode then resumes on the exact pool bytes and
+        allocator order of the snapshotted cache."""
+        state = json.loads(blob)
+        shape = tuple(state["pool_shape"])
+        if shape != tuple(self.k_pool.shape):
+            raise ValueError(
+                f"snapshot pool shape {shape} != cache pool shape "
+                f"{tuple(self.k_pool.shape)}: restore needs an "
+                "identically configured cache")
+        for pool, key in ((self.k_pool, "k"), (self.v_pool, "v")):
+            host = np.frombuffer(base64.b64decode(state["pools"][key]),
+                                 np.uint8).reshape(shape)
+            pool.copy_(torch.from_numpy(host.copy()))
+        self.block_table = np.asarray(state["block_table"], np.int32)
+        self.seq_len = np.asarray(state["seq_len"], np.int32)
+        self.page_count = np.asarray(state["page_count"], np.int32)
+        self.free_pages = list(state["free_pages"])
+        self.ref = np.asarray(state["ref"], np.int32)
+        self.active = set(state["active"])
+        self.prefix_index = {bytes.fromhex(k): int(v)
+                             for k, v in state["prefix_index"].items()}
+        self.page_key = {int(p): bytes.fromhex(k)
+                         for p, k in state["page_key"].items()}
+        self._reclaimable = OrderedDict(
+            (int(p), bytes.fromhex(k)) for p, k in state["reclaimable"])
+        self.prefix_evicted_pages = state.get("prefix_evicted_pages", 0)
+
     # ---------------------------------------------------------- prefix cache
 
     def _page_keys(self, tokens, nfull: int) -> list:
@@ -452,12 +562,14 @@ class PagedKV4Cache:
         return pages_np.astype(np.int32), (pos % ps).astype(np.int32)
 
     def work_queue_np(self, seq_ids, ctx_lens, q_lens=None,
-                      pad_row: Optional[int] = None) -> np.ndarray:
-        """Stream-K descriptors for these sequences' real pages."""
+                      pad_row: Optional[int] = None,
+                      verify=None) -> np.ndarray:
+        """Stream-K descriptors for these sequences' real pages
+        (``verify``: :func:`build_work_queue`'s speculating rows)."""
         return build_work_queue(
             self.block_table[np.asarray(seq_ids)], ctx_lens,
             self.pcfg.page_size, self.cfg.num_kv_heads, q_lens, pad_row,
-            seq_ids=seq_ids)
+            seq_ids=seq_ids, verify=verify)
 
     def block_tables_np(self, seq_ids, npages: int) -> np.ndarray:
         """``[B, npages]`` int32 table with unmapped slots (-1) clamped to

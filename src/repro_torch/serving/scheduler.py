@@ -9,12 +9,18 @@ queue is bounded: the engine rejects at submit when it is full
 (``FAILED("queue_full")``) and a preemption victim that cannot re-queue
 is shed (``FAILED("shed")``). ``expire_deadlines`` moves requests past
 their ``deadline_ms``/``ttft_ms`` to ``TIMED_OUT`` at each step boundary.
-Not ported yet: snapshot/restore.
+``snapshot``/``restore`` serialize the scheduler in the reference's JSON:
+the legacy mode demotes running requests to waiting (generated text
+folded into the prompt); ``full=True`` keeps the exact waiting/running
+split, slots, prefill cursors, free-slot order and plan cursor, which
+with the cache's ``snapshot_state`` resumes the next step bit for bit
+(``serving/recovery.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from collections import deque
 from typing import Callable, Optional
 
@@ -268,3 +274,134 @@ class Scheduler:
         self.finished.remove(req)
         self.released_count += 1
         return True
+
+    # ------------------------------------------------------ fault tolerance
+
+    @staticmethod
+    def _req_entry(r: Request) -> dict:
+        """A request's full record for the ``full=True`` snapshot: nothing
+        folded or demoted (slot, prefill cursor, state, lifetime event
+        count)."""
+        entry = {
+            "request_id": r.request_id,
+            "prompt": list(r.prompt),
+            "generated": list(r.generated),
+            "max_new_tokens": r.max_new_tokens,
+            "arrived_at": r.arrived_at,
+            "first_token_at": r.first_token_at,
+            "finished_at": r.finished_at,
+            "cached_tokens": r.cached_tokens,
+            "emitted": r.emitted,
+            "uid": r.uid,
+            "seq_slot": r.seq_slot,
+            "prefill_pos": r.prefill_pos,
+            "state": r.state.value,
+            "stop_reason": r.stop_reason,
+        }
+        if r.params is not None:
+            entry["params"] = dataclasses.asdict(r.params)
+        return entry
+
+    @staticmethod
+    def _req_from_entry(e: dict) -> Request:
+        params = e.get("params")
+        req = Request(
+            request_id=e["request_id"], prompt=list(e["prompt"]),
+            max_new_tokens=e["max_new_tokens"],
+            arrived_at=e.get("arrived_at", 0.0),
+            first_token_at=e.get("first_token_at", 0.0),
+            finished_at=e.get("finished_at", 0.0),
+            cached_tokens=e.get("cached_tokens", 0),
+            emitted=e.get("emitted", 0),
+            uid=e.get("uid", -1),
+            params=SamplingParams(**params) if params else None)
+        req.generated = list(e.get("generated", []))
+        req.seq_slot = e.get("seq_slot", -1)
+        req.prefill_pos = e.get("prefill_pos", 0)
+        req.state = RequestState(e.get("state", "queued"))
+        req.stop_reason = e.get("stop_reason")
+        req.terminal_emitted = req.state.terminal
+        return req
+
+    def snapshot(self, full: bool = False) -> str:
+        """Serialize the scheduler. Legacy (default): running requests are
+        demoted to waiting, their generated text folded into the prompt
+        (their KV is recomputed on restore). ``full=True``: the exact
+        split, slots, prefill cursors, free-slot order and plan cursor."""
+        if full:
+            return json.dumps({
+                "format": "full",
+                "waiting": [self._req_entry(r) for r in self.waiting],
+                "running": [self._req_entry(r) for r in self.running],
+                "finished": [self._req_entry(r) for r in self.finished],
+                "free_slots": list(self._free_slots),
+                "plan_cursor": self._plan_cursor,
+                "preemptions": self.preemptions,
+                "released_count": self.released_count,
+            })
+        reqs = []
+        for r in list(self.waiting) + self.running:
+            entry = {
+                "request_id": r.request_id,
+                "prompt": list(r.prompt) + list(r.generated),
+                "max_new_tokens": r.max_new_tokens - len(r.generated),
+                "arrived_at": r.arrived_at,
+                # TTFT and prefix-hit accounting survive the restart
+                "first_token_at": r.first_token_at,
+                "cached_tokens": r.cached_tokens,
+                "emitted": r.emitted,
+            }
+            if r.params is not None:
+                entry["params"] = dataclasses.asdict(r.params)
+            reqs.append(entry)
+        done = [{
+            "request_id": r.request_id,
+            "prompt": list(r.prompt),
+            "generated": list(r.generated),
+            "stop_reason": r.stop_reason,
+            "state": r.state.value,
+            "arrived_at": r.arrived_at,
+            "first_token_at": r.first_token_at,
+            "cached_tokens": r.cached_tokens,
+            "emitted": r.emitted,
+        } for r in self.finished]
+        return json.dumps({"pending": reqs, "finished": done})
+
+    @classmethod
+    def restore(cls, blob: str, max_batch: int, max_seqs: int,
+                max_waiting: Optional[int] = None) -> "Scheduler":
+        state = json.loads(blob)
+        sched = cls(max_batch, max_seqs, max_waiting)
+        if state.get("format") == "full":
+            for key, dst in (("waiting", sched.waiting),
+                             ("running", sched.running),
+                             ("finished", sched.finished)):
+                dst.extend(cls._req_from_entry(e) for e in state[key])
+            sched._free_slots = list(state["free_slots"])
+            sched._plan_cursor = state.get("plan_cursor", 0)
+            sched.preemptions = state.get("preemptions", 0)
+            sched.released_count = state.get("released_count", 0)
+            return sched
+        for r in state["pending"]:
+            params = r.get("params")
+            sched.submit(Request(
+                request_id=r["request_id"], prompt=r["prompt"],
+                max_new_tokens=r["max_new_tokens"],
+                arrived_at=r["arrived_at"],
+                first_token_at=r.get("first_token_at", 0.0),
+                cached_tokens=r.get("cached_tokens", 0),
+                emitted=r.get("emitted", 0),
+                params=SamplingParams(**params) if params else None))
+        for r in state["finished"]:
+            req = Request(request_id=r["request_id"], prompt=r["prompt"],
+                          max_new_tokens=0,
+                          arrived_at=r.get("arrived_at", 0.0))
+            req.generated = r["generated"]
+            req.stop_reason = r.get("stop_reason")
+            req.state = RequestState(r.get("state", "finished"))
+            req.first_token_at = r.get("first_token_at", 0.0)
+            req.cached_tokens = r.get("cached_tokens", 0)
+            req.emitted = r.get("emitted", 0)
+            req.terminal_emitted = req.state.terminal
+            sched.finished.append(req)
+        return sched

@@ -694,3 +694,87 @@ def test_contiguous_decode_exact_on_card(g):
             _exact(KA.kv4_decode_attention(*args),
                    KA.kv4_decode_attention_ref(*args))
 
+
+
+def _verify_state(rng, ctx, hq, hkv, ps, c, num_pages=24):
+    """Pools with random history, one row of ctx + c positions whose
+    chunk k/v is written into its pages (int4) and returned fake-quantized
+    (the in-flight values the engine feeds K9), bf16-valued queries."""
+    from repro_torch.serving import kv_cache as KVC
+    d = 128
+    need = -(-(ctx + c) // ps)
+    tbl = np.full((1, need + 1), -1, np.int32)
+    tbl[0, :need] = rng.permutation(num_pages)[:need]
+    kp, vp = [_cuda(rng.integers(0, 256, (num_pages, ps, hkv, d // 2))
+                    .astype(np.uint8)) for _ in range(2)]
+    ks, kz, vs, vz = [_cuda(rng.uniform(lo, hi, (hkv, 1, d))
+                            .astype(np.float32))
+                      for lo, hi in ((0.05, 0.2), (6, 9), (0.05, 0.2),
+                                     (6, 9))]
+    k, v = [_cuda((rng.normal(size=(1, c, hkv, d)) * 0.8).astype(np.float32))
+            for _ in range(2)]
+    kq, vq = KVC.quantize_kv_with(k, v, ks, kz, vs, vz)
+    pos = ctx + np.arange(c)
+    pages = _cuda(tbl[0, pos // ps].astype(np.int64))
+    offs = _cuda((pos % ps).astype(np.int64))
+    kp[pages, offs] = kq[0].transpose(0, 1)
+    vp[pages, offs] = vq[0].transpose(0, 1)
+    kdq, vdq = KVC.qdq_kv_with(k, v, ks, kz, vs, vz)
+    q = _cuda(rng.normal(size=(1, c, hq, d)).astype(np.float32)).bfloat16()
+    return tbl, q, kdq, vdq, (kp, ks, kz, vp, vs, vz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx,ps", [(30, 16), (64, 16), (45, 16), (191, 64)])
+def test_wq_verify_chunk_equals_decode_steps_on_card(ctx, ps):
+    """K9 over a verify chunk of 5 (``build_work_queue(verify=...)``) bit
+    for bit against its plain version, and its query i ``torch.equal`` to
+    K9 over the decode step of the same token at ctx + i."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(ctx + ps)
+    hq, hkv, c = 8, 2, 5
+    tbl, q, kdq, vdq, pools = _verify_state(rng, ctx, hq, hkv, ps, c)
+
+    def k9(q, kn, vn, desc):
+        desc = np.asarray(desc)
+        plan = PA.work_plan(desc, hkv, q.shape[1], hq // hkv, "cuda")
+        args = (q, kn, vn, *pools, _cuda(desc))
+        got = PA.paged_kv4_prefill_attention_wq(*args, plan=plan)
+        want = PA.paged_kv4_prefill_attention_wq_ref(*args, plan=plan)
+        assert torch.equal(got, want)
+        return got
+
+    chunk = k9(q, kdq, vdq,
+               build_work_queue(tbl, [ctx], ps, hkv, [c], verify=[True]))
+    for i in range(c):
+        one = k9(q[:, i:i + 1].contiguous(), kdq[:, i:i + 1].contiguous(),
+                 vdq[:, i:i + 1].contiguous(),
+                 build_work_queue(tbl, [ctx + i], ps, hkv, [1]))
+        assert torch.equal(chunk[0, i], one[0, 0]), i
+
+
+@pytest.mark.cuda
+def test_norms_are_batch_invariant_on_card():
+    """RMSNorm and LayerNorm give a row the same bits alone and inside
+    batches of 16 to 1,024 rows, at the first and the last row, on rows
+    of ordinary and of large magnitude (``layers/common.py:row_mean``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.layers import common as C
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d = 4096
+    x = torch.randn((1, 1024, d), generator=gen, device="cuda")
+    x[:, ::3] *= 300.0
+    x = x.bfloat16()
+    scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(d, generator=gen, device="cuda")
+    for fn in (lambda t: C.rmsnorm(t, scale),
+               lambda t: C.layernorm(t, scale, bias)):
+        alone = fn(x[:, :8])
+        for t in (16, 32, 64, 128, 256, 512, 1024):
+            y = x[:, :t].clone()
+            y[:, t - 8:] = x[:, :8]
+            out = fn(y)
+            assert torch.equal(out[:, :8], alone), t
+            assert torch.equal(out[:, t - 8:], alone), t

@@ -149,12 +149,20 @@ def test_speculation_flag_prints_its_line():
     assert eng.sanitize_checks == eng.steps
 
 
-@pytest.mark.parametrize("flag", [["--failover", "migrate"], ["--mesh", "1x2"],
-                                  ["--kill-replica-at", "3"],
-                                  ["--head-dim", "64"],
-                                  ["--replicas", "2"],
-                                  ["--snapshot-every", "2"]])
+@pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--head-dim", "64"]])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         SERVE.build_parser().parse_args(COMMON + flag)
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,attr,value", [
+    (["--failover", "migrate"], "failover", "migrate"),
+    (["--kill-replica-at", "3"], "kill_replica_at", 3),
+    (["--replicas", "2"], "replicas", 2),
+    (["--snapshot-every", "2"], "snapshot_every", 2)])
+def test_recovery_and_replica_flags_parse(flag, attr, value):
+    """The recovery and replication flags, refused until they were ported,
+    parse as the reference's do (their runs: test_torch_replication.py)."""
+    assert getattr(SERVE.build_parser().parse_args(COMMON + flag),
+                   attr) == value
