@@ -98,7 +98,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
    non-zero, each serving the same workload (Qwen2.5-32B and
    StarCoder2-15B also in baselines a, b and c: every decode kernel at G
    = 5 and 12);
-10. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
+10. tp: tensor parallelism, one spawned process per card (NCCL), at
+   every world size of 1, 2 and 4 the visible cards allow (the others
+   named on a printed line). Each rank makes its shard of the seeded
+   Llama-3-8B weights block by block and serves the ``slice`` workload
+   with the sanitizers on (after every step the ranks' tokens and
+   scheduler state must agree). World size 1 goes through the real
+   process group and seams and must equal the unsharded engine bit for
+   bit (tokens and first logits) in the default configuration. On any
+   card count the unsharded engine also serves (a), (a2) and (b) below
+   under ``serial_seams(M)``, M = 2 and 4 (wo and w_down as M K-slices
+   of the whole weights summed in rank order), its token agreement with
+   the plain unsharded runs and first-logit gap printed. With more
+   cards, every 8B run at M ranks must equal that serial run bit for
+   bit, tokens and first logits: (a) at ``int4_fraction=1.0`` and (a2),
+   the same at 2 layers, the token agreement with one device and the
+   largest first-logit difference, (b) the default configuration's
+   tokens/s, median step, peak memory per card and kernel
+   launch calls per step per rank (``torch.profiler`` over steps 5–12),
+   the seam (all-gather of f32 partials and a rank-order sum) beside
+   NCCL's ``all_reduce`` at 8B and 70B widths, then (c) Llama-3-70B at
+   full width and depth over the largest mesh, and the cli phase's first
+   launcher call with ``--mesh 1x4``. The kernels phase holds
+   the fused act-quant, K3 and K4 at one rank's shapes under 4-way
+   parallelism (Llama-3-8B and -70B: wq, wk, wo, w_up, w_down shards)
+   and K9 and K7 at its local heads (``TP4 8B``: 8/2, ``TP4 70B``:
+   16/2), timed at the down projection's shard.
+   ``python3 chip_smoke.py --phases tp`` on a host with four cards runs
+   it over four cards;
+11. cli: the serve launcher (``python -m repro_torch.launch.serve``) in a
    subprocess on Llama-3-8B at full width and depth under the mixed
    schedule, 8 requests of 384–640 prompt tokens (128 shared) × 32 new
    tokens with a 6-deep waiting queue and every 4th request aborted: 2
@@ -126,6 +154,7 @@ kernel table and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -141,7 +170,7 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
-          "replicas", "archs", "cli")
+          "replicas", "tp", "archs", "cli")
 EXTRA_PHASES = ("times", "specdiag")      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -1050,20 +1079,26 @@ def phase_times(torch, cfg, KVC, PA, KA, ops):
 # ------------------------------------------------------- phases 3 and 4
 
 def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
-          prompts, max_new, ecfg, quant_kw, sampling=None, faults=None):
+          prompts, max_new, ecfg, quant_kw, sampling=None, faults=None,
+          mesh=None, param_axes=None, profile_steps=None):
     """Serve ``prompts`` to completion under ``QuantConfig(impl=impl,
     **quant_kw)``, each request greedy or with ``SamplingParams`` fields
     ``sampling`` (temperature, top_k, speculation); ``faults``: a fault
-    injector to arm; → (engine, the first logits the engine produced, host
-    seconds per step). The unified step's logits come from
+    injector to arm; ``mesh``/``param_axes``: a tensor-parallel rank's
+    engine; ``profile_steps`` ``(first, last)``: count the kernel launch
+    calls of those steps (``torch.profiler``), left on the engine as
+    ``smoke_launch_calls``, and stop after them; → (engine, the first
+    logits the engine
+    produced, host seconds per step). The unified step's logits come from
     ``_guarded_forward``, the split forwards' from the rows they hand to
     ``_sample_batch``. A ``SanitizerError`` (``ecfg.sanitize``) fails the
     script."""
     from repro_torch.serving.api import SamplingParams
     from repro_torch.serving.sanitize import SanitizerError
     eng = Engine(cfg, params, QuantConfig(impl=impl, **quant_kw), ecfg,
-                 device="cuda", **({} if faults is None
-                                   else {"faults": faults}))
+                 device=mesh.device if mesh is not None else "cuda",
+                 mesh=mesh, param_axes=param_axes,
+                 **({} if faults is None else {"faults": faults}))
     first = []
     for name in ("_guarded_forward", "_sample_batch"):
         inner = getattr(eng, name)
@@ -1104,7 +1139,13 @@ def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
 
         setattr(eng, name, timed)
     step_s = []
+    prof = None
     while eng.sched.has_work and eng.steps < 10_000:
+        if profile_steps and eng.steps + 1 == profile_steps[0]:
+            from torch.profiler import ProfilerActivity
+            prof = torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
         t0 = time.perf_counter()
         try:
             eng.step()
@@ -1112,6 +1153,12 @@ def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
             fail(f"sanitizer at step {eng.steps}: {e}")
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        if prof is not None and eng.steps == profile_steps[1]:
+            prof.__exit__(None, None, None)
+            eng.smoke_launch_calls = sum(
+                e.count for e in prof.key_averages()
+                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+            break
     return eng, first[0] if first else None, step_s
 
 
@@ -2110,6 +2157,385 @@ def phase_archs(torch, np, mods, KERNELS, get_config, profile=False):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------- tensor parallelism
+
+TP_SIZES = (1, 2, 4)       # the world sizes the tp phase runs, cards allowing
+TP_SHARD = 4               # the per-shard shapes the kernels phase checks
+# (model, projection, N, K) of one rank's shard at M = 4: wq/wk/w_up
+# (and wv, w_gate) column slices, wo/w_down row slices (K3 and K4 see a
+# K-slice, its INT4/INT8 split rounded per shard)
+TP_GEMMS = (("8B", "wq", 1024, 4096), ("8B", "wk", 256, 4096),
+            ("8B", "wo", 4096, 1024), ("8B", "w_up", 3584, 4096),
+            ("8B", "w_down", 4096, 3584),
+            ("70B", "wq", 2048, 8192), ("70B", "wk", 256, 8192),
+            ("70B", "wo", 8192, 2048), ("70B", "w_up", 7168, 8192),
+            ("70B", "w_down", 8192, 7168))
+TP_HEADS = (("8B", 2, 4), ("70B", 2, 8))    # (model, local kv heads, G)
+# the tp phase's runs on Llama-3-8B: (a) the token contract's config,
+# (b) the default one
+TP_RUNS = (("a", {"int4_fraction": 1.0}), ("b", {}))
+TP_PROFILE = (5, 12)       # the steps whose kernel launch calls are counted
+TP_SEAM = ((8, 4096), (256, 4096), (8, 8192), (256, 8192))   # (T, N)
+
+
+def check_tp_kernels(torch, AQ, WK, Q, KVC, PA, cfg8b, rows: dict):
+    """The kernels at one rank's shapes under ``TP_SHARD``-way tensor
+    parallelism (``TP_GEMMS``, ``TP_HEADS``), against their plain
+    versions: the fused act-quant (K1 + K2) byte for byte and K3, K4 bit
+    for bit at M ∈ {8, 256}, K9 and K7 bit for bit at the local heads;
+    each row parallel down projection's act-quant and GEMMs timed (entries
+    ``TP4 <model> w_down`` of K1's, K2's, K3's and K4's rows, the
+    attention kernels' under ``TP4 <model>``)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for model, proj, n, k in TP_GEMMS:
+        nb = k // 128
+        nb4 = int(round(0.875 * nb))
+        k4 = nb4 * 128
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        wp, ws = Q.quantize_weight_int4(w, group_size=128)
+        for m in (256, 8):
+            x = act_input(torch, gen, m, k, k4)
+            qa = AQ.act_quant_w4ax(x, k4)
+            want = AQ.act_quant_w4ax_ref(x, k4)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(qa, want)):
+                fail(f"act_quant_w4ax TP{TP_SHARD} {model} {proj} M={m} "
+                     f"K={k} k4={k4}: not byte-exact")
+            a4, s4, a8, s8 = qa
+            pairs = (("w4a4_matmul", (a4, s4, wp[:k4 // 2], ws[:nb4])),
+                     ("w4a8_matmul", (a8, s8, wp[k4 // 2:], ws[nb4:])))
+            for name, args in pairs:
+                if not torch.equal(getattr(WK, name)(*args),
+                                   getattr(WK, name + "_ref")(*args)):
+                    fail(f"{name} TP{TP_SHARD} {model} {proj} M={m} N={n} "
+                         f"K={k}: not bit-exact")
+            if proj == "w_down":
+                key = f"TP{TP_SHARD} {model} w_down"
+                times = {nm: gemm_times(torch, WK, Q, gen, nm, a)
+                         for nm, a in pairs}
+                if m == 256:
+                    act = act_times(torch, AQ, x, k4)
+                    for nm in ("act_quant_int4", "act_quant_int8"):
+                        rows[nm][key] = dict(act)
+                    for nm in times:
+                        rows[nm][key] = times[nm]
+                else:
+                    for nm in times:
+                        rows[nm][key]["decode"] = times[nm]
+        say(f"[kernels] TP{TP_SHARD} {model} {proj} shard N={n} K={k} "
+            f"({nb4}+{nb - nb4} blocks), M ∈ {{8, 256}}: act-quant "
+            f"byte-exact, K3 and K4 exact")
+    for model, hkv, g in TP_HEADS:
+        check_attention(torch, gqa_cfg(cfg8b, hkv, g), KVC, PA, Q, rows,
+                        f"TP{TP_SHARD} {model}")
+
+
+def tp_cfg(get_config, arch: str, depth):
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def tp_prompts(vocab: int):
+    """The ``slice`` workload's prompts (8 of 128–512 tokens, seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(128, 513, 8)]
+
+
+def tp_seam_times(torch, mesh) -> dict:
+    """Per call, host wall time over 50 synchronized calls: the seam's
+    all-gather and rank-order sum of f32 partials ``[T, N]`` and, as the
+    library figure, NCCL's ``all_reduce`` of the same tensor."""
+    import torch.distributed as dist
+    from repro_torch.parallel.mesh import reduce_partials
+    out = {}
+    for t, n in TP_SEAM:
+        y = torch.randn((t, n), device=mesh.device)
+        for label, fn in (("seam_ms", lambda: reduce_partials(y, mesh)),
+                          ("all_reduce_ms",
+                           lambda: dist.all_reduce(y.clone(),
+                                                   group=mesh.group))):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.host_group)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            out.setdefault(f"T={t} N={n}", {})[label] = \
+                (time.perf_counter() - t0) / 50 * 1e3
+    return out
+
+
+def tp_rank(rank: int, world: int, device, jobs) -> list:
+    """One rank of the tp phase (a spawned process): :func:`tp_model` for
+    each ``(arch, depth, runs)`` of ``jobs`` in turn, then the seam's
+    times → what the parent reports."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, world)
+    out = []
+    for job in jobs:
+        out.append(tp_model(torch, mesh, *job))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if world > 1:
+        out[0]["seam"] = tp_seam_times(torch, mesh)
+    return out
+
+
+def tp_model(torch, mesh, arch: str, depth, runs) -> dict:
+    """This rank's shard of the seeded weights made block by block, then
+    each of ``runs`` (name, ``QuantConfig`` fields) on the ``slice``
+    workload with the sanitizers on (every step the ranks' tokens and
+    scheduler state must agree); run (b) again to count its kernel
+    launch calls over ``TP_PROFILE`` (a run of its own, so the
+    profiler's cost stays out of the times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM, QuantConfig
+    from repro_torch.serving.engine import Engine, EngineConfig
+    device, rank, world = mesh.device, mesh.model_rank, mesh.size
+    cfg = tp_cfg(get_config, arch, depth)
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0, device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"made_s": time.perf_counter() - t0, "layers": cfg.num_layers,
+           "param_bytes": tree_bytes(params), "runs": {}}
+    axes = lm.axes(params)
+    prompts = tp_prompts(cfg.vocab_size)
+    for name, quant_kw in runs:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(device)
+        for kern in ops.KERNELS.values():
+            kern.launches = 0
+        ecfg = EngineConfig(prefill_chunk_tokens=256, sanitize=True)
+        t0 = time.perf_counter()
+        eng, first, step_s = serve(
+            torch, np, Engine, EngineConfig, QuantConfig, cfg, params,
+            "auto", prompts, 32, ecfg, quant_kw, mesh=mesh, param_axes=axes)
+        wall = time.perf_counter() - t0
+        toks = check_run(eng, len(prompts), 32, cfg.vocab_size,
+                         f"[tp] M={world} rank {rank} run {name}")
+        if eng.sanitize_checks != eng.steps:
+            fail(f"[tp] M={world} rank {rank}: {eng.sanitize_checks} "
+                 f"sanitizer passes in {eng.steps} steps")
+        out["runs"][name] = {
+            "tokens": toks, "first": first, "steps": eng.steps,
+            "forwards": eng.forward_calls, "wall": wall,
+            "tok_s": eng.tokens_generated / wall,
+            "median_step_ms": statistics.median(step_s) * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "launches": {n: k.launches for n, k in ops.KERNELS.items()},
+            "launch_calls": None,
+            "per_shard": eng.attn_work_items_per_shard,
+            "work_items": eng.attn_work_items}
+        del eng
+        if name == "b":
+            eng, _, _ = serve(
+                torch, np, Engine, EngineConfig, QuantConfig, cfg, params,
+                "auto", prompts, 32, ecfg, quant_kw, mesh=mesh,
+                param_axes=axes, profile_steps=TP_PROFILE)
+            out["runs"][name]["launch_calls"] = eng.smoke_launch_calls
+            del eng
+    del params
+    return out
+
+
+def tp_spawn(world: int, jobs) -> list:
+    """:func:`tp_rank` on ``world`` new ranks → per job, every rank's
+    result."""
+    from repro_torch.launch.mesh import spawn
+    try:
+        res = spawn(tp_rank, world, (jobs,), device_type="cuda",
+                    timeout_s=900.0)
+    except (RuntimeError, TimeoutError, ValueError) as e:
+        fail(f"[tp] M={world}: {e}")
+    return [[r[j] for r in res] for j in range(len(jobs))]
+
+
+def tp_check_ranks(res: list, label: str):
+    """Every rank emitted the same tokens (the sanitizer also compared
+    them after every step)."""
+    for name in res[0]["runs"]:
+        toks = [r["runs"][name]["tokens"] for r in res]
+        if any(t != toks[0] for t in toks):
+            fail(f"{label} run {name}: the ranks' tokens differ")
+
+
+def agreement(a: dict, b: dict) -> float:
+    total = sum(len(v) for v in a.values())
+    return sum(x == y for i in a for x, y in zip(a[i], b[i])) / total
+
+
+TP_SHALLOW = 2      # the depth of run (a2): (a) with its amplification cut
+
+
+@contextlib.contextmanager
+def serial_seams(m: int):
+    """While open, the unsharded engine computes every row-parallel
+    projection (wo, w_down) as ``m`` ranks' seams do: K-slices taken here
+    by plain indexing of the whole weights, each a GEMM with f32 output,
+    summed in rank order, the bias added once, rounded to bf16 once."""
+    import torch
+    from repro_torch.core import qlinear as QL
+    from repro_torch.serving import engine as E
+
+    def row_linear(p, x, quant, mesh):
+        ks = x.shape[-1] // m
+        acc = None
+        for r in range(m):
+            part = {"w_packed": p["w_packed"][r * ks // 2:(r + 1) * ks // 2],
+                    "w_scale": p["w_scale"][r * ks // QL.BLOCK_K:
+                                            (r + 1) * ks // QL.BLOCK_K]}
+            y = QL.dispatch_qlinear(
+                part, x[..., r * ks:(r + 1) * ks].to(torch.bfloat16)
+                .contiguous(), quant, out_dtype=torch.float32)
+            acc = y if acc is None else acc + y
+        if "b" in p:
+            acc = acc + p["b"].float()
+        return acc.to(torch.bfloat16)
+
+    saved = E._row_linear
+    E._row_linear = row_linear
+    try:
+        yield
+    finally:
+        E._row_linear = saved
+
+
+def phase_tp(torch, np, mods, cfg8b, params):
+    """Tensor parallelism over the visible cards (``TP_SIZES``; a size the
+    cards cannot give is named, not run). World size 1 runs through the
+    real process group and seams and must equal the unsharded engine bit
+    for bit on the ``slice`` workload (tokens and first logits). With
+    more cards, each 8B run at M ranks must equal the unsharded engine
+    under ``serial_seams(M)`` bit for bit, and on Llama-3-8B at full
+    width and depth: (a) at
+    ``int4_fraction=1.0`` token agreement with one device and the largest
+    first-logit difference (and (a2), the same at ``TP_SHALLOW`` layers),
+    (b) the default configuration's tokens/s, median step, peak memory
+    per card and kernel launch calls per step per rank; then (c)
+    Llama-3-70B at full width and depth over the largest mesh; each with
+    the ranks' tokens identical at every step; the seam's times beside
+    NCCL's ``all_reduce``; then the cli phase's first launcher call with
+    ``--mesh`` over the largest mesh, whose counts must follow from the
+    flags as on one card. → {world size: rank results of the 8B job}."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    cards = torch.cuda.device_count()
+    sizes = [w for w in TP_SIZES if w <= cards]
+    say(f"[tp] world sizes run: {sizes}; "
+        + (f"not run: {[w for w in TP_SIZES if w > cards]} "
+           f"({cards} visible card(s))" if len(sizes) < len(TP_SIZES)
+           else "all"))
+    runs = TP_RUNS if cards > 1 else TP_RUNS[1:]
+    shallow = dataclasses.replace(cfg8b, num_layers=TP_SHALLOW)
+    # the unsharded engine's runs (a), (a2), (b): plain (key 1), and for
+    # each larger world size M, cards or not, under serial_seams(M) (key
+    # M), whose token agreement with the plain runs and first-logit gap
+    # are printed
+    one = {w: {} for w in TP_SIZES}
+    for name, cfg, quant_kw in [(n, cfg8b, q) for n, q in TP_RUNS] + [
+            ("a2", shallow, TP_RUNS[0][1])]:
+        p = params if cfg is cfg8b else LM(cfg).init(seed=0, device="cuda")
+        for world in TP_SIZES:
+            with (serial_seams(world) if world > 1
+                  else contextlib.nullcontext()):
+                eng, first, _ = serve(
+                    torch, np, Engine, EngineConfig, QuantConfig, cfg, p,
+                    "auto", tp_prompts(cfg.vocab_size), 32,
+                    EngineConfig(prefill_chunk_tokens=256), quant_kw)
+            one[world][name] = (check_run(eng, 8, 32, cfg.vocab_size,
+                                          f"[tp] unsharded run {name}"),
+                                first)
+            del eng
+            if world > 1:
+                (toks, first), (s_toks, s_first) = (one[1][name],
+                                                    one[world][name])
+                say(f"[tp] unsharded run {name} ({cfg.num_layers} layers) "
+                    f"under serial_seams({world}) against the plain "
+                    f"unsharded run: token agreement "
+                    f"{agreement(toks, s_toks):.4f}, first-logit max |diff| "
+                    f"{float(np.abs(s_first - first).max()):g} (max |logit| "
+                    f"{float(np.abs(first).max()):g})")
+        del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {}
+    for world in sizes:
+        jobs = [("llama3_8b", None, runs)]
+        if world > 1:
+            jobs.append(("llama3_8b", TP_SHALLOW, (("a2", TP_RUNS[0][1]),)))
+        if world == max(sizes) > 1:
+            jobs.append(("llama3_70b", None, (("c", {}),)))
+        out = tp_spawn(world, jobs)
+        results[world] = res = out[0]
+        for job, rs in zip(jobs, out):
+            tp_check_ranks(rs, f"[tp] {job[0]} M={world}")
+        for rs in out[:2]:
+            for name in rs[0]["runs"]:
+                tp_report(rs, world, name, one[1][name], one[world][name],
+                          TP_PROFILE)
+        if "seam" in res[0]:
+            say(f"[tp] M={world} seam (all-gather + rank-order sum) vs NCCL "
+                f"all_reduce, host ms per call, rank 0: "
+                f"{json.dumps(res[0]['seam'])}")
+        if len(out) == 3:
+            rs = out[2]
+            r0 = rs[0]["runs"]["c"]
+            say(f"[tp] llama-3-70b M={world} run c (default configuration, "
+                f"80 layers): {r0['steps']} steps, {r0['tok_s']:.2f} tok/s, "
+                f"median step {r0['median_step_ms']:.2f} ms; peak memory per "
+                f"card {[round(r['runs']['c']['peak_gb'], 2) for r in rs]} "
+                f"GB; weights per card {rs[0]['param_bytes'] / 1e9:.2f} GB "
+                f"made in {rs[0]['made_s']:.1f} s; ranks' tokens identical")
+            say(f"[tp] llama-3-70b M={world} run c rank 0 launches "
+                f"{json.dumps(r0['launches'])}")
+    if max(sizes) > 1:       # the launcher's own ranks, the cli's counts
+        phase_cli(("--mesh", f"1x{max(sizes)}"))
+    return results
+
+
+def tp_report(rs: list, world: int, name: str, one, serial, prof):
+    """One run's line against the unsharded engine's (tokens, first
+    logits), ``one`` plain and ``serial`` under ``serial_seams(world)``
+    (at world size 1 the same run): it must be ``serial`` bit for bit."""
+    r0 = rs[0]["runs"][name]
+    toks, first = one
+    gap = float(np.abs(r0["first"] - first).max())
+    agree = agreement(toks, r0["tokens"])
+    s_toks, s_first = serial
+    if r0["tokens"] != s_toks or not np.array_equal(r0["first"], s_first):
+        fail(f"[tp] M={world} run {name}: not bit for bit the unsharded "
+             f"engine{' under serial_seams' if world > 1 else ''} (token "
+             f"agreement {agreement(s_toks, r0['tokens']):.4f}, first-logit "
+             f"gap {float(np.abs(r0['first'] - s_first).max()):g})")
+    if world > 1:
+        say(f"[tp] M={world} run {name}: tokens and first logits bit for "
+            f"bit the unsharded engine under serial_seams({world})")
+    calls = [r["runs"][name]["launch_calls"] for r in rs]
+    say(f"[tp] llama-3-8b M={world} run {name} "
+        f"({json.dumps(dict(TP_RUNS).get(name, dict(TP_RUNS)['a']))}, "
+        f"{rs[0]['layers']} layers): token agreement with one device "
+        f"{agree:.4f}, first-logit max |diff| {gap:g} (max |logit| "
+        f"{float(np.abs(first).max()):g}); {r0['steps']} steps, "
+        f"{r0['forwards']} forwards, {r0['tok_s']:.2f} tok/s, median step "
+        f"{r0['median_step_ms']:.2f} ms; peak memory per card "
+        f"{[round(r['runs'][name]['peak_gb'], 2) for r in rs]} GB; weights "
+        f"per card {rs[0]['param_bytes'] / 1e9:.2f} GB made in "
+        f"{rs[0]['made_s']:.1f} s; attention work items per rank "
+        f"{r0['per_shard']} of {r0['work_items']}"
+        + (f"; kernel launch calls per step per rank "
+           f"{[c / (prof[1] - prof[0] + 1) for c in calls]} (steps "
+           f"{prof[0]}–{prof[1]})" if calls[0] is not None else ""))
+    say(f"[tp] M={world} run {name} rank 0 launches "
+        f"{json.dumps(r0['launches'])}")
+
+
 # the cli phase's launcher flags, and what they must lead to: 8 requests
 # into a 6-deep waiting queue reject the last 2, every 4th submit (the 4th;
 # the 8th is already rejected) is aborted after its first token, and the 5
@@ -2292,6 +2718,7 @@ def main():
             cfg = gqa_cfg(cfg8b, hkv, g)
             check_attention(torch, cfg, KVC, PA, Q, rows, f"G={g} C=256")
             check_decode(torch, cfg, KVC, PA, KA, Q, rows, f"G={g}")
+        check_tp_kernels(torch, AQ, WK, Q, KVC, PA, cfg8b, rows)
         lap("kernels")
     if "times" in phases:
         phase_times(torch, cfg8b, KVC, PA, KA, ops)
@@ -2306,7 +2733,8 @@ def main():
     if set(order) - {r for r, *_ in RUNS}:
         fail(f"--runs takes runs of {[r for r, *_ in RUNS]}")
     runs = {}
-    if order or phases & {"spec", "specdiag", "recover", "replicas"}:
+    tp = {}
+    if order or phases & {"spec", "specdiag", "recover", "replicas", "tp"}:
         t0 = time.perf_counter()
         params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
         torch.cuda.synchronize()
@@ -2334,6 +2762,9 @@ def main():
         if "replicas" in phases:
             phase_replicas(torch, np, mods, cfg8b, params)
             lap("replicas")
+        if "tp" in phases:
+            tp = phase_tp(torch, np, mods, cfg8b, params)
+            lap("tp")
         del params
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's
@@ -2353,6 +2784,11 @@ def main():
             row = dict(rows[n], launches=counts.get(COUNTED_AS.get(n, n)))
             if n in COUNTED_AS:
                 row["launches_alone"] = counts.get(n)
+            # the default configuration's launches on rank 0 of each mesh
+            # (the tp phase's run b; every rank launches alike)
+            row["launches_per_rank"] = {
+                f"M={w}": res[0]["runs"]["b"]["launches"].get(
+                    COUNTED_AS.get(n, n)) for w, res in tp.items()}
             table.append(row)
     say(smi)
     say(json.dumps({"kernels": table}))

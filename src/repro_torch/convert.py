@@ -4,6 +4,9 @@ The input is ``LM.quantize`` output of the JAX package with every leaf
 turned into a numpy array by the caller (``np.asarray``); this module never
 sees a JAX type. Block leaves carry a leading layer axis there and become
 a list of per-layer dicts here, so both packages compute the same thing.
+The reference's logical axes (``LM.quantize``'s ``qaxes``) come across
+the same way (:func:`axes_from_jax`): the blocks' leading ``"layers"``
+axis is dropped and each layer gets its own copy.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from repro_torch.layers.common import resolve_device
 
-__all__ = ["params_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "axes_from_jax", "to_torch"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -44,6 +47,21 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     num_layers = len(next(iter(_leaves(stacked))))
     out["blocks"] = [_tree(stacked, lambda a, i=i: to_torch(a[i], device))
                      for i in range(num_layers)]
+    return out
+
+
+def axes_from_jax(qaxes: dict, num_layers: int) -> dict:
+    """The reference's axes tree (tuples of axis names; ``blocks`` with a
+    leading ``"layers"``) → the port's (``blocks`` a list of
+    ``num_layers`` per-layer trees without it)."""
+    def drop(ax):
+        if isinstance(ax, dict):
+            return {k: drop(v) for k, v in ax.items()}
+        if tuple(ax[:1]) != ("layers",):
+            raise ValueError(f"block axes {ax} lack the leading 'layers'")
+        return tuple(ax[1:])
+    out = {k: _tree(v, tuple) for k, v in qaxes.items() if k != "blocks"}
+    out["blocks"] = [drop(qaxes["blocks"]) for _ in range(num_layers)]
     return out
 
 

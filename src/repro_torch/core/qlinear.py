@@ -12,7 +12,11 @@ specs agree on ``(k, k4)`` share its quantization
 function, so the codes are the ones each would compute alone. The channel
 order is the identity (``quantize_linear_fraction``'s synthetic plan: no
 permutation); the INT8 tail is the trailing ``K − K4`` channels with
-``K4 = round(int4_fraction · K/128) · 128``.
+``K4 = round(int4_fraction · K/128) · 128``, K being the projection's
+own (under tensor parallelism a row-parallel shard's K-slice, so K4 is
+rounded per shard). ``out_dtype`` overrides only the output's cast: the
+act-quant still sees the input in its own dtype, and a row-parallel
+shard keeps its f32 partial sums for the cross-rank sum.
 """
 
 from __future__ import annotations
@@ -65,21 +69,24 @@ def quantize_act(spec: QLinearSpec, x: torch.Tensor) -> QuantAct:
                     dtype=x.dtype)
 
 
-def qlinear_gemm(spec: QLinearSpec, qparams, qa: QuantAct) -> torch.Tensor:
-    """The W4Ax GEMM of a quantized activation → [..., N] in its dtype;
-    a projection's f32 bias ``b`` is added to the f32 GEMM output before
-    that one cast (under the split schedule ``(K3 + K4) + b``)."""
+def qlinear_gemm(spec: QLinearSpec, qparams, qa: QuantAct,
+                 out_dtype=None) -> torch.Tensor:
+    """The W4Ax GEMM of a quantized activation → [..., N] in its dtype
+    (or ``out_dtype``); a projection's f32 bias ``b`` is added to the f32
+    GEMM output before that one cast (under the split schedule
+    ``(K3 + K4) + b``)."""
     out = ops.w4ax_matmul(qa.a4, qa.s4, qa.a8, qa.s8, qparams["w_packed"],
                           qparams["w_scale"], schedule=spec.schedule,
                           impl=spec.impl)
     if "b" in qparams:
         out = out + qparams["b"]
-    return out.to(qa.dtype)
+    return out.to(out_dtype or qa.dtype)
 
 
-def qlinear_apply(spec: QLinearSpec, qparams, x: torch.Tensor) -> torch.Tensor:
-    """x: [..., K] float → [..., N] in x's dtype."""
-    return qlinear_gemm(spec, qparams, quantize_act(spec, x))
+def qlinear_apply(spec: QLinearSpec, qparams, x: torch.Tensor,
+                  out_dtype=None) -> torch.Tensor:
+    """x: [..., K] float → [..., N] in x's dtype (or ``out_dtype``)."""
+    return qlinear_gemm(spec, qparams, quantize_act(spec, x), out_dtype)
 
 
 def qlinear_apply_many(specs, qparams_list, x: torch.Tensor) -> list:
@@ -106,6 +113,7 @@ def qlinear_spec(params, quant) -> QLinearSpec:
                        impl=quant.impl)
 
 
-def dispatch_qlinear(params, x: torch.Tensor, quant) -> torch.Tensor:
+def dispatch_qlinear(params, x: torch.Tensor, quant,
+                     out_dtype=None) -> torch.Tensor:
     """A packed projection under a quant config → :func:`qlinear_apply`."""
-    return qlinear_apply(qlinear_spec(params, quant), params, x)
+    return qlinear_apply(qlinear_spec(params, quant), params, x, out_dtype)

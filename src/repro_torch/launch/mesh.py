@@ -1,0 +1,188 @@
+"""Meshes over local ranks, and the processes that run them
+(``repro/launch/mesh.py``).
+
+Tensor-parallel serving runs one process per rank, every one running the
+same host program (as a multi-controller JAX program does): on the card
+rank r owns ``cuda:r`` and its collectives go through NCCL, on the CPU
+through gloo. :func:`spawn` starts the ranks, which meet through a
+``FileStore`` in a fresh temporary directory, and returns what each
+rank's function returned; :func:`make_local_mesh` then builds a rank's
+:class:`~repro_torch.parallel.mesh.Mesh` inside its process. Both are
+strict: a mesh larger than the visible cards, a rank that fails or exits
+early, and one that does not finish within the wall-clock limit raise,
+and no mesh is clamped to fit.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.mesh import Mesh
+
+__all__ = ["parse_mesh_arg", "make_local_mesh", "init_rank", "spawn",
+           "check_cards"]
+
+_HOST_GROUP: dict = {}
+
+
+def parse_mesh_arg(spec: str) -> tuple[int, int]:
+    """CLI ``--mesh DxM`` → ``(data, model)``, e.g. ``"1x4"`` → (1, 4).
+
+    Pure string parsing (no device touch) so launchers can validate the
+    flag before starting any rank. Raises ValueError on anything that is
+    not two positive ints joined by 'x'."""
+    parts = spec.lower().split("x")
+    if len(parts) != 2:
+        raise ValueError(
+            f"--mesh expects DATAxMODEL (e.g. 1x4), got {spec!r}")
+    try:
+        data, model = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"--mesh expects DATAxMODEL (e.g. 1x4), got {spec!r}") from None
+    if data < 1 or model < 1:
+        raise ValueError(f"--mesh axes must be >= 1, got {spec!r}")
+    return data, model
+
+
+def check_cards(n: int, device_type: str) -> None:
+    """Raise unless ``n`` ranks fit: on the card, one visible card each."""
+    if device_type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise ValueError(
+                f"a mesh of {n} rank(s) needs {n} CUDA cards but {have} "
+                f"are visible; no mesh is clamped to fit")
+
+
+def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """This rank's ``(data, model)`` mesh over the ranks of the process
+    group (``init_rank``), which must number exactly ``data · model``.
+    A data axis above 1 is not ported (ROADMAP Queue 1)."""
+    if data != 1:
+        raise NotImplementedError(
+            f"a data axis of {data} is not ported: tensor-parallel serving "
+            f"takes --mesh 1xM (ROADMAP Queue 1: the data axis)")
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh runs inside a rank: start the "
+                           "ranks with launch.mesh.spawn (or init_rank)")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"mesh ({data}, {model}) needs {data * model} "
+                         f"ranks, the process group has {world}")
+    rank = dist.get_rank()
+    cuda = dist.get_backend() == "nccl"
+    check_cards(world, "cuda" if cuda else "cpu")
+    if _HOST_GROUP.get("world") is not dist.group.WORLD:
+        # one per process group; every rank builds it in the same order
+        # (new_group is collective)
+        _HOST_GROUP["world"] = dist.group.WORLD
+        _HOST_GROUP["group"] = (dist.new_group(backend="gloo") if cuda
+                                else dist.group.WORLD)
+    return Mesh(shape={"data": data, "model": model}, model_rank=rank,
+                group=dist.group.WORLD, host_group=_HOST_GROUP["group"],
+                device=(torch.device("cuda", rank) if cuda
+                        else torch.device("cpu")))
+
+
+def init_rank(rank: int, world: int, store_path: str, device_type: str,
+              timeout_s: float) -> torch.device:
+    """Join the process group of ``world`` ranks as ``rank`` (NCCL on the
+    card, gloo on the CPU) through the ``FileStore`` at ``store_path``,
+    within ``timeout_s`` seconds → this rank's device (``cuda:rank``,
+    made current, or the CPU)."""
+    if device_type == "cuda":
+        check_cards(world, "cuda")
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return device
+
+
+def _rank_main(fn, rank, world, store_path, device_type, collective_s,
+               threads, args, results):
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        device = init_rank(rank, world, store_path, device_type, collective_s)
+        results.put((rank, True, fn(rank, world, device, *args)))
+    except BaseException:  # noqa: BLE001 — a rank's failure, whatever it
+        # is, goes to the parent, which stops every rank and raises it
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, args=(), *, device_type: str = "cpu",
+          timeout_s: float = 600.0, collective_timeout_s: float = 600.0,
+          threads: int = 0) -> list:
+    """Run ``fn(rank, world, device, *args)`` in ``world`` new processes,
+    one per rank, each already in the process group → the returned values
+    in rank order (they must pickle, and ``fn`` must be importable).
+    ``threads`` pins each rank's PyTorch intra-op threads (0: leave them).
+    Raises when a rank raises or exits without a result, stopping the
+    others, and when the ranks have not all finished after
+    ``timeout_s`` seconds. A collective that waits longer than
+    ``collective_timeout_s`` (at most ``timeout_s``) for the other ranks
+    raises in its rank."""
+    check_cards(world, device_type)
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    results = ctx.Queue()
+    procs = [ctx.Process(
+        target=_rank_main, daemon=True,
+        args=(fn, r, world, os.path.join(tmp, "store"), device_type,
+              min(timeout_s, collective_timeout_s), threads, args, results))
+        for r in range(world)]
+    out: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"rank(s) {sorted(set(range(world)) - set(out))} did "
+                    f"not finish within {timeout_s:.0f} s")
+            try:
+                rank, ok, value = results.get(timeout=min(left, 0.5))
+            except queue.Empty:
+                # a rank that exits cleanly has put its result first
+                dead = [r for r, p in enumerate(procs)
+                        if r not in out and p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(
+                        f"rank(s) {dead} exited (codes "
+                        f"{[procs[r].exitcode for r in dead]}) without a "
+                        f"result") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]

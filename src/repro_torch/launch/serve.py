@@ -46,9 +46,17 @@ terminal state, stop reasons, and the tokens of each finished request.
 Prompts come from ``np.random.default_rng(seed)`` in the reference's order,
 so both launchers serve the same prompts.
 
-The reference's flags for tensor parallelism, not ported yet, are not
-defined, so argparse refuses them (ROADMAP Queue 1): ``--mesh`` and
-``--head-dim``.
+Tensor-parallel serving: ``--mesh 1xM`` (M > 1) starts M ranks, one
+process each (``launch/mesh.py``: one card each and NCCL on the card,
+gloo under ``--device cpu``), every one making its shard of the seeded
+weights block by block and running the same trace on its
+:class:`Engine` shard; rank 0 alone prints. A rank that fails stops
+them all, and so does a collective left waiting 600 s for the other
+ranks (the run's own limit is a day). ``--head-dim`` overrides the
+config's head_dim (the smoke configs' q_dim of 128 is one quant block,
+too narrow for row-parallel shards: ``--smoke --mesh 1x2 --head-dim
+64``). A data axis above 1, ``--replicas`` with a model axis above 1 and
+``--snapshot-every`` with one raise: not ported (ROADMAP Queue 1).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -66,12 +74,19 @@ Usage:
       --failover standby --kill-replica-at 3 --snapshot-every 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b \\
       --requests 8 --prompt-len 512 --max-new 32 --prefill-chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --mesh 1x4 --requests 8 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch llama3_8b --smoke --mesh 1x2 --head-dim 64 --int4-fraction 1.0
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
+import io
 import time
 
 import numpy as np
@@ -79,6 +94,8 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ARCH_IDS
+from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_local_mesh, parse_mesh_arg, spawn
 from repro_torch.models.lm import LM, QuantConfig
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 from repro_torch.serving.faults import Fault, FaultInjector
@@ -131,8 +148,9 @@ def _engine_config(args) -> EngineConfig:
 
 
 def _trace(args, cfg):
-    """The per-request sampling parameters and the synthetic prompts,
-    drawn from ``--seed`` in the reference's order."""
+    """The per-request sampling parameters and the arrival trace: the
+    synthetic prompts, drawn from ``--seed`` in the reference's order,
+    request i submitted at step i·``--arrival-every``."""
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
                           size=args.shared_prefix).tolist()
@@ -150,7 +168,7 @@ def _trace(args, cfg):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
         prompts.append(shared
                        + rng.integers(0, cfg.vocab_size, size=plen).tolist())
-    return sp, prompts
+    return sp, [(i * args.arrival_every, p) for i, p in enumerate(prompts)]
 
 
 def _run_group(args, cfg, params, quant, ecfg, sp,
@@ -320,33 +338,107 @@ def build_parser() -> argparse.ArgumentParser:
                          "'crash' fault point; 0 = never)")
     ap.add_argument("--kill-replica", type=int, default=0,
                     help="which replica --kill-replica-at kills")
+    ap.add_argument("--mesh", default="1x1", metavar="DxM",
+                    help="(data, model) mesh for tensor-parallel serving: "
+                         "1xM shards heads, the MLP and the KV pools over "
+                         "M ranks, one process and one card each (gloo "
+                         "ranks under --device cpu). 1x1 = one device "
+                         "(default). More ranks than visible cards is an "
+                         "error, never clamped")
+    ap.add_argument("--head-dim", type=int, default=0,
+                    help="override cfg.head_dim (0 = keep). The smoke "
+                         "configs use head_dim=32 → q_dim=128, too small "
+                         "for row-parallel TP (shards must hold whole "
+                         "128-channel quant blocks) — pass 64 with "
+                         "--smoke --mesh 1x2")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
-def main(argv=None):
-    """Serve the synthetic trace and print the summary → the engine (the
-    replica group with ``--replicas`` > 1)."""
-    args = build_parser().parse_args(argv)
+def _model(args):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=args.head_dim)
     quant = QuantConfig(int4_fraction=args.int4_fraction,
                         schedule=args.schedule, impl=args.impl)
-    t0 = time.time()
-    params = LM(cfg).init(seed=args.seed, device=args.device)
-    where = (torch.cuda.get_device_name(torch.device(args.device))
-             if torch.device(args.device).type == "cuda" else args.device)
+    return cfg, quant
+
+
+def _init_line(args, cfg, t0: float, where: str) -> None:
     print(f"[init] {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}) random W4 weights from seed {args.seed} on "
           f"{where} in {time.time() - t0:.1f}s; schedule={args.schedule} "
           f"impl={args.impl}", flush=True)
 
+
+def main(argv=None):
+    """Serve the synthetic trace and print the summary → the engine (the
+    replica group with ``--replicas`` > 1; under ``--mesh 1xM``, M > 1,
+    every rank's ``Engine.counters()``)."""
+    args = build_parser().parse_args(argv)
+    data, model = parse_mesh_arg(args.mesh)
+    if data != 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: a data axis above 1 is not ported "
+            f"(ROADMAP Queue 1: the data axis); use --mesh 1xM")
+    if model > 1 and args.replicas > 1:
+        raise NotImplementedError(
+            "--replicas with --mesh 1xM (M > 1): replica groups over "
+            "per-replica meshes are not ported (ROADMAP Queue 1: replica "
+            "meshes)")
+    if model > 1 and args.snapshot_every:
+        raise NotImplementedError(
+            "--snapshot-every with --mesh 1xM (M > 1): a RecoveryLog over "
+            "a tensor-parallel engine is not ported (ROADMAP Queue 1: "
+            "recovery under TP)")
+    cfg, quant = _model(args)
+    if model > 1:
+        device = torch.device(args.device)
+        if device.type == "cuda":
+            _build.build()          # once, before the ranks start
+        print(f"[mesh] (data=1, model={model}) over {model} "
+              f"{device.type} rank(s)", flush=True)
+        return spawn(_serve_rank, model, (args,), device_type=device.type,
+                     timeout_s=24 * 3600.0, collective_timeout_s=600.0,
+                     threads=(max(1, torch.get_num_threads() // model)
+                              if device.type == "cpu" else 0))
+    t0 = time.time()
+    params = LM(cfg).init(seed=args.seed, device=args.device)
+    where = (torch.cuda.get_device_name(torch.device(args.device))
+             if torch.device(args.device).type == "cuda" else args.device)
+    _init_line(args, cfg, t0, where)
     ecfg = _engine_config(args)
-    sp, prompts = _trace(args, cfg)
-    # arrival trace: request i is submitted at step i·arrival_every
-    pending = [(i * args.arrival_every, p) for i, p in enumerate(prompts)]
+    sp, pending = _trace(args, cfg)
     if args.replicas > 1:
         return _run_group(args, cfg, params, quant, ecfg, sp, pending)
-    eng = Engine(cfg, params, quant, ecfg, device=args.device)
+    return _serve(args, Engine(cfg, params, quant, ecfg, device=args.device),
+                  sp, pending)
+
+
+def _serve_rank(rank: int, world: int, device, args) -> dict:
+    """One rank of ``--mesh 1xM``: its shard of the seeded weights, the
+    same trace as every rank, the summary printed on rank 0 only →
+    ``Engine.counters()``."""
+    cfg, quant = _model(args)
+    mesh = make_local_mesh(1, world)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \
+        contextlib.nullcontext()
+    with quiet:
+        t0 = time.time()
+        lm = LM(cfg)
+        params = lm.init(seed=args.seed, device=device, mesh=mesh)
+        where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                 else str(device))
+        _init_line(args, cfg, t0, f"{where} (rank {rank} of {world})")
+        sp, pending = _trace(args, cfg)
+        eng = Engine(cfg, params, quant, _engine_config(args), device=device,
+                     mesh=mesh, param_axes=lm.axes(params))
+        _serve(args, eng, sp, pending)
+    return eng.counters()
+
+
+def _serve(args, eng: Engine, sp, pending) -> Engine:
+    """Step one engine through the trace and print its summary → it."""
     log = None
     if args.snapshot_every:
         log = RecoveryLog(eng, snapshot_every=args.snapshot_every)
@@ -444,6 +536,8 @@ def main(argv=None):
         print(f"  req {r.request_id}: {r.state.value:9s} "
               f"{r.generated[:12]}…", flush=True)
     return eng
+
+
 
 
 if __name__ == "__main__":

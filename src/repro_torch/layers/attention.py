@@ -16,15 +16,19 @@ __all__ = ["project_qkv", "flash_attention"]
 
 
 def project_qkv(params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, quant=None):
+                positions: torch.Tensor, quant=None, num_heads=None,
+                num_kv_heads=None):
     """x: [B, S, d_model] → q [B, S, Hq, D], k/v [B, S, Hkv, D] (bf16,
     RoPE applied to q and k); the three projections share one act-quant
-    of x."""
+    of x. ``num_heads``/``num_kv_heads`` override the config's head
+    counts (a tensor-parallel rank's local heads)."""
     b = x.shape[0]
+    hq = num_heads or cfg.num_heads
+    hkv = num_kv_heads or cfg.num_kv_heads
     q, k, v = C.linears([params["wq"], params["wk"], params["wv"]], x, quant)
-    q = q.reshape(b, -1, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(b, -1, hq, cfg.head_dim)
+    k = k.reshape(b, -1, hkv, cfg.head_dim)
+    v = v.reshape(b, -1, hkv, cfg.head_dim)
     return (C.apply_rope(q, positions, cfg.rope_theta),
             C.apply_rope(k, positions, cfg.rope_theta), v)
 

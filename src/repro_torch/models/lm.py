@@ -13,6 +13,11 @@ leading axis (the engine walks layers in a Python loop)::
 
 where each projection is ``{"w": f32 [K, N]}`` before :meth:`LM.quantize`
 and ``{"w_packed": uint8 [K/2, N], "w_scale": f32 [K/128, N]}`` after.
+:meth:`LM.axes` gives the tree of logical axes the reference's init
+annotates (``"embed"``, ``"qdim"``, ``"kvdim"``, ``"mlp"``, ``"vocab"``),
+per layer without the reference's leading ``"layers"``: tensor-parallel
+serving shards by them (``parallel/sharding.py``), and ``LM.init(...,
+mesh=)`` builds one rank's shard block by block.
 The config adds: a ``"bias"`` to every norm under ``norm="layernorm"``, an
 f32 ``"b"`` [N] to ``wq``/``wk``/``wv`` under ``qkv_bias`` (kept through
 quantization), and no ``w_gate`` under ``mlp_act="gelu"``.
@@ -32,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantizer as Q
 from repro_torch.layers import common as C
+from repro_torch.parallel import sharding as SH
 
 __all__ = ["LM", "QuantConfig", "QUANT_KEYS"]
 
@@ -49,6 +55,11 @@ class QuantConfig:
 
 
 QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})
+# the reference's logical axes of each projection's [K, N] weight
+PROJ_AXES = {"wq": ("embed", "qdim"), "wk": ("embed", "kvdim"),
+             "wv": ("embed", "kvdim"), "wo": ("qdim", "embed"),
+             "w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
 
 
 class LM:
@@ -98,11 +109,13 @@ class LM:
             "mlp": mlp,
         }
 
-    def init(self, seed: int = 0, device="cuda"):
+    def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random quantized parameters on ``device``, generated layer by
         layer: each block is made in f32, quantized, and its f32 weights
         freed before the next, so peak memory is one fp block plus the
-        packed model."""
+        packed model. With a ``mesh`` (a tensor-parallel rank's) every
+        rank draws the same blocks from the seed and keeps its shard of
+        each under ``SERVE_RULES`` (the embedding and head whole)."""
         dev = C.resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
@@ -115,10 +128,44 @@ class LM:
         }
         params = self.quantize(params)
         for _ in range(cfg.num_layers):
-            block = self.init_block(gen, dev)
-            params["blocks"].append(self.quantize_block(block))
+            block = self.quantize_block(self.init_block(gen, dev))
+            if mesh is not None:
+                block = SH.shard_tree(block, SH.tree_pspecs(
+                    self._block_axes(block), block, mesh, SH.SERVE_RULES),
+                    mesh)
+            params["blocks"].append(block)
             del block
         return params
+
+    # ---------------------------------------------------- logical axes
+
+    @staticmethod
+    def _block_axes(tree: dict) -> dict:
+        out = {}
+        for k, v in tree.items():
+            if k in PROJ_AXES:
+                out[k] = {n: (PROJ_AXES[k][1],) if n == "b" else PROJ_AXES[k]
+                          for n in v}
+            elif isinstance(v, dict):
+                out[k] = LM._block_axes(v)
+            else:                       # a norm's scale or bias
+                out[k] = ("embed",)
+        return out
+
+    def axes(self, params: dict) -> dict:
+        """The logical axes of every tensor of ``params`` (fp or packed,
+        the reference's ``LM.quantize`` → ``qaxes`` without ``"layers"``):
+        a packed projection's ``w_packed`` and ``w_scale`` take its
+        weight's ``(K, N)`` axes, its bias ``b`` the N axis, norms
+        ``("embed",)``, the embedding ``("vocab", "embed")`` and the head
+        ``("embed", "vocab")``."""
+        return {
+            "embed": {"table": ("vocab", "embed")},
+            "final_norm": {k: ("embed",) for k in params["final_norm"]},
+            "lm_head": {k: ("embed", "vocab") if k == "w" else ("vocab",)
+                        for k in params["lm_head"]},
+            "blocks": [self._block_axes(b) for b in params["blocks"]],
+        }
 
     # ------------------------------------------------------ offline PTQ
 
@@ -142,7 +189,8 @@ class LM:
 
     def quantize(self, params: dict) -> dict:
         """fp params → packed W4 params; the embedding table and the head
-        are stored bf16 (unquantized, as in the reference)."""
+        are stored bf16 (unquantized, as in the reference). Their axes:
+        :meth:`axes`."""
         out = dict(params)
         out["embed"] = {"table": params["embed"]["table"].to(torch.bfloat16)}
         out["lm_head"] = {"w": params["lm_head"]["w"].to(torch.bfloat16)}

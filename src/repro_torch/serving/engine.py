@@ -69,8 +69,33 @@ pool bytes, the step and uid counters) and ``Engine.restore`` resumes
 from it the very next step bit for bit, on the device it is given; the
 legacy ``snapshot()`` demotes running work to waiting. Recovery logs and
 replica groups are built on them (``serving/recovery.py``,
-``serving/replication.py``). Not ported yet: tensor parallelism (so
-``restore`` has no mesh) and MoE.
+``serving/replication.py``).
+
+Tensor parallelism (``Engine(..., mesh=, param_axes=)``, a ``(1, M)``
+mesh from ``launch/mesh.py``): one process per rank, every rank running
+this same host program (scheduler, prefix index, page allocator, sampler,
+drafts, fault schedule) on its shard of the weights and of the pools. The
+projections shard by ``SERVE_RULES``: wq/wk/wv/w_up/w_gate by columns
+(each rank computes its heads and its FFN channels whole), wo/w_down by
+rows, whose f32 partial sums are the two seams of a layer: every rank
+all-gathers them and adds them in rank order, then adds the bias once
+and rounds to bf16 once (:func:`_row_linear`), so every rank holds the
+same bits, run after run. The pools shard over kv heads; page ids stay a
+host-global namespace, so one set of work-queue descriptors at the local
+head count drives every rank (``attn_work_items_per_shard``). The
+embedding and the head are replicated. The clock is rank 0's reading,
+broadcast once a step (and at each submit); ``sanitize=True`` also
+checks that every rank holds the same tokens and scheduler state. The
+seams add one device's 128-channel blocks in another grouping (each
+shard's blocks in order, then the shards in rank order): one device
+computing wo and w_down as those K-slices, summed in rank order, gives
+the mesh's bits (the TP tests' ``serial_seams``), and where a shard holds
+one block that is one device's own sum. Below ``int4_fraction=1.0`` a
+shard also rounds its own INT4/INT8 split, as the reference's
+``shard_map`` does. An exception other than an injected fault is fatal
+to a rank under a mesh (:meth:`Engine._rank_local`). Not ported yet: MoE, a data axis above 1, replica
+groups over per-replica meshes and a ``RecoveryLog`` over a TP engine
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -84,11 +109,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import qlinear as QL
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as ATT
 from repro_torch.layers import common as C
 from repro_torch.layers import mlp as MLP
 from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.parallel import mesh as PM
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving import kv_cache as KVC
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving.api import (RequestHandle, RequestOutput,
@@ -111,6 +139,37 @@ def _pad_to(a, n: int, fill=0) -> np.ndarray:
     out = np.full((n,), fill, np.int64)
     out[: len(a)] = a
     return out
+
+
+def _row_linear(p, x: torch.Tensor, quant, mesh) -> torch.Tensor:
+    """A row-parallel (K-sharded) projection, the tensor-parallel seam:
+    each rank's K-slice gives f32 partial sums, which every rank
+    all-gathers and adds in rank order; the bias is added once, after the
+    sum, and the result rounded to bf16 once. The act-quant sees the bf16
+    input, as on one device. ``mesh=None``: ``C.linear``."""
+    if mesh is None:
+        return C.linear(p, x, quant)
+    y = QL.dispatch_qlinear({k: v for k, v in p.items() if k != "b"},
+                            x.to(torch.bfloat16), quant,
+                            out_dtype=torch.float32)
+    y = PM.reduce_partials(y, mesh)
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(torch.bfloat16)
+
+
+def _mlp_row(p, x: torch.Tensor, quant, act: str, mesh) -> torch.Tensor:
+    """The MLP with its down projection as the second seam: up/gate are
+    column-sharded (each rank's channels whole), the activation stays
+    local. ``mesh=None``: ``MLP.mlp_apply``'s arithmetic."""
+    if act == "swiglu":
+        up, gate = C.linears([p["w_up"], p["w_gate"]], x, quant)
+        h = MLP.silu_bf16(gate) * up
+    elif act == "gelu":
+        h = MLP.gelu_bf16(C.linear(p["w_up"], x, quant))
+    else:
+        raise ValueError(act)
+    return _row_linear(p["w_down"], h, quant, mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,13 +244,16 @@ class Engine:
         "sanitize_checks", "attn_work_items", "attn_grid_items",
         "attn_dense_grid_items", "attn_forwards", "spec_draft_tokens",
         "spec_accepted_tokens", "spec_rollback_tokens", "spec_noop_count",
-        "draft_errors",
+        "draft_errors", "attn_work_items_per_shard", "_step_now",
+        # the mesh's size: rebuilt from the mesh a restore is given
+        "tp_size",
     })
 
     def __init__(self, cfg: ModelConfig, params, quant: QuantConfig =
                  QuantConfig(), ecfg: EngineConfig = EngineConfig(), *,
                  device="cuda", clock=time.time, faults=None,
-                 draft_source: Optional[DraftSource] = None):
+                 draft_source: Optional[DraftSource] = None, mesh=None,
+                 param_axes=None):
         """``params``: the model's quantized parameters on ``device``
         (``LM.init`` or ``convert.params_from_jax``). ``clock``: the
         wall-clock source of arrival, first-token and terminal stamps and
@@ -199,8 +261,20 @@ class Engine:
         ``faults``: a :class:`FaultInjector` to ride along (else one built
         from ``ecfg.inject_faults``). ``draft_source``: the speculative
         draft proposer (default :class:`PromptLookupDraft`), consulted
-        only for requests with ``SamplingParams.speculation > 0``."""
+        only for requests with ``SamplingParams.speculation > 0``.
+        ``mesh``: a tensor-parallel rank's mesh (``launch/mesh.py``), the
+        engine then on the mesh's device; ``param_axes``: the params'
+        logical axes (``LM.axes``), needed when the model axis is above 1.
+        ``params`` are then the whole model's, or this rank's shard of
+        them (``LM.init(mesh=)``)."""
         self.device = C.resolve_device(device)
+        self.mesh = mesh
+        self.tp_size = mesh.size if mesh is not None else 1
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh lies on {mesh.device}, the "
+                                 f"engine was asked for {self.device}")
+            self.device = mesh.device
         if self.device.type == "cuda":
             C.no_tf32()
         table = params["embed"]["table"]
@@ -209,9 +283,11 @@ class Engine:
                              f"on {self.device}")
         self.cfg = cfg
         self.quant = quant
-        self.lm = LM(cfg)
         self.params = params
         self.ecfg = ecfg
+        if mesh is not None:
+            self._init_sharding(param_axes)
+        self.lm = LM(cfg)
         self.cache = KVC.PagedKV4Cache(
             cfg,
             KVC.PagedKV4Config(
@@ -220,7 +296,7 @@ class Engine:
                 max_pages_per_seq=ecfg.max_pages_per_seq,
                 reclaimable_max_bytes=ecfg.prefix_cache_max_bytes),
             num_layer_slots=cfg.num_layers, kv_range=ecfg.kv_range,
-            device=self.device)
+            device=self.device, mesh=mesh)
         self.sched = Scheduler(ecfg.max_batch, ecfg.max_batch * 2,
                                max_waiting=ecfg.max_waiting)
         self.clock = clock
@@ -270,6 +346,11 @@ class Engine:
         self.attn_grid_items = 0
         self.attn_dense_grid_items = 0
         self.attn_forwards = 0
+        # per-rank real work: every rank attends its kv heads over the
+        # same pages, so each gets attn_work_items / tp exactly
+        self.attn_work_items_per_shard = [0] * self.tp_size
+        # the step's clock reading under a mesh (rank 0's, broadcast)
+        self._step_now: Optional[float] = None
         self._by_id: dict[int, Request] = {}
         self._next_id = 0
         self._submit_seq = 0        # uid source: request ids are reusable
@@ -296,6 +377,7 @@ class Engine:
             "attn_grid_items": self.attn_grid_items,
             "attn_dense_grid_items": self.attn_dense_grid_items,
             "attn_forwards": self.attn_forwards,
+            "attn_work_items_per_shard": list(self.attn_work_items_per_shard),
             "sanitize_checks": self.sanitize_checks,
             "spec_draft_tokens": self.spec_draft_tokens,
             "spec_accepted_tokens": self.spec_accepted_tokens,
@@ -304,6 +386,66 @@ class Engine:
             "draft_errors": self.draft_errors,
             **self.sched.counters(),
         }
+
+    # --------------------------------------------------- tensor parallelism
+
+    def _init_sharding(self, param_axes):
+        """Refuse what the reference's sharded engine refuses, then keep
+        this rank's shard of the params: projections by ``SERVE_RULES``,
+        the embedding and the head replicated (they gather and project
+        with global ids). Divisibility is checked up front, because a
+        partly sharded projection (w_packed split, w_scale whole) has no
+        consistent shape. Params already shard-sized (``LM.init(mesh=)``)
+        are kept as they are."""
+        cfg, m, mesh, ecfg = self.cfg, self.tp_size, self.mesh, self.ecfg
+        if mesh.shape.get("data", 1) != 1:
+            raise NotImplementedError(
+                "a data axis above 1 is not ported (ROADMAP Queue 1)")
+        if param_axes is None and m > 1:
+            raise ValueError(
+                "TP-sharded serving needs param_axes — the axes tree "
+                "LM.axes (or convert.axes_from_jax) gives beside the "
+                "params")
+        if not ecfg.unified:
+            raise ValueError(
+                "TP-sharded serving runs through the unified one-forward "
+                "step; the split/whole/gather baselines are single-device")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                "TP-sharded serving covers dense models; MoE needs expert-"
+                "parallel dispatch at this seam")
+        if cfg.num_heads % m or cfg.num_kv_heads % m:
+            raise ValueError(
+                f"num_heads={cfg.num_heads}, num_kv_heads="
+                f"{cfg.num_kv_heads} must both divide by the model axis "
+                f"size {m}")
+        if cfg.q_dim % (QL.BLOCK_K * m) or cfg.d_ff % (QL.BLOCK_K * m):
+            raise ValueError(
+                f"row-parallel W4Ax shards must hold whole {QL.BLOCK_K}-"
+                f"channel quant blocks: q_dim={cfg.q_dim} and d_ff="
+                f"{cfg.d_ff} must divide by {QL.BLOCK_K}*model="
+                f"{QL.BLOCK_K * m}")
+        n = self.params["blocks"][0]["attn"]["wq"]["w_packed"].shape[-1]
+        if m == 1 or n == cfg.q_dim // m:
+            return                      # whole (M = 1) or already a shard
+        if n != cfg.q_dim:
+            raise ValueError(f"wq has {n} columns: neither the model's "
+                             f"{cfg.q_dim} nor a 1/{m} shard of them")
+        specs = SH.tree_pspecs(param_axes, self.params, mesh, SH.SERVE_RULES)
+        for name in ("embed", "lm_head"):
+            specs[name] = {k: (None,) * self.params[name][k].dim()
+                           for k in self.params[name]}
+        self.params = SH.shard_tree(self.params, specs, mesh)
+
+    def _now(self) -> float:
+        """The clock. Under a mesh, rank 0's reading: the step's (read
+        once and broadcast when the step starts), or outside a step one
+        broadcast per call."""
+        if self.mesh is None:
+            return self.clock()
+        if self._step_now is not None:
+            return self._step_now
+        return PM.broadcast_float(self.clock(), self.mesh)
 
     # ----------------------------------------------------- lifecycle API
 
@@ -338,7 +480,7 @@ class Engine:
             raise ValueError(f"request_id {request_id} already in flight")
         req = Request(request_id=request_id, prompt=list(prompt),
                       max_new_tokens=params.max_new_tokens,
-                      arrived_at=self.clock(), params=params,
+                      arrived_at=self._now(), params=params,
                       on_event=on_event, uid=self._submit_seq)
         self._submit_seq += 1
         self._by_id[request_id] = req
@@ -440,12 +582,17 @@ class Engine:
                 quant: QuantConfig = QuantConfig(),
                 ecfg: EngineConfig = EngineConfig(), *, device="cuda",
                 clock=time.time, faults=None,
-                draft_source: Optional[DraftSource] = None) -> "Engine":
+                draft_source: Optional[DraftSource] = None, mesh=None,
+                param_axes=None) -> "Engine":
         """A new engine on ``device`` (the constructor's arguments) with
         the state of a :meth:`snapshot` blob, this package's or the
-        reference's. A full blob of another pool shape raises."""
+        reference's. A full blob of another pool shape raises. With a
+        ``mesh`` every rank restores the same blob, each keeping its kv
+        heads of the pools (a tensor-parallel blob holds them all, so it
+        restores into one device too, and one device's into a mesh)."""
         eng = cls(cfg, params, quant, ecfg, device=device, clock=clock,
-                  faults=faults, draft_source=draft_source)
+                  faults=faults, draft_source=draft_source, mesh=mesh,
+                  param_axes=param_axes)
         state = json.loads(blob)
         if isinstance(state, dict) and state.get("format") == "engine_full":
             eng.sched = Scheduler.restore(
@@ -492,7 +639,7 @@ class Engine:
                 return
             req.terminal_emitted = True
             if not req.finished_at:     # the TPOT window's end
-                req.finished_at = self.clock()
+                req.finished_at = self._now()
         out = RequestOutput(
             request_id=req.request_id, state=req.state, token=token,
             num_generated=len(req.generated), stop_reason=req.stop_reason,
@@ -517,7 +664,7 @@ class Engine:
         req.generated.append(int(tok))
         req.emitted += 1
         if not req.first_token_at:      # TTFT survives preemption
-            req.first_token_at = self.clock()
+            req.first_token_at = self._now()
         if req.state == RequestState.PREFILLING:
             req.state = RequestState.DECODING
         self.tokens_generated += 1
@@ -546,24 +693,40 @@ class Engine:
 
     def step(self):
         """Advance every in-flight request one scheduling quantum. Never
-        raises: unexpected exceptions land in ``internal_errors``. The
-        sanitizers (``ecfg.sanitize``) run outside that backstop: a
-        ``SanitizerError`` means the state is already corrupt."""
+        raises on one device: unexpected exceptions land in
+        ``internal_errors``. Under a mesh only injected faults do (see
+        :meth:`_rank_local`). The sanitizers (``ecfg.sanitize``) run
+        outside that backstop: a ``SanitizerError`` means the state is
+        already corrupt."""
         self.steps += 1
         self.faults.begin_step(self.steps)
+        if self.mesh is not None:
+            self._step_now = PM.broadcast_float(self.clock(), self.mesh)
         try:
             self._step_inner()
         except Exception as e:  # noqa: BLE001 — the serving-loop backstop
+            if self._rank_local(e):
+                raise
             self.internal_errors += 1
             self.last_error = repr(e)
+        self._step_now = None
         if self.ecfg.sanitize:
             check_engine(self)
             self.sanitize_checks += 1
 
+    def _rank_local(self, e: Exception) -> bool:
+        """Whether ``e`` may have been raised on this rank alone: under a
+        mesh, anything but an injected fault (every rank runs the same
+        fault schedule and raises it at the same point). Such an
+        exception is not swallowed, since the other ranks may be waiting
+        in a collective this rank skipped: the rank fails, and
+        ``launch.mesh.spawn`` stops the group and raises."""
+        return self.mesh is not None and not isinstance(e, InjectedFault)
+
     def _step_inner(self):
         # expiry runs before admission: a request dead on arrival never
         # acquires pages
-        for req in self.sched.expire_deadlines(self.cache, self.clock()):
+        for req in self.sched.expire_deadlines(self.cache, self._now()):
             self.timeout_count += 1
             self._emit(req)
         chunked = self.ecfg.prefill_mode == "chunked"
@@ -739,6 +902,8 @@ class Engine:
                 tokens, np.asarray(logit_idx),
                 [si for si, _, _ in need] + [s0 for s0, _, _, _ in spec])
         except Exception as e:  # noqa: BLE001 — batch-granular quarantine
+            if self._rank_local(e):
+                raise
             # drafts die with the batch, counted as rolled back
             self.spec_rollback_tokens += sum(len(d) for _, d in decode)
             for r, _, _ in rows:
@@ -868,6 +1033,7 @@ class Engine:
         self.forward_calls += 1
         no_history = int(starts.max()) == 0
         hkv = self.cfg.num_kv_heads
+        hkv_loc = hkv // self.tp_size     # this rank's kv heads
         # the dense schedule's table width, bucketed like the reference's
         npb = min(_bucket(self.cache.pages_needed(max(int(starts.max()), 1))),
                   self.cache.pcfg.max_pages_per_seq)
@@ -878,9 +1044,12 @@ class Engine:
         attn = {}
         if not no_history:
             self.attn_forwards += 1
-            self.attn_work_items += int(hkv * (np.sum(
+            items = int(hkv * (np.sum(
                 (starts + self.ecfg.page_size - 1) // self.ecfg.page_size)
                 + nseq))
+            self.attn_work_items += items
+            for i in range(self.tp_size):
+                self.attn_work_items_per_shard[i] += items // self.tp_size
             self.attn_dense_grid_items += nb * hkv * (npb + 1)
             if self.ecfg.attention_schedule == "dense":
                 # rows [nseq, nb) are q_len-0 padding: page 0, no history
@@ -895,17 +1064,19 @@ class Engine:
                 # In exact mode (the card) a verify chunk's query i reads
                 # the chunk's earlier KV from the pages written below, as
                 # the decode step at ctx + i would; the f32 mode keeps the
-                # reference's in-flight reads
+                # reference's in-flight reads. Under a mesh the set is
+                # built at the local head count and drives every rank
                 verify = ((np.arange(nseq) >= len(plan)) & (takes > 1)
                           if self.device.type == "cuda" else None)
                 desc_np = self.cache.work_queue_np(slots, starts, takes,
-                                                   pad_row=nb * hkv,
-                                                   verify=verify)
+                                                   pad_row=nb * hkv_loc,
+                                                   verify=verify,
+                                                   num_kv_heads=hkv_loc)
                 attn = dict(desc=torch.from_numpy(desc_np).to(self.device),
                             plan=ops.work_plan(
-                                desc_np, nb * hkv, cb,
+                                desc_np, nb * hkv_loc, cb,
                                 self.cfg.num_heads // hkv, self.device))
-                self.attn_grid_items += desc_np.shape[0]
+                self.attn_grid_items += desc_np.shape[0] * self.tp_size
 
         fault = self.faults.check("forward")
         if fault is not None and fault.action == "raise":
@@ -938,9 +1109,13 @@ class Engine:
         or every position of a verify chunk). Attention takes
         the work-queue descriptors ``desc`` (and their host-built
         ``ops.work_plan``), or the dense schedule's ``tables`` with per-row
-        ``ctx``/``qlens``."""
+        ``ctx``/``qlens``. Under a mesh: this rank's heads, and the two
+        seams of each layer."""
         cfg, params, quant, cache = self.cfg, self.params, self.quant, \
             self.cache
+        mesh = self.mesh
+        hq_loc = cfg.num_heads // self.tp_size
+        hkv_loc = cfg.num_kv_heads // self.tp_size
         scales = (cache.k_scale, cache.k_zero, cache.v_scale, cache.v_zero)
         gseq = tseq.clamp(max=nb - 1)          # JAX clamps this gather
         dq = (dq_mask != 0)[None, :, None, None]
@@ -956,7 +1131,8 @@ class Engine:
         pos2 = positions[None, :]
         for li, bp in enumerate(params["blocks"]):
             h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
-            q, k, v = ATT.project_qkv(bp["attn"], cfg, h, pos2, quant)
+            q, k, v = ATT.project_qkv(bp["attn"], cfg, h, pos2, quant,
+                                      num_heads=hq_loc, num_kv_heads=hkv_loc)
             kq, vq = KVC.quantize_kv_with(k, v, *scales)  # [1, Hkv, Tb, D/2]
             cache.write_kv(li, pages, offs, kq[0].transpose(0, 1),
                            vq[0].transpose(0, 1))
@@ -977,10 +1153,11 @@ class Engine:
                     cache.k_pool[li], cache.k_scale, cache.k_zero,
                     cache.v_pool[li], cache.v_scale, cache.v_zero,
                     tables, ctx, qlens, impl=quant.impl)
-            a = out[gseq, toff][None].to(x.dtype).reshape(1, -1, cfg.q_dim)
-            x = x + C.linear(bp["attn"]["wo"], a, quant)
+            a = out[gseq, toff][None].to(x.dtype).reshape(
+                1, -1, hq_loc * cfg.head_dim)
+            x = x + _row_linear(bp["attn"]["wo"], a, quant, mesh)
             h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-            x = x + MLP.mlp_apply(bp["mlp"], h, quant, cfg.mlp_act)
+            x = x + _mlp_row(bp["mlp"], h, quant, cfg.mlp_act, mesh)
         h = C.apply_norm(params["final_norm"], x[:, last_idx], cfg.norm,
                          cfg.norm_eps)
         return self.lm.head(params, h)[0]

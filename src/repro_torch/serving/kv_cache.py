@@ -24,7 +24,11 @@ batch's pages contiguously (:meth:`gather_kv`, the gather baseline).
 Speculative decode rolls a sequence's resident length back (or forward,
 over accepted drafts) with :meth:`truncate_seq`. :meth:`snapshot_state`
 and :meth:`restore_state` move the whole cache, pools included, in the
-reference's JSON blob (journaled crash recovery). The engine's
+reference's JSON blob (journaled crash recovery). Under tensor
+parallelism each rank's cache holds the pools and scales of its slice of
+the kv heads (``mesh=``) beside the same host state as every other
+rank; its snapshot gathers the slices, so the blob is the full cache's,
+and a restore keeps the rank's slice of a full blob. The engine's
 ``FaultInjector`` rides along as ``faults``: the ``alloc_page`` point
 in :meth:`_acquire_page`, ``append_kv`` in :meth:`token_dests_np`. On
 the card an out-of-range index is a device-side assert, not JAX's silent
@@ -47,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantizer as Q
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.layers.common import resolve_device
+from repro_torch.parallel.mesh import host_all_gather
 from repro_torch.serving.faults import InjectedFault
 
 __all__ = ["PagedKV4Config", "PagedKV4Cache", "build_work_queue",
@@ -184,16 +189,27 @@ class PagedKV4Cache:
     # page past the pool is not state)
     _SNAPSHOT_EXEMPT = frozenset({
         "cfg", "pcfg", "_k_pages", "_v_pages", "k_scale", "k_zero",
-        "v_scale", "v_zero", "page_bytes", "faults",
+        "v_scale", "v_zero", "page_bytes", "faults", "heads", "mesh",
+        "full_shape",
     })
 
     def __init__(self, cfg: ModelConfig, pcfg: PagedKV4Config,
                  num_layer_slots: int, kv_range: float = 16.0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """``mesh``: a tensor-parallel rank's mesh; the pools then hold
+        the rank's slice of the kv heads, and a snapshot gathers the
+        others' over it."""
         device = resolve_device(device)
         self.cfg = cfg
         self.pcfg = pcfg
-        hkv, d = cfg.num_kv_heads, cfg.head_dim
+        d = cfg.head_dim
+        self.mesh = mesh
+        hkv = cfg.num_kv_heads // (mesh.size if mesh is not None else 1)
+        # (first, count) of the kv heads the pools hold
+        self.heads = (mesh.model_rank * hkv if mesh is not None else 0, hkv)
+        # the whole cache's pool shape, the one a snapshot carries
+        self.full_shape = (num_layer_slots, pcfg.num_pages, pcfg.page_size,
+                           cfg.num_kv_heads, d // 2)
         # one page past the pool takes the writes of a bucketed step's
         # padding tokens (page == num_pages): the in-place counterpart of
         # the reference's dropped out-of-range scatter, with no mask (and
@@ -222,8 +238,10 @@ class PagedKV4Cache:
         self.prefix_index: dict = {}
         self.page_key: dict = {}
         self._reclaimable: OrderedDict = OrderedDict()
-        # bytes one page pins in the pools (K + V across the layer stack)
-        self.page_bytes = 2 * num_layer_slots * pcfg.page_size * hkv * (d // 2)
+        # bytes one page pins in the pools (K + V across the layer stack,
+        # every kv head: the byte cap means the same on every rank)
+        self.page_bytes = (2 * num_layer_slots * pcfg.page_size
+                           * cfg.num_kv_heads * (d // 2))
         self.prefix_evicted_pages = 0
         # the engine's fault injector (None: no fault points armed)
         self.faults = None
@@ -456,7 +474,10 @@ class PagedKV4Cache:
         the JSON text rather than scanned by the encoder (seconds for the
         pools of a full-size model)."""
         def b64(pool):
-            return base64.b64encode(pool.contiguous().cpu().numpy()).decode()
+            host = pool.contiguous().cpu()
+            if self.mesh is not None:   # every rank's heads, in order
+                host = torch.cat(host_all_gather(host, self.mesh), dim=3)
+            return base64.b64encode(host.numpy()).decode()
 
         meta = json.dumps({
             "block_table": self.block_table.tolist(),
@@ -472,7 +493,7 @@ class PagedKV4Cache:
                             for p, k in self._reclaimable.items()],
             "prefix_evicted_pages": self.prefix_evicted_pages,
         })
-        return (f'{{"pool_shape": {json.dumps(list(self.k_pool.shape))}, '
+        return (f'{{"pool_shape": {json.dumps(list(self.full_shape))}, '
                 f'"pools": {{"k": "{b64(self.k_pool)}", '
                 f'"v": "{b64(self.v_pool)}"}}, {meta[1:]}')
 
@@ -484,15 +505,17 @@ class PagedKV4Cache:
         allocator order of the snapshotted cache."""
         state = json.loads(blob)
         shape = tuple(state["pool_shape"])
-        if shape != tuple(self.k_pool.shape):
+        if shape != self.full_shape:
             raise ValueError(
                 f"snapshot pool shape {shape} != cache pool shape "
-                f"{tuple(self.k_pool.shape)}: restore needs an "
+                f"{self.full_shape}: restore needs an "
                 "identically configured cache")
+        first, count = self.heads
         for pool, key in ((self.k_pool, "k"), (self.v_pool, "v")):
             host = np.frombuffer(base64.b64decode(state["pools"][key]),
                                  np.uint8).reshape(shape)
-            pool.copy_(torch.from_numpy(host.copy()))
+            pool.copy_(torch.from_numpy(
+                host[:, :, :, first:first + count].copy()))
         self.block_table = np.asarray(state["block_table"], np.int32)
         self.seq_len = np.asarray(state["seq_len"], np.int32)
         self.page_count = np.asarray(state["page_count"], np.int32)
@@ -563,13 +586,17 @@ class PagedKV4Cache:
 
     def work_queue_np(self, seq_ids, ctx_lens, q_lens=None,
                       pad_row: Optional[int] = None,
-                      verify=None) -> np.ndarray:
+                      verify=None,
+                      num_kv_heads: Optional[int] = None) -> np.ndarray:
         """Stream-K descriptors for these sequences' real pages
-        (``verify``: :func:`build_work_queue`'s speculating rows)."""
+        (``verify``: :func:`build_work_queue`'s speculating rows),
+        tiled over ``num_kv_heads`` heads (default the config's; a
+        tensor-parallel rank builds one set at its local head count,
+        valid on every rank, since every head walks the same pages)."""
         return build_work_queue(
             self.block_table[np.asarray(seq_ids)], ctx_lens,
-            self.pcfg.page_size, self.cfg.num_kv_heads, q_lens, pad_row,
-            seq_ids=seq_ids, verify=verify)
+            self.pcfg.page_size, num_kv_heads or self.cfg.num_kv_heads,
+            q_lens, pad_row, seq_ids=seq_ids, verify=verify)
 
     def block_tables_np(self, seq_ids, npages: int) -> np.ndarray:
         """``[B, npages]`` int32 table with unmapped slots (-1) clamped to

@@ -79,6 +79,10 @@ class RecoveryLog:
                  _snapshot: Optional[str] = None):
         if snapshot_every < 1:
             raise ValueError("snapshot_every must be >= 1")
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a RecoveryLog over a tensor-parallel engine is not ported "
+                "(ROADMAP Queue 1: recovery under TP)")
         self.engine = engine
         self.snapshot_every = snapshot_every
         self.dir = dir

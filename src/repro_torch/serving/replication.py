@@ -15,8 +15,8 @@ routing table and the delivered-event record. On one card every replica
 is an engine on the same device, and all share the one set of device
 weights (``params`` is handed to each engine, never copied). The
 reference's per-replica meshes (``meshes``/``param_axes``,
-``launch/mesh.py:make_replica_meshes``) have no counterpart until
-tensor parallelism is ported.
+``launch/mesh.py:make_replica_meshes``) are not ported yet: ``meshes``
+raises (ROADMAP Queue 1).
 
 **Routing.** ``submit`` places a request on the least-loaded live replica
 (waiting + running) whose bounded waiting queue has room, else on the
@@ -102,7 +102,11 @@ class ReplicaGroup:
     def __init__(self, cfg, params, quant, ecfg, *, replicas: int = 2,
                  failover: str = "migrate", snapshot_every: int = 4,
                  heartbeat_s: Optional[float] = None, faults=None,
-                 device="cuda", clock=time.time):
+                 device="cuda", clock=time.time, meshes=None):
+        if meshes is not None:
+            raise NotImplementedError(
+                "replica groups over per-replica tensor-parallel meshes "
+                "are not ported (ROADMAP Queue 1: replica meshes)")
         if replicas < 1:
             raise ValueError("replicas must be >= 1")
         if failover not in ("standby", "migrate"):

@@ -34,14 +34,22 @@ Invariants checked (the reference's ``docs/invariants.md``):
   newest is written by its next forward). Speculative rollback
   (``truncate_seq``) must land sequences exactly here; a leaked or
   over-retracted draft token trips this immediately.
+- **ranks-agree** (tensor-parallel engines) — every rank runs the same
+  host program on the same logits, so after every step each rank's
+  sampled tokens and scheduler state must be rank 0's: the ranks
+  all-gather a digest of them (the steps, every request's state and
+  tokens, the waiting and running order, resident lengths and the free
+  list) and the first difference raises.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.parallel.mesh import differing_ranks
+
 __all__ = ["SanitizerError", "check_engine", "check_cache",
-           "check_events", "check_positions"]
+           "check_events", "check_positions", "check_ranks"]
 
 
 class SanitizerError(AssertionError):
@@ -185,11 +193,33 @@ def check_positions(engine) -> list:
     return problems
 
 
+def _host_state(engine) -> str:
+    """The host state every rank of a mesh must hold alike, as text."""
+    sched, cache = engine.sched, engine.cache
+    reqs = sorted(engine._by_id.items())
+    return repr((
+        engine.steps, engine.tokens_generated,
+        [(rid, r.state.value, r.generated) for rid, r in reqs],
+        [r.request_id for r in sched.waiting],
+        [r.request_id for r in sched.running],
+        cache.seq_len.tolist(), list(cache.free_pages)))
+
+
+def check_ranks(engine) -> list:
+    """ranks-agree: a tensor-parallel engine's ranks hold the same tokens
+    and scheduler state (a collective: every rank calls it)."""
+    if engine.mesh is None:
+        return []
+    bad = differing_ranks(_host_state(engine), engine.mesh)
+    return ([f"ranks-agree: rank(s) {bad} hold other tokens or scheduler "
+             f"state than rank 0"] if bad else [])
+
+
 def check_engine(engine) -> None:
     """Assert every step-boundary invariant; raise on the first batch of
     violations. Called by ``Engine.step()`` when ``ecfg.sanitize``."""
     problems = (check_cache(engine.cache) + check_events(engine)
-                + check_positions(engine))
+                + check_positions(engine) + check_ranks(engine))
     if problems:
         raise SanitizerError(
             f"step {engine.steps}: {len(problems)} sanitizer "

@@ -13,6 +13,12 @@ PORT = REPO / "src" / "repro_torch"
 SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+def _port_modules() -> list:
+    return sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
 def _forbidden(name: str) -> bool:
     return name.split(".")[0] in ("jax", "jaxlib", "repro")
 
@@ -34,9 +40,7 @@ def test_no_jax_or_repro_import(path):
 def test_package_imports_with_jax_blocked():
     """Every port module imports in a process where ``import jax`` fails,
     and no ``repro`` module gets loaded along the way."""
-    mods = sorted(
-        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
-        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    mods = _port_modules()
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -53,6 +57,27 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_tensor_parallel_modules_are_covered():
+    """The scan and the jax-blocked import above reach the tensor-parallel
+    modules."""
+    for rel in ("parallel/sharding.py", "parallel/mesh.py",
+                "launch/mesh.py"):
+        assert PORT / rel in SCANNED
+    assert {"repro_torch.parallel.sharding", "repro_torch.parallel.mesh",
+            "repro_torch.launch.mesh"} <= set(_port_modules())
+
+
+def test_spawned_ranks_import_no_jax_or_repro():
+    """Ranks started by ``launch.mesh.spawn`` (two gloo processes) import
+    every port module and join their mesh without loading JAX or any
+    ``repro`` module."""
+    import _torch_tp_ranks as R
+    from repro_torch.launch.mesh import spawn
+    got = spawn(R.import_all, 2, (_port_modules(),), threads=1,
+                timeout_s=120.0)
+    assert got == [[], []]
 
 
 def test_kernel_sources_present():

@@ -150,10 +150,42 @@ def test_speculation_flag_prints_its_line():
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--head-dim", "64"]])
-def test_unported_flags_are_refused(flag, capsys):
-    with pytest.raises(SystemExit):
-        SERVE.build_parser().parse_args(COMMON + flag)
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_unported_flags_are_refused(flag):
+    """The tensor-parallel flags parse as the reference's do; what is not
+    ported with them (replica groups over per-replica meshes) is refused,
+    naming ROADMAP."""
+    args = SERVE.build_parser().parse_args(COMMON + flag)
+    assert (args.mesh, args.head_dim) == (
+        ("1x2", 0) if flag[0] == "--mesh" else ("1x1", 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SERVE.main(COMMON + ["--head-dim", "64", "--mesh", "1x2",
+                             "--replicas", "2", "--device", "cpu"])
+
+
+TP_ARGV = ["--arch", "llama3_8b", "--smoke", "--device", "cpu",
+           "--head-dim", "64", "--int4-fraction", "1.0", "--impl", "ref",
+           "--max-new", "6", "--page-size", "8", "--shared-prefix", "16",
+           "--requests", "4", "--prompt-len", "32", "--abort-every", "2"]
+
+
+def test_mesh_launcher_counts_match_single_device(capfd):
+    """``--mesh 1x2`` (two gloo ranks, rank 0 printing) serves the trace
+    with the single-device launcher's counts and tokens; every rank's
+    counters agree."""
+    SERVE.main(TP_ARGV)
+    single = capfd.readouterr().out
+    counters = SERVE.main(TP_ARGV + ["--mesh", "1x2"])
+    meshed = capfd.readouterr().out
+    assert "[mesh] (data=1, model=2) over 2 cpu rank(s)" in meshed
+    assert meshed.count("[done]") == 1         # rank 0 alone prints
+    got, want = _summary(meshed), _summary(single)
+    # the launched grid is per rank's descriptors × ranks: not compared
+    got["sched"], want["sched"] = got["sched"][:2], want["sched"][:2]
+    assert got == want
+    reqs = [ln for ln in single.splitlines() if ln.startswith("  req ")]
+    assert reqs and reqs == [ln for ln in meshed.splitlines()
+                             if ln.startswith("  req ")]
+    assert len(counters) == 2 and counters[0] == counters[1]
 
 
 @pytest.mark.parametrize("flag,attr,value", [
