@@ -97,7 +97,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    at full width and 4 layers, biases and LayerNorm parameters seeded
    non-zero, each serving the same workload (Qwen2.5-32B and
    StarCoder2-15B also in baselines a, b and c: every decode kernel at G
-   = 5 and 12);
+   = 5 and 12; the attention kernels are also checked at G = 16,
+   Qwen3-MoE's 64/4 heads, in the kernels phase);
 10. tp: tensor parallelism, one spawned process per card (NCCL), at
    every world size of 1, 2 and 4 the visible cards allow (the others
    named on a printed line). Each rank makes its shard of the seeded
@@ -138,9 +139,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
    standby --kill-replica-at 6 --snapshot-every 4``: one failover, replica
    0 promoted, all 8 requests finished with 32 tokens.
 
+12. moe (run after tp, before archs): (a) the expert-batched W4Ax GEMMs
+   (K3 and K4, the split pair, and K5; one launch for all experts) at
+   Moonlight-16B-A3B's (E = 64) and Qwen3-MoE-235B-A22B's (E = 128)
+   expert shapes, capacities 4 to 240, each ``torch.equal`` to its plain
+   version and to a loop of the single-expert kernel, timed beside a
+   bf16 ``torch.bmm`` and its bound (rows ``*_experts`` of the kernel
+   table); (b) both configurations at full width and 2 layers served
+   with the kernels and with ``impl="ref"``: the same tokens, first
+   logits with error 0 and the same (token, expert) pairs dropped by
+   capacity, which must drop some; (c) Moonlight-16B-A3B at full width
+   and depth (48 layers) on the ``slice`` workload, with its launch
+   calls a step, peak memory and packed bytes, and again under W4A16
+   (``weight_only``); (d) Qwen3-MoE at full width and 8 of its 94
+   layers (the depth printed with every number), the same; (e) W4A16 on
+   Llama-3-8B; tokens/s of every run printed with the card's name and
+   power limit.
+
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
-and the fused op where the tree has it), K9's op (C = 256, C = 1), K6,
+and the fused op where the tree has it), the dense K3, K4 and K5 at
+three Llama-3-8B shapes, K9's op (C = 256, C = 1), K6,
 K8's op and K10 on the kernels phase's inputs through the API every tree
 of the port has, to time two trees in turns in one call.
 ``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
@@ -170,7 +189,7 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
-          "replicas", "tp", "archs", "cli")
+          "replicas", "tp", "moe", "archs", "cli")
 EXTRA_PHASES = ("times", "specdiag")      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -651,8 +670,8 @@ def put(rows: dict, name: str, key, entry: dict):
 
 # (kv heads, G) held beside Llama-3-8B's 32/8 heads (Mistral-NeMo-12B's
 # too): Qwen2.5-32B's 40/8, Llama-3-70B's and Qwen2-72B's 64/8,
-# StarCoder2-15B's 48/4 (16-row tiles at C = 1)
-GQA = ((8, 5), (8, 8), (4, 12))
+# StarCoder2-15B's 48/4 (16-row tiles at C = 1), Qwen3-MoE's 64/4
+GQA = ((8, 5), (8, 8), (4, 12), (4, 16))
 
 
 def gqa_cfg(cfg, hkv: int, g: int):
@@ -1021,13 +1040,44 @@ def act_route_times(torch, ops) -> dict:
     return times
 
 
+def gemm_route_times(torch) -> dict:
+    """Unchecked times (median of 50) of the dense K3, K4 and K5 at the
+    Llama-3-8B q/o, up/gate and down shapes, M = 256 and 8, through the
+    single-expert entry points every tree of the port has."""
+    from repro_torch.core import quantizer as Q
+    from repro_torch.kernels import act_quant as AQ
+    from repro_torch.kernels import w4ax_matmul as WK
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    times = {}
+    for n, k in ((4096, 4096), (14336, 4096), (4096, 14336)):
+        nb4 = int(round(0.875 * (k // 128)))
+        k4 = nb4 * 128
+        wp, ws = Q.quantize_weight_int4(
+            torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+        for m in (256, 8):
+            x = torch.randn((m, k), generator=gen,
+                            device="cuda").bfloat16().float()
+            a4, s4 = AQ.act_quant_ref(x[:, :k4].contiguous(), bits=4)
+            a8, s8 = AQ.act_quant_ref(x[:, k4:].contiguous(), bits=8)
+            for name, fn in (
+                    ("K3", lambda: WK.w4a4_matmul(a4, s4, wp[:k4 // 2],
+                                                  ws[:nb4])),
+                    ("K4", lambda: WK.w4a8_matmul(a8, s8, wp[k4 // 2:],
+                                                  ws[nb4:])),
+                    ("K5", lambda: WK.w4ax_matmul_mixed(a4, s4, a8, s8, wp,
+                                                        ws))):
+                times[f"{name} M={m} N={n} K={k}"] = time_ms(torch, fn,
+                                                             iters=50)
+    return times
+
+
 def phase_times(torch, cfg, KVC, PA, KA, ops):
     """Unchecked times of the ops this package's paths run, on the
     kernels phase's inputs (so two trees can be timed in turns in one
     call, when both have these ops' signatures): the act-quant of one
-    projection input (:func:`act_route_times`), K9's whole op at B = 8,
-    C = 256 and at C = 1 on the decode rows, K6, K8's whole op and K10
-    on those rows."""
+    projection input (:func:`act_route_times`), the dense W4Ax GEMMs
+    (:func:`gemm_route_times`), K9's whole op at B = 8, C = 256 and at
+    C = 1 on the decode rows, K6, K8's whole op and K10 on those rows."""
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     args, desc, _, _, _ = attention_case(torch, cfg, KVC)
@@ -1059,6 +1109,7 @@ def phase_times(torch, cfg, KVC, PA, KA, ops):
         for s in pools[4:6]], lens)
     times = {
         **act_route_times(torch, ops),
+        **gemm_route_times(torch),
         "paged_kv4_prefill_attention_wq C=256": time_ms(
             torch, lambda: PA.paged_kv4_prefill_attention_wq(*args,
                                                              plan=plan)),
@@ -1080,7 +1131,8 @@ def phase_times(torch, cfg, KVC, PA, KA, ops):
 
 def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
           prompts, max_new, ecfg, quant_kw, sampling=None, faults=None,
-          mesh=None, param_axes=None, profile_steps=None):
+          mesh=None, param_axes=None, profile_steps=None,
+          count_drops=False):
     """Serve ``prompts`` to completion under ``QuantConfig(impl=impl,
     **quant_kw)``, each request greedy or with ``SamplingParams`` fields
     ``sampling`` (temperature, top_k, speculation); ``faults``: a fault
@@ -1099,6 +1151,8 @@ def serve(torch, np, Engine, EngineConfig, QuantConfig, cfg, params, impl,
                  device=mesh.device if mesh is not None else "cuda",
                  mesh=mesh, param_axes=param_axes,
                  **({} if faults is None else {"faults": faults}))
+    if count_drops:
+        eng.moe_dropped = []
     first = []
     for name in ("_guarded_forward", "_sample_batch"):
         inner = getattr(eng, name)
@@ -1351,25 +1405,52 @@ RUNS = (
 # the run whose launches a kernel's row reports: the path it serves
 PATH_OF = {"paged_kv4_decode_attention_wq": "a",
            "paged_kv4_decode_attention": "b", "kv4_decode_attention": "c",
-           "paged_kv4_prefill_attention": "d", "w4ax_matmul_mixed": "e"}
+           "paged_kv4_prefill_attention": "d", "w4ax_matmul_mixed": "e",
+           "w4a4_matmul_experts": "moe", "w4a8_matmul_experts": "moe",
+           "w4ax_matmul_mixed_experts": "moe mixed"}
 # K1 and K2 run on the path as one launch of the fused op: their rows
 # report its launches (and their own, 0, as ``launches_alone``)
 COUNTED_AS = {"act_quant_int4": "act_quant_w4ax",
               "act_quant_int8": "act_quant_w4ax"}
 
 
+def act_per_layer(cfg, quant_kw: dict) -> int:
+    """Fused act-quant launches a layer a forward: one per distinct
+    projection input — h (q/k/v), the attention output (wo), then h
+    (up/gate) and the down projection's input; for an MoE layer instead
+    the capacity buffers (expert gate/up) and the experts' activation
+    (down), with shared experts also h and their down input; none under
+    W4A16."""
+    if quant_kw.get("weight_only"):
+        return 0
+    if cfg.family == "moe":
+        return 4 + 2 * (cfg.num_shared_experts > 0)
+    return ACT_PER_LAYER
+
+
+# tokens/s of each serve_llama run by its tag (the moe phase prints W4A16
+# beside W4Ax)
+TOK_S: dict = {}
+
+
 def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
-                profile=False, phase=None):
+                profile=False, phase=None, quant_kw=None, must=None,
+                never=None):
     """One run of the ``slice`` workload on ``cfg`` (Llama-3-8B at full
-    width and depth; under ``phase="archs"`` another configuration): 8
-    requests of 128–512 prompt tokens × 32 new tokens, greedy,
-    ``prefill_chunk_tokens=256``, in the run's configuration. Launch
-    counts are set to 0 just before and read just after; every request
-    must finish with 32 tokens, with no failed or internal errors, every
-    kernel of the run must have launched and none it must not. →
-    launches."""
+    width and depth; under ``phase="archs"`` or ``"moe"`` another
+    configuration): 8 requests of 128–512 prompt tokens × 32 new tokens,
+    greedy, ``prefill_chunk_tokens=256``, in the run's configuration
+    (``quant_kw``: more ``QuantConfig`` fields; ``must``/``never``: the
+    kernels in place of the run's). Launch counts are set to 0 just
+    before and read just after; every request must finish with 32
+    tokens, with no failed or internal errors, every kernel of the run
+    must have launched and none it must not. → launches."""
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
-    label, must, never = next((c, m, x) for r, c, m, x in RUNS if r == run)
+    label, must0, never0 = next((c, m, x) for r, c, m, x in RUNS
+                                if r == run)
+    must = must0 if must is None else must
+    never = never0 if never is None else never
+    quant_kw = {**QUANT.get(label, {}), **(quant_kw or {})}
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 513, 8)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
@@ -1387,11 +1468,12 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
     t0 = time.perf_counter()
     eng, first, step_s = serve(torch, np, Engine, EngineConfig, QuantConfig,
                                cfg, params, "auto", prompts, 32, ecfg,
-                               QUANT.get(label, {}))
+                               quant_kw)
     wall = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    tag = (f"[{phase}] {cfg.name} × {cfg.num_layers} layers: {run} ({label})"
-           if phase else
+    w4a16 = " W4A16" if quant_kw.get("weight_only") else ""
+    tag = (f"[{phase}] {cfg.name} × {cfg.num_layers} layers: {run}{w4a16} "
+           f"({label})" if phase else
            f"[{'slice' if run == 'slice' else 'baselines'}] {run} ({label})")
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -1407,14 +1489,16 @@ def serve_llama(torch, np, mods, KERNELS, cfg, params, run: str,
         if launches[name]:
             fail(f"{tag}: kernel {name} launched {launches[name]} times; "
                  f"this configuration must not reach it")
-    want = ACT_PER_LAYER * cfg.num_layers * eng.forward_calls
+    per = act_per_layer(cfg, quant_kw)
+    want = per * cfg.num_layers * eng.forward_calls
     if launches["act_quant_w4ax"] != want:
         fail(f"{tag}: act_quant_w4ax launched {launches['act_quant_w4ax']} "
-             f"times, not {ACT_PER_LAYER} × {cfg.num_layers} layers × "
+             f"times, not {per} × {cfg.num_layers} layers × "
              f"{eng.forward_calls} forwards = {want}")
     if eng.attn_forwards <= 0 and label != "whole gather":
         fail(f"{tag}: no forward attended over paged history")
     toks = eng.tokens_generated
+    TOK_S[tag] = toks / wall
     say(f"{tag} prompts {lens.tolist()}; {eng.steps} steps, "
         f"{eng.forward_calls} forwards, {toks} tokens in {wall:.3f} s = "
         f"{toks / wall:.2f} tok/s; median step "
@@ -2157,6 +2241,299 @@ def phase_archs(torch, np, mods, KERNELS, get_config, profile=False):
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------------- MoE
+
+# (model, E, (K, N) of the gate/up stacks and of the down stack, the
+# capacities C = max(int(1.25·T·k/E), 4) at T = 8, 256 and 2,048 tokens)
+MOE_GEMMS = (("Moonlight", 64, ((2048, 1408), (1408, 2048)), (4, 30, 240)),
+             ("Qwen3-MoE", 128, ((4096, 1536), (1536, 4096)), (4, 20, 160)))
+MOE_MAIN = ("Moonlight", 2048, 1408, 240)   # the rows' own shape
+MOE_KERNELS = {"w4a4_matmul_experts": "src/repro/kernels/w4ax_matmul.py:142",
+               "w4a8_matmul_experts": "src/repro/kernels/w4ax_matmul.py:209",
+               "w4ax_matmul_mixed_experts":
+               "src/repro/kernels/w4ax_matmul.py:288"}
+EXPERTS = ("w4a4_matmul_experts", "w4a8_matmul_experts")
+MOE_PARITY = (("moonshot_v1_16b_a3b", ("unified work_queue",
+                                       "unified work_queue mixed",
+                                       "whole gather")),
+              ("qwen3_moe_235b_a22b", ("unified work_queue",
+                                       "unified work_queue mixed")))
+MOONLIGHT_PACKED_GB = 16.3   # 13.3 GB of W4 experts, 0.8 GB of their
+                             # scales, ~0.9 GB shared experts and
+                             # attention, 1.34 GB bf16 embedding and head
+QWEN3_DEPTH = 8              # of 94 layers (~122 GB packed: not one card)
+
+
+def expert_times(torch, Q, x, name: str, kern, ref, args) -> dict:
+    """One expert-batched GEMM's times on these operands: the kernel, its
+    plain version, one bf16 ``torch.bmm`` on the dequantized weights of
+    the same K range (the yardstick), and its bound: every operand read
+    once and the output written once, or 2·E·C·K·N int8 operations."""
+    e, c = args[0].shape[:2]
+    wp, ws = args[-2], args[-1]
+    n, kk = wp.shape[2], wp.shape[1] * 2
+    lo = x.shape[2] - kk if name == "w4a8_matmul_experts" else 0
+    xb = x[:, :, lo:lo + kk].contiguous()
+    wb = Q.dequantize_weight_int4(wp, ws).bfloat16()
+    nbytes = sum(t.numel() * t.element_size() for t in args) + e * c * n * 4
+    ops_ = 2 * e * c * n * kk
+    return {"ms": time_ms(torch, lambda: kern(*args)),
+            # the plain version: median of 5 (it takes up to 35 ms a call)
+            "plain_ms": time_ms(torch, lambda: ref(*args), iters=5,
+                                warmup=1),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops_ / INT8_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops_ / INT8_OPS_PER_S else "operations"),
+            "library_ms": time_ms(torch, lambda: torch.bmm(xb, wb))}
+
+
+def check_moe_kernels(torch, AQ, WK, Q, rows: dict):
+    """The expert-batched K3, K4 (the split schedule's pair) and K5 at
+    Moonlight's and Qwen3-MoE's expert shapes (``MOE_GEMMS``; int4 share
+    0.875, rounded half to even: 14+2, 10+1, 28+4 and 10+2 blocks), on
+    bf16 capacity buffers whose last quarter of slots is empty (zero
+    rows), act-quantized by the fused kernel: each ``torch.equal`` to its
+    plain version and to a loop of the single-expert kernel over the
+    experts, the split pair's sum to the split plain version; each timed
+    with its bound and a bf16 ``torch.bmm``. The rows' own numbers are
+    at ``MOE_MAIN``, the rest under ``experts``."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for model, e, shapes, caps in MOE_GEMMS:
+        for k, n in shapes:
+            nb = k // 128
+            nb4 = int(round(0.875 * nb))
+            k4, k4p = nb4 * 128, nb4 * 64
+            w = (torch.randn((e, k, n), generator=gen, device="cuda")
+                 / k ** 0.5)
+            wp, ws = Q.quantize_weight_int4(w)
+            del w
+            w4, ws4 = wp[:, :k4p], ws[:, :nb4]
+            w8, ws8 = wp[:, k4p:], ws[:, nb4:]
+            for c in caps:
+                x = torch.randn((e, c, k), generator=gen,
+                                device="cuda").bfloat16()
+                x[:, c - max(1, c // 4):] = 0          # empty slots
+                a4, s4, a8, s8 = (t.reshape(e, c, t.shape[-1]) for t in
+                                  AQ.act_quant_w4ax(x.reshape(e * c, k), k4))
+                forms = (
+                    ("w4a4_matmul_experts", WK.w4a4_matmul_experts,
+                     WK.w4a4_matmul_ref, WK.w4a4_matmul, (a4, s4, w4, ws4)),
+                    ("w4a8_matmul_experts", WK.w4a8_matmul_experts,
+                     WK.w4a8_matmul_ref, WK.w4a8_matmul, (a8, s8, w8, ws8)),
+                    ("w4ax_matmul_mixed_experts", WK.w4ax_matmul_mixed_experts,
+                     WK.w4ax_matmul_mixed_ref, WK.w4ax_matmul_mixed,
+                     (a4, s4, a8, s8, wp, ws)))
+                shape = (f"{model} E={e} C={c} N={n} K={k} "
+                         f"({nb4}+{nb - nb4} blocks)")
+                for name, kern, ref, one, args in forms:
+                    got, want = kern(*args), ref(*args)
+                    loop = torch.stack([one(*(t[i].contiguous() for t in args))
+                                        for i in range(e)])
+                    torch.cuda.synchronize()
+                    for other, what in ((want, "its plain version"),
+                                        (loop, "the per-expert loop")):
+                        if not torch.equal(got, other):
+                            fail(f"{name} {shape}: not bit-exact against "
+                                 f"{what} (max err "
+                                 f"{float((got - other).abs().max())})")
+                    entry = {"shape": shape, "max_abs_err": 0.0,
+                             **expert_times(torch, Q, x, name, kern, ref,
+                                            args)}
+                    if name == "w4ax_matmul_mixed_experts":
+                        entry["split_ms"] = time_ms(
+                            torch, lambda: WK.w4ax_matmul_split_experts(
+                                a4, s4, a8, s8, wp, ws))
+                    if (model, k, n, c) == MOE_MAIN:
+                        rows[name] = {"name": name, "route": "cuda",
+                                      "source":
+                                      "src/repro_torch/csrc/w4ax_matmul.cu",
+                                      "replaces": MOE_KERNELS[name], **entry,
+                                      "experts": rows.get(name, {}).get(
+                                          "experts", [])}
+                    else:
+                        rows.setdefault(name, {}).setdefault(
+                            "experts", []).append(entry)
+                    say(f"[moe] {name} {shape}: exact (plain, per-expert "
+                        f"loop); {entry['ms']:.4f} ms, plain "
+                        f"{entry['plain_ms']:.4f}, bound "
+                        f"{entry['bound_ms']:.4f} ({entry['bound_by']}), "
+                        f"bf16 bmm {entry['library_ms']:.4f}"
+                        + (f", split pair {entry['split_ms']:.4f}"
+                           if "split_ms" in entry else ""))
+                split = WK.w4ax_matmul_split_experts(a4, s4, a8, s8, wp, ws)
+                want = WK.w4ax_matmul_ref(a4, s4, a8, s8, w4, ws4, w8, ws8)
+                torch.cuda.synchronize()
+                if not torch.equal(split, want):
+                    fail(f"w4ax_matmul_split_experts {shape}: not bit-exact "
+                         f"against its plain version")
+            del wp, ws, w4, ws4, w8, ws8
+
+
+def moe_parity(torch, np, mods, KERNELS, get_config) -> dict:
+    """Both MoE configurations at full width and 2 layers on the card, in
+    the ``MOE_PARITY`` configurations, each served with the kernels and
+    with ``impl="ref"`` on the parity phase's prompts: the same tokens
+    (agreement 1.0000) and first logits with error 0 (the kernels are
+    exact, the MoE glue is the same code on both), and pairs dropped by
+    capacity in the default configuration. → the kernels' launches in the
+    mixed run of the first model."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    mixed_launches = {}
+    for arch, labels in MOE_PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params = LM(cfg).init(seed=0, device="cuda")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (40, 7, 23, 64, 13, 29)]
+        for label in labels:
+            ecfg = EngineConfig(**{**dict(max_batch=8, num_pages=128,
+                                          page_size=64, max_pages_per_seq=16,
+                                          prefill_chunk_tokens=48,
+                                          kv_range=4.0), **CONFIGS[label]})
+            res = {}
+            for impl in ("auto", "ref"):
+                for kern in KERNELS.values():
+                    kern.launches = 0
+                eng, first, _ = serve(torch, np, Engine, EngineConfig,
+                                      QuantConfig, cfg, params, impl,
+                                      prompts, 16, ecfg, QUANT.get(label, {}),
+                                      count_drops=True)
+                dropped = int(sum(int(d) for d in eng.moe_dropped))
+                tag = f"moe parity[{cfg.name} × 2, {label}, {impl}]"
+                res[impl] = (check_run(eng, len(prompts), 16, cfg.vocab_size,
+                                       tag), first, dropped)
+                if impl == "auto" and label == "unified work_queue mixed" \
+                        and not mixed_launches:
+                    mixed_launches = {n: k.launches
+                                      for n, k in KERNELS.items()}
+            (tk, lk, dk), (tr, lr, dr) = res["auto"], res["ref"]
+            if lk is None or lk.shape != lr.shape:
+                fail(f"moe parity[{cfg.name}, {label}]: first logits missing "
+                     f"or mis-shaped")
+            err = float(np.abs(lk - lr).max())
+            total = sum(len(v) for v in tr.values())
+            agree = sum(a == b for i in tr
+                        for a, b in zip(tk[i], tr[i])) / total
+            say(f"[moe] parity {cfg.name} × 2 layers {label}: first logits "
+                f"max err {err:.4g}; greedy agreement {agree:.4f} over "
+                f"{total} tokens; (token, expert) pairs dropped by capacity "
+                f"{dk} (kernels), {dr} (ref)")
+            if err != 0.0 or agree != 1.0 or dk != dr:
+                fail(f"moe parity[{cfg.name}, {label}]: the kernel path must "
+                     f"equal the plain one (err {err}, agreement {agree}, "
+                     f"dropped {dk} vs {dr})")
+            if label == "unified work_queue" and dk <= 0:
+                fail(f"moe parity[{cfg.name}]: no step dropped a pair")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not mixed_launches.get("w4ax_matmul_mixed_experts"):
+        fail("moe parity: the mixed run never launched "
+             "w4ax_matmul_mixed_experts")
+    return mixed_launches
+
+
+def moe_model(torch, LM, cfg, note: str):
+    """Random seeded W4 weights of ``cfg`` made on the card block by
+    block → (params, packed GB), the time and peak memory printed."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = tree_bytes(params) / 1e9
+    say(f"[moe] {cfg.name} ({note}): d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok}, {cfg.num_shared_experts} "
+        f"shared, expert d_ff {cfg.moe_d_ff}, QK-norm {cfg.qk_norm}; "
+        f"weights made in {time.perf_counter() - t0:.1f} s, packed "
+        f"{gb:.2f} GB; peak while making them "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params, gb
+
+
+def moe_launch_calls(torch, np, mods, cfg, params, steps=(5, 6)) -> float:
+    """Kernel launch calls a step of the ``slice`` workload on ``cfg``
+    (``torch.profiler`` over ``steps``, a run of its own so the
+    profiler's cost stays out of the times)."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(128, 513, 8)]
+    eng, _, _ = serve(torch, np, Engine, EngineConfig, QuantConfig, cfg,
+                      params, "auto", prompts, 32,
+                      EngineConfig(prefill_chunk_tokens=256), {},
+                      profile_steps=steps)
+    return eng.smoke_launch_calls / (steps[1] - steps[0] + 1)
+
+
+def phase_moe(torch, np, mods, KERNELS, get_config, AQ, WK, Q, rows,
+              params8b, smi: str) -> dict:
+    """(a) the expert-batched GEMMs (:func:`check_moe_kernels`); (b)
+    kernel against plain paths on 2-layer MoE models
+    (:func:`moe_parity`); (c) Moonlight-16B-A3B at full width and depth
+    serving ``slice``, with its launch calls a step, peak memory and
+    packed bytes; (d) Qwen3-MoE-235B-A22B at full width and
+    ``QWEN3_DEPTH`` layers, the same; (e) ``slice`` under W4A16
+    (``weight_only``) on Llama-3-8B and Moonlight beside their W4Ax
+    runs. → launches of the runs whose counts the kernel table reports:
+    ``moe`` (Moonlight, the default configuration), ``moe mixed``."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    t0 = time.perf_counter()
+
+    def lap(part: str):
+        say(f"[time] moe {part}: {time.perf_counter() - t0:.1f} s in")
+
+    check_moe_kernels(torch, AQ, WK, Q, rows)
+    lap("(a) kernels")
+    mixed = moe_parity(torch, np, mods, KERNELS, get_config)
+    lap("(b) parity")
+    moe_must = SPLIT + EXPERTS + ("paged_kv4_prefill_attention_wq",)
+    moe_never = SINGLE + ("w4ax_matmul_mixed", "w4ax_matmul_mixed_experts")
+    w4a16_must = ("paged_kv4_prefill_attention_wq",)
+    w4a16_never = (ACT + SINGLE + SPLIT[1:] + EXPERTS
+                   + ("w4ax_matmul_mixed", "w4ax_matmul_mixed_experts"))
+
+    cfg = get_config("moonshot_v1_16b_a3b")
+    params, gb = moe_model(torch, LM, cfg, f"full depth, reckoned ≈ "
+                           f"{MOONLIGHT_PACKED_GB} GB packed")
+    launches = serve_llama(torch, np, mods, KERNELS, cfg, params, "slice",
+                           phase="moe", must=moe_must, never=moe_never)
+    calls = moe_launch_calls(torch, np, mods, cfg, params)
+    say(f"[moe] {cfg.name} × {cfg.num_layers} layers: {calls:.1f} kernel "
+        f"launch calls a step (steps 5–6); packed {gb:.2f} GB | {smi}")
+    serve_llama(torch, np, mods, KERNELS, cfg, params, "slice", phase="moe",
+                quant_kw={"weight_only": True}, must=w4a16_must,
+                never=w4a16_never)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(c) Moonlight")
+
+    full = get_config("qwen3_moe_235b_a22b")
+    cfg = dataclasses.replace(
+        full, num_layers=QWEN3_DEPTH,
+        name=f"{full.name} [{QWEN3_DEPTH} of {full.num_layers} layers]")
+    params, gb = moe_model(torch, LM, cfg, f"depth cut {full.num_layers} → "
+                           f"{QWEN3_DEPTH}")
+    serve_llama(torch, np, mods, KERNELS, cfg, params, "slice", phase="moe",
+                must=moe_must, never=moe_never)
+    calls = moe_launch_calls(torch, np, mods, cfg, params)
+    say(f"[moe] {cfg.name}: {calls:.1f} kernel launch calls a step (steps "
+        f"5–6); packed {gb:.2f} GB | {smi}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(d) Qwen3-MoE")
+
+    serve_llama(torch, np, mods, KERNELS, get_config("llama3_8b"), params8b,
+                "slice", phase="moe", quant_kw={"weight_only": True},
+                must=w4a16_must, never=w4a16_never)
+    for tag, tps in TOK_S.items():
+        say(f"[moe] tok/s {tps:.2f}: {tag} | {smi}")
+    return {"moe": launches, "moe mixed": mixed}
+
+
 # ---------------------------------------------------- tensor parallelism
 
 TP_SIZES = (1, 2, 4)       # the world sizes the tp phase runs, cards allowing
@@ -2734,7 +3111,8 @@ def main():
         fail(f"--runs takes runs of {[r for r, *_ in RUNS]}")
     runs = {}
     tp = {}
-    if order or phases & {"spec", "specdiag", "recover", "replicas", "tp"}:
+    if order or phases & {"spec", "specdiag", "recover", "replicas", "tp",
+                          "moe"}:
         t0 = time.perf_counter()
         params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
         torch.cuda.synchronize()
@@ -2765,6 +3143,10 @@ def main():
         if "tp" in phases:
             tp = phase_tp(torch, np, mods, cfg8b, params)
             lap("tp")
+        if "moe" in phases:
+            runs.update(phase_moe(torch, np, mods, ops.KERNELS, get_config,
+                                  AQ, WK, Q, rows, params, smi))
+            lap("moe")
         del params
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's

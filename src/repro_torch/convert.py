@@ -4,6 +4,9 @@ The input is ``LM.quantize`` output of the JAX package with every leaf
 turned into a numpy array by the caller (``np.asarray``); this module never
 sees a JAX type. Block leaves carry a leading layer axis there and become
 a list of per-layer dicts here, so both packages compute the same thing.
+Every leaf crosses as it is, an MoE block's included: the f32 router,
+the packed expert stacks (``[L, E, K/2, N]`` → per layer ``[E, K/2,
+N]``), the shared experts and QK-norm's ``attn.q_norm``/``k_norm``.
 The reference's logical axes (``LM.quantize``'s ``qaxes``) come across
 the same way (:func:`axes_from_jax`): the blocks' leading ``"layers"``
 axis is dropped and each layer gets its own copy.

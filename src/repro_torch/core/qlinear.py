@@ -1,5 +1,5 @@
 """QLinear — the W4Ax projection of the serving path (``repro/core/
-qlinear.py``, the W4Ax branch of ``_dispatch_qlinear``).
+qlinear.py`` ``_dispatch_qlinear``), and its W4A16 weight-only branch.
 
 Online, in two steps: quantize the activation's INT4 and INT8 channel
 ranges on the fly (:func:`quantize_act`, one act-quant launch for both),
@@ -17,6 +17,17 @@ own (under tensor parallelism a row-parallel shard's K-slice, so K4 is
 rounded per shard). ``out_dtype`` overrides only the output's cast: the
 act-quant still sees the input in its own dtype, and a row-parallel
 shard keeps its f32 partial sums for the cross-rank sum.
+
+An MoE layer's expert stack (``w_packed [E, K/2, N]``, ``w_scale [E,
+K/128, N]``) takes activations ``[E, C, K]``, expert e's rows through
+expert e's weights (the reference's ``jax.vmap``): act-quant is per row,
+so one act-quant launch covers all E·C rows, and the GEMM is one
+expert-batched launch per kernel (``ops.w4ax_matmul_experts``).
+
+Under ``weight_only`` (W4A16, the reference's baseline;
+:func:`weight_only_linear`) the weight is dequantized to bf16 and
+multiplied with the bf16 activation; the reference has no Pallas kernel
+for it, and neither does the port: a bf16 ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -25,13 +36,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import quantizer as Q
 from repro_torch.kernels import ops
 
 BLOCK_K = 128
 
 __all__ = ["QLinearSpec", "QuantAct", "qlinear_spec", "quantize_act",
            "qlinear_gemm", "qlinear_apply", "qlinear_apply_many",
-           "dispatch_qlinear", "BLOCK_K"]
+           "dispatch_qlinear", "weight_only_linear", "BLOCK_K"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +86,11 @@ def qlinear_gemm(spec: QLinearSpec, qparams, qa: QuantAct,
     """The W4Ax GEMM of a quantized activation → [..., N] in its dtype
     (or ``out_dtype``); a projection's f32 bias ``b`` is added to the f32
     GEMM output before that one cast (under the split schedule
-    ``(K3 + K4) + b``)."""
-    out = ops.w4ax_matmul(qa.a4, qa.s4, qa.a8, qa.s8, qparams["w_packed"],
-                          qparams["w_scale"], schedule=spec.schedule,
-                          impl=spec.impl)
+    ``(K3 + K4) + b``). An expert stack takes ``[E, C, ·]`` codes."""
+    gemm = (ops.w4ax_matmul_experts if qparams["w_packed"].dim() == 3
+            else ops.w4ax_matmul)
+    out = gemm(qa.a4, qa.s4, qa.a8, qa.s8, qparams["w_packed"],
+               qparams["w_scale"], schedule=spec.schedule, impl=spec.impl)
     if "b" in qparams:
         out = out + qparams["b"]
     return out.to(out_dtype or qa.dtype)
@@ -113,7 +126,24 @@ def qlinear_spec(params, quant) -> QLinearSpec:
                        impl=quant.impl)
 
 
+def weight_only_linear(params, x: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
+    """W4A16: the packed weight (or expert stack) dequantized per
+    128-block in f32 and cast to bf16, ``x`` in bf16 times it, the bias
+    added in bf16 → bf16 (or ``out_dtype``), as the reference's
+    ``weight_only`` branch."""
+    w = Q.dequantize_weight_int4(params["w_packed"], params["w_scale"],
+                                 BLOCK_K).to(torch.bfloat16)
+    out = x.to(torch.bfloat16) @ w
+    if "b" in params:
+        out = out + params["b"].to(torch.bfloat16)
+    return out if out_dtype is None else out.to(out_dtype)
+
+
 def dispatch_qlinear(params, x: torch.Tensor, quant,
                      out_dtype=None) -> torch.Tensor:
-    """A packed projection under a quant config → :func:`qlinear_apply`."""
+    """A packed projection under a quant config → :func:`qlinear_apply`,
+    or :func:`weight_only_linear` under ``quant.weight_only``."""
+    if quant.weight_only:
+        return weight_only_linear(params, x, out_dtype)
     return qlinear_apply(qlinear_spec(params, quant), params, x, out_dtype)

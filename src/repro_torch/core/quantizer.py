@@ -94,9 +94,18 @@ def quantize_weight_int4(w: torch.Tensor, group_size: int = 128):
     """[K, N] weight → (packed uint8 [K/2, N], scale f32 [K/g, N]).
 
     One scale per (K-group of ``group_size``, output column); the packing
-    blocks match the groups, so a GEMM K step never splits a byte."""
+    blocks match the groups, so a GEMM K step never splits a byte. A stack
+    ``[E, K, N]`` (an MoE layer's experts) is quantized expert by expert
+    into ``[E, K/2, N]`` and ``[E, K/g, N]``, each expert's bytes those of
+    its own ``[K, N]`` (as the reference's ``vmap``), one expert's
+    temporaries at a time."""
+    if w.ndim == 3:
+        parts = [quantize_weight_int4(we, group_size) for we in w]
+        return (torch.stack([p for p, _ in parts]),
+                torch.stack([s for _, s in parts]))
     if w.ndim != 2:
-        raise ValueError(f"expected [K, N] weight, got {tuple(w.shape)}")
+        raise ValueError(f"expected [K, N] or [E, K, N] weight, got "
+                         f"{tuple(w.shape)}")
     k, n = w.shape
     if k % group_size:
         raise ValueError(f"K={k} not divisible by group_size={group_size}")
@@ -109,11 +118,11 @@ def quantize_weight_int4(w: torch.Tensor, group_size: int = 128):
 
 def dequantize_weight_int4(packed: torch.Tensor, scale: torch.Tensor,
                            group_size: int = 128) -> torch.Tensor:
-    """Packed [K/2, N] + scale [K/g, N] → f32 [K, N]."""
-    q = unpack_int4_interleaved(packed, dim=0, block_size=group_size)
-    k, n = q.shape
-    q = q.to(torch.float32).reshape(k // group_size, group_size, n)
-    return (q * scale[:, None, :]).reshape(k, n)
+    """Packed [..., K/2, N] + scale [..., K/g, N] → f32 [..., K, N]."""
+    q = unpack_int4_interleaved(packed, dim=-2, block_size=group_size)
+    *lead, k, n = q.shape
+    q = q.to(torch.float32).reshape(*lead, k // group_size, group_size, n)
+    return (q * scale[..., :, None, :]).reshape(*lead, k, n)
 
 
 def quantize_act_groupwise(x: torch.Tensor, block_size: int = 128,

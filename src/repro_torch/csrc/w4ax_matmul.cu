@@ -54,6 +54,15 @@
 //   decode design, 16 columns per block, streamed several times slower).
 // * The mixed kernel's choice of A layout is per K block, the same for
 //   every thread that works on the block.
+// * An MoE layer's experts in one launch (the *_experts entry points; the
+//   reference vmaps these pallas_calls over the expert stack,
+//   repro/layers/mlp.py _expert_linear): blockIdx.z picks the expert, whose
+//   A rows, scales and output lie at z times one expert's size and whose W
+//   and w_scale lie at z times the stack's expert strides. The tile is
+//   chosen by the capacity C (an expert's rows); a block computes what
+//   it computes for that expert alone, so the launch equals a loop of the
+//   single-expert kernel bit for bit. Empty capacity slots are zero rows
+//   (code 8 after act-quant) and are multiplied like any other.
 // Not yet: wgmma (the prefill tile still issues mma.sync) and TMA.
 #include <initializer_list>
 
@@ -73,13 +82,29 @@ enum AMode { A_INT4 = 0, A_INT8 = 1, A_MIXED = 2 };
 // the kernels' arguments. a4: packed uint8 [m, nb4*64]; a8: int8
 // [m, nb8*128] (nb4 = 0 for A_INT8, nb8 = 0 for A_INT4). W: packed uint8
 // [(nb4+nb8)*64, n] (byte j of a block: k=j low, k=j+64 high), rows
-// contiguous across the two parts; w_scale f32 [nb4+nb8, n].
+// contiguous across the two parts; w_scale f32 [nb4+nb8, n]. Over experts
+// (gridDim.z of them) A, its scales and out are [E, m, ·] contiguous and W,
+// w_scale step by w_stride bytes and ws_stride floats an expert.
 struct Args {
   const uint8_t* a4; const float* a4_scale;
   const uint8_t* a8; const float* a8_scale;
   const uint8_t* w; const float* w_scale;
   float* out; int m, n, nb4, nb8;
+  long w_stride, ws_stride;
 };
+
+// the operands of expert blockIdx.z (z = 0: the arguments as they are)
+__device__ __forceinline__ Args expert_args(Args p) {
+  const long z = blockIdx.z;
+  p.a4 += z * p.m * p.nb4 * PB;
+  p.a4_scale += z * p.m * p.nb4;
+  p.a8 += z * p.m * p.nb8 * BK;
+  p.a8_scale += z * p.m * p.nb8;
+  p.w += z * p.w_stride;
+  p.w_scale += z * p.ws_stride;
+  p.out += z * p.m * p.n;
+  return p;
+}
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -290,7 +315,8 @@ template <int MT> struct PTile {
 };
 
 template <int MODE, bool ZEROEXT, int MT>
-__global__ void __launch_bounds__(P_THREADS) w4ax_prefill_kernel(Args p) {
+__global__ void __launch_bounds__(P_THREADS) w4ax_prefill_kernel(Args pz) {
+  const Args p = expert_args(pz);
   constexpr int P_BM = PTile<MT>::BM, P_A = PTile<MT>::A;
   constexpr int P_STAGE = PTile<MT>::STAGE, P_RING = PTile<MT>::RING;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -452,7 +478,8 @@ constexpr int D_RING = 2 * D_ROUND + D_NW * D_DOT * 4;
 constexpr int D_OUT = D_BM * D_BN / D_THREADS;   // outputs per thread
 
 template <int MODE, bool ZEROEXT>
-__global__ void __launch_bounds__(D_THREADS) w4ax_decode_kernel(Args p) {
+__global__ void __launch_bounds__(D_THREADS) w4ax_decode_kernel(Args pz) {
+  const Args p = expert_args(pz);
   extern __shared__ __align__(16) uint8_t smem[];
   int* dots = reinterpret_cast<int*>(smem + 2 * D_ROUND);
   const float* sast = reinterpret_cast<const float*>(smem + D_RING);
@@ -588,7 +615,7 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 template <int MODE, bool ZEROEXT>
-int launch_tiles(const Args& a, cudaStream_t stream) {
+int launch_tiles(const Args& a, int experts, cudaStream_t stream) {
   constexpr int SMEM_MAX = 232448;   // the H100's per-block opt-in
   // set once per instantiation; the attribute is per function
   static const cudaError_t ok =
@@ -602,30 +629,37 @@ int launch_tiles(const Args& a, cudaStream_t stream) {
     const int smem = D_RING + nb * D_BM * 4;
     if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     w4ax_decode_kernel<MODE, ZEROEXT>
-        <<<(a.n + D_BN - 1) / D_BN, D_THREADS, smem, stream>>>(a);
-  } else if ((a.n + P_BN - 1) / P_BN * ((a.m + 63) / 64) < 66) {
+        <<<dim3((a.n + D_BN - 1) / D_BN, 1, experts), D_THREADS, smem,
+           stream>>>(a);
+  } else if ((a.n + P_BN - 1) / P_BN * ((a.m + 63) / 64) * experts < 66) {
     // the 64-row tile would leave most of the card idle
     using T = PTile<1>;
     const int smem = T::RING + nb * T::BM * 4;
     if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     w4ax_prefill_kernel<MODE, ZEROEXT, 1>
-        <<<dim3((a.n + P_BN - 1) / P_BN, (a.m + T::BM - 1) / T::BM),
+        <<<dim3((a.n + P_BN - 1) / P_BN, (a.m + T::BM - 1) / T::BM, experts),
            P_THREADS, smem, stream>>>(a);
   } else {
     using T = PTile<2>;
     const int smem = T::RING + nb * T::BM * 4;
     if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     w4ax_prefill_kernel<MODE, ZEROEXT, 2>
-        <<<dim3((a.n + P_BN - 1) / P_BN, (a.m + T::BM - 1) / T::BM),
+        <<<dim3((a.n + P_BN - 1) / P_BN, (a.m + T::BM - 1) / T::BM, experts),
            P_THREADS, smem, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE>
-int launch(const Args& a, int zeroext, cudaStream_t stream) {
-  if (a.n % 4 != 0 || (MODE == A_MIXED && !zeroext))
+int launch(const Args& a, int zeroext, cudaStream_t stream,
+           int experts = 1) {
+  if (a.n % 4 != 0 || (MODE == A_MIXED && !zeroext) || experts < 1 ||
+      experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  // each expert's W and w_scale start on a 16-byte boundary too (A's
+  // experts do: their rows are whole 64- or 128-byte blocks)
+  if (experts > 1 && (a.w_stride % 16 || a.ws_stride % 4))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   // the 16-byte cp.async reads whole rows from 16-byte boundaries
   for (const void* ptr : {static_cast<const void*>(a.a4),
                           static_cast<const void*>(a.a8),
@@ -634,8 +668,9 @@ int launch(const Args& a, int zeroext, cudaStream_t stream) {
     if (reinterpret_cast<uintptr_t>(ptr) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
   if (a.m > 0 && a.n > 0 && a.nb4 + a.nb8 > 0) {
-    if (zeroext) return launch_tiles<MODE, true>(a, stream);
-    if constexpr (MODE != A_MIXED) return launch_tiles<MODE, false>(a, stream);
+    if (zeroext) return launch_tiles<MODE, true>(a, experts, stream);
+    if constexpr (MODE != A_MIXED)
+      return launch_tiles<MODE, false>(a, experts, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -649,7 +684,7 @@ extern "C" int w4a4_matmul(const uint8_t* a_packed, const float* a_scale,
                            float* out, int m, int n, int nb, int zeroext,
                            cudaStream_t stream) {
   return launch<A_INT4>({a_packed, a_scale, nullptr, nullptr, w_packed,
-                         w_scale, out, m, n, nb, 0}, zeroext, stream);
+                         w_scale, out, m, n, nb, 0, 0, 0}, zeroext, stream);
 }
 
 // a_q int8 [m, nb*128], a_scale f32 [m, nb], weights as above → f32 [m, n].
@@ -659,7 +694,7 @@ extern "C" int w4a8_matmul(const int8_t* a_q, const float* a_scale,
                            cudaStream_t stream) {
   return launch<A_INT8>({nullptr, nullptr,
                          reinterpret_cast<const uint8_t*>(a_q), a_scale,
-                         w_packed, w_scale, out, m, n, 0, nb}, zeroext,
+                         w_packed, w_scale, out, m, n, 0, nb, 0, 0}, zeroext,
                         stream);
 }
 
@@ -675,5 +710,45 @@ extern "C" int w4ax_matmul_mixed(const uint8_t* a4_packed,
                                  cudaStream_t stream) {
   return launch<A_MIXED>({a4_packed, a4_scale,
                           reinterpret_cast<const uint8_t*>(a8_q), a8_scale,
-                          w_packed, w_scale, out, m, n, nb4, nb8}, 1, stream);
+                          w_packed, w_scale, out, m, n, nb4, nb8, 0, 0}, 1,
+                         stream);
+}
+
+// The same three over e experts in one launch: A, its scales and out are
+// [e, m, ·] contiguous; expert z's packed W rows start at w + z·w_stride
+// (bytes) and its scales at w_scale + z·ws_stride (floats), rows of n
+// contiguous (a K-range of an [e, K/2, n] stack is such a view).
+extern "C" int w4a4_matmul_experts(const uint8_t* a_packed,
+                                   const float* a_scale,
+                                   const uint8_t* w_packed,
+                                   const float* w_scale, float* out, int e,
+                                   int m, int n, int nb, int w_stride,
+                                   int ws_stride, int zeroext,
+                                   cudaStream_t stream) {
+  return launch<A_INT4>({a_packed, a_scale, nullptr, nullptr, w_packed,
+                         w_scale, out, m, n, nb, 0, w_stride, ws_stride},
+                        zeroext, stream, e);
+}
+
+extern "C" int w4a8_matmul_experts(const int8_t* a_q, const float* a_scale,
+                                   const uint8_t* w_packed,
+                                   const float* w_scale, float* out, int e,
+                                   int m, int n, int nb, int w_stride,
+                                   int ws_stride, int zeroext,
+                                   cudaStream_t stream) {
+  return launch<A_INT8>({nullptr, nullptr,
+                         reinterpret_cast<const uint8_t*>(a_q), a_scale,
+                         w_packed, w_scale, out, m, n, 0, nb, w_stride,
+                         ws_stride}, zeroext, stream, e);
+}
+
+extern "C" int w4ax_matmul_mixed_experts(
+    const uint8_t* a4_packed, const float* a4_scale, const int8_t* a8_q,
+    const float* a8_scale, const uint8_t* w_packed, const float* w_scale,
+    float* out, int e, int m, int n, int nb4, int nb8, int w_stride,
+    int ws_stride, cudaStream_t stream) {
+  return launch<A_MIXED>({a4_packed, a4_scale,
+                          reinterpret_cast<const uint8_t*>(a8_q), a8_scale,
+                          w_packed, w_scale, out, m, n, nb4, nb8, w_stride,
+                          ws_stride}, 1, stream, e);
 }

@@ -27,7 +27,7 @@ from repro_torch.kernels import w4ax_matmul as WK
 
 BLOCK_K = WK.BLOCK_K
 
-__all__ = ["act_quant", "act_quant_w4ax", "w4ax_matmul",
+__all__ = ["act_quant", "act_quant_w4ax", "w4ax_matmul", "w4ax_matmul_experts",
            "paged_kv4_prefill_attention_wq", "paged_kv4_prefill_attention",
            "paged_kv4_decode_attention", "paged_kv4_decode_attention_wq",
            "kv4_decode_attention",
@@ -42,6 +42,9 @@ KERNELS = {
     "w4a4_matmul": WK.w4a4_matmul,
     "w4a8_matmul": WK.w4a8_matmul,
     "w4ax_matmul_mixed": WK.w4ax_matmul_mixed,
+    "w4a4_matmul_experts": WK.w4a4_matmul_experts,
+    "w4a8_matmul_experts": WK.w4a8_matmul_experts,
+    "w4ax_matmul_mixed_experts": WK.w4ax_matmul_mixed_experts,
     "paged_kv4_prefill_attention_wq": PA.paged_kv4_prefill_attention_wq,
     "paged_kv4_decode_attention": PA.paged_kv4_decode_attention,
     "paged_kv4_prefill_attention": PA.paged_kv4_prefill_attention,
@@ -132,6 +135,30 @@ def w4ax_matmul(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, *,
                                  w_packed[:k4p], w_scale[:nb4],
                                  w_packed[k4p:], w_scale[nb4:])
     return out.reshape(*lead, n)
+
+
+def w4ax_matmul_experts(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
+                        w_scale, *, schedule: str = "split",
+                        impl: str = "auto") -> torch.Tensor:
+    """:func:`w4ax_matmul` for every expert of an MoE layer at once (the
+    reference's ``jax.vmap`` over it): activations quantized as ``[E, C,
+    ·]``, packed weights ``[E, K/2, N]`` and scales ``[E, K/128, N]`` → f32
+    ``[E, C, N]``. On the kernel path one expert-batched launch per
+    kernel of the schedule (K3 + K4, or K5); off it the per-expert plain
+    versions, under the same rule as :func:`w4ax_matmul`."""
+    if schedule not in ("split", "mixed"):
+        raise ValueError(f"schedule must be split|mixed, got {schedule}")
+    args = (a4_packed, a4_scale, a8_q, a8_scale)
+    if use_kernel(impl, a4_packed):
+        fn = (WK.w4ax_matmul_mixed_experts if schedule == "mixed"
+              else WK.w4ax_matmul_split_experts)
+        return fn(*args, w_packed, w_scale)
+    if schedule == "mixed" and a4_packed.is_cuda:
+        return WK.w4ax_matmul_mixed_ref(*args, w_packed, w_scale)
+    nb4 = a4_scale.shape[-1] if a4_packed.shape[-1] else 0
+    k4p = nb4 * WK.PACKED_BLOCK
+    return WK.w4ax_matmul_ref(*args, w_packed[:, :k4p], w_scale[:, :nb4],
+                              w_packed[:, k4p:], w_scale[:, nb4:])
 
 
 def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,

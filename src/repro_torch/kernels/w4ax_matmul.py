@@ -10,12 +10,19 @@ prefill kernel above — see the source note). Two schedules:
 split schedule (W4A4 over the K4 prefix, W4A8
 over the K8 tail, summed); ``w4ax_matmul_mixed`` is the paper's single
 kernel, whose K loop switches from INT4 to INT8 activation blocks.
+The ``*_experts`` wrappers are the same kernels over an MoE layer's
+experts in one launch (the expert in ``blockIdx.z``; the reference's
+``jax.vmap`` of these ``pallas_call``s, ``repro/layers/mlp.py``
+``_expert_linear``): activations ``[E, C, ·]``, weights ``[E, K/2, N]``,
+output ``[E, C, N]``.
 
 The plain versions unpack to exact int32 per-block dots and apply the
 per-(row, block) × per-(block, column) scales in f32, like
 ``repro/kernels/ref.py``: ``d·(a_s·w_s)`` for the uniform kernels,
 ``(d·a_s)·w_s`` into one accumulator for the mixed one, each in its
-kernel's rounding order.
+kernel's rounding order. They take leading batch dims (activations
+``[..., M, ·]``, weights ``[..., K/2, N]``): each expert computes exactly
+what it computes alone.
 """
 
 from __future__ import annotations
@@ -30,35 +37,42 @@ PACKED_BLOCK = BLOCK_K // 2
 
 __all__ = ["w4a4_matmul_ref", "w4a8_matmul_ref", "w4ax_matmul_ref",
            "w4ax_matmul_mixed_ref", "w4a4_matmul", "w4a8_matmul",
-           "w4ax_matmul_split", "w4ax_matmul_mixed"]
+           "w4ax_matmul_split", "w4ax_matmul_mixed", "w4a4_matmul_experts",
+           "w4a8_matmul_experts", "w4ax_matmul_mixed_experts",
+           "w4ax_matmul_split_experts"]
 
 
 def _block_dot_scaled(a: torch.Tensor, w: torch.Tensor, a_scale, w_scale,
                       block_size: int) -> torch.Tensor:
-    """int8 a [M, K] × int8 w [K, N] → Σ_b f32(int32 block dot)·a_s·w_s."""
-    m, k = a.shape
-    out = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=a.device)
+    """int8 a [..., M, K] × int8 w [..., K, N] → Σ_b f32(int32 block
+    dot)·a_s·w_s."""
+    k = a.shape[-1]
+    out = torch.zeros((*a.shape[:-1], w.shape[-1]), dtype=torch.float32,
+                      device=a.device)
     for b in range(k // block_size):
         sl = slice(b * block_size, (b + 1) * block_size)
         # the block dot is an integer below 2^18: exact in f64 (PyTorch has
         # no integer matmul on the card) and exact again in f32
-        part = (a[:, sl].to(torch.float64) @ w[sl].to(torch.float64)).float()
-        out += part * (a_scale[:, b:b + 1].float() * w_scale[b].float())
+        part = (a[..., sl].to(torch.float64)
+                @ w[..., sl, :].to(torch.float64)).float()
+        out += part * (a_scale[..., b:b + 1].float()
+                       * w_scale[..., b:b + 1, :].float())
     return out
 
 
 def w4a4_matmul_ref(a_packed, a_scale, w_packed, w_scale,
                     block_size: int = BLOCK_K) -> torch.Tensor:
-    """Packed int4 [M, K/2] × packed int4 [K/2, N] → f32 [M, N]."""
-    a = Q.unpack_int4_interleaved(a_packed, dim=1, block_size=block_size)
-    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
+    """Packed int4 [..., M, K/2] × packed int4 [..., K/2, N] → f32
+    [..., M, N]."""
+    a = Q.unpack_int4_interleaved(a_packed, dim=-1, block_size=block_size)
+    w = Q.unpack_int4_interleaved(w_packed, dim=-2, block_size=block_size)
     return _block_dot_scaled(a, w, a_scale, w_scale, block_size)
 
 
 def w4a8_matmul_ref(a_q, a_scale, w_packed, w_scale,
                     block_size: int = BLOCK_K) -> torch.Tensor:
-    """int8 [M, K] × packed int4 [K/2, N] → f32 [M, N]."""
-    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
+    """int8 [..., M, K] × packed int4 [..., K/2, N] → f32 [..., M, N]."""
+    w = Q.unpack_int4_interleaved(w_packed, dim=-2, block_size=block_size)
     return _block_dot_scaled(a_q, w, a_scale, w_scale, block_size)
 
 
@@ -66,10 +80,10 @@ def w4ax_matmul_ref(a4_packed, a4_scale, a8_q, a8_scale, w4_packed, w4_scale,
                     w8_packed, w8_scale, block_size: int = BLOCK_K):
     """K4 channels in W4A4 plus the trailing K8 in W4A8, one output."""
     out = None
-    if a4_packed.shape[1] > 0:
+    if a4_packed.shape[-1] > 0:
         out = w4a4_matmul_ref(a4_packed, a4_scale, w4_packed, w4_scale,
                               block_size)
-    if a8_q.shape[1] > 0:
+    if a8_q.shape[-1] > 0:
         o8 = w4a8_matmul_ref(a8_q, a8_scale, w8_packed, w8_scale, block_size)
         out = o8 if out is None else out + o8
     if out is None:
@@ -79,8 +93,8 @@ def w4ax_matmul_ref(a4_packed, a4_scale, a8_q, a8_scale, w4_packed, w4_scale,
 
 def _mixed_blocks(a4_packed, a4_scale, a8_q, a8_scale) -> tuple[int, int]:
     """(INT4 blocks, INT8 blocks) of a mixed GEMM's two activation parts."""
-    nb4 = a4_scale.shape[1] if a4_packed.shape[1] else 0
-    nb8 = a8_scale.shape[1] if a8_q.shape[1] else 0
+    nb4 = a4_scale.shape[-1] if a4_packed.shape[-1] else 0
+    nb8 = a8_scale.shape[-1] if a8_q.shape[-1] else 0
     if nb4 + nb8 == 0:
         raise ValueError("empty GEMM")
     return nb4, nb8
@@ -99,16 +113,18 @@ def w4ax_matmul_mixed_ref(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
     if nb8 == 0:
         return w4a4_matmul_ref(a4_packed, a4_scale, w_packed, w_scale,
                                block_size)
-    a = torch.cat([Q.unpack_int4_interleaved(a4_packed, dim=1,
-                                             block_size=block_size), a8_q], 1)
-    a_scale = torch.cat([a4_scale, a8_scale], 1).float()
-    w = Q.unpack_int4_interleaved(w_packed, dim=0, block_size=block_size)
-    out = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32,
+    a = torch.cat([Q.unpack_int4_interleaved(a4_packed, dim=-1,
+                                             block_size=block_size), a8_q], -1)
+    a_scale = torch.cat([a4_scale, a8_scale], -1).float()
+    w = Q.unpack_int4_interleaved(w_packed, dim=-2, block_size=block_size)
+    out = torch.zeros((*a.shape[:-1], w.shape[-1]), dtype=torch.float32,
                       device=a.device)
     for b in range(nb4 + nb8):
         sl = slice(b * block_size, (b + 1) * block_size)
-        part = (a[:, sl].to(torch.float64) @ w[sl].to(torch.float64)).float()
-        out = out + (part * a_scale[:, b:b + 1]) * w_scale[b].float()
+        part = (a[..., sl].to(torch.float64)
+                @ w[..., sl, :].to(torch.float64)).float()
+        out = out + ((part * a_scale[..., b:b + 1])
+                     * w_scale[..., b:b + 1, :].float())
     return out
 
 
@@ -211,6 +227,130 @@ def w4ax_matmul_split(a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale,
     if a8_q.shape[1] > 0:
         o8 = w4a8_matmul(a8_q, a8_scale, w_packed[k4p:], w_scale[nb4:],
                          conversion=conversion)
+        out = o8 if out is None else out.add_(o8)
+    if out is None:
+        raise ValueError("empty GEMM")
+    return out
+
+
+# ----------------------------------------------------- expert-batched forms
+
+def _check_experts(a, a_scale, w_packed, w_scale, nb, a_cols):
+    """[E, M, a_cols] activations, [E, M, nb] scales (contiguous) against
+    [E, nb·64, N] packed weights and [E, nb, N] scales whose rows are
+    contiguous (a K-range of a whole stack is such a view) → (E, M, N,
+    the weights' and their scales' expert strides)."""
+    for name, t in (("a", a), ("a_scale", a_scale), ("w_packed", w_packed),
+                    ("w_scale", w_scale)):
+        if not t.is_cuda:
+            raise ValueError(f"w4ax kernel needs CUDA tensors ({name} is not)")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be [E, ·, ·], got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("a", a), ("a_scale", a_scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    e, m, n = a.shape[0], a.shape[1], w_packed.shape[2]
+    for name, t in (("w_packed", w_packed), ("w_scale", w_scale)):
+        if t.stride(2) != 1 or t.stride(1) != n:
+            raise ValueError(f"{name}'s rows must be contiguous")
+    if (a.shape[2] != a_cols or tuple(a_scale.shape) != (e, m, nb)
+            or tuple(w_packed.shape) != (e, nb * PACKED_BLOCK, n)
+            or tuple(w_scale.shape) != (e, nb, n)):
+        raise ValueError(
+            f"shape mismatch: a {tuple(a.shape)}, a_scale "
+            f"{tuple(a_scale.shape)}, w_packed {tuple(w_packed.shape)}, "
+            f"w_scale {tuple(w_scale.shape)}")
+    if w_packed.dtype != torch.uint8 or a_scale.dtype != torch.float32 \
+            or w_scale.dtype != torch.float32:
+        raise ValueError("w_packed must be uint8 and the scales f32")
+    if n % 4:
+        raise ValueError(f"N={n} must be a multiple of 4")
+    return e, m, n, w_packed.stride(0), w_scale.stride(0)
+
+
+def w4a4_matmul_experts(a_packed, a_scale, w_packed, w_scale, *,
+                        conversion: str = "zeroext") -> torch.Tensor:
+    """Packed int4 [E, M, K/2] × packed int4 [E, K/2, N] on the card → f32
+    [E, M, N]: K3 for every expert in one launch."""
+    nb = a_scale.shape[-1]
+    if a_packed.dtype != torch.uint8:
+        raise ValueError("a_packed must be uint8")
+    e, m, n, ws, wss = _check_experts(a_packed, a_scale, w_packed, w_scale,
+                                      nb, nb * PACKED_BLOCK)
+    out = torch.empty((e, m, n), dtype=torch.float32,
+                      device=a_packed.device)
+    _build.call("w4ax_matmul", "w4a4_matmul_experts", a_packed.device,
+                a_packed, a_scale, w_packed, w_scale, out, e, m, n, nb, ws,
+                wss, int(conversion == "zeroext"))
+    w4a4_matmul_experts.launches += 1
+    return out
+
+
+def w4a8_matmul_experts(a_q, a_scale, w_packed, w_scale, *,
+                        conversion: str = "zeroext") -> torch.Tensor:
+    """int8 [E, M, K] × packed int4 [E, K/2, N] on the card → f32
+    [E, M, N]: K4 for every expert in one launch."""
+    nb = a_scale.shape[-1]
+    if a_q.dtype != torch.int8:
+        raise ValueError("a_q must be int8")
+    e, m, n, ws, wss = _check_experts(a_q, a_scale, w_packed, w_scale, nb,
+                                      nb * BLOCK_K)
+    out = torch.empty((e, m, n), dtype=torch.float32, device=a_q.device)
+    _build.call("w4ax_matmul", "w4a8_matmul_experts", a_q.device, a_q,
+                a_scale, w_packed, w_scale, out, e, m, n, nb, ws, wss,
+                int(conversion == "zeroext"))
+    w4a8_matmul_experts.launches += 1
+    return out
+
+
+def w4ax_matmul_mixed_experts(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
+                              w_scale) -> torch.Tensor:
+    """K5 for every expert in one launch → f32 [E, M, N]; a uniform
+    operand launches the expert-batched W4A8 or W4A4 kernel instead, as
+    :func:`w4ax_matmul_mixed` does."""
+    nb4, nb8 = _mixed_blocks(a4_packed, a4_scale, a8_q, a8_scale)
+    if nb4 == 0:
+        return w4a8_matmul_experts(a8_q, a8_scale, w_packed, w_scale)
+    if nb8 == 0:
+        return w4a4_matmul_experts(a4_packed, a4_scale, w_packed, w_scale)
+    if a4_packed.dtype != torch.uint8 or a8_q.dtype != torch.int8:
+        raise ValueError("a4_packed must be uint8 and a8_q int8")
+    k4p = nb4 * PACKED_BLOCK
+    e, m, n, ws, wss = _check_experts(a4_packed, a4_scale, w_packed[:, :k4p],
+                                      w_scale[:, :nb4], nb4, k4p)
+    if _check_experts(a8_q, a8_scale, w_packed[:, k4p:], w_scale[:, nb4:],
+                      nb8, nb8 * BLOCK_K)[:3] != (e, m, n):
+        raise ValueError("the INT4 and INT8 parts have different shapes")
+    out = torch.empty((e, m, n), dtype=torch.float32,
+                      device=a4_packed.device)
+    _build.call("w4ax_matmul", "w4ax_matmul_mixed_experts", a4_packed.device,
+                a4_packed, a4_scale, a8_q, a8_scale, w_packed, w_scale, out,
+                e, m, n, nb4, nb8, ws, wss)
+    w4ax_matmul_mixed_experts.launches += 1
+    return out
+
+
+w4a4_matmul_experts.launches = 0
+w4a8_matmul_experts.launches = 0
+w4ax_matmul_mixed_experts.launches = 0
+
+
+def w4ax_matmul_split_experts(a4_packed, a4_scale, a8_q, a8_scale, w_packed,
+                              w_scale) -> torch.Tensor:
+    """The split schedule over every expert: one expert-batched K3 over
+    the K4 prefix plus one K4 over the K8 tail, summed as
+    :func:`w4ax_matmul_split` sums them; the weight ranges are views of
+    the stacks (rows contiguous, the expert stride the stack's)."""
+    nb4 = a4_scale.shape[-1] if a4_packed.shape[-1] else 0
+    k4p = nb4 * PACKED_BLOCK
+    out = None
+    if nb4 > 0:
+        out = w4a4_matmul_experts(a4_packed, a4_scale, w_packed[:, :k4p],
+                                  w_scale[:, :nb4])
+    if a8_q.shape[-1] > 0:
+        o8 = w4a8_matmul_experts(a8_q, a8_scale, w_packed[:, k4p:],
+                                 w_scale[:, nb4:])
         out = o8 if out is None else out.add_(o8)
     if out is None:
         raise ValueError("empty GEMM")

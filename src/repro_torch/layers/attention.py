@@ -20,8 +20,11 @@ def project_qkv(params, cfg: ModelConfig, x: torch.Tensor,
                 num_kv_heads=None):
     """x: [B, S, d_model] → q [B, S, Hq, D], k/v [B, S, Hkv, D] (bf16,
     RoPE applied to q and k); the three projections share one act-quant
-    of x. ``num_heads``/``num_kv_heads`` override the config's head
-    counts (a tensor-parallel rank's local heads)."""
+    of x. Under ``cfg.qk_norm`` q and k are RMS-normalized over head_dim
+    (``q_norm``/``k_norm`` scales) before RoPE, as the reference's
+    ``_project_qkv``; the mean sums in f64 on the card, as every norm's
+    does (``common.row_mean``). ``num_heads``/``num_kv_heads`` override
+    the config's head counts (a tensor-parallel rank's local heads)."""
     b = x.shape[0]
     hq = num_heads or cfg.num_heads
     hkv = num_kv_heads or cfg.num_kv_heads
@@ -29,6 +32,9 @@ def project_qkv(params, cfg: ModelConfig, x: torch.Tensor,
     q = q.reshape(b, -1, hq, cfg.head_dim)
     k = k.reshape(b, -1, hkv, cfg.head_dim)
     v = v.reshape(b, -1, hkv, cfg.head_dim)
+    if cfg.qk_norm:
+        q = C.rmsnorm(q, params["q_norm"]["scale"], cfg.norm_eps)
+        k = C.rmsnorm(k, params["k_norm"]["scale"], cfg.norm_eps)
     return (C.apply_rope(q, positions, cfg.rope_theta),
             C.apply_rope(k, positions, cfg.rope_theta), v)
 

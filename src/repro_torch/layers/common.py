@@ -109,8 +109,9 @@ def linear(params, x: torch.Tensor, quant=None) -> torch.Tensor:
 
 def linears(params_list, x: torch.Tensor, quant=None) -> list:
     """Projections of one input, in order; packed W4 ones share the
-    quantization of ``x`` (:func:`QL.qlinear_apply_many`)."""
-    if all("w_packed" in p for p in params_list):
+    quantization of ``x`` (:func:`QL.qlinear_apply_many`) unless the
+    quant config is weight-only."""
+    if all("w_packed" in p for p in params_list) and not quant.weight_only:
         specs = [QL.qlinear_spec(p, quant) for p in params_list]
         return [y.to(torch.bfloat16)
                 for y in QL.qlinear_apply_many(specs, params_list, x)]

@@ -1,13 +1,27 @@
-"""Dense MLP (``repro/layers/mlp.py`` ``mlp_apply``): SwiGLU, or the
-non-gated tanh-GELU of StarCoder2."""
+"""Feed-forward layers (``repro/layers/mlp.py``): the dense MLP (SwiGLU,
+or the non-gated tanh-GELU of StarCoder2) and the capacity-dropped top-k
+MoE with shared experts (``moe_apply``).
+
+The MoE keeps the reference's f32 arithmetic where it decides or weighs
+anything. On the CPU it is XLA's, bit for bit: XLA's CPU ``exp`` (a
+Cephes polynomial with fused multiply-adds, :func:`exp_xla`), its flush
+of f32 subnormals to zero, its row sums (sequential over windows of 32,
+then over the windows) and its scatter order. The card runs the same
+formulas, but sums the softmax's row in f64 (as ``common.row_mean``
+does): a row's routing then does not depend on its batch's layout.
+"""
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
 from repro_torch.layers import common as C
 
-__all__ = ["mlp_apply", "silu_bf16", "gelu_bf16"]
+__all__ = ["mlp_apply", "silu_bf16", "gelu_bf16", "exp_xla", "silu_f32",
+           "softmax_f32", "moe_route", "moe_capacity", "moe_dispatch",
+           "moe_apply"]
 
 _BF16_TINY = torch.finfo(torch.bfloat16).tiny
 # the constants of jax.nn.gelu(approximate=True), rounded to bf16 as JAX
@@ -61,3 +75,186 @@ def mlp_apply(params, x: torch.Tensor, quant=None,
     else:
         raise ValueError(act)
     return C.linear(params["w_down"], h, quant)
+
+
+# ---------------------------------------------------------------- MoE
+
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def _f32(c: float) -> float:
+    """A constant rounded to f32, as XLA's emitter holds it."""
+    return struct.unpack("f", struct.pack("f", c))[0]
+
+
+_LOG2E = _f32(1.44269504088896341)
+_LN2_HI, _LN2_LO = _f32(0.693359375), _f32(-2.12194440e-4)
+_EXP_POLY = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                    8.3334519073e-3, 4.1665795894e-2,
+                                    1.6666665459e-1, 5.0000001201e-1))
+_EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
+
+
+def _ftz(y: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU flushes f32 subnormals (operands and results) to zero."""
+    return torch.where(y.abs() < _F32_TINY, y * 0, y)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a·b + c`` with one multiply-add: the f64 product of two f32
+    values is exact, and the f64 sum rounded to f32 is the fused result
+    unless it lies exactly halfway between two f32 values (never among
+    the 420,012 arguments ``tests/test_torch_moe.py`` compares with
+    XLA's)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of an f32 tensor as XLA's CPU computes it: x clamped to
+    [-87.8, 88.8], n = ⌊x·log2(e) + ½⌋ in [-127, 127], a = x − n·ln 2 in two
+    parts, e^a by Cephes' degree-5 polynomial, times 2^n (0 at n = −127),
+    subnormals flushed. Bit for bit with ``jnp.exp`` on the CPU (PyTorch's
+    own ``exp`` differs in the last bit on 8.5 % of the arguments the
+    tests draw)."""
+    x = _ftz(x).clamp(_EXP_LO, _EXP_HI)
+    n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127, 127)
+    a = _fma(-n, _LN2_LO, _fma(-n, _LN2_HI, x))
+    z = _fma(a, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        z = _fma(z, a, c)
+    z = 1 + _fma(z, a * a, a)
+    ni = n.to(torch.int32)
+    pow2 = torch.where(ni > -127, ((ni + 127) << 23).view(torch.float32),
+                       torch.zeros_like(z))
+    return _ftz(z * pow2)
+
+
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` on f32 as XLA's CPU computes it: x · (1 / (e^{−x} +
+    1)), its ``exp`` (:func:`exp_xla`), subnormals flushed."""
+    x = _ftz(x)
+    return _ftz(x * _ftz(torch.reciprocal(exp_xla(-x) + 1)))
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis, kept. On the CPU XLA's order for a row of
+    f32: from 0 over each window of 32 in turn, then the windows' sums
+    from 0. On the card an f64 sum rounded once (batch-invariant rows)."""
+    if x.is_cuda:
+        return x.double().sum(-1, keepdim=True).float()
+    total = x.new_zeros(x.shape[:-1])
+    for lo in range(0, x.shape[-1], 32):
+        part = x.new_zeros(x.shape[:-1])
+        for i in range(lo, min(lo + 32, x.shape[-1])):
+            part = part + x[..., i]
+        total = total + part
+    return total[..., None]
+
+
+def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis of f32 logits: e^{x − max}
+    (:func:`exp_xla`) over its row sum (:func:`_row_sum`)."""
+    ex = exp_xla(logits - logits.amax(-1, keepdim=True))
+    return ex / _row_sum(ex)
+
+
+def moe_route(params, tkn: torch.Tensor, cfg, quant=None):
+    """The router of ``moe_apply``: tokens [T, d] → (probs [T, E] f32,
+    gate_vals [T, k] renormalized, gate_idx [T, k]). The bf16 router's
+    logits in f32, softmax, the top k by a stable descending sort (so
+    among equal probabilities the lower expert comes first, as
+    ``jax.lax.top_k``; ``torch.topk`` promises no order for ties), each
+    row's k values divided by their sum taken from 0 in order."""
+    k = cfg.num_experts_per_tok
+    probs = softmax_f32(C.linear(params["router"], tkn, quant).float())
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    total = torch.zeros_like(vals[:, 0])
+    for j in range(k):
+        total = total + vals[:, j]
+    return probs, vals / total.clamp_min(1e-9)[:, None], idx
+
+
+def moe_capacity(cfg, t: int) -> int:
+    """Slots per expert for a batch of ``t`` token rows."""
+    return max(int(cfg.capacity_factor * t * cfg.num_experts_per_tok
+                   / cfg.num_experts), 4)
+
+
+def moe_dispatch(gate_idx: torch.Tensor, num_experts: int, cap: int):
+    """Sort-based dispatch of ``gate_idx`` [T, k] → (order [T·k]: the
+    (token, choice) pairs sorted stably by expert, keep [T·k]: whether the
+    sorted pair has a slot, slot [T·k]: its row of the ``[E·cap]``
+    buffers, ``E·cap`` when dropped). The first ``cap`` pairs of each
+    expert in token order keep their slot."""
+    t, k = gate_idx.shape
+    flat_e = gate_idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=gate_idx.device) - starts[sorted_e]
+    keep = pos < cap
+    return order, keep, torch.where(keep, sorted_e * cap + pos,
+                                    num_experts * cap)
+
+
+def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None):
+    """x: [B, S, d] → (out [B, S, d] in x's dtype, the Switch aux loss):
+    top-k routing with capacity ``max(int(capacity_factor·T·k/E), 4)``
+    per expert, T = B·S (every row routed, padding included), as
+    ``repro/layers/mlp.py`` ``moe_apply``.
+
+    Dispatch: the (token, choice) pairs sorted stably by expert; the
+    first ``cap`` of each expert fill its capacity buffer ``[E, cap, d]``
+    in that order, the rest are dropped (their slot is a scratch row past
+    the buffers). Empty slots stay zero rows. The experts' SwiGLU runs on
+    the stacks (gate and up share one act-quant of the buffers; the
+    activation ``silu(gate)·up`` in f32, :func:`silu_f32`, rounded once to
+    bf16 — not the dense MLP's op-by-op bf16 SiLU); the down projection
+    gives ``[E, cap, d]``. Combine: each token adds its kept outputs ×
+    gate weights from 0 in ascending expert order (the reference's
+    ``segment_sum`` order) — a fixed sequence of gathers, no atomics —
+    then the shared experts' output (``mlp_apply``) in f32. ``dropped``:
+    a list the call appends its count of dropped (token, expert) pairs
+    to, as a 0-d tensor (no host sync)."""
+    b, s, d = x.shape
+    tkn = x.reshape(b * s, d)
+    t, e, k = tkn.shape[0], cfg.num_experts, cfg.num_experts_per_tok
+    dev = tkn.device
+    probs, gate_vals, gate_idx = moe_route(params, tkn, cfg, quant)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(gate_idx, e).sum(1).float().mean(0)
+    aux = (me * ce).sum() * e * cfg.router_aux_loss
+
+    cap = moe_capacity(cfg, t)
+    order, keep, slot = moe_dispatch(gate_idx, e, cap)
+    if dropped is not None:
+        dropped.append((~keep).sum())
+
+    buf = tkn.new_zeros((e * cap + 1, d))
+    buf[slot] = tkn[order // k]                   # drops land on row e·cap
+    xe = buf[:e * cap].reshape(e, cap, d).to(torch.bfloat16)
+
+    gate, up = C.linears([params["w_gate"], params["w_up"]], xe, quant)
+    h = _ftz(silu_f32(gate.float()) * _ftz(up.float())).to(torch.bfloat16)
+    ye = C.linear(params["w_down"], h, quant).reshape(e * cap, d)
+
+    gathered = torch.where(keep[:, None], ye[slot.clamp(max=e * cap - 1)],
+                           0.0)
+    weighted = _ftz(_ftz(gathered.float())
+                    * gate_vals.reshape(-1)[order][:, None])
+    # each token's entries in the sorted list, in ascending expert order
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k, device=dev)
+    rank = rank.reshape(t, k).sort(-1).values
+    out = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        out = _ftz(out + weighted[rank[:, j]])
+    if "shared" in params:
+        out = _ftz(out + mlp_apply(params["shared"], tkn, quant).float())
+    return out.reshape(b, s, d).to(x.dtype), aux

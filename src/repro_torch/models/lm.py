@@ -1,5 +1,5 @@
-"""Dense language model: parameters, PTQ, embedding and head
-(``repro/models/lm.py``, dense family).
+"""Dense and MoE language models: parameters, PTQ, embedding and head
+(``repro/models/lm.py``, dense and moe families).
 
 Parameters are plain dictionaries shaped like the reference's tree, with
 the layer stack as a Python list of per-layer dicts instead of a stacked
@@ -20,10 +20,22 @@ serving shards by them (``parallel/sharding.py``), and ``LM.init(...,
 mesh=)`` builds one rank's shard block by block.
 The config adds: a ``"bias"`` to every norm under ``norm="layernorm"``, an
 f32 ``"b"`` [N] to ``wq``/``wk``/``wv`` under ``qkv_bias`` (kept through
-quantization), and no ``w_gate`` under ``mlp_act="gelu"``.
+quantization), ``attn.q_norm``/``attn.k_norm`` (RMSNorm scales over
+head_dim, axes ``(None,)``) under ``qk_norm``, and no ``w_gate`` under
+``mlp_act="gelu"``. An MoE block (``family="moe"``) has ``"moe"`` where a
+dense one has ``"mlp"``::
+
+    {"router": {"w": f32 [d, E]},             # stays f32, bf16 at use
+     "w_gate": {"w": f32 [E, d, F]}, "w_up": {"w": f32 [E, d, F]},
+     "w_down": {"w": f32 [E, F, d]},          # packed [E, K/2, N] stacks
+     "shared": {"w_up", "w_gate", "w_down"}}  # num_shared_experts > 0
+
+with the expert stacks' axes ``("experts", "embed", "mlp")`` and
+``("experts", "mlp", "embed")``, the router's ``("embed", "experts")``.
 Random weights follow the reference's initializers (truncated normal in
-[-2, 2] scaled by 1/√fan_in; unit-scale embedding; norm scales 1, norm
-and projection biases 0) from a seeded
+[-2, 2] scaled by 1/√fan_in, fan_in being the first dimension — so
+1/√E for an expert stack, as ``dense_init`` gives it; unit-scale
+embedding; norm scales 1, norm and projection biases 0) from a seeded
 ``torch.Generator`` — the same distribution, not the same numbers.
 """
 
@@ -35,6 +47,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import qlinear as QL
 from repro_torch.core import quantizer as Q
 from repro_torch.layers import common as C
 from repro_torch.parallel import sharding as SH
@@ -47,6 +60,7 @@ class QuantConfig:
     int4_fraction: float = 0.875     # W4A4 block fraction (rest is W4A8)
     schedule: str = "split"          # split | mixed (paper baseline)
     impl: str = "auto"               # kernel impl: auto | cuda | ref
+    weight_only: bool = False        # W4A16: dequantized bf16 weights
 
     def __post_init__(self):
         if self.schedule not in ("split", "mixed"):
@@ -55,18 +69,24 @@ class QuantConfig:
 
 
 QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})
+FAMILIES = ("dense", "moe")
 # the reference's logical axes of each projection's [K, N] weight
 PROJ_AXES = {"wq": ("embed", "qdim"), "wk": ("embed", "kvdim"),
              "wv": ("embed", "kvdim"), "wo": ("qdim", "embed"),
              "w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
              "w_down": ("mlp", "embed")}
+# an MoE block's router and expert stacks (its shared experts: PROJ_AXES)
+MOE_AXES = {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "mlp"),
+            "w_up": ("experts", "embed", "mlp"),
+            "w_down": ("experts", "mlp", "embed")}
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise ValueError(f"only the dense family is ported, got "
-                             f"{cfg.family!r}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"only the {'/'.join(FAMILIES)} families are "
+                             f"ported, got {cfg.family!r}")
         self.cfg = cfg
 
     # ------------------------------------------------------------ init
@@ -91,23 +111,48 @@ class LM:
             p["bias"] = torch.zeros(d, device=device)
         return p
 
+    def _mlp(self, d_ff: int, act: str, gen, device) -> dict:
+        d = self.cfg.d_model
+        mlp = {"w_up": self._linear(d, d_ff, gen, device),
+               "w_down": self._linear(d_ff, d, gen, device)}
+        if act == "swiglu":
+            mlp["w_gate"] = self._linear(d, d_ff, gen, device)
+        return mlp
+
+    def _moe(self, gen, device) -> dict:
+        """The router, the expert stacks (scaled by 1/√E: the reference's
+        ``dense_init`` takes the stack's first dimension as fan-in) and
+        the shared experts, as ``repro/layers/mlp.py`` ``init_moe``."""
+        cfg = self.cfg
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+        se = 1.0 / math.sqrt(max(1, e))
+        p = {"router": self._linear(d, e, gen, device),
+             "w_gate": {"w": self._trunc_normal((e, d, f), se, gen, device)},
+             "w_up": {"w": self._trunc_normal((e, d, f), se, gen, device)},
+             "w_down": {"w": self._trunc_normal((e, f, d), se, gen, device)}}
+        if cfg.num_shared_experts:
+            p["shared"] = self._mlp(f * cfg.num_shared_experts, "swiglu",
+                                    gen, device)
+        return p
+
     def init_block(self, gen: torch.Generator, device) -> dict:
-        """One fp block (f32 weights) on ``device``."""
+        """One fp block (f32 weights) on ``device``; the FFN's weights are
+        drawn first, then the attention's (a seed gives the dense blocks
+        it always gave)."""
         cfg = self.cfg
         d, qb = cfg.d_model, cfg.qkv_bias
-        mlp = {"w_up": self._linear(d, cfg.d_ff, gen, device),
-               "w_down": self._linear(cfg.d_ff, d, gen, device)}
-        if cfg.mlp_act == "swiglu":
-            mlp["w_gate"] = self._linear(d, cfg.d_ff, gen, device)
-        return {
-            "attn_norm": self._norm(device),
-            "attn": {"wq": self._linear(d, cfg.q_dim, gen, device, qb),
-                     "wk": self._linear(d, cfg.kv_dim, gen, device, qb),
-                     "wv": self._linear(d, cfg.kv_dim, gen, device, qb),
-                     "wo": self._linear(cfg.q_dim, d, gen, device)},
-            "mlp_norm": self._norm(device),
-            "mlp": mlp,
-        }
+        ffn = (("moe", self._moe(gen, device)) if cfg.family == "moe" else
+               ("mlp", self._mlp(cfg.d_ff, cfg.mlp_act, gen, device)))
+        attn = {"wq": self._linear(d, cfg.q_dim, gen, device, qb),
+                "wk": self._linear(d, cfg.kv_dim, gen, device, qb),
+                "wv": self._linear(d, cfg.kv_dim, gen, device, qb),
+                "wo": self._linear(cfg.q_dim, d, gen, device)}
+        if cfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                attn[name] = {"scale": torch.ones(cfg.head_dim,
+                                                  device=device)}
+        return {"attn_norm": self._norm(device), "attn": attn,
+                "mlp_norm": self._norm(device), ffn[0]: ffn[1]}
 
     def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random quantized parameters on ``device``, generated layer by
@@ -140,12 +185,18 @@ class LM:
     # ---------------------------------------------------- logical axes
 
     @staticmethod
-    def _block_axes(tree: dict) -> dict:
+    def _block_axes(tree: dict, proj_axes=PROJ_AXES) -> dict:
         out = {}
         for k, v in tree.items():
-            if k in PROJ_AXES:
-                out[k] = {n: (PROJ_AXES[k][1],) if n == "b" else PROJ_AXES[k]
+            if k in proj_axes:
+                out[k] = {n: (proj_axes[k][-1],) if n == "b" else proj_axes[k]
                           for n in v}
+            elif k == "moe":
+                out[k] = {n: LM._block_axes(sub) if n == "shared"
+                          else LM._block_axes({n: sub}, MOE_AXES)[n]
+                          for n, sub in v.items()}
+            elif k in ("q_norm", "k_norm"):     # over head_dim
+                out[k] = {n: (None,) for n in v}
             elif isinstance(v, dict):
                 out[k] = LM._block_axes(v)
             else:                       # a norm's scale or bias
@@ -170,12 +221,15 @@ class LM:
     # ------------------------------------------------------ offline PTQ
 
     def quantize_block(self, block: dict) -> dict:
-        """Replace every projection ``{"w"}`` of a block by packed W4 (its
-        bias ``b``, if any, kept in f32)."""
+        """Replace every projection ``{"w"}`` of a block whose K is whole
+        128-blocks by packed W4 (its bias ``b``, if any, kept in f32); an
+        expert stack ``[E, K, N]`` expert by expert. The router is not a
+        projection of ``QUANT_KEYS``: it stays f32."""
         def tx(tree):
             out = {}
             for key, val in tree.items():
-                if key in QUANT_KEYS and "w" in val:
+                if key in QUANT_KEYS and "w" in val \
+                        and val["w"].shape[-2] % QL.BLOCK_K == 0:
                     packed, scale = Q.quantize_weight_int4(val["w"])
                     out[key] = {"w_packed": packed, "w_scale": scale}
                     if "b" in val:

@@ -8,7 +8,13 @@ LayerNorm) → q/k/v through W4Ax (act-quant int4 + int8 → W4A4 + W4A8,
 plus the q/k/v bias where the config has one) → RoPE → quantize the
 step's KV and write it into the int4 pools (in place) → paged attention
 (fp chunk queries over int4 history pages plus each row's causal fp
-chunk) → wo → the MLP (SwiGLU, or StarCoder2's tanh-GELU), both W4Ax.
+chunk) → wo → the MLP (SwiGLU, or StarCoder2's tanh-GELU), both W4Ax,
+or for the ``moe`` family the routed experts (``layers/mlp.py``
+``moe_apply``: capacity-dropped top-k over every row of the forward's
+token tensor, padding rows included, as the reference routes them; the
+expert projections one expert-batched W4Ax launch each) and the shared
+experts. Under ``QuantConfig(weight_only=True)`` every projection is
+W4A16 instead (dequantized bf16 weights, ``core/qlinear.py``).
 Attention follows ``attention_schedule``: the
 work-queue kernel with its split-KV combine, or the dense block-table
 kernel. A step in which no row has history yet uses plain fp causal
@@ -93,9 +99,10 @@ the mesh's bits (the TP tests' ``serial_seams``), and where a shard holds
 one block that is one device's own sum. Below ``int4_fraction=1.0`` a
 shard also rounds its own INT4/INT8 split, as the reference's
 ``shard_map`` does. An exception other than an injected fault is fatal
-to a rank under a mesh (:meth:`Engine._rank_local`). Not ported yet: MoE, a data axis above 1, replica
-groups over per-replica meshes and a ``RecoveryLog`` over a TP engine
-(ROADMAP Queue 1).
+to a rank under a mesh (:meth:`Engine._rank_local`). Not ported yet: MoE
+under a mesh (expert parallelism), a data axis above 1, replica groups
+over per-replica meshes and a ``RecoveryLog`` over a TP engine (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -245,6 +252,7 @@ class Engine:
         "attn_dense_grid_items", "attn_forwards", "spec_draft_tokens",
         "spec_accepted_tokens", "spec_rollback_tokens", "spec_noop_count",
         "draft_errors", "attn_work_items_per_shard", "_step_now",
+        "moe_dropped",
         # the mesh's size: rebuilt from the mesh a restore is given
         "tp_size",
     })
@@ -349,6 +357,10 @@ class Engine:
         # per-rank real work: every rank attends its kv heads over the
         # same pages, so each gets attn_work_items / tp exactly
         self.attn_work_items_per_shard = [0] * self.tp_size
+        # set to a list to collect, per MoE layer call, its count of
+        # (token, expert) pairs dropped by capacity (0-d tensors: no host
+        # sync on the forward path)
+        self.moe_dropped: Optional[list] = None
         # the step's clock reading under a mesh (rank 0's, broadcast)
         self._step_now: Optional[float] = None
         self._by_id: dict[int, Request] = {}
@@ -413,7 +425,8 @@ class Engine:
         if cfg.family != "dense":
             raise NotImplementedError(
                 "TP-sharded serving covers dense models; MoE needs expert-"
-                "parallel dispatch at this seam")
+                "parallel dispatch at this seam (not ported yet, ROADMAP "
+                "Queue 1)")
         if cfg.num_heads % m or cfg.num_kv_heads % m:
             raise ValueError(
                 f"num_heads={cfg.num_heads}, num_kv_heads="
@@ -1157,7 +1170,11 @@ class Engine:
                 1, -1, hq_loc * cfg.head_dim)
             x = x + _row_linear(bp["attn"]["wo"], a, quant, mesh)
             h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-            x = x + _mlp_row(bp["mlp"], h, quant, cfg.mlp_act, mesh)
+            if "moe" in bp:         # under a mesh refused (_init_sharding)
+                x = x + MLP.moe_apply(bp["moe"], h, cfg, quant,
+                                      self.moe_dropped)[0]
+            else:
+                x = x + _mlp_row(bp["mlp"], h, quant, cfg.mlp_act, mesh)
         h = C.apply_norm(params["final_norm"], x[:, last_idx], cfg.norm,
                          cfg.norm_eps)
         return self.lm.head(params, h)[0]
@@ -1219,7 +1236,11 @@ class Engine:
                                                          cfg.q_dim)
             x = x + C.linear(bp["attn"]["wo"], a, quant)
             h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-            x = x + MLP.mlp_apply(bp["mlp"], h, quant, cfg.mlp_act)
+            if "moe" in bp:
+                x = x + MLP.moe_apply(bp["moe"], h, cfg, quant,
+                                      self.moe_dropped)[0]
+            else:
+                x = x + MLP.mlp_apply(bp["mlp"], h, quant, cfg.mlp_act)
         return x
 
     def _logits(self, x) -> np.ndarray:

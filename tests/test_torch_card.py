@@ -778,3 +778,74 @@ def test_norms_are_batch_invariant_on_card():
             out = fn(y)
             assert torch.equal(out[:, :8], alone), t
             assert torch.equal(out[:, t - 8:], alone), t
+
+
+def _expert_operands(rng, e, c, nb4, nb8, n, spare=0):
+    """Expert-batched operands: ``[E, C, ·]`` activations (the last row of
+    each expert zero, an empty capacity slot) and a weight stack of
+    ``nb4 + nb8 + spare`` blocks, of which the GEMM reads the first
+    ``nb4 + nb8`` (a view whose expert stride is the whole stack's)."""
+    a4 = rng.integers(0, 256, (e, c, nb4 * 64)).astype(np.uint8)
+    a8 = rng.integers(-128, 128, (e, c, nb8 * 128)).astype(np.int8)
+    a4[:, -1], a8[:, -1] = 0x88, 0             # code 8 / 0: a zero row
+    nb = nb4 + nb8
+    w = _cuda(rng.integers(0, 256, (e, (nb + spare) * 64, n)).astype(np.uint8))
+    ws = _cuda(rng.uniform(0.001, 0.05, (e, nb + spare, n)).astype(np.float32))
+    return (_cuda(a4), _cuda(rng.uniform(0.01, 0.2, (e, c, nb4))
+                             .astype(np.float32)),
+            _cuda(a8), _cuda(rng.uniform(0.001, 0.02, (e, c, nb8))
+                             .astype(np.float32)),
+            w[:, :nb * 64], ws[:, :nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,nb4,nb8,n,spare", [
+    (8, 4, 14, 2, 1408, 0),      # Moonlight's gate/up widths, decode tile
+    (8, 30, 10, 1, 2048, 0),     # its down projection, prefill tile
+    (5, 17, 3, 2, 68, 1),        # ragged N, a sliced stack
+    (3, 65, 2, 3, 200, 0),
+    (2, 1, 0, 2, 64, 0),         # uniform parts: K5 falls back
+    (2, 9, 2, 0, 64, 0)])
+def test_expert_gemms_match_plain_and_loop_on_card(e, c, nb4, nb8, n, spare):
+    """The expert-batched K3, K4 (both conversions) and K5, one launch for
+    all experts, bit for bit against their plain versions and against a
+    loop of the single-expert kernel over the experts, on both tiles,
+    with empty (zero) capacity rows and a stack view whose expert stride
+    is larger than one expert's operand; each counts one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(e * 1000 + c)
+    a4, s4, a8, s8, w, ws = _expert_operands(rng, e, c, nb4, nb8, n, spare)
+    w4, ws4 = w[:, :nb4 * 64], ws[:, :nb4]
+    w8, ws8 = w[:, nb4 * 64:], ws[:, nb4:]
+    if nb4:
+        for conv in ("zeroext", "signext"):
+            before = WK.w4a4_matmul_experts.launches
+            got = WK.w4a4_matmul_experts(a4, s4, w4, ws4, conversion=conv)
+            assert WK.w4a4_matmul_experts.launches == before + 1
+            assert torch.equal(got, WK.w4a4_matmul_ref(a4, s4, w4, ws4))
+            loop = torch.stack([WK.w4a4_matmul(
+                a4[i], s4[i], w4[i].contiguous(), ws4[i].contiguous(),
+                conversion=conv) for i in range(e)])
+            assert torch.equal(got, loop), conv
+    if nb8:
+        for conv in ("zeroext", "signext"):
+            got = WK.w4a8_matmul_experts(a8, s8, w8, ws8, conversion=conv)
+            assert torch.equal(got, WK.w4a8_matmul_ref(a8, s8, w8, ws8))
+            loop = torch.stack([WK.w4a8_matmul(
+                a8[i], s8[i], w8[i].contiguous(), ws8[i].contiguous(),
+                conversion=conv) for i in range(e)])
+            assert torch.equal(got, loop), conv
+    before = WK.w4ax_matmul_mixed_experts.launches
+    got = WK.w4ax_matmul_mixed_experts(a4, s4, a8, s8, w, ws)
+    assert WK.w4ax_matmul_mixed_experts.launches == before + int(
+        nb4 > 0 and nb8 > 0)
+    assert torch.equal(got, WK.w4ax_matmul_mixed_ref(a4, s4, a8, s8, w, ws))
+    loop = torch.stack([WK.w4ax_matmul_mixed(
+        a4[i], s4[i], a8[i], s8[i], w[i].contiguous(), ws[i].contiguous())
+        for i in range(e)])
+    assert torch.equal(got, loop)
+    split = WK.w4ax_matmul_split_experts(a4, s4, a8, s8, w, ws)
+    want = WK.w4ax_matmul_ref(a4, s4, a8, s8, w4, ws4, w8, ws8)
+    assert torch.equal(split, want)
+    torch.cuda.synchronize()

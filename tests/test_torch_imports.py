@@ -69,6 +69,18 @@ def test_tensor_parallel_modules_are_covered():
             "repro_torch.launch.mesh"} <= set(_port_modules())
 
 
+def test_moe_modules_are_covered():
+    """The scan and the jax-blocked import above reach the MoE slice's
+    modules (the two configurations, the layers and kernels it extends)."""
+    for rel in ("configs/moonshot_v1_16b_a3b.py",
+                "configs/qwen3_moe_235b_a22b.py", "layers/mlp.py",
+                "core/qlinear.py", "kernels/w4ax_matmul.py"):
+        assert PORT / rel in SCANNED
+    assert {"repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.layers.mlp"} <= set(_port_modules())
+
+
 def test_spawned_ranks_import_no_jax_or_repro():
     """Ranks started by ``launch.mesh.spawn`` (two gloo processes) import
     every port module and join their mesh without loading JAX or any
@@ -88,7 +100,8 @@ def test_kernel_sources_present():
         assert (PORT / "csrc" / f"{name}.cu").is_file()
     assert set(ops.KERNELS) == {
         "act_quant_w4ax", "act_quant_int4", "act_quant_int8", "w4a4_matmul",
-        "w4a8_matmul",
+        "w4a8_matmul", "w4a4_matmul_experts", "w4a8_matmul_experts",
+        "w4ax_matmul_mixed_experts",
         "w4ax_matmul_mixed", "paged_kv4_prefill_attention_wq",
         "paged_kv4_decode_attention",
         "paged_kv4_prefill_attention", "paged_kv4_decode_attention_wq",
