@@ -156,6 +156,39 @@ Phases, each printed on its own lines; any failure exits non-zero:
    Llama-3-8B; tokens/s of every run printed with the card's name and
    power limit.
 
+13. generate (after moe): the model's own path (``LM.prefill``/
+   ``decode`` over the contiguous caches, not the engine) on Llama-3-8B
+   at full width and depth with the ``slice`` weights:
+   ``init_cache(8, 1024)`` with the int4 cache, 8 prompts × 512 tokens
+   prefilled, 32 greedy decode steps; K10 must launch 32 × 32 times, the
+   fused act-quant 4 × 32 a forward, K1 and K2 alone never, every logit
+   finite; tokens/s, the median decode step and peak memory printed; K10
+   held bit for bit and timed on that cache (T = 1,024, rows at 512–544
+   keys; the K10 row's ``generate T=1024`` entry and
+   ``launches_generate``); then at 2 layers the same run with the
+   kernels and with ``impl="ref"``, under the int4 cache and the bf16
+   one (no K10): the same tokens and logits with error 0;
+14. fmpq (after generate): (a) at Llama-3-8B's four projection shapes
+   and M ∈ {8, 256}, on activations whose channel scales follow
+   ``benchmarks/fmpq_ratio.py``'s synthetic LLM-like regime (8–64
+   outlier channels ×80): ``plan_fmpq`` → ``quantize_linear`` →
+   ``qlinear_apply`` with the kernels ``torch.equal`` to ``impl="ref"``,
+   the plan's INT4 fraction, the error against float64 of FMPQ and of
+   the unpermuted fraction path at the same fraction (FMPQ's below 0.8×
+   on the activation side, against each path's dequantized weights),
+   the gather + fused act-quant beside the fused act-quant alone (the K1
+   row's ``perm`` entries); (b) Llama-3-8B with 24 seeded channels of
+   every norm scale ×50, calibrated block by block on 4 × 256 seeded
+   tokens, planned (q/k/v and up/gate; wo and w_down unplanned): the
+   plans' INT4 fractions, the first-logit error against the fp model of
+   the planned and the unplanned W4Ax model, and of the unplanned
+   weights under W4A8 and W4A16 (the weights' own share), at 1, 2, 4
+   and 8 layers of full width, the planned model at full depth on ``slice`` with its
+   checks and its launch calls a step beside the ``slice`` weights', and
+   at 2 layers
+   the planned model served with the kernels and with ``impl="ref"``
+   (agreement 1.0000, first logits error 0).
+
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
 and the fused op where the tree has it), the dense K3, K4 and K5 at
@@ -189,7 +222,7 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
-          "replicas", "tp", "moe", "archs", "cli")
+          "replicas", "tp", "moe", "generate", "fmpq", "archs", "cli")
 EXTRA_PHASES = ("times", "specdiag")      # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -1677,8 +1710,8 @@ def phase_specdiag(torch, np, mods, cfg, params):
     0–7 of a 64-row input against the same rows alone."""
     from repro_torch.kernels import ops
     from repro_torch.layers import common as C
+    from repro_torch.core import quantizer as Q
     from repro_torch.layers import mlp as MLP
-    from repro_torch.serving import kv_cache as KVC
     ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
     prompts, _ = spec_prompts(np, cfg.vocab_size)
     eng = Engine(cfg, params, QuantConfig(), EngineConfig(
@@ -1710,7 +1743,7 @@ def phase_specdiag(torch, np, mods, cfg, params):
             tokens.astype(np.int64), np.arange(int(cum[-1])), [])
 
     targets = [(C, "apply_norm"), (C, "linear"), (C, "linears"),
-               (C, "apply_rope"), (KVC, "qdq_kv_with"), (MLP, "silu_bf16"),
+               (C, "apply_rope"), (Q, "qdq_kv_with"), (MLP, "silu_bf16"),
                (ops, "paged_kv4_prefill_attention_wq")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     recs = {}
@@ -2534,6 +2567,423 @@ def phase_moe(torch, np, mods, KERNELS, get_config, AQ, WK, Q, rows,
     return {"moe": launches, "moe mixed": mixed}
 
 
+# ------------------------------------------- the model's own path, FMPQ
+
+GEN_BATCH, GEN_PROMPT, GEN_STEPS, GEN_MAX_LEN = 8, 512, 32, 1024
+# K10 timed on the generate run's cache: T = GEN_MAX_LEN slots, the rows
+# at these lengths (the run's own are 512 + 32)
+GEN_K10_LENS = (512, 517, 521, 526, 530, 535, 539, 544)
+
+
+def generate(torch, LM, QuantConfig, cfg, params, quant_kw, tokens,
+             steps: int):
+    """``LM.prefill`` of ``tokens`` into a fresh ``GEN_MAX_LEN`` cache, then
+    ``steps`` greedy ``decode`` steps → (logits [B, 1 + steps, V] on the
+    card, tokens [B, steps], prefill s, seconds per decode step, the
+    cache)."""
+    lm = LM(cfg, QuantConfig(**quant_kw))
+    cache = lm.init_cache(tokens.shape[0], GEN_MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, tokens, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, toks, step_s = [logits[:, -1]], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        tok = logits[:, -1].argmax(-1)
+        logits, cache = lm.decode(params, tok[:, None], cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        toks.append(tok)
+        out.append(logits[:, -1])
+    return (torch.stack(out, 1), torch.stack(toks, 1), prefill_s, step_s,
+            cache)
+
+
+def gen_tokens(torch, np, vocab: int, b: int, s: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(1, vocab, (b, s))).cuda()
+
+
+def kernels_vs_ref(torch, LM, QuantConfig, cfg, params, quant_kw, tokens,
+                   steps: int, label: str):
+    """The same generate run with the kernels and with ``impl="ref"`` on
+    the card: the same tokens and logits with error 0."""
+    got = generate(torch, LM, QuantConfig, cfg, params, quant_kw, tokens,
+                   steps)
+    want = generate(torch, LM, QuantConfig, cfg, params,
+                    {**quant_kw, "impl": "ref"}, tokens, steps)
+    err = float((got[0] - want[0]).abs().max())
+    same = bool(torch.equal(got[1], want[1]))
+    say(f"{label}: kernels against impl='ref': logits max err {err:.4g} "
+        f"over {tuple(got[0].shape)}; tokens equal {same}")
+    if err != 0.0 or not same:
+        fail(f"{label}: the kernel path must equal the plain one (err "
+             f"{err}, tokens equal {same})")
+
+
+def check_k10_generate(torch, KA, Q, cfg, cache, rows: dict):
+    """K10 over the generate run's layer-0 cache (T = ``GEN_MAX_LEN``
+    slots, rows at ``GEN_K10_LENS``), bit for bit against its plain
+    version, timed beside it, SDPA on the gathered dequantized KV and
+    the byte bound: the K10 row's ``generate T=1024`` entry."""
+    import torch.nn.functional as TF
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    c = cache["attn"][0]
+    b, t = c["k_packed"].shape[0], c["k_packed"].shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
+    lengths = torch.tensor(GEN_K10_LENS, dtype=torch.int32, device="cuda")
+    args = (q, c["k_packed"], c["k_scale"], c["k_zero"], c["v_packed"],
+            c["v_scale"], c["v_zero"], lengths)
+    op = lambda: KA.kv4_decode_attention(*args)            # noqa: E731
+    ref = lambda: KA.kv4_decode_attention_ref(*args)       # noqa: E731
+    err = check_exact("kv4_decode_attention generate", op(), ref(),
+                      [(i, hq) for i in range(b)])
+    top = max(GEN_K10_LENS)
+    g = hq // hkv
+    yk, yv = [repeat_heads(Q.dequantize_kv_channelwise(
+        x[:, :, :top], s, z).bfloat16(), g).contiguous()
+        for x, s, z in ((c["k_packed"], c["k_scale"], c["k_zero"]),
+                        (c["v_packed"], c["v_scale"], c["v_zero"]))]
+    mask = (torch.arange(top, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    yq = q[:, :, None, :].contiguous()
+    library_ms = time_ms(torch, lambda: TF.scaled_dot_product_attention(
+        yq, yk, yv, attn_mask=mask))
+    scales = 4 * hkv * d * 4
+    entry = {"shape": f"B={b} Hq={hq} Hkv={hkv} G={g} D={d} T={t} "
+                      f"lengths {GEN_K10_LENS[0]}–{GEN_K10_LENS[-1]}",
+             "max_abs_err": err, "ms": time_ms(torch, op),
+             "plain_ms": time_ms(torch, ref),
+             **bound(*decode_bound(GEN_K10_LENS, hq, hkv, d,
+                                   scales + lengths.nbytes)),
+             "library_ms": library_ms,
+             "rows": KA.dense_plan(b, 1, g, hkv, 1, t).rows}
+    put(rows, "kv4_decode_attention",
+        "generate T=1024" if "kv4_decode_attention" in rows else None, entry)
+    say(f"[generate] K10 at T={t}, lengths {GEN_K10_LENS}: max err {err}; "
+        f"{entry['ms']:.6f} ms (plain {entry['plain_ms']:.6f}, SDPA "
+        f"{library_ms:.6f}, bound {entry['bound_ms']:.6f})")
+
+
+def phase_generate(torch, np, mods, KERNELS, KA, Q, cfg8b, params, rows,
+                   smi: str) -> dict:
+    """The model's own path: Llama-3-8B at full width and depth (the
+    ``slice`` weights), ``LM.init_cache(8, 1024)`` with ``kv4``,
+    ``prefill`` of 8 prompts × 512 tokens, 32 greedy ``decode`` steps
+    (K10 32 × 32 times, the fused act-quant 4 × 32 a forward, K1 and K2
+    alone never, finite logits); K10 on its cache at T = 1,024; then at
+    2 layers the same run with the kernels and with ``impl="ref"`` (the
+    same tokens, error 0), under ``kv4`` and on the bf16 cache (no
+    K10). → the full-depth run's launches."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    tokens = gen_tokens(torch, np, cfg8b.vocab_size, GEN_BATCH, GEN_PROMPT, 2)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    logits, toks, prefill_s, step_s, cache = generate(
+        torch, LM, QuantConfig, cfg8b, params, {}, tokens, GEN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    layers, fwd = cfg8b.num_layers, 1 + GEN_STEPS
+    tag = f"[generate] {cfg8b.name} × {layers} layers"
+    if not torch.isfinite(logits).all():
+        fail(f"{tag}: non-finite logits")
+    want = {"kv4_decode_attention": GEN_STEPS * layers,
+            "act_quant_w4ax": ACT_PER_LAYER * layers * fwd,
+            "act_quant_int4": 0, "act_quant_int8": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{tag}: {name} launched {launches[name]} times, not {n}")
+    for name in SPLIT[1:]:
+        if launches[name] <= 0:
+            fail(f"{tag}: {name} was never launched")
+    for name, n in launches.items():
+        if n and name not in want and name not in SPLIT:
+            fail(f"{tag}: {name} launched {n} times off the model's path")
+    new = GEN_BATCH * GEN_STEPS
+    say(f"{tag}: prefill {GEN_BATCH} × {GEN_PROMPT} tokens in "
+        f"{prefill_s * 1e3:.2f} ms; {GEN_STEPS} decode steps, median "
+        f"{statistics.median(step_s) * 1e3:.2f} ms, {new / sum(step_s):.2f} "
+        f"decode tok/s, {(new + GEN_BATCH) / wall:.2f} tok/s with the "
+        f"prefill; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB | {smi}")
+    say(f"{tag} first row's tokens {toks[0].tolist()}")
+    say(f"{tag} launches {json.dumps(launches)}")
+    check_k10_generate(torch, KA, Q, cfg8b, cache, rows)
+    rows["kv4_decode_attention"]["launches_generate"] = launches[
+        "kv4_decode_attention"]
+    del cache, logits
+    cfg2 = dataclasses.replace(cfg8b, num_layers=2)
+    params2 = {**params, "blocks": params["blocks"][:2]}
+    kernels_vs_ref(torch, LM, QuantConfig, cfg2, params2, {}, tokens,
+                   GEN_STEPS, "[generate] 2 layers, int4 cache")
+    for kern in KERNELS.values():
+        kern.launches = 0
+    kernels_vs_ref(torch, LM, QuantConfig, cfg2, params2, {"kv4": False},
+                   tokens, GEN_STEPS, "[generate] 2 layers, bf16 cache")
+    if KERNELS["kv4_decode_attention"].launches:
+        fail("[generate] the bf16 cache path launched K10")
+    return launches
+
+
+# the four projection shapes of Llama-3-8B: (name, K, N)
+FMPQ_SHAPES = (("wq", 4096, 4096), ("wk/wv", 4096, 1024),
+               ("w_up/w_gate", 4096, 14336), ("w_down", 14336, 4096))
+FMPQ_CAL_ROWS = 512          # calibration rows per projection
+FMPQ_OUTLIERS, FMPQ_MAG = 24, 50.0    # planted into every norm scale
+FMPQ_DEPTH = 8               # layers of the fp comparison
+FMPQ_DEPTHS = (1, 2, 4, FMPQ_DEPTH)
+FMPQ_CAL = (4, 256)          # calibration prompts (batch, tokens)
+# the quantized models held against the fp one, first logits: the planned
+# and the unplanned W4Ax, and the unplanned weights with every activation
+# block INT8 (W4A8) and with bf16 activations (W4A16), which part the
+# weights' int4 error alone and A4's from the error FMPQ works on
+FMPQ_AGAINST_FP = (("planned W4Ax", "planned", {}),
+                   ("unplanned W4Ax", "plain", {}),
+                   ("unplanned W4A8", "plain", {"int4_fraction": 0.0}),
+                   ("unplanned W4A16", "plain", {"weight_only": True}))
+
+
+def synthetic_llm_activations(np, rng, n_ch: int, n_outlier: int,
+                              mag: float = 80.0):
+    """Per-channel absmax of LLM-like activations
+    (``benchmarks/fmpq_ratio.py``): log-normal, ``n_outlier`` channels
+    ×``mag``."""
+    absmax = rng.lognormal(0.0, 0.4, size=n_ch)
+    absmax[rng.choice(n_ch, n_outlier, replace=False)] *= mag
+    return absmax
+
+
+def rel_l2(torch, y, exact) -> float:
+    return float((y.double() - exact).norm() / exact.norm())
+
+
+def fmpq_projections(torch, np, AQ, F, QL, Q, rows: dict, smi: str):
+    """(a) Each Llama-3-8B projection shape, activations ``x[:, c] ~
+    N(0, 1)·a_c/3`` with ``a`` from :func:`synthetic_llm_activations`
+    (8–64 outlier channels ×80): a plan from the channel absmax of 512
+    calibration rows, ``quantize_linear`` and ``qlinear_apply`` with the
+    kernels ``torch.equal`` to ``impl="ref"`` (one fused act-quant a call)
+    at M ∈ {8, 256}; the plan's INT4 fraction; FMPQ's error against
+    float64 beside the unpermuted fraction path's at the same fraction,
+    each against the float64 product of the path's own dequantized
+    weights (the activation side, which the plan changes: FMPQ's must be
+    below 0.8× the other's) and against the fp weights' (the weight error
+    is common to both; printed); the gather + fused act-quant beside the
+    fused act-quant alone (the K1 row's ``perm`` entries)."""
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, k, n in FMPQ_SHAPES:
+        n_out = int(rng.integers(8, 64))
+        scale = torch.from_numpy(synthetic_llm_activations(
+            np, rng, k, n_out)).float().cuda() / 3
+
+        def acts(m):
+            return (torch.randn((m, k), generator=gen, device="cuda")
+                    * scale).bfloat16()
+
+        plan = F.plan_fmpq(F.collect_channel_stats(
+            acts(FMPQ_CAL_ROWS).float()).double().cpu().numpy())
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        qp, spec = QL.quantize_linear(w, plan, impl="cuda")
+        ref_spec = dataclasses.replace(spec, impl="ref")
+        fqp, fspec = QL.quantize_linear_fraction(w, plan.int4_fraction,
+                                                 impl="cuda")
+        perm = qp["perm"]
+        wd = Q.dequantize_weight_int4(qp["w_packed"], qp["w_scale"]).double()
+        fwd = Q.dequantize_weight_int4(fqp["w_packed"],
+                                       fqp["w_scale"]).double()
+        for m in (8, 256):
+            x = acts(m)
+            before = AQ.act_quant_w4ax.launches
+            y = QL.qlinear_apply(spec, qp, x, out_dtype=torch.float32)
+            if AQ.act_quant_w4ax.launches != before + 1:
+                fail(f"[fmpq] {name}: not one fused act-quant a call")
+            err = check_exact(f"[fmpq] {name} M={m}", y, QL.qlinear_apply(
+                ref_spec, qp, x, out_dtype=torch.float32), None)
+            yf = QL.qlinear_apply(fspec, fqp, x, out_dtype=torch.float32)
+            exact = x.double() @ w.double()
+            act_f = rel_l2(torch, y, x[:, perm].double() @ wd)
+            act_u = rel_l2(torch, yf, x.double() @ fwd)
+            e2e_f, e2e_u = rel_l2(torch, y, exact), rel_l2(torch, yf, exact)
+            say(f"[fmpq] {name} K={k} N={n} M={m}: {n_out} outlier "
+                f"channels, plan INT4 fraction {plan.int4_fraction:.4f} "
+                f"(k4 {plan.k4}); kernels = ref (err {err}); relative L2 "
+                f"error, activation side: FMPQ {act_f:.5f}, unpermuted "
+                f"{act_u:.5f} ({act_f / act_u:.3f}×); against the fp "
+                f"weights: FMPQ {e2e_f:.5f}, unpermuted {e2e_u:.5f} "
+                f"({e2e_f / e2e_u:.3f}×)")
+            if not act_f < 0.8 * act_u:
+                fail(f"[fmpq] {name} M={m}: FMPQ's error {act_f} is not "
+                     f"below 0.8× the unpermuted path's {act_u}")
+            if m != 256 and name != "w_down":
+                continue
+            alone = lambda: AQ.act_quant_w4ax(x, plan.k4)   # noqa: E731
+            gathered = lambda: AQ.act_quant_w4ax(           # noqa: E731
+                x.index_select(-1, perm), plan.k4)
+            entry = {"shape": f"perm M={m} K={k} k4={plan.k4} bf16",
+                     "ms": time_ms(torch, gathered),
+                     "ms_100": time_ms_100(torch, gathered),
+                     "without_perm_ms": time_ms(torch, alone),
+                     "without_perm_ms_100": time_ms_100(torch, alone),
+                     "plain_ms": time_ms(torch, lambda: AQ.act_quant_w4ax_ref(
+                         x.index_select(-1, perm), plan.k4)),
+                     "bound_ms": (act_bytes(m, k, plan.k4) + perm.nbytes)
+                     / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            if "act_quant_int4" in rows:     # K1's row: the fused op
+                rows["act_quant_int4"][f"perm M={m} K={k}"] = entry
+            say(f"[fmpq] gather + fused act-quant M={m} K={k}: "
+                f"{entry['ms']:.6f} ms (100-call {entry['ms_100']:.6f}) "
+                f"beside the fused act-quant alone {entry['without_perm_ms']:.6f}"
+                f" ({entry['without_perm_ms_100']:.6f}) | {smi}")
+        del w, wd, fwd, qp, fqp
+
+
+def fmpq_model(torch, np, LM, F, C, ATT, MLP, cfg, seed: int, tokens):
+    """Llama-3-8B's fp weights drawn block by block in ``LM.init``'s order
+    from ``seed`` (the ``slice`` weights before quantization), every
+    ``attn_norm`` and ``mlp_norm`` scale with ``FMPQ_OUTLIERS`` seeded
+    channels set to ``FMPQ_MAG``; each block calibrated on ``tokens`` by
+    an unrolled fp forward (its q/k/v input's and its up/gate input's
+    channel absmax, as ``benchmarks/fmpq_ratio.py:collect_linear_stats``
+    records them), planned, and packed with the plans (wo and w_down
+    unplanned) and without; the fp blocks kept for the first
+    ``FMPQ_DEPTH`` layers. → (planned params, unplanned params of the
+    first ``FMPQ_DEPTH`` layers, fp params of those, the plans' INT4
+    fractions)."""
+    dev = "cuda"
+    lm = LM(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
+    top = lm.init_top(gen, dev)
+    qtop = {k: v for k, v in lm.quantize({**top, "blocks": []}).items()
+            if k != "blocks"}
+    rng = np.random.default_rng(seed)
+    x = lm.embed(top, tokens)
+    planned, plain, fp, fractions = [], [], [], []
+    with torch.no_grad():
+        for li in range(cfg.num_layers):
+            blk = lm.init_block(gen, dev)
+            for nm in ("attn_norm", "mlp_norm"):
+                idx = torch.from_numpy(rng.choice(d, FMPQ_OUTLIERS,
+                                                  replace=False)).to(dev)
+                blk[nm]["scale"][idx] = FMPQ_MAG
+            h = C.apply_norm(blk["attn_norm"], x, cfg.norm, cfg.norm_eps)
+            qkv = F.collect_channel_stats(h.float()).double().cpu().numpy()
+            x = x + ATT.attention_train(blk["attn"], cfg, h)
+            h = C.apply_norm(blk["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+            ffn = F.collect_channel_stats(h.float()).double().cpu().numpy()
+            x = x + MLP.mlp_apply(blk["mlp"], h)
+            pq, pf = F.plan_fmpq(qkv), F.plan_fmpq(ffn)
+            fractions.append((pq.int4_fraction, pf.int4_fraction))
+            planned.append(lm.quantize_block(blk, {
+                "wq": pq, "wk": pq, "wv": pq, "w_up": pf, "w_gate": pf}))
+            if li < FMPQ_DEPTH:
+                plain.append(lm.quantize_block(blk))
+                fp.append(blk)
+            del blk
+    return ({**qtop, "blocks": planned}, {**qtop, "blocks": plain},
+            {**top, "blocks": fp}, fractions)
+
+
+def phase_fmpq(torch, np, mods, KERNELS, AQ, Q, cfg8b, params, rows,
+               smi: str) -> dict:
+    """(a) the planned projection at Llama-3-8B's shapes
+    (:func:`fmpq_projections`); (b) the planned model
+    (:func:`fmpq_model`): the plans' INT4 fractions; the first logits of
+    the quantized models of ``FMPQ_AGAINST_FP`` against the fp model's
+    at ``FMPQ_DEPTHS`` layers of full width; the planned model
+    at full depth serving ``slice`` with ``slice``'s checks, its kernel
+    launch calls a step beside the unplanned ``slice`` weights'; at 2
+    layers the planned model served with the kernels and with
+    ``impl="ref"``: agreement 1.0000, first logits error 0. → the
+    planned ``slice`` run's launches."""
+    from repro_torch.core import fmpq as F
+    from repro_torch.core import qlinear as QL
+    from repro_torch.layers import attention as ATT
+    from repro_torch.layers import common as C
+    from repro_torch.layers import mlp as MLP
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    t0 = time.perf_counter()
+
+    def lap(part: str):
+        say(f"[time] fmpq {part}: {time.perf_counter() - t0:.1f} s in")
+
+    fmpq_projections(torch, np, AQ, F, QL, Q, rows, smi)
+    lap("(a) projections")
+    cal = gen_tokens(torch, np, cfg8b.vocab_size, *FMPQ_CAL, 3)
+    planned, plain, fp, fractions = fmpq_model(
+        torch, np, LM, F, C, ATT, MLP, cfg8b, 0, cal)
+    fr = np.asarray(fractions)
+    say(f"[fmpq] {cfg8b.num_layers} layers planned from {FMPQ_CAL[0]} × "
+        f"{FMPQ_CAL[1]} calibration tokens ({FMPQ_OUTLIERS} channels of "
+        f"every norm scale ×{FMPQ_MAG:g}): INT4 fraction q/k/v min "
+        f"{fr[:, 0].min():.4f} mean {fr[:, 0].mean():.4f}, up/gate min "
+        f"{fr[:, 1].min():.4f} mean {fr[:, 1].mean():.4f} (the dispatcher "
+        f"serves K4 from int4_fraction 0.875)")
+    lap("(b) calibration and plans")
+    ev = gen_tokens(torch, np, cfg8b.vocab_size, 4, 128, 4)
+    for depth in FMPQ_DEPTHS:
+        cfg_d = dataclasses.replace(cfg8b, num_layers=depth)
+        ref = LM(cfg_d).prefill({**fp, "blocks": fp["blocks"][:depth]}, ev,
+                                LM(cfg_d).init_cache(4, 128, "cuda"))[0]
+        for label, p, qc in FMPQ_AGAINST_FP:
+            lm = LM(cfg_d, QuantConfig(**qc))
+            p = planned if p == "planned" else plain
+            got = lm.prefill({**p, "blocks": p["blocks"][:depth]}, ev,
+                             lm.init_cache(4, 128, "cuda"))[0]
+            err = float((got - ref).abs().max() / ref.abs().max())
+            mean = float((got - ref).abs().mean() / ref.abs().mean())
+            top1 = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            say(f"[fmpq] {label}, {depth} of {cfg8b.num_layers} layers "
+                f"at full width: first-logit error against the fp model "
+                f"{err:.5f} of max|logit| (mean {mean:.5f}); top-1 "
+                f"agreement {top1:.2f} over 4 prompts of 128 tokens")
+    del fp, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(b) against fp")
+    launches = serve_llama(torch, np, mods, KERNELS, cfg8b, planned, "slice",
+                           phase="fmpq")
+    calls = {label: moe_launch_calls(torch, np, mods, cfg8b, p)
+             for label, p in (("planned", planned), ("slice", params))}
+    say(f"[fmpq] kernel launch calls a step (steps 5–6): planned "
+        f"{calls['planned']:.1f}, the slice weights {calls['slice']:.1f} | "
+        f"{smi}")
+    lap("(b) planned slice")
+    cfg2 = dataclasses.replace(cfg8b, num_layers=2)
+    p2 = {**planned, "blocks": planned["blocks"][:2]}
+    del planned
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg2.vocab_size, n).tolist()
+               for n in (40, 7, 23, 64, 13, 29)]
+    res = {}
+    for impl in ("auto", "ref"):
+        eng, first, _ = serve(torch, np, Engine, EngineConfig, QuantConfig,
+                              cfg2, p2, impl, prompts, 16, EngineConfig(
+                                  max_batch=8, num_pages=128, page_size=64,
+                                  max_pages_per_seq=16,
+                                  prefill_chunk_tokens=48, kv_range=4.0), {})
+        res[impl] = (check_run(eng, len(prompts), 16, cfg2.vocab_size,
+                               f"fmpq parity[{impl}]"), first)
+    (tk, lk), (tr, lr) = res["auto"], res["ref"]
+    err = float(np.abs(lk - lr).max())
+    total = sum(len(v) for v in tr.values())
+    agree = sum(a == b for i in tr for a, b in zip(tk[i], tr[i])) / total
+    say(f"[fmpq] planned parity, 2 layers: first logits max err {err:.4g}; "
+        f"greedy agreement {agree:.4f} over {total} tokens")
+    if err != 0.0 or agree != 1.0:
+        fail(f"[fmpq] planned parity: the kernel path must equal the plain "
+             f"one (err {err}, agreement {agree})")
+    lap("(b) parity")
+    return launches
+
+
 # ---------------------------------------------------- tensor parallelism
 
 TP_SIZES = (1, 2, 4)       # the world sizes the tp phase runs, cards allowing
@@ -3112,7 +3562,7 @@ def main():
     runs = {}
     tp = {}
     if order or phases & {"spec", "specdiag", "recover", "replicas", "tp",
-                          "moe"}:
+                          "moe", "generate", "fmpq"}:
         t0 = time.perf_counter()
         params = LM(cfg8b).init(seed=0, device="cuda")   # shared by every run
         torch.cuda.synchronize()
@@ -3147,6 +3597,14 @@ def main():
             runs.update(phase_moe(torch, np, mods, ops.KERNELS, get_config,
                                   AQ, WK, Q, rows, params, smi))
             lap("moe")
+        if "generate" in phases:
+            runs["generate"] = phase_generate(torch, np, mods, ops.KERNELS,
+                                              KA, Q, cfg8b, params, rows, smi)
+            lap("generate")
+        if "fmpq" in phases:
+            runs["fmpq"] = phase_fmpq(torch, np, mods, ops.KERNELS, AQ, Q,
+                                      cfg8b, params, rows, smi)
+            lap("fmpq")
         del params
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's

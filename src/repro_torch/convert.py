@@ -6,7 +6,10 @@ sees a JAX type. Block leaves carry a leading layer axis there and become
 a list of per-layer dicts here, so both packages compute the same thing.
 Every leaf crosses as it is, an MoE block's included: the f32 router,
 the packed expert stacks (``[L, E, K/2, N]`` → per layer ``[E, K/2,
-N]``), the shared experts and QK-norm's ``attn.q_norm``/``k_norm``.
+N]``), the shared experts, QK-norm's ``attn.q_norm``/``k_norm`` and an
+FMPQ-planned projection's ``perm`` (int32 ``[K]`` per layer; a
+layer's equal permutations, compared on the host, become one tensor, so
+the projections of one input share one act-quant).
 The reference's logical axes (``LM.quantize``'s ``qaxes``) come across
 the same way (:func:`axes_from_jax`): the blocks' leading ``"layers"``
 axis is dropped and each layer gets its own copy.
@@ -17,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import fmpq
 from repro_torch.layers.common import resolve_device
 
-__all__ = ["params_from_jax", "axes_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "axes_from_jax", "plan_from_jax", "to_torch"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -48,9 +52,38 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
            for k, v in tree.items() if k != "blocks"}
     stacked = tree["blocks"]
     num_layers = len(next(iter(_leaves(stacked))))
-    out["blocks"] = [_tree(stacked, lambda a, i=i: to_torch(a[i], device))
+    out["blocks"] = [_layer(stacked, i, device, {})
                      for i in range(num_layers)]
     return out
+
+
+def _layer(x, i, device, perms: dict):
+    """Layer ``i`` of stacked block leaves; ``perms`` maps a
+    permutation's host bytes to the one tensor the layer gives it."""
+    out = {}
+    for k, v in x.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, i, device, perms)
+        elif k == "perm":
+            a = np.ascontiguousarray(v[i])
+            key = (a.dtype.str, a.tobytes())
+            if key not in perms:
+                perms[key] = to_torch(a, device)
+            out[k] = perms[key]
+        else:
+            out[k] = to_torch(v[i], device)
+    return out
+
+
+def plan_from_jax(plan) -> fmpq.FMPQPlan:
+    """The reference's ``FMPQPlan`` (numpy fields) → the port's, the
+    arrays copied as they are."""
+    return fmpq.FMPQPlan(
+        perm=np.array(plan.perm, dtype=np.int32),
+        inv_perm=np.array(plan.inv_perm, dtype=np.int32),
+        block_bits=np.array(plan.block_bits, dtype=np.int8),
+        num_int4_blocks=int(plan.num_int4_blocks),
+        block_size=int(plan.block_size))
 
 
 def axes_from_jax(qaxes: dict, num_layers: int) -> dict:

@@ -1,5 +1,19 @@
-"""Dense and MoE language models: parameters, PTQ, embedding and head
-(``repro/models/lm.py``, dense and moe families).
+"""Dense and MoE language models (``repro/models/lm.py``, dense and moe
+families): parameters, PTQ (plan-free, or with per-input FMPQ plans), and
+the model's own forward over a contiguous cache::
+
+    lm = LM(cfg, quant=None | QuantConfig(...))
+    params = lm.init(seed, device)                # packed W4 (LM.quantize)
+    cache = lm.init_cache(batch, max_len, device) # int4 (kv4) or bf16
+    logits, cache = lm.prefill(params, tokens, cache)   # [B, 1, V] f32
+    logits, cache = lm.decode(params, tokens, cache)    # tokens [B, 1]
+    logits, aux = lm.train_logits(params, tokens)       # [B, S, V] f32
+
+The forward walks the layers in a Python loop (the reference scans
+them); ``quant=None`` runs fp params (``{"w"}`` projections, bf16
+``torch.matmul``) and a bf16 cache. The serving engine
+(``serving/engine.py``) has its own paged forward and reads only
+``embed``/``head`` from here.
 
 Parameters are plain dictionaries shaped like the reference's tree, with
 the layer stack as a Python list of per-layer dicts instead of a stacked
@@ -49,7 +63,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as QL
 from repro_torch.core import quantizer as Q
+from repro_torch.layers import attention as ATT
 from repro_torch.layers import common as C
+from repro_torch.layers import mlp as MLP
 from repro_torch.parallel import sharding as SH
 
 __all__ = ["LM", "QuantConfig", "QUANT_KEYS"]
@@ -60,6 +76,7 @@ class QuantConfig:
     int4_fraction: float = 0.875     # W4A4 block fraction (rest is W4A8)
     schedule: str = "split"          # split | mixed (paper baseline)
     impl: str = "auto"               # kernel impl: auto | cuda | ref
+    kv4: bool = True                 # LM.init_cache: int4 cache vs bf16
     weight_only: bool = False        # W4A16: dequantized bf16 weights
 
     def __post_init__(self):
@@ -83,11 +100,19 @@ MOE_AXES = {"router": ("embed", "experts"),
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, quant: QuantConfig | None = None):
+        """``quant``: the projections' runtime (fraction, schedule,
+        ``impl``) and the cache kind; ``None`` for fp params, whose
+        packed projections (if any) then take ``QuantConfig()``, as the
+        reference's default runtime. The engine keeps its own."""
         if cfg.family not in FAMILIES:
-            raise ValueError(f"only the {'/'.join(FAMILIES)} families are "
-                             f"ported, got {cfg.family!r}")
+            raise ValueError(
+                f"only the {'/'.join(FAMILIES)} families are ported, got "
+                f"{cfg.family!r} (the other families: ROADMAP Queue 1 "
+                "item 6)")
         self.cfg = cfg
+        self.quant = quant
+        self._rt = quant if quant is not None else QuantConfig()
 
     # ------------------------------------------------------------ init
 
@@ -154,6 +179,18 @@ class LM:
         return {"attn_norm": self._norm(device), "attn": attn,
                 "mlp_norm": self._norm(device), ffn[0]: ffn[1]}
 
+    def init_top(self, gen: torch.Generator, device) -> dict:
+        """The fp embedding (f32), final norm and head, drawn first from
+        ``gen`` (then :meth:`init_block` once per layer): :meth:`init`'s
+        order, so a caller drawing blocks itself gets :meth:`init`'s
+        weights before quantization."""
+        cfg = self.cfg
+        return {"embed": {"table": self._trunc_normal(
+                    (cfg.vocab_size, cfg.d_model), 1.0, gen, device)},
+                "final_norm": self._norm(device),
+                "lm_head": self._linear(cfg.d_model, cfg.vocab_size, gen,
+                                        device)}
+
     def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random quantized parameters on ``device``, generated layer by
         layer: each block is made in f32, quantized, and its f32 weights
@@ -164,14 +201,7 @@ class LM:
         dev = C.resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
-        params = {
-            "embed": {"table": self._trunc_normal(
-                (cfg.vocab_size, cfg.d_model), 1.0, gen, dev)},
-            "final_norm": self._norm(dev),
-            "lm_head": self._linear(cfg.d_model, cfg.vocab_size, gen, dev),
-            "blocks": [],
-        }
-        params = self.quantize(params)
+        params = self.quantize({**self.init_top(gen, dev), "blocks": []})
         for _ in range(cfg.num_layers):
             block = self.quantize_block(self.init_block(gen, dev))
             if mesh is not None:
@@ -220,18 +250,36 @@ class LM:
 
     # ------------------------------------------------------ offline PTQ
 
-    def quantize_block(self, block: dict) -> dict:
+    def quantize_block(self, block: dict, plans: dict | None = None) -> dict:
         """Replace every projection ``{"w"}`` of a block whose K is whole
         128-blocks by packed W4 (its bias ``b``, if any, kept in f32); an
         expert stack ``[E, K, N]`` expert by expert. The router is not a
-        projection of ``QUANT_KEYS``: it stays f32."""
+        projection of ``QUANT_KEYS``: it stays f32. ``plans``: an FMPQ
+        plan per projection name of the block's attention or dense MLP
+        (``"wq"``, ``"w_up"``, …; projections of one input share their
+        input's plan): those are built by ``qlinear.quantize_linear``
+        (rows permuted, ``"perm"`` kept; one tensor per distinct
+        permutation, compared on the host, so the projections of one
+        input share one act-quant)."""
+        plans = plans or {}
+        perms: dict = {}
+
+        def planned(key, w):
+            plan = plans[key]
+            qp, _ = QL.quantize_linear(w, plan)
+            qp["perm"] = perms.setdefault(plan.perm.tobytes(), qp["perm"])
+            return qp
+
         def tx(tree):
             out = {}
             for key, val in tree.items():
                 if key in QUANT_KEYS and "w" in val \
                         and val["w"].shape[-2] % QL.BLOCK_K == 0:
-                    packed, scale = Q.quantize_weight_int4(val["w"])
-                    out[key] = {"w_packed": packed, "w_scale": scale}
+                    if key in plans and val["w"].dim() == 2:
+                        out[key] = planned(key, val["w"])
+                    else:
+                        packed, scale = Q.quantize_weight_int4(val["w"])
+                        out[key] = {"w_packed": packed, "w_scale": scale}
                     if "b" in val:
                         out[key]["b"] = val["b"]
                 elif isinstance(val, dict):
@@ -241,14 +289,17 @@ class LM:
             return out
         return tx(block)
 
-    def quantize(self, params: dict) -> dict:
+    def quantize(self, params: dict, plans: list | None = None) -> dict:
         """fp params → packed W4 params; the embedding table and the head
         are stored bf16 (unquantized, as in the reference). Their axes:
-        :meth:`axes`."""
+        :meth:`axes`. ``plans``: one :meth:`quantize_block` plan dict per
+        layer."""
         out = dict(params)
         out["embed"] = {"table": params["embed"]["table"].to(torch.bfloat16)}
         out["lm_head"] = {"w": params["lm_head"]["w"].to(torch.bfloat16)}
-        out["blocks"] = [self.quantize_block(b) for b in params["blocks"]]
+        plans = plans or [None] * len(params["blocks"])
+        out["blocks"] = [self.quantize_block(b, p)
+                         for b, p in zip(params["blocks"], plans)]
         return out
 
     # ---------------------------------------------------- embed / head
@@ -258,3 +309,88 @@ class LM:
 
     def head(self, params, x: torch.Tensor) -> torch.Tensor:
         return C.linear(params["lm_head"], x).float()
+
+    # ------------------------------------------------ the model's forward
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        """``{"attn": [one cache per layer]}``: the packed int4 cache
+        (``attention.init_q4_cache``, default static range) under a quant
+        config with ``kv4``, else the bf16 one."""
+        if self.quant is not None and self.quant.kv4:
+            make = ATT.init_q4_cache
+        else:
+            make = ATT.init_fp_cache
+        return {"attn": [make(self.cfg, batch, max_len, device=device)
+                         for _ in range(self.cfg.num_layers)]}
+
+    def _block(self, bp, x, mode: str, cache, aux):
+        """One layer (``_attn_mlp_block``): norm, attention (``train``,
+        ``prefill`` or ``decode`` over the int4 or bf16 cache), residual,
+        norm, the MLP or the MoE layer (its aux added), residual."""
+        cfg, rt = self.cfg, self._rt
+        h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
+        new_cache = None
+        q4 = cache is not None and "k_packed" in cache
+        if mode == "train":
+            a = ATT.attention_train(bp["attn"], cfg, h, quant=rt)
+        elif mode == "prefill":
+            fn = ATT.attention_prefill_q4 if q4 else ATT.attention_prefill
+            a, new_cache = fn(bp["attn"], cfg, h, cache, quant=rt)
+        elif q4:
+            a, new_cache = ATT.attention_decode_q4(bp["attn"], cfg, h, cache,
+                                                   rt, impl=rt.impl)
+        else:
+            a, new_cache = ATT.attention_decode_fp(bp["attn"], cfg, h, cache,
+                                                   rt)
+        x = x + a
+        h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+        if "moe" in bp:
+            y, l_aux = MLP.moe_apply(bp["moe"], h, cfg, rt)
+            aux = aux + l_aux
+        else:
+            y = MLP.mlp_apply(bp["mlp"], h, rt, cfg.mlp_act)
+        return x + y, new_cache, aux
+
+    def _layers(self, params, x, mode: str, cache=None):
+        if x.is_cuda:
+            C.no_tf32()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches = []
+        for li, bp in enumerate(params["blocks"]):
+            c = cache["attn"][li] if cache is not None else None
+            x, nc, aux = self._block(bp, x, mode, c, aux)
+            caches.append(nc)
+        return x, ({"attn": caches} if cache is not None else None), aux
+
+    def _final(self, params, x):
+        return C.apply_norm(params["final_norm"], x, self.cfg.norm,
+                            self.cfg.norm_eps)
+
+    @torch.no_grad()
+    def train_hidden(self, params, tokens: torch.Tensor):
+        """The backbone up to and with the final norm → (hidden [B, S, d]
+        bf16, aux). A forward only: no autograd, no checkpointing."""
+        x, _, aux = self._layers(params, self.embed(params, tokens), "train")
+        return self._final(params, x), aux
+
+    @torch.no_grad()
+    def train_logits(self, params, tokens: torch.Tensor):
+        """tokens [B, S] → (logits [B, S, V] f32, the MoE aux loss)."""
+        hidden, aux = self.train_hidden(params, tokens)
+        return self.head(params, hidden), aux
+
+    @torch.no_grad()
+    def prefill(self, params, tokens: torch.Tensor, cache: dict):
+        """tokens [B, S] → (the last position's logits [B, 1, V] f32, the
+        cache holding the prompt's KV at [0, S) with length S)."""
+        x, cache, _ = self._layers(params, self.embed(params, tokens),
+                                   "prefill", cache)
+        return self.head(params, self._final(params, x[:, -1:])), cache
+
+    @torch.no_grad()
+    def decode(self, params, tokens: torch.Tensor, cache: dict):
+        """tokens [B, 1] → (logits [B, 1, V] f32, the cache one longer),
+        each row at its own position ``cache length``."""
+        x, cache, _ = self._layers(params, self.embed(params, tokens),
+                                   "decode", cache)
+        return self.head(params, self._final(params, x)), cache

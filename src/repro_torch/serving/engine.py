@@ -103,6 +103,11 @@ to a rank under a mesh (:meth:`Engine._rank_local`). Not ported yet: MoE
 under a mesh (expert parallelism), a data axis above 1, replica groups
 over per-replica meshes and a ``RecoveryLog`` over a TP engine (ROADMAP
 Queue 1).
+
+FMPQ-planned params (``"perm"`` on a projection, ``LM.quantize(...,
+plans=)`` or ``convert.params_from_jax``) serve on one device through
+the dispatcher's gather before the fused act-quant (``core/qlinear.py``);
+under a mesh, and on an expert stack, they are refused (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -117,6 +122,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as QL
+from repro_torch.core import quantizer as Q
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as ATT
 from repro_torch.layers import common as C
@@ -146,6 +152,18 @@ def _pad_to(a, n: int, fill=0) -> np.ndarray:
     out = np.full((n,), fill, np.int64)
     out[: len(a)] = a
     return out
+
+
+def _planned(params) -> list:
+    """The paths of the block projections that carry an FMPQ ``perm``."""
+    def walk(tree, path):
+        if "perm" in tree:
+            yield path
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+    return [p for i, b in enumerate(params["blocks"])
+            for p in walk(b, (i,))]
 
 
 def _row_linear(p, x: torch.Tensor, quant, mesh) -> torch.Tensor:
@@ -293,6 +311,10 @@ class Engine:
         self.quant = quant
         self.params = params
         self.ecfg = ecfg
+        if any("moe" in path for path in _planned(params)):
+            raise ValueError(
+                "an expert stack with an FMPQ 'perm' is not ported (the "
+                "reference builds none; ROADMAP Queue 1 item 15)")
         if mesh is not None:
             self._init_sharding(param_axes)
         self.lm = LM(cfg)
@@ -410,6 +432,12 @@ class Engine:
         consistent shape. Params already shard-sized (``LM.init(mesh=)``)
         are kept as they are."""
         cfg, m, mesh, ecfg = self.cfg, self.tp_size, self.mesh, self.ecfg
+        if _planned(self.params):
+            raise ValueError(
+                "FMPQ-planned params ('perm' on a projection) do not serve "
+                "under a mesh: a row-parallel shard of wo/w_down holds a "
+                "K-slice, which a full-K permutation crosses (ROADMAP "
+                "Queue 1 item 14)")
         if mesh.shape.get("data", 1) != 1:
             raise NotImplementedError(
                 "a data axis above 1 is not ported (ROADMAP Queue 1)")
@@ -1146,10 +1174,10 @@ class Engine:
             h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
             q, k, v = ATT.project_qkv(bp["attn"], cfg, h, pos2, quant,
                                       num_heads=hq_loc, num_kv_heads=hkv_loc)
-            kq, vq = KVC.quantize_kv_with(k, v, *scales)  # [1, Hkv, Tb, D/2]
+            kq, vq = Q.quantize_kv_with(k, v, *scales)  # [1, Hkv, Tb, D/2]
             cache.write_kv(li, pages, offs, kq[0].transpose(0, 1),
                            vq[0].transpose(0, 1))
-            kdq, vdq = KVC.qdq_kv_with(k, v, *scales)
+            kdq, vdq = Q.qdq_kv_with(k, v, *scales)
             k_att = torch.where(dq, kdq, k.float())
             v_att = torch.where(dq, vdq, v.float())
             if no_history:

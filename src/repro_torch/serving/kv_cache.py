@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quantizer as Q
+from repro_torch.core.quantizer import qdq_kv_with, quantize_kv_with
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.layers.common import resolve_device
 from repro_torch.parallel.mesh import host_all_gather
@@ -158,25 +158,6 @@ def json_str(s: str) -> str:
     does at memory speed where the encoder's scan of a snapshot with its
     pools takes seconds."""
     return '"' + s.replace("\\", "\\\\").replace('"', '\\"') + '"'
-
-
-def quantize_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
-    """k/v ``[B, T, Hkv, D]`` float → packed ``[B, Hkv, T, D/2]`` uint8."""
-    def pack(x, scale, zero):
-        xt = x.transpose(1, 2).float()                    # [B, Hkv, T, D]
-        return Q.pack_kv_nibbles(
-            torch.clamp(torch.round(xt / scale + zero), 0, 15))
-    return pack(k, k_scale, k_zero), pack(v, v_scale, v_zero)
-
-
-def qdq_kv_with(k, v, k_scale, k_zero, v_scale, v_zero):
-    """Fake-quantize k/v (``[B, T, Hkv, D]``) through the int4 codebook →
-    the f32 values a reader dequantizes from the pools."""
-    def roundtrip(x, scale, zero):
-        xt = x.transpose(1, 2).float()
-        n = torch.clamp(torch.round(xt / scale + zero), 0, 15)
-        return ((n - zero) * scale).transpose(1, 2)
-    return roundtrip(k, k_scale, k_zero), roundtrip(v, v_scale, v_zero)
 
 
 class PagedKV4Cache:

@@ -849,3 +849,161 @@ def test_expert_gemms_match_plain_and_loop_on_card(e, c, nb4, nb8, n, spare):
     want = WK.w4ax_matmul_ref(a4, s4, a8, s8, w4, ws4, w8, ws8)
     assert torch.equal(split, want)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["split", "mixed"])
+def test_planned_projection_kernels_equal_plain_on_card(schedule):
+    """An FMPQ-planned projection (the input gathered by ``perm`` before
+    the fused act-quant) through the kernels, ``torch.equal`` to
+    ``impl="ref"`` on the card, directly (the plan's K4) and through the
+    dispatcher (the fraction's); one fused act-quant launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    import dataclasses
+    from repro_torch.core import fmpq as F
+    from repro_torch.core import qlinear as QL
+    from repro_torch.models.lm import QuantConfig
+    rng = np.random.default_rng(70)
+    k, n = 1024, 768
+    w = _cuda((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32))
+    cal = rng.normal(size=(256, k)).astype(np.float32)
+    out = rng.choice(k, 24, replace=False)
+    cal[:, out] *= 50
+    plan = F.plan_fmpq(np.abs(cal).max(0))
+    assert 0 < plan.k4 < k
+    qp, spec = QL.quantize_linear(w, plan, schedule=schedule, impl="cuda")
+    for m in (1, 8, 77, 256):
+        x = rng.normal(size=(m, k)).astype(np.float32)
+        x[:, out] *= 50
+        x = _cuda(x).bfloat16()
+        before = AQ.act_quant_w4ax.launches
+        got = QL.qlinear_apply(spec, qp, x)
+        assert AQ.act_quant_w4ax.launches == before + 1
+        _exact(got.float(), QL.qlinear_apply(
+            dataclasses.replace(spec, impl="ref"), qp, x).float())
+        q = QuantConfig(schedule=schedule)
+        _exact(QL.dispatch_qlinear(qp, x, q).float(), QL.dispatch_qlinear(
+            qp, x, dataclasses.replace(q, impl="ref")).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_contiguous_decode_long_cache_exact_on_card(g):
+    """K10 over a contiguous cache of T = 1,024 slots holding 512–544
+    keys (``LM.decode``'s cache: T is ``max_len``, far past the lengths),
+    one "page" of T keys in its plan, bit for bit its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(80 + g)
+    hkv, d, t = 8 if g == 4 else 2, 128, 1024
+    lens = [512, 513, 520, 527, 530, 536, 543, 544]
+    b = len(lens)
+    kp, vp = [_cuda(rng.integers(0, 256, (b, hkv, t, d // 2))
+                    .astype(np.uint8)) for _ in range(2)]
+    q = _cuda(rng.normal(size=(b, g * hkv, d)).astype(np.float32)).bfloat16()
+    lengths = _cuda(np.asarray(lens, np.int32))
+    for ks, kz, vs, vz in _scale_sets(rng, b, hkv):
+        args = (q, kp, ks, kz, vp, vs, vz, lengths)
+        before = KA.kv4_decode_attention.launches
+        got = ops.kv4_decode_attention(*args, impl="cuda")
+        assert KA.kv4_decode_attention.launches == before + 1
+        _exact(got, ops.kv4_decode_attention(*args, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv4", [True, False])
+def test_lm_generate_kernels_equal_ref_on_card(kv4):
+    """``LM.prefill`` + 3 ``decode`` steps of a 2-layer model (head_dim
+    128, an INT8 tail in every projection, planned q/k/v) with the
+    kernels and with ``impl="ref"`` on the card: the same logits, bit
+    for bit; K10 launched once a layer a decode step under ``kv4``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import fmpq as F
+    from repro_torch.models.lm import LM, QuantConfig
+    cfg = ModelConfig(name="card-lm", family="dense", num_layers=2,
+                      d_model=512, num_heads=4, num_kv_heads=2, head_dim=128,
+                      d_ff=1024, vocab_size=256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lm = LM(cfg)
+    rng = np.random.default_rng(90)
+    blocks = []
+    for _ in range(cfg.num_layers):
+        cal = rng.normal(size=(64, cfg.d_model))
+        cal[:, rng.choice(cfg.d_model, 12, replace=False)] *= 40
+        plan = F.plan_fmpq(np.abs(cal).max(0))
+        blocks.append(lm.quantize_block(lm.init_block(gen, "cuda"),
+                                        {"wq": plan, "wk": plan, "wv": plan}))
+    params = lm.init(seed=1, device="cuda")
+    params["blocks"] = blocks
+    tokens = torch.randint(0, cfg.vocab_size, (3, 40), device="cuda",
+                           generator=gen)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        m = LM(cfg, QuantConfig(impl=impl, int4_fraction=0.75, kv4=kv4))
+        cache = m.init_cache(3, 64, device="cuda")
+        before = KA.kv4_decode_attention.launches
+        logits, cache = m.prefill(params, tokens, cache)
+        out = [logits]
+        for _ in range(3):
+            logits, cache = m.decode(params, logits.argmax(-1), cache)
+            out.append(logits)
+        launched = KA.kv4_decode_attention.launches - before
+        runs[impl] = torch.cat(out, 1)
+        if impl == "cuda":
+            assert launched == (3 * cfg.num_layers if kv4 else 0)
+    _exact(runs["cuda"], runs["ref"])
+
+
+@pytest.mark.cuda
+def test_converted_planned_params_quantize_each_input_once_on_card():
+    """Planned params through ``convert.params_from_jax`` onto the card,
+    every projection with its own ``perm`` array (the reference's tree):
+    q/k/v and up/gate share one tensor a layer, so a forward launches the
+    fused act-quant 4 times a layer and compares no permutation on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core import fmpq as F
+    from repro_torch.models.lm import LM, QuantConfig
+    cfg = ModelConfig(name="card-lm", family="dense", num_layers=2,
+                      d_model=512, num_heads=4, num_kv_heads=2, head_dim=128,
+                      d_ff=1024, vocab_size=256)
+    lm = LM(cfg)
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(91)
+
+    def plan():
+        cal = rng.normal(size=(64, cfg.d_model))
+        cal[:, rng.choice(cfg.d_model, 12, replace=False)] *= 40
+        return F.plan_fmpq(np.abs(cal).max(0))
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        pq, pf = plan(), plan()
+        layers.append(lm.quantize_block(lm.init_block(gen, "cpu"), {
+            "wq": pq, "wk": pq, "wv": pq, "w_up": pf, "w_gate": pf}))
+
+    def stacked(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stacked(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack([x.numpy().copy() for x in xs])
+
+    params = lm.init(seed=1, device="cuda")
+    params["blocks"] = params_from_jax({"blocks": stacked(*layers)},
+                                       device="cuda")["blocks"]
+    for b in params["blocks"]:
+        assert b["attn"]["wq"]["perm"] is b["attn"]["wk"]["perm"] \
+            is b["attn"]["wv"]["perm"]
+        assert b["mlp"]["w_up"]["perm"] is b["mlp"]["w_gate"]["perm"]
+    m = LM(cfg, QuantConfig(impl="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device="cuda")
+    before = AQ.act_quant_w4ax.launches
+    logits, _ = m.prefill(params, tokens, m.init_cache(2, 32, device="cuda"))
+    assert AQ.act_quant_w4ax.launches - before == 4 * cfg.num_layers
+    assert torch.isfinite(logits).all()

@@ -107,3 +107,15 @@ def test_kernel_sources_present():
         "paged_kv4_prefill_attention", "paged_kv4_decode_attention_wq",
         "kv4_decode_attention"}
     assert all(isinstance(k.launches, int) for k in ops.KERNELS.values())
+
+
+def test_fmpq_and_model_forward_modules_are_covered():
+    """The scan and the jax-blocked import above reach FMPQ and the
+    modules of the model's own forward (the caches, K10's wrapper)."""
+    for rel in ("core/fmpq.py", "core/quantizer.py", "core/qlinear.py",
+                "layers/attention.py", "models/lm.py", "convert.py",
+                "kernels/kv4_attention.py"):
+        assert PORT / rel in SCANNED
+    assert {"repro_torch.core.fmpq", "repro_torch.layers.attention",
+            "repro_torch.models.lm", "repro_torch.convert"} <= set(
+                _port_modules())
