@@ -189,6 +189,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
    the planned model served with the kernels and with ``impl="ref"``
    (agreement 1.0000, first logits error 0).
 
+15. families (after fmpq): the other model families through ``LM`` on
+   the card, each run's launch counts set to 0 just before it and read
+   just after: Zamba2-2.7B (54 Mamba2 layers, 9 shared-attention
+   calls at head_dim 80) and RWKV6-1.6B (24 layers) at full width and
+   depth, and Llama-3.2-Vision-90B at full width and 10 of its 100
+   layers (2 groups of 4 self layers and a cross layer over 1,601 seeded
+   image embeddings per request, gates 0.5), each ``prefill`` of 8 × 512
+   tokens into a 1,024-slot int4 cache then 32 greedy decode steps
+   (prefill ms, median decode step, decode tok/s, peak memory; K10 once
+   per attention layer a step: 9 × 32 at D = 80, none for RWKV; the
+   fused act-quant per layer kind and forward); HuBERT-XLarge's 48-layer
+   encoder over 8 × 512 seeded frames (``train_logits`` ms, peak
+   memory); then each family at 2 layers (one group) with the kernels
+   and with ``impl="ref"``: logits error 0, greedy agreement 1.0000. The
+   kernels phase holds K10 at D = 80 (Zamba2's B = 8, 32/32 heads, T =
+   1,024 holding 512–544 keys; the K10 row's ``D=80`` entry, its
+   launches from the Zamba2 run).
+
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
 and the fused op where the tree has it), the dense K3, K4 and K5 at
@@ -197,6 +215,13 @@ K8's op and K10 on the kernels phase's inputs through the API every tree
 of the port has, to time two trees in turns in one call.
 ``--profile`` adds to each Llama-3-8B run a ``torch.profiler`` breakdown,
 with the kernel launch calls per engine step.
+``--phases famprof`` (not among the defaults) breaks a decode step of
+Zamba2-2.7B, RWKV6-1.6B and Llama-3.2-Vision (10 layers) down, on the
+``families`` phase's models and prompts: the median step, the aten ops
+one step dispatches and the bytes of the f64 tensors they write, and a
+``torch.profiler`` trace of 3 steps (device busy share, launch calls a
+step, top kernels and host ops). It calls only ``LM``, so two trees of
+the port that serve these families can be compared in one call.
 
 Each phase prints its seconds (``[time]``). The last two lines are the
 kernel table and
@@ -222,8 +247,9 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
-          "replicas", "tp", "moe", "generate", "fmpq", "archs", "cli")
-EXTRA_PHASES = ("times", "specdiag")      # only when named
+          "replicas", "tp", "moe", "generate", "fmpq", "families", "archs",
+          "cli")
+EXTRA_PHASES = ("times", "specdiag", "famprof")     # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -2576,16 +2602,16 @@ GEN_K10_LENS = (512, 517, 521, 526, 530, 535, 539, 544)
 
 
 def generate(torch, LM, QuantConfig, cfg, params, quant_kw, tokens,
-             steps: int):
-    """``LM.prefill`` of ``tokens`` into a fresh ``GEN_MAX_LEN`` cache, then
-    ``steps`` greedy ``decode`` steps → (logits [B, 1 + steps, V] on the
-    card, tokens [B, steps], prefill s, seconds per decode step, the
-    cache)."""
+             steps: int, extra=None):
+    """``LM.prefill`` of ``tokens`` (with ``extra``: image embeddings)
+    into a fresh ``GEN_MAX_LEN`` cache, then ``steps`` greedy ``decode``
+    steps → (logits [B, 1 + steps, V] on the card, tokens [B, steps],
+    prefill s, seconds per decode step, the cache)."""
     lm = LM(cfg, QuantConfig(**quant_kw))
     cache = lm.init_cache(tokens.shape[0], GEN_MAX_LEN, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(params, tokens, cache)
+    logits, cache = lm.prefill(params, tokens, cache, extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     out, toks, step_s = [logits[:, -1]], [], []
@@ -2623,26 +2649,24 @@ def kernels_vs_ref(torch, LM, QuantConfig, cfg, params, quant_kw, tokens,
              f"{err}, tokens equal {same})")
 
 
-def check_k10_generate(torch, KA, Q, cfg, cache, rows: dict):
-    """K10 over the generate run's layer-0 cache (T = ``GEN_MAX_LEN``
-    slots, rows at ``GEN_K10_LENS``), bit for bit against its plain
-    version, timed beside it, SDPA on the gathered dequantized KV and
-    the byte bound: the K10 row's ``generate T=1024`` entry."""
+def check_k10(torch, KA, Q, q, c, rows: dict, key: str, tag: str,
+              note: str = "") -> dict:
+    """K10 on queries ``q`` over a layer's int4 cache ``c`` (T slots, the
+    rows at ``GEN_K10_LENS``), bit for bit against its plain version,
+    timed beside it, SDPA on the gathered dequantized KV and the byte
+    bound: the K10 row's ``key`` entry."""
     import torch.nn.functional as TF
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    c = cache["attn"][0]
-    b, t = c["k_packed"].shape[0], c["k_packed"].shape[2]
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
+    b, hq, d = q.shape
+    hkv, t = c["k_packed"].shape[1], c["k_packed"].shape[2]
+    g = hq // hkv
     lengths = torch.tensor(GEN_K10_LENS, dtype=torch.int32, device="cuda")
     args = (q, c["k_packed"], c["k_scale"], c["k_zero"], c["v_packed"],
             c["v_scale"], c["v_zero"], lengths)
     op = lambda: KA.kv4_decode_attention(*args)            # noqa: E731
     ref = lambda: KA.kv4_decode_attention_ref(*args)       # noqa: E731
-    err = check_exact("kv4_decode_attention generate", op(), ref(),
+    err = check_exact(f"kv4_decode_attention {key}", op(), ref(),
                       [(i, hq) for i in range(b)])
     top = max(GEN_K10_LENS)
-    g = hq // hkv
     yk, yv = [repeat_heads(Q.dequantize_kv_channelwise(
         x[:, :, :top], s, z).bfloat16(), g).contiguous()
         for x, s, z in ((c["k_packed"], c["k_scale"], c["k_zero"]),
@@ -2654,18 +2678,29 @@ def check_k10_generate(torch, KA, Q, cfg, cache, rows: dict):
         yq, yk, yv, attn_mask=mask))
     scales = 4 * hkv * d * 4
     entry = {"shape": f"B={b} Hq={hq} Hkv={hkv} G={g} D={d} T={t} "
-                      f"lengths {GEN_K10_LENS[0]}–{GEN_K10_LENS[-1]}",
+                      f"lengths {GEN_K10_LENS[0]}–{GEN_K10_LENS[-1]}{note}",
              "max_abs_err": err, "ms": time_ms(torch, op),
              "plain_ms": time_ms(torch, ref),
              **bound(*decode_bound(GEN_K10_LENS, hq, hkv, d,
                                    scales + lengths.nbytes)),
              "library_ms": library_ms,
-             "rows": KA.dense_plan(b, 1, g, hkv, 1, t).rows}
+             "rows": KA.dense_plan(b, 1, g, hkv, 1, t, d).rows}
     put(rows, "kv4_decode_attention",
-        "generate T=1024" if "kv4_decode_attention" in rows else None, entry)
-    say(f"[generate] K10 at T={t}, lengths {GEN_K10_LENS}: max err {err}; "
-        f"{entry['ms']:.6f} ms (plain {entry['plain_ms']:.6f}, SDPA "
+        key if "kv4_decode_attention" in rows else None, entry)
+    say(f"{tag} K10 at D={d} T={t}, lengths {GEN_K10_LENS}{note}: max err "
+        f"{err}; {entry['ms']:.6f} ms (plain {entry['plain_ms']:.6f}, SDPA "
         f"{library_ms:.6f}, bound {entry['bound_ms']:.6f})")
+    return entry
+
+
+def check_k10_generate(torch, KA, Q, cfg, cache, rows: dict):
+    """K10 over the generate run's layer-0 cache (T = ``GEN_MAX_LEN``):
+    the K10 row's ``generate T=1024`` entry."""
+    c = cache["attn"][0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((c["k_packed"].shape[0], cfg.num_heads, cfg.head_dim),
+                    generator=gen, device="cuda").bfloat16()
+    check_k10(torch, KA, Q, q, c, rows, "generate T=1024", "[generate]")
 
 
 def phase_generate(torch, np, mods, KERNELS, KA, Q, cfg8b, params, rows,
@@ -2729,6 +2764,279 @@ def phase_generate(torch, np, mods, KERNELS, KA, Q, cfg8b, params, rows,
     if KERNELS["kv4_decode_attention"].launches:
         fail("[generate] the bf16 cache path launched K10")
     return launches
+
+
+# ---------------------------------------------- the other model families
+
+# Zamba2's decode attention: B = 8, 32 query and kv heads (G = 1), head_dim
+# 80, a 1,024-slot cache holding 512–544 keys
+K10_D80 = (8, 32, 32, 80, 1024)
+
+
+def check_k10_d80(torch, KA, Q, rows: dict):
+    """K10 at head_dim 80 (Zamba2-2.7B's attention) on a seeded cache of
+    ``K10_D80``: the K10 row's ``D=80`` entry."""
+    b, hq, hkv, d, t = K10_D80
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    c = {f"{n}_packed": torch.randint(0, 256, (b, hkv, t, d // 2),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.uint8) for n in "kv"}
+    for n in "kv":
+        c[f"{n}_scale"] = 0.05 + 0.15 * torch.rand(
+            (hkv, 1, d), generator=gen, device="cuda")
+        c[f"{n}_zero"] = 6 + 3 * torch.rand((hkv, 1, d), generator=gen,
+                                            device="cuda")
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
+    check_k10(torch, KA, Q, q, c, rows, "D=80", "[kernels]",
+              " (Zamba2-2.7B)")
+
+
+# (arch, depth of the full-width run or None for the config's, what the
+# run does); the VLM cut to 10 of its 100 layers (2 groups of 4 self
+# layers and a cross layer) for the phase's time
+FAMILY_RUNS = (("zamba2_2p7b", None, "generate"),
+               ("rwkv6_1p6b", None, "generate"),
+               ("llama3p2_vision_90b", 10, "generate"),
+               ("hubert_xlarge", None, "encode"))
+FAMILY_GATE = 0.5        # the VLM's cross gates (0 at init: tanh(0) = 0)
+# fused act-quant launches per layer of each kind and forward: the hybrid's
+# shared attention block 4 (q/k/v, wo, up/gate, down) per group and a Mamba2
+# layer 2 (in_proj, out_proj); an RWKV layer 8 (r, k, v, g, w_o; the
+# channel-mix's k, v, r); a VLM self layer 4, a cross layer 5 at prefill
+# (q, the image K/V once for the attention and the cache, wo, up/gate,
+# down) and 4 at decode (the image K/V cached)
+
+
+def family_act_quant(cfg, lm, mode: str) -> int:
+    fam = cfg.family
+    if fam == "hybrid":
+        return 4 * lm.n_groups + 2 * cfg.num_layers
+    if fam == "ssm":
+        return 8 * cfg.num_layers
+    if fam == "vlm":
+        return (4 * lm.n_groups * lm.self_per_group
+                + (5 if mode == "prefill" else 4) * lm.n_groups)
+    return ACT_PER_LAYER * cfg.num_layers
+
+
+def family_extra(torch, cfg, b: int, s: int, seed: int):
+    """Seeded image embeddings (vlm) or frames (audio) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn(
+            (b, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device="cuda")}
+    if cfg.family == "audio":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device="cuda")}
+    return None
+
+
+def family_model(torch, LM, QuantConfig, cfg, seed: int):
+    params = LM(cfg, QuantConfig()).init(seed=seed, device="cuda")
+    for cb in params.get("cross_blocks", []):
+        cb["gate"].fill_(FAMILY_GATE)
+    torch.cuda.synchronize()
+    return params
+
+
+def family_kernels_vs_ref(torch, LM, QuantConfig, cfg, tag: str):
+    """At 2 layers (one group for hybrid and vlm) of ``cfg``'s width, the
+    kernel path against ``impl="ref"`` on the card: the same logits
+    (error 0) and tokens (agreement 1.0000) over ``GEN_STEPS`` greedy
+    steps; for the encoder, ``train_logits`` error 0."""
+    small = dataclasses.replace(cfg, num_layers=2, **(
+        {"attn_period": 2} if cfg.family == "hybrid" else
+        {"cross_attn_period": 2} if cfg.family == "vlm" else {}))
+    params = family_model(torch, LM, QuantConfig, small, 7)
+    tokens = gen_tokens(torch, np, small.vocab_size, GEN_BATCH, GEN_PROMPT, 8)
+    extra = family_extra(torch, small, GEN_BATCH, GEN_PROMPT, 9)
+    if not small.has_decode:
+        got, want = (LM(small, QuantConfig(impl=i)).train_logits(
+            params, tokens, extra)[0] for i in ("cuda", "ref"))
+        err = float((got - want).abs().max())
+        say(f"{tag} 2 layers: train_logits, kernels against impl='ref': max "
+            f"err {err:.4g} over {tuple(got.shape)}")
+        if err != 0.0:
+            fail(f"{tag}: the kernel path must equal the plain one ({err})")
+        return
+    got, want = (generate(torch, LM, QuantConfig, small, params,
+                          {"impl": i}, tokens, GEN_STEPS, extra)
+                 for i in ("cuda", "ref"))
+    err = float((got[0] - want[0]).abs().max())
+    agree = float((got[1] == want[1]).float().mean())
+    say(f"{tag} 2 layers: kernels against impl='ref': logits max err "
+        f"{err:.4g} over {tuple(got[0].shape)}; greedy agreement "
+        f"{agree:.4f} over {GEN_STEPS} steps")
+    if err != 0.0 or agree != 1.0:
+        fail(f"{tag}: the kernel path must equal the plain one (err {err}, "
+             f"agreement {agree})")
+
+
+def phase_families(torch, np, mods, KERNELS, get_config, rows, smi) -> dict:
+    """The other families through ``LM`` on the card (``FAMILY_RUNS``):
+    Zamba2-2.7B and RWKV6-1.6B at full width and depth and
+    Llama-3.2-Vision-90B at full width and 10 of 100 layers, each
+    ``prefill`` of 8 × 512 tokens into a 1,024-slot int4 cache then 32
+    greedy decode steps; HuBERT-XLarge's 48-layer encoder over 8 × 512
+    frames (``train_logits``). Every run: the launch counts set to 0
+    before and read after it (the fused act-quant per layer kind and
+    forward, K10 once per attention layer a decode step, none on RWKV or
+    the encoder, the GEMMs, K1/K2 alone never), finite logits, times and
+    peak memory. Then each family at 2 layers, kernels against
+    ``impl="ref"``. → the Zamba2 run's launches."""
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    out = {}
+    for arch, depth, what in FAMILY_RUNS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        cut = (f" ({depth} of {get_config(arch).num_layers} layers)"
+               if depth is not None else f" ({cfg.num_layers} layers)")
+        tag = f"[families] {cfg.name}{cut}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = family_model(torch, LM, QuantConfig, cfg, 0)
+        say(f"{tag}: random W4 weights made in {time.perf_counter() - t0:.1f}"
+            f" s, {tree_bytes(params) / 1e9:.3f} GB")
+        lm = LM(cfg, QuantConfig())
+        tokens = gen_tokens(torch, np, cfg.vocab_size, GEN_BATCH, GEN_PROMPT,
+                            3)
+        extra = family_extra(torch, cfg, GEN_BATCH, GEN_PROMPT, 4)
+        for kern in KERNELS.values():
+            kern.launches = 0
+        if what == "encode":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = lm.train_logits(params, tokens, extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in KERNELS.items()}
+            want = {"act_quant_w4ax": family_act_quant(cfg, lm, "train"),
+                    "kv4_decode_attention": 0}
+            say(f"{tag}: train_logits over {GEN_BATCH} × {GEN_PROMPT} frames"
+                f" in {wall * 1e3:.2f} ms; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+        else:
+            logits, toks, prefill_s, step_s, _ = generate(
+                torch, LM, QuantConfig, cfg, params, {}, tokens, GEN_STEPS,
+                extra)
+            launches = {n: k.launches for n, k in KERNELS.items()}
+            attn = (lm.n_groups if cfg.family == "hybrid" else
+                    lm.n_groups * lm.self_per_group if cfg.family == "vlm"
+                    else 0)
+            want = {"kv4_decode_attention": GEN_STEPS * attn,
+                    "act_quant_w4ax": family_act_quant(cfg, lm, "prefill")
+                    + GEN_STEPS * family_act_quant(cfg, lm, "decode")}
+            new = GEN_BATCH * GEN_STEPS
+            say(f"{tag}: prefill {GEN_BATCH} × {GEN_PROMPT} tokens in "
+                f"{prefill_s * 1e3:.2f} ms; {GEN_STEPS} decode steps, median "
+                f"{statistics.median(step_s) * 1e3:.2f} ms, "
+                f"{new / sum(step_s):.2f} decode tok/s; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+            say(f"{tag} first row's tokens {toks[0].tolist()}")
+        want.update({"act_quant_int4": 0, "act_quant_int8": 0})
+        if not torch.isfinite(logits).all():
+            fail(f"{tag}: non-finite logits")
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"{tag}: {name} launched {launches[name]} times, not {n}")
+        for name in SPLIT[1:]:
+            if launches[name] <= 0:
+                fail(f"{tag}: {name} was never launched")
+        for name, n in launches.items():
+            if n and name not in want and name not in SPLIT:
+                fail(f"{tag}: {name} launched {n} times off the model's path")
+        say(f"{tag} launches {json.dumps(launches)}")
+        out[arch] = launches
+        del params, logits
+        family_kernels_vs_ref(torch, LM, QuantConfig, cfg, tag)
+        say(f"[time] families {arch}: {time.perf_counter() - t_arch:.1f} s")
+    if "D=80" in rows.get("kv4_decode_attention", {}):
+        rows["kv4_decode_attention"]["D=80"]["launches"] = out[
+            "zamba2_2p7b"]["kv4_decode_attention"]
+    return out["zamba2_2p7b"]
+
+
+FAMPROF_STEPS = 8         # timed decode steps a model (after 3 warm-up)
+
+
+def dispatch_count(torch, fn):
+    """(aten ops dispatched, bytes of the f64 tensors they return) in one
+    call of ``fn``: the host's op count and the f64 traffic of a step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    seen = [0, 0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen[0] += 1
+            seen[1] += sum(t.numel() * 8 for t in tree_leaves(out)
+                           if isinstance(t, torch.Tensor)
+                           and t.dtype == torch.float64)
+            return out
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return seen[0], seen[1]
+
+
+def phase_famprof(torch, np, mods, get_config, smi):
+    """A decode step of each decoding family of ``FAMILY_RUNS`` broken
+    down (module docstring, ``--phases famprof``); nothing checked."""
+    from torch.profiler import ProfilerActivity, profile
+    ModelConfig, LM, Engine, EngineConfig, QuantConfig = mods
+    for arch, depth, what in FAMILY_RUNS:
+        if what != "generate":
+            continue
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        tag = f"[famprof] {cfg.name} ({cfg.num_layers} layers)"
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = family_model(torch, LM, QuantConfig, cfg, 0)
+        lm = LM(cfg, QuantConfig())
+        tokens = gen_tokens(torch, np, cfg.vocab_size, GEN_BATCH, GEN_PROMPT,
+                            3)
+        extra = family_extra(torch, cfg, GEN_BATCH, GEN_PROMPT, 4)
+        cache = lm.init_cache(GEN_BATCH, GEN_MAX_LEN, device="cuda")
+        logits, state = lm.prefill(params, tokens, cache, extra)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        box = [state]
+
+        def step():
+            box[0] = lm.decode(params, tok, box[0])[1]
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(FAMPROF_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        n_ops, f64 = dispatch_count(torch, step)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        say(f"{tag}: median decode step {statistics.median(times) * 1e3:.2f} "
+            f"ms over {FAMPROF_STEPS} (min {min(times) * 1e3:.2f}); "
+            f"{n_ops} aten ops a step; f64 tensors written "
+            f"{f64 / 1e6:.3f} MB a step | {smi}")
+        say(f"{tag} profile of 3 steps:\n"
+            + profile_table(torch, prof, wall, 3))
+        del params, logits, state, box
 
 
 # the four projection shapes of Llama-3-8B: (name, K, N)
@@ -3540,6 +3848,7 @@ def main():
         check_gemm_archs(torch, AQ, WK, Q, rows)
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
+        check_k10_d80(torch, KA, Q, rows)
         check_spec_attention(torch, cfg8b, KVC, PA, Q, rows)
         for hkv, g in GQA:
             cfg = gqa_cfg(cfg8b, hkv, g)
@@ -3609,6 +3918,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()     # the 70B model and the cli phase's
         #                              process need the room
+    if "families" in phases:
+        runs["families"] = phase_families(torch, np, mods, ops.KERNELS,
+                                          get_config, rows, smi)
+        lap("families")
+    if "famprof" in phases:
+        phase_famprof(torch, np, mods, get_config, smi)
+        lap("famprof")
     if "archs" in phases:
         phase_archs(torch, np, mods, ops.KERNELS, get_config, args.profile)
         lap("archs")

@@ -3,7 +3,8 @@
 The input is ``LM.quantize`` output of the JAX package with every leaf
 turned into a numpy array by the caller (``np.asarray``); this module never
 sees a JAX type. Block leaves carry a leading layer axis there and become
-a list of per-layer dicts here, so both packages compute the same thing.
+a list of per-layer dicts here, so both packages compute the same thing
+(a cache's the same way: :func:`cache_from_jax`).
 Every leaf crosses as it is, an MoE block's included: the f32 router,
 the packed expert stacks (``[L, E, K/2, N]`` → per layer ``[E, K/2,
 N]``), the shared experts, QK-norm's ``attn.q_norm``/``k_norm`` and an
@@ -23,7 +24,8 @@ import torch
 from repro_torch.core import fmpq
 from repro_torch.layers.common import resolve_device
 
-__all__ = ["params_from_jax", "axes_from_jax", "plan_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "cache_from_jax", "axes_from_jax",
+           "plan_from_jax", "to_torch"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -43,17 +45,41 @@ def _tree(x, fn):
     return fn(x)
 
 
+STACKED = ("blocks", "cross_blocks")
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """Reference quantized params (numpy leaves, stacked ``blocks``) →
-    the port's params (tensors on ``device``, ``blocks`` a list). A
-    CUDA device without a card raises; pass ``device="cpu"`` for the CPU."""
+    """Reference quantized params (numpy leaves, stacked ``blocks`` and,
+    for the VLM, stacked ``cross_blocks`` with their 0-d ``gate``) → the
+    port's params (tensors on ``device``, each stack a list). Every other
+    top-level tree crosses as it is: the hybrid's one ``shared_attn``
+    block, the audio ``conv_pos``. A CUDA device without a card raises;
+    pass ``device="cpu"`` for the CPU."""
     device = resolve_device(device)
     out = {k: _tree(v, lambda a: to_torch(a, device))
-           for k, v in tree.items() if k != "blocks"}
-    stacked = tree["blocks"]
-    num_layers = len(next(iter(_leaves(stacked))))
-    out["blocks"] = [_layer(stacked, i, device, {})
-                     for i in range(num_layers)]
+           for k, v in tree.items() if k not in STACKED}
+    for key in STACKED:
+        if key in tree:
+            out[key] = _unstack(tree[key], device)
+    return out
+
+
+def _unstack(stacked, device) -> list:
+    n = len(next(iter(_leaves(stacked))))
+    return [_layer(stacked, i, device, {}) for i in range(n)]
+
+
+def cache_from_jax(cache: dict, device="cuda") -> dict:
+    """A reference cache (numpy leaves; each kind stacked over its layers
+    or groups: ``attn``, ``mamba``, ``shared_attn``, ``rwkv``,
+    ``cross_kv``) → the port's (``{kind: [per-layer dict]}``; the image
+    K/V from ``[B, T_img, Hkv, D]`` to the port's head-major ``[B, Hkv,
+    T_img, D]``), so both packages can start from one state."""
+    device = resolve_device(device)
+    out = {k: _unstack(v, device) for k, v in cache.items()}
+    for group in out.get("cross_kv", []):
+        for n, t in group.items():
+            group[n] = t.transpose(1, 2).contiguous()
     return out
 
 

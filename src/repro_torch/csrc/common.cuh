@@ -16,7 +16,7 @@ __device__ __forceinline__ float exp_f64(float x) {
   return static_cast<float>(exp(static_cast<double>(x)));
 }
 
-// cp.async of BYTES (4 or 16) from global to shared memory; with valid
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; with valid
 // false the destination is zero-filled and nothing is read
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -25,6 +25,9 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 8 : 0));
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(d), "l"(src), "r"(valid ? 4 : 0));

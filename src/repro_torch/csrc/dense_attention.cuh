@@ -59,10 +59,12 @@ namespace {
 // * skips the MMAs of key steps wholly past a warp's causal edge, and
 //   gives the 32-row tile 8 warps, so an SM has warps to switch to while
 //   one waits on an MMA or a load.
-constexpr int D = 128;             // head_dim the kernels are built for
+constexpr int D = 128;             // head_dim of the paged kernels (K6-K9)
 constexpr int KT = 64;             // keys per staged tile
-constexpr int SKV = D + 4;         // f64 row stride of a staged K/V tile:
-                                   // the fragment loads are conflict-free
+// the f64 row stride of a staged K/V tile: the fragment loads are
+// conflict-free (D + 4 ≡ 4 mod 16 doubles at D = 128 and D = 80)
+__host__ __device__ constexpr int dn_skv(int d) { return d + 4; }
+constexpr int SKV = dn_skv(D);
 constexpr int DN_MAXR = 32;        // most rows per block
 constexpr int DN_MAXWR = 64;       // most (key-warp, row) partials
 // warps across the keys of a tile: 4 for the 8- and 16-row tiles, 2 for
@@ -72,11 +74,17 @@ __host__ __device__ constexpr int dn_threads(int wr) {
   return 32 * wr * dn_wk(wr);
 }
 constexpr int DN_MAXP = 512;       // history pages of a block kept at hand
-constexpr int DN_KV = KT * SKV * 8;
-constexpr int DN_RAW = 2 * KT * (D / 2);    // two tiles of packed bytes
-constexpr int DN_FIXED = DN_KV + DN_RAW + DN_MAXP * 4 + 4 * D * 4 +
-                         DN_MAXR * 8 + (DN_MAXWR + 2 * DN_MAXR) * 4;
-                                            // 80,640 bytes
+__host__ __device__ constexpr int dn_kv(int d) { return KT * dn_skv(d) * 8; }
+// two tiles of packed bytes
+__host__ __device__ constexpr int dn_raw(int d) { return 2 * KT * (d / 2); }
+__host__ __device__ constexpr int dn_fixed(int d) {
+  return dn_kv(d) + dn_raw(d) + DN_MAXP * 4 + 4 * d * 4 + DN_MAXR * 8 +
+         (DN_MAXWR + 2 * DN_MAXR) * 4;
+}
+constexpr int DN_KV = dn_kv(D);
+constexpr int DN_RAW = dn_raw(D);
+constexpr int DN_FIXED = dn_fixed(D);       // 80,640 bytes (52,224 at D 80)
+static_assert(DN_FIXED == 80640 && dn_fixed(80) == 52224, "smem layout");
 constexpr int DN_SMEM_MAX = 232448;         // the H100's per-block opt-in
 
 // D(16×8) += A(16×8)·B(8×8) in f64 on the tensor cores; lane (g, t) holds
@@ -123,9 +131,15 @@ struct DenseArgs {
 // Products are taken transposed, keys (or head channels) as the MMA's 16
 // rows and the warp's 8 query rows as its 8 columns: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ.
 // PAGED: history keys through the block table; else the contiguous cache.
-template <int WR, bool CHUNK, bool PAGED>
+// HD: the head_dim of this instantiation (128; K10 also 80), which the
+// block-scope D, SKV, DN_KV and DN_RAW below follow.
+template <int WR, bool CHUNK, bool PAGED, int HD = D>
 __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
     DenseArgs a) {
+  constexpr int D = HD, SKV = dn_skv(HD), DN_KV = dn_kv(HD),
+                DN_RAW = dn_raw(HD);
+  static_assert(D % 16 == 0 && dn_wk(WR) * 8 * WR * D <= KT * SKV,
+                "head_dim tiles; the warps' partial outputs fit sKV");
   constexpr int R = 8 * WR, WK = dn_wk(WR), DN_THREADS = dn_threads(WR);
   extern __shared__ __align__(16) unsigned char smem[];
   double* sKV = reinterpret_cast<double*>(smem);            // [KT][SKV]
@@ -226,17 +240,23 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
 
   // the tile stream: K tiles 0..ntile−1, then V tiles; tile s's packed
   // history bytes go to raw buffer s & 1 by cp.async one tile ahead
+  // (16-byte copies where a packed row is whole 16-byte pieces, as at
+  // D = 128; 8-byte ones at D = 80, whose 40-byte rows are 8-aligned only)
+  constexpr int CB = (D / 2) % 16 == 0 ? 16 : 8;
+  constexpr int CPR = D / 2 / CB, NCOPY = KT * CPR;
   auto prefetch = [&](int s) {
     const int k0 = (s % ntile) * KT;
     const uint8_t* pool = s < ntile ? a.k_pool : a.v_pool;
     unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
 #pragma unroll
-    for (int u = 0; u < KT * 4 / DN_THREADS; ++u) {
+    for (int u = 0; u < (NCOPY + DN_THREADS - 1) / DN_THREADS; ++u) {
       const int i = tid + u * DN_THREADS;
-      const int j = i >> 2, c16 = i & 3, kl = k0 + j, tg = lo + kl;
-      if (kl < nloc && tg < ctx) {
-        const long off = key_row(tg) * (D / 2) + 16 * c16;
-        cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
+      // unsigned, so CPR = 4 divides by a shift and a mask
+      const int j = static_cast<unsigned>(i) / CPR,
+                c = static_cast<unsigned>(i) % CPR, kl = k0 + j, tg = lo + kl;
+      if ((NCOPY % DN_THREADS == 0 || i < NCOPY) && kl < nloc && tg < ctx) {
+        const long off = key_row(tg) * (D / 2) + CB * c;
+        cp_async<CB>(raw + j * (D / 2) + CB * c, pool + off, true);
       }
     }
     cp_commit();
@@ -255,11 +275,13 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
       double* dst = sKV + j * SKV;
       if (kl >= nloc) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = 0.0;
+        for (int e = 0; e < (D + 31) / 32; ++e)
+          if (D % 32 == 0 || lane + 32 * e < D) dst[lane + 32 * e] = 0.0;
       } else if (tg < ctx) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
+        for (int e = 0; e < (D / 2 + 31) / 32; ++e) {
           const int d = lane + 32 * e;
+          if ((D / 2) % 32 && d >= D / 2) break;
           const unsigned byte = raw[j * (D / 2) + d];
           // (n − z)·s in f32, as the plain version dequantizes; the code
           // n is exact as (2^23 + n) − 2^23, without a conversion
@@ -275,7 +297,9 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
         const float* src = (val ? a.vn : a.kn) +
             ((static_cast<long>(b) * a.c + (tg - ctx)) * a.hkv + h) * D;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = src[lane + 32 * e];
+        for (int e = 0; e < (D + 31) / 32; ++e)
+          if (D % 32 == 0 || lane + 32 * e < D)
+            dst[lane + 32 * e] = src[lane + 32 * e];
       }
     }
     __syncthreads();
@@ -285,7 +309,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
   // Lane (gi, t) ends with keys gi, gi+8 of each 16-key subtile × rows
   // 2t, 2t+1 of the warp's 8.
   constexpr int NSUB = 4 / WK;       // 16-key subtiles of a tile per warp
-  static_assert(KT * 4 % DN_THREADS == 0 && WK * R <= DN_MAXWR, "tiling");
+  static_assert(WK * R <= DN_MAXWR, "tiling");
   constexpr int NCH = 4 / NSUB;      // accumulator chains per subtile
   __syncthreads();                   // sQ, sPage and sScale are written
   if (ntile > 0) prefetch(0);
@@ -465,11 +489,11 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
   if (nsplit > 1) cg::this_cluster().sync();   // peers may still read us
 }
 
-template <int WR, bool CHUNK, bool PAGED = true>
+template <int WR, bool CHUNK, bool PAGED = true, int HD = D>
 cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
                          cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_attention_kernel<WR, CHUNK, PAGED>,
+      dense_attention_kernel<WR, CHUNK, PAGED, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, DN_SMEM_MAX);
   if (attr != cudaSuccess) return attr;
   const int rows = 8 * WR;
@@ -485,19 +509,19 @@ cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
   attrs[0].val.clusterDim.z = 1;
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dense_attention_kernel<WR, CHUNK, PAGED>,
-                            a);
+  return cudaLaunchKernelEx(&cfg,
+                            dense_attention_kernel<WR, CHUNK, PAGED, HD>, a);
 }
 
 // The plan dense_plan (kernels/kv4_attention.py) worked out: rows per
 // block (8, 16 or 32), split (cluster size, 1..8), sstride (the score
-// rows' stride in floats), smem (dynamic shared bytes); scores in scratch
-// (non-null) or in shared memory.
+// rows' stride in floats), smem (dynamic shared bytes) for head_dim d;
+// scores in scratch (non-null) or in shared memory.
 bool dense_plan_ok(int rows, int split, int sstride, int smem,
-                   bool scratch) {
+                   bool scratch, int d = D) {
   return (rows == 8 || rows == 16 || rows == 32) && split >= 1 &&
          split <= 8 && sstride % 32 == 8 && smem <= DN_SMEM_MAX &&
-         smem == DN_FIXED + (scratch ? 0 : rows * sstride * 4);
+         smem == dn_fixed(d) + (scratch ? 0 : rows * sstride * 4);
 }
 
 

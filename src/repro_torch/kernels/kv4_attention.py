@@ -123,16 +123,17 @@ def shared_scales(scales, b: int, hkv: int, d: int):
             .contiguous() for s in scales], hkv * d
 
 
-def check_kv4_inputs(q, k, v, d: int, what: str):
-    """What every KV4 attention kernel takes: CUDA tensors, head_dim 128,
-    contiguous uint8 KV. Any GQA group: the launch plans size the row
-    tiles to C·G."""
+def check_kv4_inputs(q, k, v, d: int, what: str, dims=(128,)):
+    """What every KV4 attention kernel takes: CUDA tensors, a head_dim it
+    is built for (``dims``: 128; K10 also 80), contiguous uint8 KV. Any
+    GQA group: the launch plans size the row tiles to C·G."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{what} kernel needs CUDA tensors ({name} is "
                              "not)")
-    if d != 128:
-        raise ValueError(f"the kernel is built for head_dim 128, got {d}")
+    if d not in dims:
+        built = " and ".join(map(str, dims))
+        raise ValueError(f"the kernel is built for head_dim {built}, got {d}")
     if (k.dtype != torch.uint8 or v.dtype != torch.uint8
             or not k.is_contiguous() or not v.is_contiguous()):
         raise ValueError(f"{what}: packed KV must be contiguous uint8")
@@ -153,7 +154,18 @@ class DensePlan(NamedTuple):
 
 
 DENSE_KEY_TILE = 64          # keys per staged tile (csrc KT)
-DENSE_FIXED_SMEM = 80640     # shared bytes besides the scores (DN_FIXED)
+K10_HEAD_DIMS = (80, 128)    # K10's instantiations (the paged kernels: 128)
+
+
+def dense_fixed_smem(d: int = 128) -> int:
+    """Shared bytes of the dense kernel besides the scores at head_dim d
+    (csrc ``dn_fixed``): the f64 K/V tile, two packed tiles, the page
+    ids, the scales and the row partials."""
+    return (DENSE_KEY_TILE * (d + 4) * 8 + 2 * DENSE_KEY_TILE * (d // 2)
+            + 512 * 4 + 4 * d * 4 + 32 * 8 + (64 + 2 * 32) * 4)
+
+
+DENSE_FIXED_SMEM = dense_fixed_smem(128)     # 80,640 (DN_FIXED)
 DENSE_SMEM_MAX = 232448      # the H100's per-block opt-in
 DENSE_SM_SMEM = 233472       # shared memory of one H100 SM
 DENSE_SMS = 132
@@ -167,14 +179,15 @@ def round_up(x: int, m: int) -> int:
 
 
 def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
-               ps: int) -> DensePlan:
+               ps: int, d: int = 128) -> DensePlan:
     """The dense kernel's launch for these shapes, from shapes alone (no
     device read). Rows: the smallest of 8, 16, 32 that holds C·G. Split: the
     least number of blocks per (b, h, tile) whose scores for ``NP·ps + C``
     keys fit in shared memory (at most 8, a portable cluster), widened
     while the wider grid still runs in one wave on the card and every
     block keeps a key tile. The scores go to scratch when 8 does not
-    fit."""
+    fit. ``d``: the head_dim, which sizes the fixed shared memory."""
+    fixed = dense_fixed_smem(d)
     cg = c * g
     rows = 8 if cg <= 8 else 16 if cg <= 16 else 32
     blocks = b * hkv * -(-cg // rows)
@@ -185,7 +198,7 @@ def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
         return round_up(round_up(per, DENSE_KEY_TILE), 32) + 8
 
     def smem(split):
-        return DENSE_FIXED_SMEM + rows * stride(split) * 4
+        return fixed + rows * stride(split) * 4
 
     def resident(split):   # blocks the card holds at once
         per_sm = min(DENSE_REG_BLOCKS[rows],
@@ -200,7 +213,7 @@ def dense_plan(b: int, c: int, g: int, hkv: int, np_: int,
     sstride = stride(split)
     if smem(split) <= DENSE_SMEM_MAX:
         return DensePlan(rows, split, sstride, smem(split), 0)
-    return DensePlan(rows, split, sstride, DENSE_FIXED_SMEM,
+    return DensePlan(rows, split, sstride, fixed,
                      blocks * split * rows * sstride)
 
 
@@ -208,18 +221,19 @@ def kv4_decode_attention(q, k_packed, k_scale, k_zero, v_packed, v_scale,
                          v_zero, length) -> torch.Tensor:
     """The K10 kernel: same arguments as :func:`kv4_decode_attention_ref`
     (``length`` required) and its f32 result, bit for bit on the card. q
-    f32 or bf16; any Hq/Hkv; T any length (keys at or past
-    ``min(length, T)`` are never read)."""
+    f32 or bf16; any Hq/Hkv; head_dim 128 or 80; T any length (keys at or
+    past ``min(length, T)`` are never read)."""
     b, hq, d = q.shape
     hkv, t = k_packed.shape[1], k_packed.shape[2]
     k_packed, v_packed = k_packed.contiguous(), v_packed.contiguous()
-    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention")
+    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention",
+                     K10_HEAD_DIMS)
     (ks, kz, vs, vz), sb = shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
     q_bf16 = q.dtype == torch.bfloat16
     q = (q if q_bf16 else q.float()).contiguous()
     length = length.to(device=q.device, dtype=torch.int32).contiguous()
-    plan = dense_plan(b, 1, hq // hkv, hkv, 1, t)    # one "page" of T keys
+    plan = dense_plan(b, 1, hq // hkv, hkv, 1, t, d)   # one "page" of T keys
     scratch = (torch.empty(plan.scratch, dtype=torch.float32,
                            device=q.device) if plan.scratch else None)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)

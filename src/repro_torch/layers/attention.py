@@ -1,8 +1,9 @@
 """Attention (``repro/layers/attention.py``): the q/k/v projection with
-RoPE, the fp causal attention of training, of a prefill and of a serving
-step whose rows have no paged history (plain PyTorch in f32; the
-reference's is jnp too, not a Pallas kernel), and ``LM``'s contiguous
-caches:
+RoPE, the fp attention of training (causal, or bidirectional under
+``cfg.causal = False``; cross-attention over image embeddings with
+``kv_override``), of a prefill and of a serving step whose rows have no
+paged history (plain PyTorch in f32; the reference's is jnp too, not a
+Pallas kernel), and ``LM``'s contiguous caches:
 
 * the bf16 cache ``{"k", "v": [B, T, Hkv, D], "length": [B]}``
   (:func:`init_fp_cache`, :func:`attention_prefill`,
@@ -34,7 +35,8 @@ NEG_INF = -1e30
 CHUNK = 1024           # the reference's q_chunk and kv_chunk
 KV_RANGE = 16.0        # init_q4_cache's default static range
 
-__all__ = ["project_qkv", "flash_attention", "attention_train",
+__all__ = ["project_qkv", "flash_attention", "cross_kv", "cross_attention",
+           "attention_train",
            "attention_prefill", "init_fp_cache", "attention_decode_fp",
            "init_q4_cache", "attention_prefill_q4", "attention_decode_q4"]
 
@@ -111,20 +113,59 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attention(params, cfg: ModelConfig, x, positions, quant):
-    """q/k/v of ``x`` and their causal attention → (the attention output
-    in x's dtype [B, S, q_dim], k, v)."""
+    """q/k/v of ``x`` and their attention (causal unless ``cfg.causal`` is
+    false: the audio encoder's) → (the attention output in x's dtype [B,
+    S, q_dim], k, v)."""
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(x)
     q, k, v = project_qkv(params, cfg, x, positions, quant)
-    out = flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=cfg.causal)
     return out.to(x.dtype).reshape(b, s, cfg.q_dim), k, v
 
 
+def cross_kv(params, cfg: ModelConfig, img: torch.Tensor,
+             quant=None) -> dict:
+    """The cross-attention K and V of the image embeddings ``img`` [B,
+    T_img, d_model] (bf16 ``[B, Hkv, T_img, D]``, head-major so that the
+    decode step reads each head's keys as one matrix; k and v share one
+    act-quant of ``img``), made once at prefill: the prompt's attention
+    and the decode steps' cache read the same tensors."""
+    b = img.shape[0]
+    k, v = C.linears([params["wk"], params["wv"]], img, quant)
+    shape = (b, -1, cfg.num_kv_heads, cfg.head_dim)
+    return {n: t.reshape(shape).transpose(1, 2).to(torch.bfloat16)
+            .contiguous() for n, t in (("k", k), ("v", v))}
+
+
+def cross_attention(params, cfg: ModelConfig, x: torch.Tensor, ckv: dict,
+                    quant=None) -> torch.Tensor:
+    """q of x [B, S, d_model] over the image K/V ``ckv``
+    (:func:`cross_kv`), QK-norm as the config says, no RoPE on either
+    side, every key visible → the attention output in x's dtype [B, S,
+    q_dim]."""
+    b, s, _ = x.shape
+    q = C.linear(params["wq"], x, quant).reshape(b, s, cfg.num_heads,
+                                                 cfg.head_dim)
+    k, v = ckv["k"].transpose(1, 2), ckv["v"].transpose(1, 2)
+    if cfg.qk_norm:
+        q = C.rmsnorm(q, params["q_norm"]["scale"], cfg.norm_eps)
+        k = C.rmsnorm(k, params["k_norm"]["scale"], cfg.norm_eps)
+    out = flash_attention(q, k, v, causal=False)
+    return out.to(x.dtype).reshape(b, s, cfg.q_dim)
+
+
 def attention_train(params, cfg: ModelConfig, x: torch.Tensor,
-                    positions=None, quant=None) -> torch.Tensor:
-    """Causal self-attention of x [B, S, d_model] → [B, S, d_model]."""
-    out, _, _ = _self_attention(params, cfg, x, positions, quant)
+                    positions=None, quant=None,
+                    kv_override=None) -> torch.Tensor:
+    """Self-attention of x [B, S, d_model] → [B, S, d_model] (causal as
+    the config says); with ``kv_override`` [B, T, d_model] the
+    cross-attention of x over it (:func:`cross_attention`)."""
+    if kv_override is not None:
+        out = cross_attention(params, cfg, x,
+                              cross_kv(params, cfg, kv_override, quant), quant)
+    else:
+        out, _, _ = _self_attention(params, cfg, x, positions, quant)
     return C.linear(params["wo"], out, quant)
 
 

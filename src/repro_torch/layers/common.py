@@ -11,13 +11,16 @@ one cast).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import qlinear as QL
 
 __all__ = ["row_mean", "rmsnorm", "layernorm", "apply_norm",
            "rope_frequencies", "apply_rope", "linear", "linears",
-           "resolve_device", "no_tf32"]
+           "resolve_device", "no_tf32", "trunc_normal", "init_linear",
+           "init_norm", "einsum_exact", "bmm_f32", "cumsum_xla"]
 
 
 def resolve_device(device) -> torch.device:
@@ -116,3 +119,86 @@ def linears(params_list, x: torch.Tensor, quant=None) -> list:
         return [y.to(torch.bfloat16)
                 for y in QL.qlinear_apply_many(specs, params_list, x)]
     return [linear(p, x, quant) for p in params_list]
+
+
+# ------------------------------------------------------------- init
+
+def trunc_normal(shape, scale: float, gen: torch.Generator, device):
+    """f32 normal truncated to [-2, 2], times ``scale`` (the reference's
+    ``dense_init``)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(scale)
+
+
+def init_linear(d_in: int, d_out: int, gen: torch.Generator, device,
+                bias: bool = False, scale: float | None = None) -> dict:
+    """``{"w": f32 [d_in, d_out]}`` (scale 1/√d_in unless given), with a
+    zero bias ``"b"`` if asked: the reference's ``init_linear``."""
+    p = {"w": trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in)
+                           if scale is None else scale, gen, device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, device=device)
+    return p
+
+
+def init_norm(kind: str, d: int, device) -> dict:
+    """Scale 1 over ``d`` channels (any width: Mamba2's gated norm is over
+    its inner width), and a zero bias under ``"layernorm"``."""
+    p = {"scale": torch.ones(d, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, device=device)
+    return p
+
+
+# ------------------------------------------- the reference's f32 sums
+
+def einsum_exact(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """The reference's f32 einsums and its bf16 ones under
+    ``preferred_element_type=float32`` (products of bf16 values exact in
+    f32, an f32 sum), which XLA sums in its own order. On the CPU, where
+    the port is held to the reference, the operands (f32 or bf16) are
+    widened to f64, multiplied and summed there and rounded once to f32:
+    the result does not depend on the order, and agrees with XLA's to the
+    last bit or two of f32. PyTorch's bf16 ``einsum`` would round its
+    result to bf16. On the card, where no reference runs, the einsum runs
+    in f32 (TF32 off, :func:`no_tf32`): no f64 copies of the operands."""
+    if ops[0].is_cuda:
+        return torch.einsum(spec, *(o.float() for o in ops))
+    return torch.einsum(spec, *(o.double() for o in ops)).float()
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, M, K] @ b [N, K, L] of bf16 operands → f32 [N, M, L], exact
+    products and f32 sums: the reference's bf16 einsums under
+    ``preferred_element_type=float32``. On the card one cuBLAS call that
+    reads the bf16 operands as they are (``out_dtype``), on the CPU f64
+    sums rounded once (:func:`einsum_exact`)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.double(), b.double()).float()
+
+
+_SCAN_BASE = 16
+
+
+def cumsum_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum`` of f32 as XLA's CPU computes it, bit for bit: along
+    ``dim`` in blocks of 16, a sequential f32 sum within each block, the
+    blocks' totals scanned the same way (recursively), each block's
+    exclusive carry added to its partial sums. ``torch.cumsum`` sums in
+    f64 on the CPU and in a parallel order on the card."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        out = x.clone()
+        for j in range(1, n):
+            out[..., j] = out[..., j - 1] + x[..., j]
+        return out.movedim(-1, dim)
+    pad = -n % _SCAN_BASE
+    xp = torch.nn.functional.pad(x, (0, pad))
+    loc = cumsum_xla(xp.reshape(*x.shape[:-1], -1, _SCAN_BASE), -1)
+    inc = cumsum_xla(loc[..., -1], -1)
+    carry = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], -1)
+    out = (loc + carry[..., None]).reshape(xp.shape)[..., :n]
+    return out.movedim(-1, dim)

@@ -7,8 +7,10 @@ anything. On the CPU it is XLA's, bit for bit: XLA's CPU ``exp`` (a
 Cephes polynomial with fused multiply-adds, :func:`exp_xla`), its flush
 of f32 subnormals to zero, its row sums (sequential over windows of 32,
 then over the windows) and its scatter order. The card runs the same
-formulas, but sums the softmax's row in f64 (as ``common.row_mean``
-does): a row's routing then does not depend on its batch's layout.
+formulas with PyTorch's ``exp``, ``silu`` and ``sigmoid`` (XLA's CPU
+forms are for the CPU, where the port is held to the reference), and
+sums the softmax's row in f64 (as ``common.row_mean`` does): a row's
+routing then does not depend on its batch's layout.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ import torch
 
 from repro_torch.layers import common as C
 
-__all__ = ["mlp_apply", "silu_bf16", "gelu_bf16", "exp_xla", "silu_f32",
-           "softmax_f32", "moe_route", "moe_capacity", "moe_dispatch",
-           "moe_apply"]
+__all__ = ["mlp_apply", "silu_bf16", "gelu_bf16", "gelu_f32", "exp_xla",
+           "silu_f32", "sigmoid_f32", "softplus_f32", "softmax_f32",
+           "moe_route", "moe_capacity", "moe_dispatch", "moe_apply"]
 
 _BF16_TINY = torch.finfo(torch.bfloat16).tiny
 # the constants of jax.nn.gelu(approximate=True), rounded to bf16 as JAX
@@ -61,6 +63,18 @@ def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
     inner = r(_GELU_C * r(x + r(_GELU_K * x3)))
     cdf = r(0.5 * r(1.0 + r(torch.tanh(inner))))
     return _round(x * cdf)
+
+
+_GELU_C32 = struct.unpack("f", struct.pack("f", 0.7978845608028654))[0]
+
+
+def gelu_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (tanh form) on f32: x·(0.5·(1 + tanh(c·(x +
+    0.044715·x·(x·x))))) op by op in f32, c = √(2/π) rounded to f32.
+    PyTorch's ``tanh``: XLA's CPU one differs in the last bit of f32,
+    which the callers' cast to bf16 hides but for near-ties."""
+    inner = _GELU_C32 * (x + 0.044715 * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def mlp_apply(params, x: torch.Tensor, quant=None,
@@ -117,7 +131,10 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
     parts, e^a by Cephes' degree-5 polynomial, times 2^n (0 at n = −127),
     subnormals flushed. Bit for bit with ``jnp.exp`` on the CPU (PyTorch's
     own ``exp`` differs in the last bit on 8.5 % of the arguments the
-    tests draw)."""
+    tests draw). On the card, where no reference runs, PyTorch's ``exp``:
+    one op, not the ~50 of the polynomial."""
+    if x.is_cuda:
+        return torch.exp(x)
     x = _ftz(x).clamp(_EXP_LO, _EXP_HI)
     n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127, 127)
     a = _fma(-n, _LN2_LO, _fma(-n, _LN2_HI, x))
@@ -133,7 +150,10 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
 
 def silu_f32(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` on f32 as XLA's CPU computes it: x · (1 / (e^{−x} +
-    1)), its ``exp`` (:func:`exp_xla`), subnormals flushed."""
+    1)), its ``exp`` (:func:`exp_xla`), subnormals flushed; on the card
+    PyTorch's ``silu``."""
+    if x.is_cuda:
+        return torch.nn.functional.silu(x)
     x = _ftz(x)
     return _ftz(x * _ftz(torch.reciprocal(exp_xla(-x) + 1)))
 
@@ -151,6 +171,24 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
             part = part + x[..., i]
         total = total + part
     return total[..., None]
+
+
+def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` on f32 as XLA's CPU computes it: 1 / (e^{−x} +
+    1) with its ``exp``, subnormals flushed (bit for bit); on the card
+    PyTorch's ``sigmoid``."""
+    if x.is_cuda:
+        return torch.sigmoid(x)
+    return _ftz(torch.reciprocal(exp_xla(-_ftz(x)) + 1))
+
+
+def softplus_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` on f32: ``jnp.logaddexp(x, 0)`` = max(x, 0) +
+    log1p(e^{−|x|}), with XLA's ``exp``. ``F.softplus`` computes
+    log1p(eˣ) below a threshold of 20 and differs in the last bits; the
+    ``log1p`` here is PyTorch's (XLA's differs from it in the last bit on
+    ~14 % of arguments)."""
+    return torch.clamp_min(x, 0) + torch.log1p(exp_xla(-x.abs()))
 
 
 def softmax_f32(logits: torch.Tensor) -> torch.Tensor:

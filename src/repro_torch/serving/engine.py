@@ -127,7 +127,7 @@ from repro_torch.kernels import ops
 from repro_torch.layers import attention as ATT
 from repro_torch.layers import common as C
 from repro_torch.layers import mlp as MLP
-from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.models.lm import ENGINE_FAMILIES, LM, QuantConfig
 from repro_torch.parallel import mesh as PM
 from repro_torch.parallel import sharding as SH
 from repro_torch.serving import kv_cache as KVC
@@ -292,7 +292,12 @@ class Engine:
         engine then on the mesh's device; ``param_axes``: the params'
         logical axes (``LM.axes``), needed when the model axis is above 1.
         ``params`` are then the whole model's, or this rank's shard of
-        them (``LM.init(mesh=)``)."""
+        them (``LM.init(mesh=)``). The dense and moe families only, as
+        the reference's engine: the others serve through ``LM.decode``."""
+        if cfg.family not in ENGINE_FAMILIES:
+            raise ValueError(
+                f"paged engine supports dense/moe; {cfg.family} serves via "
+                "LM.decode")
         self.device = C.resolve_device(device)
         self.mesh = mesh
         self.tp_size = mesh.size if mesh is not None else 1

@@ -1007,3 +1007,104 @@ def test_converted_planned_params_quantize_each_input_once_on_card():
     logits, _ = m.prefill(params, tokens, m.init_cache(2, 32, device="cuda"))
     assert AQ.act_quant_w4ax.launches - before == 4 * cfg.num_layers
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4])
+def test_contiguous_decode_head_dim_80_exact_on_card(g):
+    """K10 at head_dim 80 (Zamba2's attention; 40-byte packed rows
+    staged by 8-byte copies) bit for bit against its plain version: T
+    even (1,024 holding 512–544 keys; 6,000), odd (487) and not a
+    multiple of the 64-key tile (70), lengths 1 and T, shared and
+    per-batch scales, f32 and bf16 queries, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(240 + g)
+    hkv, d = 4, 80
+    for t, lens in ((1024, [512, 517, 526, 544]), (70, [70, 1, 33]),
+                    (487, [487, 1, 486, 200]), (6000, [6000, 5999, 64])):
+        b = len(lens)
+        kp, vp = [_cuda(rng.integers(0, 256, (b, hkv, t, d // 2))
+                        .astype(np.uint8)) for _ in range(2)]
+        q = _cuda(rng.normal(size=(b, g * hkv, d)).astype(np.float32))
+        lengths = _cuda(np.asarray(lens, np.int32))
+        for (ks, kz, vs, vz), qq in zip(_scale_sets(rng, b, hkv, d),
+                                        (q, q.bfloat16())):
+            args = (qq, kp, ks, kz, vp, vs, vz, lengths)
+            before = KA.kv4_decode_attention.launches
+            got = KA.kv4_decode_attention(*args)
+            assert KA.kv4_decode_attention.launches == before + 1
+            _exact(got, KA.kv4_decode_attention_ref(*args))
+    z = torch.zeros((1, 2, 8, 32), dtype=torch.uint8, device="cuda")
+    s = torch.ones((2, 1, 64), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 80 and 128, got 64"):
+        KA.kv4_decode_attention(
+            torch.zeros((1, 2, 64), device="cuda"), z, s, s, z, s, s,
+            torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
+# one narrow model a family with the kernels' head_dims (80: Zamba2's,
+# 128) and an INT8 tail in every projection (int4_fraction 0.5)
+CARD_FAMILIES = {
+    "hybrid": dict(num_layers=2, d_model=512, num_heads=8, num_kv_heads=8,
+                   head_dim=80, d_ff=1024, vocab_size=256, ssm_state=64,
+                   ssm_head_dim=64, ssm_chunk=128, attn_period=2,
+                   rope_theta=10000.0),
+    "ssm": dict(num_layers=2, d_model=512, num_heads=8, num_kv_heads=8,
+                head_dim=64, d_ff=1024, vocab_size=256, rwkv_head_dim=64,
+                rwkv_decay_lora=32),
+    "vlm": dict(num_layers=2, d_model=512, num_heads=4, num_kv_heads=2,
+                head_dim=128, d_ff=1024, vocab_size=256, cross_attn_period=2,
+                num_image_tokens=40),
+    "audio": dict(num_layers=2, d_model=512, num_heads=4, num_kv_heads=4,
+                  head_dim=128, d_ff=1024, vocab_size=64, encoder_only=True,
+                  causal=False, norm="layernorm", mlp_act="gelu",
+                  conv_pos_width=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(CARD_FAMILIES))
+def test_family_kernels_equal_ref_on_card(family):
+    """Each family's 2-layer model (one group for hybrid and vlm, the
+    VLM's gates 0.5): ``prefill`` of 3 × 100 tokens and 4 greedy
+    ``decode`` steps over the int4 cache with the kernels and with
+    ``impl="ref"`` on the card, the same logits bit for bit (the
+    encoder: ``train_logits``); K10 launched once per attention layer a
+    decode step (at head_dim 80 for the hybrid)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.lm import LM, QuantConfig
+    cfg = ModelConfig(name=f"card-{family}", family=family,
+                      **CARD_FAMILIES[family])
+    params = LM(cfg).init(seed=2, device="cuda")
+    for cb in params.get("cross_blocks", []):
+        cb["gate"].fill_(0.5)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(1, cfg.vocab_size, (3, 100), device="cuda",
+                           generator=gen)
+    extra = ({"image_embeds": torch.randn((3, 40, 512), device="cuda",
+                                          generator=gen)}
+             if family == "vlm" else
+             {"frames": torch.randn((3, 100, 512), device="cuda",
+                                    generator=gen)}
+             if family == "audio" else None)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        m = LM(cfg, QuantConfig(impl=impl, int4_fraction=0.5))
+        if not cfg.has_decode:
+            runs[impl] = m.train_logits(params, tokens, extra)[0]
+            continue
+        before = KA.kv4_decode_attention.launches
+        cache = m.init_cache(3, 128, device="cuda")
+        logits, cache = m.prefill(params, tokens, cache, extra)
+        out = [logits]
+        for _ in range(4):
+            logits, cache = m.decode(params, logits.argmax(-1), cache)
+            out.append(logits)
+        runs[impl] = torch.cat(out, 1)
+        if impl == "cuda":
+            per_step = {"hybrid": 1, "vlm": 1}.get(family, 0)
+            assert KA.kv4_decode_attention.launches - before == 4 * per_step
+    _exact(runs["cuda"], runs["ref"])

@@ -119,3 +119,17 @@ def test_fmpq_and_model_forward_modules_are_covered():
     assert {"repro_torch.core.fmpq", "repro_torch.layers.attention",
             "repro_torch.models.lm", "repro_torch.convert"} <= set(
                 _port_modules())
+
+
+def test_other_family_modules_are_covered():
+    """The scan and the jax-blocked import above reach the other
+    families' modules (Mamba2, RWKV-6, their four configurations) and
+    the files they extend (the model, attention, K10's wrapper)."""
+    new = ("layers/mamba2.py", "layers/rwkv6.py", "configs/zamba2_2p7b.py",
+           "configs/rwkv6_1p6b.py", "configs/llama3p2_vision_90b.py",
+           "configs/hubert_xlarge.py")
+    for rel in new + ("models/lm.py", "layers/attention.py", "convert.py",
+                      "kernels/kv4_attention.py"):
+        assert PORT / rel in SCANNED
+    assert {"repro_torch." + r[:-3].replace("/", ".") for r in new} <= set(
+        _port_modules())

@@ -392,11 +392,18 @@ def test_decode_clamps_past_the_cache():
                        lm.init_cache(2, 6, device="cpu"))
 
 
-def test_other_families_refused():
-    import dataclasses
-    cfg = dataclasses.replace(get_smoke_config("llama3_8b"), family="ssm")
-    with pytest.raises(ValueError, match="item 6"):
-        LM(cfg)
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "rwkv6_1p6b",
+                                  "llama3p2_vision_90b", "hubert_xlarge"])
+def test_other_families_refused(arch):
+    """The paged engine serves the dense and moe families only, and
+    refuses the others in the reference's words (they serve through
+    ``LM.prefill``/``decode``, which accepts them)."""
+    from repro_torch.serving.engine import Engine
+    cfg = get_smoke_config(arch)
+    params = LM(cfg, QuantConfig(impl="ref")).init(seed=0, device="cpu")
+    with pytest.raises(ValueError, match=f"paged engine supports dense/moe; "
+                       f"{cfg.family} serves via LM.decode"):
+        Engine(cfg, params, QuantConfig(impl="ref"), device="cpu")
 
 
 def test_moe_prefill():

@@ -30,7 +30,7 @@ from repro_torch.convert import axes_from_jax, params_from_jax, to_torch
 from repro_torch.core import qlinear as QL
 from repro_torch.launch import mesh as LM_MESH
 from repro_torch.launch import serve as SERVE
-from repro_torch.models.lm import LM, QuantConfig
+from repro_torch.models.lm import ENGINE_FAMILIES, LM, QuantConfig
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.serving import kv_cache as KVC
@@ -87,8 +87,13 @@ def _ref_shapes(arch: str):
                           quantized=True)
 
 
+# the configurations a mesh serves (LM.axes: the dense and moe families)
+MESH_ARCHS = [a for a in ARCH_IDS
+              if get_config(a).family in ENGINE_FAMILIES]
+
+
 @pytest.mark.parametrize("m", (2, 4, 8))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", MESH_ARCHS)
 def test_param_specs_equal_reference(arch, m):
     """Every dense configuration at full width: the port's axes are the
     reference's ``qaxes`` without ``"layers"``, and its SERVE_RULES specs
