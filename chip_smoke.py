@@ -206,6 +206,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
    kernels phase holds K10 at D = 80 (Zamba2's B = 8, 32/32 heads, T =
    1,024 holding 512–544 keys; the K10 row's ``D=80`` entry, its
    launches from the Zamba2 run).
+16. train (after families, before archs): training, which launches none
+   of the port's kernels (fp params; the counts set to 0 before (a) and
+   read after it must all be 0): (a) Llama-3-8B at full width and 8 of
+   its 32 layers (f32 params, gradients and both AdamW moments, 44.7 GB;
+   full depth would need 128.5 GB) from ``LM.init_fp`` on the card, 6
+   steps of ``make_train_step`` at 8 × 1,024 tokens of the launcher's
+   synthetic stream, two loss chunks of 512, AdamW at lr 3e-4, weight
+   decay 0.1, a cosine schedule with warm-up 1: each step's loss, grad
+   norm and ms, the median step after the first, tokens/s, peak memory,
+   and a 7th step under ``torch.profiler`` (launch calls, busy share,
+   top kernels, device time by kind); every loss finite and the last
+   below the first; (b) one train step of each family's smoke model on
+   the card and on the CPU from the same fp params and batch: loss, grad
+   norm, AdamW's first moment leaf by leaf and the moved params within
+   ``TRAIN_TOL``, the MoE's routing agreement printed; (c) the training
+   launcher in a subprocess for 8 steps with a checkpoint every 4, then
+   a second process resumed from step 4's checkpoint: the same step 4–7
+   lines and final checkpoint, bit for bit;
 
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
@@ -235,6 +253,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -247,8 +266,8 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 PHASES = ("kernels", "parity", "slice", "baselines", "spec", "recover",
-          "replicas", "tp", "moe", "generate", "fmpq", "families", "archs",
-          "cli")
+          "replicas", "tp", "moe", "generate", "fmpq", "families", "train",
+          "archs", "cli")
 EXTRA_PHASES = ("times", "specdiag", "famprof")     # only when named
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -2852,8 +2871,9 @@ def family_kernels_vs_ref(torch, LM, QuantConfig, cfg, tag: str):
     tokens = gen_tokens(torch, np, small.vocab_size, GEN_BATCH, GEN_PROMPT, 8)
     extra = family_extra(torch, small, GEN_BATCH, GEN_PROMPT, 9)
     if not small.has_decode:
-        got, want = (LM(small, QuantConfig(impl=i)).train_logits(
-            params, tokens, extra)[0] for i in ("cuda", "ref"))
+        with torch.no_grad():
+            got, want = (LM(small, QuantConfig(impl=i)).train_logits(
+                params, tokens, extra)[0] for i in ("cuda", "ref"))
         err = float((got - want).abs().max())
         say(f"{tag} 2 layers: train_logits, kernels against impl='ref': max "
             f"err {err:.4g} over {tuple(got.shape)}")
@@ -2911,7 +2931,8 @@ def phase_families(torch, np, mods, KERNELS, get_config, rows, smi) -> dict:
         if what == "encode":
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = lm.train_logits(params, tokens, extra)
+            with torch.no_grad():
+                logits, _ = lm.train_logits(params, tokens, extra)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {n: k.launches for n, k in KERNELS.items()}
@@ -3037,6 +3058,310 @@ def phase_famprof(torch, np, mods, get_config, smi):
         say(f"{tag} profile of 3 steps:\n"
             + profile_table(torch, prof, wall, 3))
         del params, logits, state, box
+
+
+# ------------------------------------------------------------------ train
+
+TRAIN_DEPTH = 8          # of Llama-3-8B's 32 layers: f32 params, gradients
+#                          and both AdamW moments take 16 B a parameter,
+#                          128.5 GB at full depth, 44.7 GB at 8 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 8, 1024, 512, 6
+TRAIN_FAMILIES = ("llama3_8b", "moonshot_v1_16b_a3b", "zamba2_2p7b",
+                  "rwkv6_1p6b", "llama3p2_vision_90b", "hubert_xlarge")
+TRAIN_SMOKE = (2, 24, 16)     # batch, tokens, loss chunk (two, one padded)
+TRAIN_LR = 1e-3               # the card-against-CPU step's
+# card against CPU: loss, grad norm; each gradient leaf (through AdamW's
+# first moment, m = 0.1·g) to its max: a projection's to 2e-2, a
+# per-channel leaf's (a sum over every position of bf16 terms that mostly
+# cancel) to 0.15, the VLM's 0-d gate to 0.5; the whole tree's L2 to 2e-2
+# (the bounds the CPU tests hold the port to the reference with:
+# ``tests/test_torch_train_step.py``); the params moved by ~lr·sign(g)
+# at a first step: max 2·lr apart, mean 0.05·lr
+TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "matrix": 2e-2,
+             "channel": 0.15, "gate": 0.5, "l2": 2e-2, "p_mean": 0.05}
+TRAIN_CLI = ("--arch", "llama3_8b", "--smoke", "--steps", "8",
+             "--ckpt-every", "4", "--log-every", "1")
+
+
+def train_full_width(torch, LM, KERNELS, get_config, smi) -> dict:
+    """(a) Llama-3-8B at full width and ``TRAIN_DEPTH`` layers: f32
+    params from ``init_fp`` on the card, ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on the launcher's synthetic stream, AdamW
+    (lr 3e-4, weight decay 0.1, cosine schedule with warm-up 1), then one
+    step more under ``torch.profiler`` (launch calls, device busy share,
+    top kernels). Every loss finite, the last below the first; none of
+    the port's kernels launched (fp training runs no W4 projection and
+    no int4 cache)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+    full = get_config("llama3_8b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_DEPTH)
+    tag = f"[train] {cfg.name} ({TRAIN_DEPTH} of {full.num_layers} layers)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg)
+    params = lm.init_fp(seed=0, device="cuda")
+    state = OPT.adamw_init(params)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in OPT.tree_leaves(params))
+    say(f"{tag}: {n / 1e6:.1f} M f32 parameters and both AdamW moments "
+        f"made in {time.perf_counter() - t0:.1f} s; with the gradients "
+        f"{16 * n / 1e9:.2f} GB of f32 state")
+    step_fn = make_train_step(lm, OPT.AdamWConfig(
+        lr=3e-4, weight_decay=0.1,
+        schedule=OPT.cosine_schedule(1, TRAIN_STEPS)),
+        loss_chunk=TRAIN_CHUNK)
+    data = SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0))
+    for kern in KERNELS.values():
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        batch = data.batch_for_step(step, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        say(f"{tag} step {step}: loss {losses[-1]:.6f} grad norm "
+            f"{float(m['grad_norm']):.6f} lr {float(m['lr']):.3e} "
+            f"{times[-1] * 1e3:.2f} ms")
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / med
+    batch = data.batch_for_step(TRAIN_STEPS, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    say(f"{tag}: B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, loss chunks of "
+        f"{TRAIN_CHUNK}: median step {med * 1e3:.2f} ms over steps 1–"
+        f"{TRAIN_STEPS - 1} (first {times[0] * 1e3:.2f} ms), {tok_s:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} "
+        f"GB); {calls} kernel launch calls a step | {smi}")
+    say(f"{tag} profile of one step:\n" + profile_table(torch, prof, wall, 1))
+    say(f"{tag} device time by kind: {train_kinds(torch, prof)}")
+    say(f"{tag} launches {json.dumps(launches)}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall ({losses})")
+    if any(launches.values()):
+        fail(f"{tag}: a W4 kernel launched in fp training: {launches}")
+    del params, state, m, batch
+    return {"median_step_ms": med * 1e3, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "launch_calls": calls, "losses": losses}
+
+
+def train_kinds(torch, prof) -> str:
+    """The profiled device time in bf16 GEMMs, f32 GEMMs (cuBLAS's f32
+    kernels: the attention einsums, TF32 off) and everything else
+    (elementwise, copies, reductions)."""
+    ms = {"bf16 GEMM": 0.0, "f32 GEMM": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        name = e.key.lower()
+        kind = ("other" if "gemm" not in name and "nvjet" not in name else
+                "f32 GEMM" if "f32f32" in name or "sgemm" in name else
+                "bf16 GEMM")
+        ms[kind] += us / 1e3
+    total = sum(ms.values())
+    if not total:
+        return "no device events in the trace"
+    return ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+                     for k, v in ms.items())
+
+
+def _train_batch(torch, np, cfg, b: int, s: int, device: str) -> dict:
+    """Seeded tokens and labels of the synthetic stream, a partial mask,
+    and the family's frames or image embeddings (numpy's generator, so
+    the card and the CPU get the same numbers)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    toks, labels = SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)).host_batch(0)
+    mask = np.ones((b, s), np.float32)
+    mask[1, s - 5:] = 0
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long(),
+             "mask": torch.from_numpy(mask)}
+    rng = np.random.default_rng(5)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.normal(size=(
+            b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(b, s, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _train_leaf_tol(path, t) -> float:
+    if t.dim() == 0:
+        return TRAIN_TOL["gate"]
+    if t.dim() == 1 or path.endswith("conv_w"):
+        return TRAIN_TOL["channel"]
+    return TRAIN_TOL["matrix"]
+
+
+def train_card_vs_cpu(torch, np, LM, get_smoke_config):
+    """(b) One train step of each family's smoke config on the card and
+    on the CPU from the same fp params (the VLM's gates 0.5) and batch:
+    loss, grad norm, AdamW's first moment leaf by leaf (``TRAIN_TOL``)
+    and the updated params. The MoE router's (token, expert) choices of
+    both are compared too (a bf16 near-tie routed otherwise moves the
+    expert stacks' gradients far past the bounds)."""
+    from repro_torch.layers import mlp as MLP
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import make_train_step
+    b, s, chunk = TRAIN_SMOKE
+    route = MLP.moe_route
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch)
+        lm = LM(cfg)
+        tag = f"[train] card vs CPU {arch} (smoke, {cfg.family})"
+        opt = OPT.AdamWConfig(lr=TRAIN_LR)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = lm.init_fp(seed=0, device="cpu")
+            for cb in params.get("cross_blocks", []):
+                cb["gate"].fill_(FAMILY_GATE)
+            params = OPT.tree_map(lambda t: t.to(dev), params)
+            state = OPT.adamw_init(params)
+            routes = []
+
+            def rec(*args, **kw):
+                out = route(*args, **kw)
+                routes.append(out[2].cpu())
+                return out
+            MLP.moe_route = rec
+            try:
+                params, state, m = make_train_step(lm, opt, loss_chunk=chunk)(
+                    params, state, _train_batch(torch, np, cfg, b, s, dev))
+            finally:
+                MLP.moe_route = route
+            res[dev] = (OPT.tree_map(lambda t: t.cpu(), params),
+                        OPT.tree_map(lambda t: t.cpu(), state),
+                        {k: float(v) for k, v in m.items()}, routes)
+        (pc, sc, mc, rc), (pg, sg, mg, rg) = res["cpu"], res["cuda"]
+        agree = (float(torch.cat([(x == y).flatten() for x, y in zip(rc, rg)])
+                       .float().mean()) if rc else None)
+        errs = {k: abs(mg[k] - mc[k]) / abs(mc[k])
+                for k in ("loss", "grad_norm")}
+        worst, num, den, bad = {}, 0.0, 0.0, []
+        want = dict(flatten(sc["m"]))
+        for path, got in flatten(sg["m"]):
+            w = want[path]
+            scale = float(w.abs().max())
+            d = float((got - w).abs().max())
+            num += float(((got - w).double() ** 2).sum())
+            den += float((w.double() ** 2).sum())
+            tol = _train_leaf_tol(path, w)
+            rel = d / scale if scale else d
+            worst[tol] = max(worst.get(tol, (0.0, "")), (rel, path))
+            if rel > tol or (scale == 0 and d != 0):
+                bad.append((path, rel, tol))
+        l2 = (num / den) ** 0.5
+        p_cpu = dict(flatten(pc))
+        dp = [(a - p_cpu[path]).abs() for path, a in flatten(pg)]
+        dp_max = max(float(d.max()) for d in dp) / TRAIN_LR
+        dp_mean = (sum(float(d.sum()) for d in dp)
+                   / sum(d.numel() for d in dp) / TRAIN_LR)
+        say(f"{tag}: loss {mg['loss']:.6f} / {mc['loss']:.6f} (rel "
+            f"{errs['loss']:.2e}), grad norm {mg['grad_norm']:.6f} / "
+            f"{mc['grad_norm']:.6f} (rel {errs['grad_norm']:.2e}), aux "
+            f"{mg['aux']:.6e} / {mc['aux']:.6e}; m per class {worst}, L2 "
+            f"{l2:.2e}; params max {dp_max:.3f}·lr, mean {dp_mean:.4f}·lr"
+            + (f"; routing agreement {agree:.4f}" if agree is not None
+               else "") + f" ({time.perf_counter() - t0:.1f} s)")
+        if not all(math.isfinite(v) for v in (*mg.values(), *mc.values())):
+            fail(f"{tag}: non-finite metrics {mg} {mc}")
+        if errs["loss"] > TRAIN_TOL["loss"] or (
+                errs["grad_norm"] > TRAIN_TOL["grad_norm"]):
+            fail(f"{tag}: loss or grad norm apart ({errs})")
+        if bad or l2 > TRAIN_TOL["l2"]:
+            fail(f"{tag}: gradients apart: {bad[:5]} L2 {l2:.3e}"
+                 + (f" (routing agreement {agree})" if agree is not None
+                    else ""))
+        if dp_max > 2 * (1 + 1e-3) or dp_mean > TRAIN_TOL["p_mean"]:
+            fail(f"{tag}: params apart after the step (max {dp_max}·lr, "
+                 f"mean {dp_mean}·lr)")
+
+
+def train_launcher():
+    """(c) The training launcher in a subprocess on the card: 8 steps of
+    the smoke model with a checkpoint every 4, then a second process
+    that resumes from step 4's checkpoint alone: its step 4–7 lines and
+    its final checkpoint must equal the uninterrupted run's, bit for
+    bit."""
+    import tempfile
+    pat = re.compile(r"^(step (\d+): loss=\S+ ce=\S+ gnorm=\S+) \(", re.M)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+        a = _launch(TRAIN_CLI + ("--ckpt-dir", full), 300,
+                    "repro_torch.launch.train", "train")
+        os.makedirs(part)
+        os.rename(os.path.join(full, "step_00000004"),
+                  os.path.join(part, "step_00000004"))
+        b = _launch(TRAIN_CLI + ("--ckpt-dir", part), 300,
+                    "repro_torch.launch.train", "train")
+        lines_a = {int(m[2]): m[1] for m in pat.finditer(a)}
+        lines_b = {int(m[2]): m[1] for m in pat.finditer(b)}
+        if "[resume] restored step 4" not in b or sorted(lines_b) != [
+                4, 5, 6, 7] or sorted(lines_a) != list(range(8)):
+            fail(f"train: the resumed run's steps {sorted(lines_b)}, the "
+                 f"uninterrupted run's {sorted(lines_a)}")
+        if any(lines_b[k] != lines_a[k] for k in lines_b):
+            fail("train: the resumed run's step 4–7 lines differ")
+        arrays = []
+        for d in (full, part):
+            step = os.path.join(d, "step_00000008")
+            arrays.append([np.load(os.path.join(step, f))
+                           for f in sorted(os.listdir(step))
+                           if f.endswith(".npy")])
+        same = [x.dtype == y.dtype and np.array_equal(x, y)
+                for x, y in zip(*arrays)]
+        if not same or not all(same) or len(arrays[0]) != len(arrays[1]):
+            fail(f"train: the final checkpoints differ in "
+                 f"{same.count(False)} of {len(same)} arrays")
+        say(f"[train] resumed from step 4: steps 4–7 and the final "
+            f"checkpoint's {len(same)} arrays equal the uninterrupted run's "
+            f"bit for bit")
+
+
+def phase_train(torch, np, mods, KERNELS, get_config, get_smoke_config,
+                smi) -> dict:
+    """The training slice on the card: (a) ``train_full_width``, (b)
+    ``train_card_vs_cpu``, (c) ``train_launcher``."""
+    LM = mods[1]
+    t0 = time.perf_counter()
+    out = train_full_width(torch, LM, KERNELS, get_config, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[time] train (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_card_vs_cpu(torch, np, LM, get_smoke_config)
+    say(f"[time] train (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launcher()
+    say(f"[time] train (c): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # the four projection shapes of Llama-3-8B: (name, K, N)
@@ -3705,25 +4030,27 @@ CLI_GROUP_EXPECT = {
     "requests: " + ",".join(["32"] * 8)}
 
 
-def _launch(cli, timeout_s: float) -> str:
-    """The serve launcher in a subprocess with ``cli`` → what it printed
-    (each line printed here too); a non-zero exit fails."""
+def _launch(cli, timeout_s: float, module: str = "repro_torch.launch.serve",
+            tag: str = "cli") -> str:
+    """A launcher (``module``, default the serve launcher) in a
+    subprocess with ``cli`` → what it printed (each line printed here
+    too, after ``[tag]``); a non-zero exit fails."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
-    say(f"[cli] python -m repro_torch.launch.serve {' '.join(cli)}")
+    say(f"[{tag}] python -m {module} {' '.join(cli)}")
     try:
         out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *cli],
+            [sys.executable, "-m", module, *cli],
             cwd=HERE, env=env, capture_output=True, text=True,
             timeout=timeout_s)
     except subprocess.TimeoutExpired:
-        fail(f"cli: the launcher did not finish in {timeout_s:.0f} s")
+        fail(f"{tag}: the launcher did not finish in {timeout_s:.0f} s")
     for line in out.stdout.splitlines():
-        say(f"[cli] {line}")
+        say(f"[{tag}] {line}")
     if out.returncode:
-        fail(f"cli: exit code {out.returncode}:\n{out.stderr[-4000:]}")
+        fail(f"{tag}: exit code {out.returncode}:\n{out.stderr[-4000:]}")
     return out.stdout
 
 
@@ -3812,7 +4139,7 @@ def main():
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, str(HERE / "src"))
-    from repro_torch.configs import ModelConfig, get_config
+    from repro_torch.configs import ModelConfig, get_config, get_smoke_config
     from repro_torch.core import quantizer as Q
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import act_quant as AQ
@@ -3925,6 +4252,10 @@ def main():
     if "famprof" in phases:
         phase_famprof(torch, np, mods, get_config, smi)
         lap("famprof")
+    if "train" in phases:
+        runs["train"] = phase_train(torch, np, mods, ops.KERNELS, get_config,
+                                    get_smoke_config, smi)
+        lap("train")
     if "archs" in phases:
         phase_archs(torch, np, mods, ops.KERNELS, get_config, args.profile)
         lap("archs")

@@ -4,7 +4,8 @@ The input is ``LM.quantize`` output of the JAX package with every leaf
 turned into a numpy array by the caller (``np.asarray``); this module never
 sees a JAX type. Block leaves carry a leading layer axis there and become
 a list of per-layer dicts here, so both packages compute the same thing
-(a cache's the same way: :func:`cache_from_jax`).
+(a cache's the same way: :func:`cache_from_jax`; AdamW's moments, which
+mirror the params, with :func:`opt_state_from_jax`).
 Every leaf crosses as it is, an MoE block's included: the f32 router,
 the packed expert stacks (``[L, E, K/2, N]`` → per layer ``[E, K/2,
 N]``), the shared experts, QK-norm's ``attn.q_norm``/``k_norm`` and an
@@ -24,8 +25,8 @@ import torch
 from repro_torch.core import fmpq
 from repro_torch.layers.common import resolve_device
 
-__all__ = ["params_from_jax", "cache_from_jax", "axes_from_jax",
-           "plan_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "cache_from_jax",
+           "axes_from_jax", "plan_from_jax", "to_torch"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -33,10 +34,11 @@ def to_torch(a, device="cuda") -> torch.Tensor:
     keep their bits."""
     device = resolve_device(device)
     a = np.asarray(a)
+    c = np.ascontiguousarray(a).reshape(a.shape)     # 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = torch.from_numpy(c.view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(c.copy()).to(device)
 
 
 def _tree(x, fn):
@@ -62,6 +64,15 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         if key in tree:
             out[key] = _unstack(tree[key], device)
     return out
+
+
+def opt_state_from_jax(state: dict, device="cuda") -> dict:
+    """The reference's AdamW state (numpy leaves: ``m`` and ``v`` mirror
+    its params, ``step`` an int32 0-d) → the port's (``m``/``v`` in the
+    port's params layout, :func:`params_from_jax`)."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "step": to_torch(np.asarray(state["step"], np.int32), device)}
 
 
 def _unstack(stacked, device) -> list:

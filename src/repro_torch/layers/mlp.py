@@ -41,10 +41,26 @@ def silu_bf16(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (torch.exp(-x) + 1))
 
 
+class _Flush(torch.autograd.Function):
+    """y with |y| < ``tiny`` (the subnormals, and zero) replaced by y·0,
+    a signed zero: XLA's CPU flush. Its gradient is the identity's: the
+    flush is the compiler's, not part of the function JAX differentiates
+    (a ``torch.where`` would give those points a zero gradient, e.g.
+    ``exp_xla``'s at an argument of exactly 0)."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, tiny: float) -> torch.Tensor:
+        return torch.where(y.abs() < tiny, y * 0, y)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
 def _round(y: torch.Tensor) -> torch.Tensor:
     """An f32 result → bf16 as XLA's CPU rounds one bf16 op: subnormal
     results flushed to (signed) zero first, then one rounding."""
-    return torch.where(y.abs() < _BF16_TINY, y * 0, y).to(torch.bfloat16)
+    return _Flush.apply(y, _BF16_TINY).to(torch.bfloat16)
 
 
 def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +126,9 @@ _EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
 
 
 def _ftz(y: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU flushes f32 subnormals (operands and results) to zero."""
-    return torch.where(y.abs() < _F32_TINY, y * 0, y)
+    """XLA's CPU flushes f32 subnormals (operands and results) to zero
+    (:class:`_Flush`)."""
+    return _Flush.apply(y, _F32_TINY)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:

@@ -8,6 +8,8 @@ model's own forward over a contiguous cache::
     logits, cache = lm.prefill(params, tokens, cache, extra)  # [B, 1, V]
     logits, cache = lm.decode(params, tokens, cache)    # tokens [B, 1]
     logits, aux = lm.train_logits(params, tokens, extra)  # [B, S, V] f32
+    hidden, aux = lm.train_hidden(params, tokens, extra)  # differentiable
+    fp = lm.init_fp(seed, device)      # f32 params, init's draws unquantized
 
 Families: ``dense`` and ``moe`` (attention + MLP or MoE layers),
 ``hybrid`` (Zamba2: groups of one shared attention block, always
@@ -22,7 +24,12 @@ as in the reference.
 
 The forward walks the layers in a Python loop (the reference scans
 them); ``quant=None`` runs fp params (``{"w"}`` projections, bf16
-``torch.matmul``) and a bf16 cache. The serving engine
+``torch.matmul``) and a bf16 cache. ``train_hidden``/``train_logits``
+are differentiable: with autograd on, each layer the reference wraps in
+``jax.checkpoint`` runs under :func:`remat` (its activations recomputed
+in the backward), and training (``training/train_loop.py``) takes the
+gradients of the f32 params of :meth:`LM.init_fp`. ``prefill`` and
+``decode`` run without autograd. The serving engine
 (``serving/engine.py``) has its own paged forward and reads only
 ``embed``/``head`` from here.
 
@@ -93,6 +100,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as QL
@@ -271,6 +279,29 @@ class LM:
                 "lm_head": C.init_linear(cfg.d_model, cfg.vocab_size, gen,
                                          device)}
 
+    def _n_blocks(self) -> int:
+        """Entries of ``blocks``: the VLM's self layers, else every layer."""
+        return (self.n_groups * self.self_per_group
+                if self.cfg.family == "vlm" else self.cfg.num_layers)
+
+    def init_fp(self, seed: int = 0, device="cuda") -> dict:
+        """Random fp parameters on ``device``, the reference's unquantized
+        tree (f32 embedding table or conv_pos, f32 head, f32 blocks, the
+        hybrid's ``shared_attn``, the VLM's ``cross_blocks``): the draws
+        of :meth:`init` in its order, so ``quantize(init_fp(s))`` equals
+        ``init(s)``. The parameters training updates."""
+        dev = C.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = {**self.init_top(gen, dev),
+                  "blocks": [self.init_block(gen, dev)
+                             for _ in range(self._n_blocks())]}
+        if self.cfg.family == "hybrid":
+            params["shared_attn"] = self.init_shared_attn(gen, dev)
+        if self.cfg.family == "vlm":
+            params["cross_blocks"] = [self.init_cross_block(gen, dev)
+                                      for _ in range(self.n_groups)]
+        return params
+
     def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random quantized parameters on ``device``, generated layer by
         layer: each block is made in f32, quantized, and its f32 weights
@@ -286,9 +317,7 @@ class LM:
         gen = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
         params = self.quantize({**self.init_top(gen, dev), "blocks": []})
-        n_blocks = (self.n_groups * self.self_per_group
-                    if cfg.family == "vlm" else cfg.num_layers)
-        for _ in range(n_blocks):
+        for _ in range(self._n_blocks()):
             block = self.quantize_block(self.init_block(gen, dev))
             if mesh is not None:
                 block = SH.shard_tree(block, SH.tree_pspecs(
@@ -512,17 +541,23 @@ class LM:
                                    act="swiglu")
             new["shared_attn"].append(nc)
             for li in range(gi * per, (gi + 1) * per):
-                bp = params["blocks"][li]
-                h = C.apply_norm(bp["norm"], x, cfg.norm, cfg.norm_eps)
-                if mode == "decode":
-                    y, st = M2.mamba2_decode(bp["mamba"], cfg, h,
-                                             cache["mamba"][li], rt)
-                else:
-                    y, st = M2.mamba2_train(bp["mamba"], cfg, h, rt,
-                                            return_state=True)
+                c = cache["mamba"][li] if mode == "decode" else None
+                x, st = remat(self._mamba_block, params["blocks"][li], x, c)
                 new["mamba"].append(st)
-                x = x + y
         return x, new
+
+    def _mamba_block(self, bp, x, c):
+        """A Mamba2 layer: norm, the SSD over the sequence (state after
+        its last position) or, with a state ``c``, one decode step;
+        residual."""
+        cfg, rt = self.cfg, self._rt
+        h = C.apply_norm(bp["norm"], x, cfg.norm, cfg.norm_eps)
+        if c is not None:
+            y, st = M2.mamba2_decode(bp["mamba"], cfg, h, c, rt)
+        else:
+            y, st = M2.mamba2_train(bp["mamba"], cfg, h, rt,
+                                    return_state=True)
+        return x + y, st
 
     def _vlm(self, params, x, mode: str, cache, extra, aux):
         """Llama-3.2-Vision: for each group, its self-attention layers,
@@ -541,8 +576,8 @@ class LM:
         for gi in range(self.n_groups):
             for li in range(gi * spg, (gi + 1) * spg):
                 c = cache["attn"][li] if cache is not None else None
-                x, nc, aux = self._block(params["blocks"][li], x, mode, c,
-                                         aux)
+                x, nc, aux = remat(self._block, params["blocks"][li], x,
+                                   mode, c, aux)
                 new["attn"].append(nc)
             cb = params["cross_blocks"][gi]
             h = C.apply_norm(cb["attn_norm"], x, cfg.norm, cfg.norm_eps)
@@ -572,13 +607,13 @@ class LM:
             new = {"rwkv": []}
             for li, bp in enumerate(params["blocks"]):
                 c = cache["rwkv"][li] if cache is not None else None
-                x, st = self._rwkv_block(bp, x, mode, c)
+                x, st = remat(self._rwkv_block, bp, x, mode, c)
                 new["rwkv"].append(st)
         else:
             new = {"attn": []}
             for li, bp in enumerate(params["blocks"]):
                 c = cache["attn"][li] if cache is not None else None
-                x, nc, aux = self._block(bp, x, mode, c, aux)
+                x, nc, aux = remat(self._block, bp, x, mode, c, aux)
                 new["attn"].append(nc)
         return x, (new if cache is not None else None), aux
 
@@ -601,17 +636,17 @@ class LM:
         if not self.cfg.has_decode:
             raise ValueError("encoder-only model has no prefill/decode")
 
-    @torch.no_grad()
     def train_hidden(self, params, tokens, extra=None):
         """The backbone up to and with the final norm → (hidden [B, S, d]
-        bf16, aux). A forward only: no autograd, no checkpointing.
-        ``extra``: ``{"frames"}`` (audio; ``tokens`` unused) or
+        bf16, aux), differentiable: with autograd on, the layers the
+        reference checkpoints run under :func:`remat` (every layer of the
+        stack; not the hybrid's shared attention block or the VLM's cross
+        layers). ``extra``: ``{"frames"}`` (audio; ``tokens`` unused) or
         ``{"image_embeds"}`` (vlm)."""
         x, _, aux = self._layers(params, self._input(params, tokens, extra),
                                  "train", extra=extra)
         return self._final(params, x), aux
 
-    @torch.no_grad()
     def train_logits(self, params, tokens, extra=None):
         """tokens [B, S] → (logits [B, S, V] f32, the MoE aux loss)."""
         hidden, aux = self.train_hidden(params, tokens, extra)
@@ -639,6 +674,19 @@ class LM:
 
 
 # ---------------------------------------------------------------- helpers
+
+def remat(fn, *args):
+    """``fn(*args)``; with autograd on, under non-reentrant
+    ``torch.utils.checkpoint``: the backward keeps only the inputs and
+    runs ``fn`` again for its activations (the reference's
+    ``jax.checkpoint`` around a layer). The recomputation is the same
+    code on the same inputs, so the gradients are those of the plain
+    call."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
 
 def conv_pos(params, x: torch.Tensor) -> torch.Tensor:
     """HuBERT's depthwise conv positional embedding of x [B, T, d]: the

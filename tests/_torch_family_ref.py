@@ -99,22 +99,12 @@ class Pair:
 
 
 def port_fp_params(cfg, seed: int = 0) -> dict:
-    """The port's own fp weights of ``cfg`` (``LM.init``'s draws, before
-    quantization; the reference's distributions), the VLM's cross gates
-    at ``GATE``."""
-    lm = LM(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    n = (lm.n_groups * lm.self_per_group if cfg.family == "vlm"
-         else cfg.num_layers)
-    params = {**lm.init_top(gen, "cpu"),
-              "blocks": [lm.init_block(gen, "cpu") for _ in range(n)]}
-    if cfg.family == "hybrid":
-        params["shared_attn"] = lm.init_shared_attn(gen, "cpu")
-    if cfg.family == "vlm":
-        params["cross_blocks"] = [lm.init_cross_block(gen, "cpu")
-                                  for _ in range(lm.n_groups)]
-        for cb in params["cross_blocks"]:
-            cb["gate"].fill_(GATE)
+    """The port's own fp weights of ``cfg`` (``LM.init_fp``: ``LM.init``'s
+    draws before quantization, the reference's distributions), the VLM's
+    cross gates at ``GATE``."""
+    params = LM(cfg).init_fp(seed, "cpu")
+    for cb in params.get("cross_blocks", []):
+        cb["gate"].fill_(GATE)
     return params
 
 

@@ -1108,3 +1108,70 @@ def test_family_kernels_equal_ref_on_card(family):
             per_step = {"hybrid": 1, "vlm": 1}.get(family, 0)
             assert KA.kv4_decode_attention.launches - before == 4 * per_step
     _exact(runs["cuda"], runs["ref"])
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu():
+    """One ``make_train_step`` of the dense smoke model on the card and on
+    the CPU from the same fp params and batch: the loss and grad norm to
+    1e-3 and 1e-2, AdamW's first moment (0.1·g) leaf by leaf to 2e-2 of
+    its max on the projections and 0.15 on the per-channel leaves (bf16
+    products summed in cuBLAS's and the CPU's orders; ``chip_smoke.py``'s
+    train phase holds every family so), the params moved alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_smoke_config("llama3_8b")
+    lm = LM(cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=40,
+                                      global_batch=2))
+    lr = 1e-3
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = OPT.tree_map(lambda t: t.to(dev), lm.init_fp(0, "cpu"))
+        state = OPT.adamw_init(params)
+        params, state, m = make_train_step(
+            lm, OPT.AdamWConfig(lr=lr), loss_chunk=16)(
+            params, state, data.batch_for_step(0, dev))
+        res[dev] = (OPT.tree_leaves(OPT.tree_map(lambda t: t.cpu(), params)),
+                    OPT.tree_leaves(OPT.tree_map(lambda t: t.cpu(),
+                                                 state["m"])),
+                    {k: float(v) for k, v in m.items()})
+    (pc, mc, xc), (pg, mg, xg) = res["cpu"], res["cuda"]
+    assert abs(xg["loss"] - xc["loss"]) <= 1e-3 * xc["loss"]
+    assert abs(xg["grad_norm"] - xc["grad_norm"]) <= 1e-2 * xc["grad_norm"]
+    for a, b in zip(mg, mc):
+        tol = 0.15 if b.dim() <= 1 else 2e-2
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    dp = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+    assert float(dp.max()) <= 2 * lr * (1 + 1e-3)
+    assert float(dp.mean()) <= 0.05 * lr
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(tmp_path):
+    """Card tensors (f32, bf16, int32, a 0-d step) saved, blocking and in
+    the background, and restored onto the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as OPT
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = ({"w": torch.randn((64, 48), device="cuda", generator=gen),
+             "blocks": [{"e": torch.randn(7, device="cuda", generator=gen)
+                         .to(torch.bfloat16)} for _ in range(2)]},
+            {"step": torch.tensor(5, dtype=torch.int32, device="cuda")})
+    CKPT.save(str(tmp_path), 3, tree)
+    CKPT.save_async(str(tmp_path), 4, tree)
+    CKPT.wait_async()
+    for step in (3, 4):
+        got, s = CKPT.restore(str(tmp_path), tree, step=step,
+                              device="cuda")
+        assert s == step
+        for a, b in zip(OPT.tree_leaves(got), OPT.tree_leaves(tree)):
+            assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
