@@ -39,7 +39,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    chunk of 5 queries padded to 8 whose KV is in its pages (under ``C=5
    spec``: the verify layout the engine uses on the card, each position
    bit for bit the decode step of its token, and the parent's layout
-   timed beside it);
+   timed beside it); K6–K10 again at head_dim 32, 64 and 80 at GQA groups
+   1, 2, 4 and 8 on 8 kv heads (entries ``D=<d> Hq=32`` — timed, the
+   8B's heads — and ``D=<d> G=<g>``, each with ``C=1`` and ``C=256``),
+   and head_dim 96, a width not built, refused;
 3. parity: three 2-layer d_model-1024 models (Llama-shaped; Qwen2.5-
    shaped, 10/2 heads, QKV bias; StarCoder2-shaped, 12/1 heads, QKV bias,
    LayerNorm, GELU; biases seeded non-zero) served on the card in every
@@ -75,19 +78,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
    launched; (b) accepts drafts in fewer forwards than (a) and emits
    (a)'s tokens, every one; (c) replays its tokens, (d) fails exactly the
    requests its faults hit; (b dense)'s agreement with (a dense) printed;
-7. recover: the spec workload greedy with 4 drafts and at T = 0.8, each
+7. recover (Llama-3-8B at full width and 8 of its 32 layers): the spec
+   workload greedy with 4 drafts and at T = 0.8, each
    through a directory-backed ``RecoveryLog(snapshot_every=4)`` stopped
    two steps past a checkpoint after the first drafts, the engine
    dropped and rebuilt with
    ``RecoveryLog.open_dir``: no replay mismatch, replayed events, the
    uninterrupted run's tokens, pages back; a torn ``snapshot_write``
    leaves the last good snapshot, which resumes to the same tokens; the
-   snapshot's bytes and seconds printed;
-8. replicas: two replicas on the card (one set of weights) serving the
-   spec workload without a crash, then with replica 1 killed before its
-   6th step under ``standby`` (the crash-free group's tokens) and
-   ``migrate`` (one terminal and 32 tokens per request, work moved);
-   peak device memory printed;
+   snapshot's bytes and seconds printed; then the greedy run through the
+   log over a tensor-parallel mesh of 1 rank (and of 2 where two cards
+   exist), spawned through the real NCCL group: crashed and resumed with
+   every delivered stream the uninterrupted mesh run's, and torn and
+   resumed to its tokens;
+8. replicas (the same 8 layers): two replicas on the card (one set of
+   weights) serving the spec workload without a crash, then with replica
+   1 killed before its 6th step under ``standby`` (the crash-free
+   group's tokens) and ``migrate`` (one terminal and 32 tokens per
+   request, work moved); peak device memory printed; where four cards
+   exist, the group over two meshes of two ranks (NCCL) under both
+   policies, every rank's streams and counts those of the group on one
+   card under ``serial_seams(2)`` (else "not run");
 9. archs: Llama-3-70B at full width and depth (80 layers) serving the
    ``slice`` workload with its checks (the fused act-quant exactly 4 × 80
    × forwards times), after the time to make its weights, the packed
@@ -106,12 +117,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    with the sanitizers on (after every step the ranks' tokens and
    scheduler state must agree). World size 1 goes through the real
    process group and seams and must equal the unsharded engine bit for
-   bit (tokens and first logits) in the default configuration. On any
-   card count the unsharded engine also serves (a), (a2) and (b) below
-   under ``serial_seams(M)``, M = 2 and 4 (wo and w_down as M K-slices
-   of the whole weights summed in rank order), its token agreement with
-   the plain unsharded runs and first-logit gap printed. With more
-   cards, every 8B run at M ranks must equal that serial run bit for
+   bit (tokens and first logits) in the default configuration. For each
+   world size M > 1 the cards give, the unsharded engine also serves
+   (a), (a2) and (b) below under ``serial_seams(M)`` (wo and w_down as M
+   K-slices of the whole weights summed in rank order), its token
+   agreement with the plain unsharded runs and first-logit gap printed,
+   and every 8B run at M ranks must equal that serial run bit for
    bit, tokens and first logits: (a) at ``int4_fraction=1.0`` and (a2),
    the same at 2 layers, the token agreement with one device and the
    largest first-logit difference, (b) the default configuration's
@@ -137,7 +148,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    same counts, the speculation line (drafted = accepted + rolled back)
    and a sanitizer check every step; then with ``--replicas 2 --failover
    standby --kill-replica-at 6 --snapshot-every 4``: one failover, replica
-   0 promoted, all 8 requests finished with 32 tokens.
+   0 promoted, all 8 requests finished with 32 tokens; then the smoke
+   configuration (head_dim 32) with ``--impl cuda``, through the
+   attention kernels: 4 requests finished with 8 tokens each.
 
 12. moe (run after tp, before archs): (a) the expert-batched W4Ax GEMMs
    (K3 and K4, the split pair, and K5; one launch for all experts) at
@@ -1007,20 +1020,20 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict, key=None):
         ("kv4_decode_attention", lambda: KA.kv4_decode_attention(*k10),
          lambda: KA.kv4_decode_attention_ref(*k10), heads, key, shape,
          decode_bound(DECODE_LENS, hq, hkv, d, scales + lengths.nbytes),
-         KA.dense_plan(b, 1, g, hkv, 1, max_len).rows),
+         KA.dense_plan(b, 1, g, hkv, 1, max_len, d).rows),
         ("paged_kv4_decode_attention",
          lambda: PA.paged_kv4_decode_attention(*k6),
          lambda: PA.paged_kv4_decode_attention_ref(*k6), heads, key, shape,
          decode_bound(DECODE_LENS, hq, hkv, d,
                       scales + lengths.nbytes + tables.nbytes),
          KA.dense_plan(b, 1, g, hkv, tables.shape[1],
-                       cache.pcfg.page_size).rows),
+                       cache.pcfg.page_size, d).rows),
         ("paged_kv4_prefill_attention",
          lambda: PA.paged_kv4_prefill_attention(*k7),
          lambda: PA.paged_kv4_prefill_attention_ref(*k7), ones, c1,
          f"{shape} C=1", prefill_bound(DECODE_LENS, [1] * b, hkv, g, d),
          KA.dense_plan(b, 1, g, hkv, tables.shape[1],
-                       cache.pcfg.page_size).rows),
+                       cache.pcfg.page_size, d).rows),
         ("paged_kv4_prefill_attention_wq",
          lambda: PA.paged_kv4_prefill_attention_wq(*k9, plan=plan9),
          lambda: PA.paged_kv4_prefill_attention_wq_ref(*k9, plan=plan9),
@@ -1050,6 +1063,41 @@ def check_decode(torch, cfg, KVC, PA, KA, Q, rows: dict, key=None):
         say(f"[kernels] {name} {shp}: max err {err:.3g}; tiles of {nrows} "
             f"rows{extra}")
         put(rows, name, at, entry)
+
+
+# the head_dims K6–K10 are built for besides 128 (the smoke configs' 32,
+# the TP test model's 64, Zamba2's 80), each held at these GQA groups on
+# Llama-3-8B's 8 kv heads (G = 4 is the 8B's own 32/8, timed)
+HEAD_DIM_CASES = (32, 64, 80)
+HEAD_DIM_GROUPS = (4, 1, 2, 8)
+
+
+def check_head_dims(torch, cfg8b, KVC, PA, KA, Q, rows: dict):
+    """K6–K10 at each of ``HEAD_DIM_CASES`` and each GQA group of
+    ``HEAD_DIM_GROUPS``, on the kernels phase's cache states (decode batch
+    B = 8, T = 487; prefill C = 256 and C = 1), bit for bit against their
+    plain versions: entries ``D=<d> Hq=32`` (K7's and K9's ``… C=1``)
+    and ``D=<d> Hq=32 C=256`` at G = 4 (the 8B's heads, the table's timed
+    rows), and ``D=<d> G=<g>`` (``… C=1``, ``… C=256``) at the others. A
+    width not built (96) must raise."""
+    for d in HEAD_DIM_CASES:
+        for g in HEAD_DIM_GROUPS:
+            cfg = dataclasses.replace(gqa_cfg(cfg8b, cfg8b.num_kv_heads, g),
+                                      head_dim=d)
+            key = f"D={d} " + ("Hq=32" if g == 4 else f"G={g}")
+            check_decode(torch, cfg, KVC, PA, KA, Q, rows, key)
+            check_attention(torch, cfg, KVC, PA, Q, rows, f"{key} C=256")
+    q = torch.zeros((1, 8, 96), device="cuda")
+    kv = torch.zeros((1, 8, 64, 48), dtype=torch.uint8, device="cuda")
+    s = torch.ones((8, 1, 96), device="cuda")
+    try:
+        KA.kv4_decode_attention(q, kv, s, s, kv, s, s,
+                                torch.ones(1, dtype=torch.int32,
+                                           device="cuda"))
+    except ValueError as e:
+        say(f"[kernels] head_dim 96 refused: {e}")
+    else:
+        fail("kv4_decode_attention took head_dim 96, a width not built")
 
 
 # (N, K) of the new configurations' widest projections: Llama-3-70B's
@@ -2007,6 +2055,21 @@ RECOVER_PAGES, REPLICA_PAGES, SNAP_EVERY = 80, 48, 4
 RECOVER_RUNS = (("greedy", dict(speculation=4)),
                 ("T=0.8", dict(temperature=0.8, top_k=40, speculation=4)))
 REPLICA_CRASH = 6          # replica 1 dies before its 6th engine step
+# recover and replicas serve Llama-3-8B at full width and these of its 32
+# layers (their contracts are per step, not per layer); 8, not 4: the spec
+# workload's greedy run drafts nothing at 4 layers, and the recover phase
+# stops after the first drafts
+DURABLE_LAYERS = 8
+RECOVER_MESH_SIZES = (1, 2)            # the mesh form's world sizes
+REPLICA_MESH = (2, 2)                  # replicas × ranks of the mesh form
+
+
+def durable_model(cfg, params):
+    """Llama-3-8B cut to ``DURABLE_LAYERS`` layers: its first blocks (the
+    seed draws the top, then block after block, so they are the blocks a
+    ``DURABLE_LAYERS``-layer init draws)."""
+    return (dataclasses.replace(cfg, num_layers=DURABLE_LAYERS),
+            {**params, "blocks": params["blocks"][:DURABLE_LAYERS]})
 
 
 def _serve_plain(torch, Engine, EngineConfig, QuantConfig, cfg, params,
@@ -2046,8 +2109,8 @@ def _free_memory(torch):
 
 
 def phase_recover(torch, np, mods, cfg, params):
-    """Journaled crash recovery at Llama-3-8B's full width and depth: the
-    spec workload (greedy with 4 drafts, then at T = 0.8), each served
+    """Journaled crash recovery at Llama-3-8B's full width and
+    ``DURABLE_LAYERS`` layers: the spec workload (greedy with 4 drafts, then at T = 0.8), each served
     once uninterrupted and once through a directory-backed
     ``RecoveryLog(snapshot_every=4)`` stopped, after the first drafts,
     two steps past a checkpoint; the engine is dropped and its memory
@@ -2092,6 +2155,8 @@ def phase_recover(torch, np, mods, cfg, params):
             # past the first drafts (truncate_seq state in the snapshots),
             # then to two steps past a checkpoint
             while not eng.spec_draft_tokens or eng.steps % SNAP_EVERY != 2:
+                if not eng.sched.has_work:
+                    fail(f"{tag}: the workload ended before a draft")
                 delivered.extend(log.step())
             drafted = eng.spec_draft_tokens
             torch.cuda.synchronize()
@@ -2172,9 +2237,237 @@ def phase_recover(torch, np, mods, cfg, params):
             _free_memory(torch)
 
 
+def recover_rank(rank: int, world: int, device, cfg, root: str) -> dict:
+    """One rank of the recover phase's mesh form (a spawned process, NCCL):
+    its shard of the seeded weights, then the greedy spec workload through
+    a directory-backed ``RecoveryLog`` under ``root`` served uninterrupted,
+    crashed two steps past a checkpoint after the first drafts and resumed
+    with ``open_dir``, and torn at its third snapshot write and resumed
+    from the last good snapshot → each run's streams and counts."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.lm import LM, QuantConfig
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.faults import Fault, FaultInjector, InjectedFault
+    from repro_torch.serving.recovery import RecoveryLog
+    mesh = make_local_mesh(1, world)
+    lm = LM(cfg)
+    params = lm.init(seed=0, device=device, mesh=mesh)
+    kw = dict(device=device, mesh=mesh, param_axes=lm.axes(params))
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    n_req = len(prompts)
+    sp = SamplingParams(max_new_tokens=32, **RECOVER_RUNS[0][1])
+    ecfg = EngineConfig(prefill_chunk_tokens=256, num_pages=RECOVER_PAGES,
+                        sanitize=True)
+    tag = f"[recover] mesh M={world} rank {rank}"
+
+    def new_log(d, faults=None):
+        eng = Engine(cfg, params, QuantConfig(), ecfg, faults=faults, **kw)
+        log = RecoveryLog(eng, snapshot_every=SNAP_EVERY, dir=d)
+        for i, p in enumerate(prompts):
+            eng.submit(p, sp, request_id=i)
+        return log
+
+    def open_dir(d):
+        return RecoveryLog.open_dir(d, cfg, params, QuantConfig(), ecfg,
+                                    snapshot_every=SNAP_EVERY, **kw)
+
+    def done(log, label):
+        eng = log.engine
+        if eng.cache.pages_free != RECOVER_PAGES or eng.internal_errors:
+            fail(f"{tag} {label}: {eng.cache.pages_free} of {RECOVER_PAGES} "
+                 f"pages free, internal_errors {eng.internal_errors}")
+        return {"tokens": {r.request_id: list(r.generated)
+                           for r in eng.sched.finished},
+                "replayed": log.replayed, "steps": eng.steps,
+                "drafted": eng.spec_draft_tokens}
+
+    out = {}
+    log = new_log(os.path.join(root, "plain"))
+    out["plain"] = {"streams": _streams(log.run(), n_req, f"{tag} plain"),
+                    **done(log, "plain")}
+    d = os.path.join(root, "crash")
+    log = new_log(d)
+    delivered = []
+    while not log.engine.spec_draft_tokens or \
+            log.engine.steps % SNAP_EVERY != 2:
+        if not log.engine.sched.has_work:
+            fail(f"{tag}: the workload ended before a draft")
+        delivered.extend(log.step())
+    out["crash_at"] = (log.engine.steps, log.snapshot_step)
+    del log
+    _free_memory(torch)
+    log = open_dir(d)
+    out["resumed_at"] = log.engine.steps
+    delivered.extend(log.run())
+    out["crash"] = {"streams": _streams(delivered, n_req, f"{tag} crash"),
+                    **done(log, "crash")}
+    d = os.path.join(root, "torn")
+    log = new_log(d, FaultInjector([Fault("snapshot_write", nth=3,
+                                          action="torn")]))
+    try:
+        log.run()
+        fail(f"{tag}: the armed torn write never fired")
+    except InjectedFault:
+        torn = log.engine.steps
+    with open(os.path.join(d, "snapshot.json")) as f:
+        good = json.loads(f.read())["steps"]
+    out["torn"] = {"at": torn, "good": good,
+                   "tmp": os.path.exists(os.path.join(d,
+                                                      "snapshot.json.tmp"))}
+    import torch.distributed as dist
+    dist.barrier(group=mesh.host_group)    # every rank read the good one
+    del log
+    _free_memory(torch)
+    log = open_dir(d)
+    out["torn"].update(resumed_at=log.engine.steps)
+    log.run()
+    out["torn"].update(done(log, "torn"))
+    return out
+
+
+def phase_recover_mesh(torch, cfg):
+    """The recover phase over tensor-parallel meshes of
+    ``RECOVER_MESH_SIZES`` ranks, as the cards allow (the others named):
+    :func:`recover_rank` on each rank, spawned through the real NCCL
+    group. Every rank's delivered streams after the crash and resume must
+    be the uninterrupted mesh run's token for token, the torn write must
+    leave the last good snapshot (rank 0's torn temp file beside it) and
+    its resume finish with the uninterrupted tokens; replayed events > 0,
+    the pages back, every rank alike."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    cards = torch.cuda.device_count()
+    sizes = [w for w in RECOVER_MESH_SIZES if w <= cards]
+    say(f"[recover] mesh world sizes run: {sizes}"
+        + (f"; not run: {[w for w in RECOVER_MESH_SIZES if w > cards]} "
+           f"({cards} visible card(s))" if len(sizes) < len(
+               RECOVER_MESH_SIZES) else ""))
+    for world in sizes:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            try:
+                res = spawn(recover_rank, world, (cfg, root),
+                            device_type="cuda", timeout_s=900.0)
+            except (RuntimeError, TimeoutError, ValueError) as e:
+                fail(f"[recover] mesh M={world}: {e}")
+        tag = f"[recover] mesh M={world}"
+        r0 = res[0]
+        if any({k: v for k, v in r.items()} != r0 for r in res[1:]):
+            fail(f"{tag}: the ranks' runs differ")
+        plain, crash, torn = r0["plain"], r0["crash"], r0["torn"]
+        if crash["streams"] != plain["streams"]:
+            bad = [i for i in plain["streams"]
+                   if crash["streams"].get(i) != plain["streams"][i]]
+            fail(f"{tag}: requests {bad}: delivered stream after the crash "
+                 f"and resume not the uninterrupted mesh run's")
+        if not (torn["good"] == torn["resumed_at"] < torn["at"]
+                and torn["tmp"]):
+            fail(f"{tag}: the torn write did not leave the last good "
+                 f"snapshot ({torn})")
+        if torn["tokens"] != plain["tokens"]:
+            fail(f"{tag}: tokens after the torn write's resume not the "
+                 f"uninterrupted mesh run's")
+        if min(crash["replayed"], torn["replayed"]) <= 0 or \
+                not crash["drafted"]:
+            fail(f"{tag}: nothing replayed or drafted ({crash}, {torn})")
+        say(f"{tag} ({cfg.num_layers} layers, NCCL): crashed at engine step "
+            f"{r0['crash_at'][0]} (checkpoint {r0['crash_at'][1]}), resumed "
+            f"at {r0['resumed_at']}, {crash['replayed']} events replayed and "
+            f"verified, every request's delivered stream the uninterrupted "
+            f"mesh run's; snapshot_write torn at step {torn['at']}, "
+            f"snapshot.json at {torn['good']}, resumed with "
+            f"{torn['replayed']} replayed and the uninterrupted tokens; "
+            f"every rank alike ({time.perf_counter() - t0:.1f} s with the "
+            f"ranks' start-up)")
+
+
+def replicas_rank(rank: int, world: int, device, cfg, m: int) -> dict:
+    """One rank of the replicas phase's mesh form: ``world // m`` replica
+    meshes of ``m`` ranks, its replica's shard of the seeded weights, and
+    the group of :func:`replica_group` under each failover policy with
+    replica 1 killed → each policy's streams and counts."""
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.models.lm import LM
+    meshes = make_replica_meshes(world // m, m)
+    lm = LM(cfg)
+    params = lm.init(seed=0, device=device, mesh=meshes[rank // m])
+    return {policy: replica_group(cfg, params, policy, meshes=meshes,
+                                  param_axes=lm.axes(params))
+            for policy in ("standby", "migrate")}
+
+
+def replica_group(cfg, params, policy: str, **mesh_kw) -> dict:
+    """Two replicas behind a ``ReplicaGroup`` serving the spec workload
+    greedy with 4 drafts, replica 1 killed before its ``REPLICA_CRASH``th
+    step under ``policy`` (on the one card, or over ``meshes``) → each
+    request's delivered tokens and terminal, the counters and deaths."""
+    from repro_torch.models.lm import QuantConfig
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.faults import Fault, FaultInjector
+    from repro_torch.serving.replication import ReplicaGroup
+    prompts, _ = spec_prompts(np, cfg.vocab_size)
+    group = ReplicaGroup(
+        cfg, params, QuantConfig(),
+        EngineConfig(prefill_chunk_tokens=256, num_pages=REPLICA_PAGES),
+        replicas=2, failover=policy, snapshot_every=SNAP_EVERY,
+        faults=[FaultInjector(),
+                FaultInjector([Fault("crash", step=REPLICA_CRASH)])],
+        device=params["embed"]["table"].device, **mesh_kw)
+    rids = [group.submit(p, SamplingParams(max_new_tokens=32,
+                                           speculation=4))
+            for p in prompts]
+    group.run()
+    return {"tokens": {r: group.tokens_for(r) for r in rids},
+            "terminals": {r: group.terminal_for(r).state.value
+                          for r in rids},
+            "counters": group.counters(), "deaths": list(group.deaths)}
+
+
+def phase_replicas_mesh(torch, cfg, params):
+    """The replicas phase over per-replica meshes: where ``REPLICA_MESH``
+    (2 replicas × 2 ranks) cards exist, :func:`replicas_rank` on four
+    spawned ranks (NCCL), replica 1 killed under each failover policy;
+    every rank's streams, terminals, counters and deaths must be those of
+    the same group with both replicas on the one card, its row-parallel
+    projections summed as two ranks' seams (``serial_seams(2)``). On fewer
+    cards: not run, and why."""
+    from repro_torch.launch.mesh import spawn
+    r, m = REPLICA_MESH
+    cards = torch.cuda.device_count()
+    if cards < r * m:
+        say(f"[replicas] mesh {r} x (1x{m}): not run ({cards} visible "
+            f"card(s), {r * m} needed)")
+        return
+    t0 = time.perf_counter()
+    try:
+        res = spawn(replicas_rank, r * m, (cfg, m), device_type="cuda",
+                    timeout_s=900.0)
+    except (RuntimeError, TimeoutError, ValueError) as e:
+        fail(f"[replicas] mesh {r} x (1x{m}): {e}")
+    with serial_seams(m):
+        want = {policy: replica_group(cfg, params, policy)
+                for policy in ("standby", "migrate")}
+    for policy, w in want.items():
+        tag = f"[replicas] mesh {r} x (1x{m}) {policy}"
+        if w["counters"]["failovers"] != 1:
+            fail(f"{tag}: the one-card group failed over "
+                 f"{w['counters']['failovers']} times")
+        for rank, got in enumerate(res):
+            if got[policy] != w:
+                bad = [k for k in w if got[policy][k] != w[k]]
+                fail(f"{tag}: rank {rank}'s {bad} not the one-card group's")
+        say(f"{tag} ({cfg.num_layers} layers): every rank's streams, "
+            f"terminals, counters {json.dumps(w['counters'])} and deaths "
+            f"{w['deaths']} those of the group on the one card under "
+            f"serial_seams({m}) ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_replicas(torch, np, mods, cfg, params):
-    """Two replicas on the one card behind a ``ReplicaGroup``
-    (``snapshot_every=4``, pools of ``REPLICA_PAGES`` pages each, one set
+    """Two replicas on the one card behind a ``ReplicaGroup`` (Llama-3-8B at
+    full width and ``DURABLE_LAYERS`` layers, ``snapshot_every=4``, pools of ``REPLICA_PAGES`` pages each, one set
     of weights) serving the spec workload greedy with 4 drafts: without a
     crash, then with ``crash`` armed on replica 1 before its 6th engine
     step under ``standby`` (every request's delivered tokens those of the
@@ -3894,15 +4187,15 @@ def phase_tp(torch, np, mods, cfg8b, params):
            else "all"))
     runs = TP_RUNS if cards > 1 else TP_RUNS[1:]
     shallow = dataclasses.replace(cfg8b, num_layers=TP_SHALLOW)
-    # the unsharded engine's runs (a), (a2), (b): plain (key 1), and for
-    # each larger world size M, cards or not, under serial_seams(M) (key
-    # M), whose token agreement with the plain runs and first-logit gap
-    # are printed
-    one = {w: {} for w in TP_SIZES}
-    for name, cfg, quant_kw in [(n, cfg8b, q) for n, q in TP_RUNS] + [
-            ("a2", shallow, TP_RUNS[0][1])]:
+    # the unsharded engine's runs that the meshes run — (b); with more
+    # cards (a) and (a2) — plain (key 1), and for each larger world size M
+    # the cards give under serial_seams(M) (key M), whose token agreement
+    # with the plain runs and first-logit gap are printed
+    one = {w: {} for w in sizes}
+    for name, cfg, quant_kw in [(n, cfg8b, q) for n, q in runs] + (
+            [("a2", shallow, TP_RUNS[0][1])] if max(sizes) > 1 else []):
         p = params if cfg is cfg8b else LM(cfg).init(seed=0, device="cuda")
-        for world in TP_SIZES:
+        for world in sizes:
             with (serial_seams(world) if world > 1
                   else contextlib.nullcontext()):
                 eng, first, _ = serve(
@@ -4030,6 +4323,17 @@ CLI_GROUP_EXPECT = {
     "requests: " + ",".join(["32"] * 8)}
 
 
+# the fourth call: the smoke configuration (head_dim 32) through the kernels
+# alone (--impl cuda: a plain version anywhere on the path would raise)
+CLI_SMOKE = ("--arch", "llama3_8b", "--smoke", "--impl", "cuda",
+             "--requests", "4", "--max-new", "8", "--prompt-len", "32")
+CLI_SMOKE_EXPECT = {
+    "done": "4 requests, 32 tokens", "robust": "failed=0 timed_out=0 shed=0 "
+    "rejected=0 callback_errors=0 internal_errors=0",
+    "states": "finished=4 | stop reasons: none | tokens of finished "
+    "requests: 8,8,8,8"}
+
+
 def _launch(cli, timeout_s: float, module: str = "repro_torch.launch.serve",
             tag: str = "cli") -> str:
     """A launcher (``module``, default the serve launcher) in a
@@ -4118,6 +4422,28 @@ def phase_cli_group(timeout_s: float = 600.0):
         f"({time.perf_counter() - t0:.1f} s with the launcher's start-up)")
 
 
+def phase_cli_smoke(timeout_s: float = 300.0):
+    """The launcher with ``CLI_SMOKE``: the smoke configuration's head_dim
+    32 through the attention kernels on the card; its ``[done]``,
+    ``[robust]`` and ``[states]`` lines must say what the flags lead to
+    (``CLI_SMOKE_EXPECT``)."""
+    t0 = time.perf_counter()
+    text = _launch(CLI_SMOKE, timeout_s)
+    pats = {"done": r"^\[done\] (\d+ requests, \d+ tokens)",
+            "robust": r"^\[robust\] (failed=\d+ timed_out=\d+ shed=\d+ "
+                      r"rejected=\d+ callback_errors=\d+ "
+                      r"internal_errors=\d+)",
+            "states": r"^\[states\] (.*)$"}
+    got = {k: (m[1] if (m := re.search(pat, text, re.M)) else None)
+           for k, pat in pats.items()}
+    if got != CLI_SMOKE_EXPECT:
+        fail(f"cli: the smoke configuration's lines {got}, expected "
+             f"{CLI_SMOKE_EXPECT}")
+    say(f"[cli] the smoke configuration (head_dim 32) through the kernels: "
+        f"counts as the flags say ({time.perf_counter() - t0:.1f} s with "
+        f"the launcher's start-up)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4176,6 +4502,7 @@ def main():
         check_attention(torch, cfg8b, KVC, PA, Q, rows)
         check_decode(torch, cfg8b, KVC, PA, KA, Q, rows)
         check_k10_d80(torch, KA, Q, rows)
+        check_head_dims(torch, cfg8b, KVC, PA, KA, Q, rows)
         check_spec_attention(torch, cfg8b, KVC, PA, Q, rows)
         for hkv, g in GQA:
             cfg = gqa_cfg(cfg8b, hkv, g)
@@ -4220,11 +4547,14 @@ def main():
         if "specdiag" in phases:
             phase_specdiag(torch, np, mods, cfg8b, params)
             lap("specdiag")
+        cfg_d, params_d = durable_model(cfg8b, params)
         if "recover" in phases:
-            phase_recover(torch, np, mods, cfg8b, params)
+            phase_recover(torch, np, mods, cfg_d, params_d)
+            phase_recover_mesh(torch, cfg_d)
             lap("recover")
         if "replicas" in phases:
-            phase_replicas(torch, np, mods, cfg8b, params)
+            phase_replicas(torch, np, mods, cfg_d, params_d)
+            phase_replicas_mesh(torch, cfg_d, params_d)
             lap("replicas")
         if "tp" in phases:
             tp = phase_tp(torch, np, mods, cfg8b, params)
@@ -4263,6 +4593,7 @@ def main():
         phase_cli()
         phase_cli(CLI_SPEC)
         phase_cli_group()
+        phase_cli_smoke()
         lap("cli")
     table = []
     for n in ops.KERNELS:

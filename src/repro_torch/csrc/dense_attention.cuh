@@ -59,10 +59,15 @@ namespace {
 // * skips the MMAs of key steps wholly past a warp's causal edge, and
 //   gives the 32-row tile 8 warps, so an SM has warps to switch to while
 //   one waits on an MMA or a load.
-constexpr int D = 128;             // head_dim of the paged kernels (K6-K9)
+constexpr int D = 128;             // the widest head_dim built
 constexpr int KT = 64;             // keys per staged tile
+// the head_dims every attention kernel (K6-K10) is instantiated for; the
+// packed KV rows are D/2 = 16, 32, 40 and 64 bytes
+__host__ __device__ constexpr bool head_dim_built(int d) {
+  return d == 32 || d == 64 || d == 80 || d == 128;
+}
 // the f64 row stride of a staged K/V tile: the fragment loads are
-// conflict-free (D + 4 ≡ 4 mod 16 doubles at D = 128 and D = 80)
+// conflict-free (D + 4 ≡ 4 mod 16 doubles at every built D)
 __host__ __device__ constexpr int dn_skv(int d) { return d + 4; }
 constexpr int SKV = dn_skv(D);
 constexpr int DN_MAXR = 32;        // most rows per block
@@ -83,8 +88,10 @@ __host__ __device__ constexpr int dn_fixed(int d) {
 }
 constexpr int DN_KV = dn_kv(D);
 constexpr int DN_RAW = dn_raw(D);
-constexpr int DN_FIXED = dn_fixed(D);       // 80,640 bytes (52,224 at D 80)
-static_assert(DN_FIXED == 80640 && dn_fixed(80) == 52224, "smem layout");
+constexpr int DN_FIXED = dn_fixed(D);       // 80,640 bytes at D 128
+static_assert(DN_FIXED == 80640 && dn_fixed(80) == 52224 &&
+              dn_fixed(64) == 42752 && dn_fixed(32) == 23808,
+              "smem layout (kernels/kv4_attention.py:dense_fixed_smem)");
 constexpr int DN_SMEM_MAX = 232448;         // the H100's per-block opt-in
 
 // D(16×8) += A(16×8)·B(8×8) in f64 on the tensor cores; lane (g, t) holds
@@ -131,8 +138,8 @@ struct DenseArgs {
 // Products are taken transposed, keys (or head channels) as the MMA's 16
 // rows and the warp's 8 query rows as its 8 columns: Sᵀ = K·Qᵀ, Oᵀ = Vᵀ·Pᵀ.
 // PAGED: history keys through the block table; else the contiguous cache.
-// HD: the head_dim of this instantiation (128; K10 also 80), which the
-// block-scope D, SKV, DN_KV and DN_RAW below follow.
+// HD: the head_dim of this instantiation (head_dim_built: 32, 64, 80,
+// 128), which the block-scope D, SKV, DN_KV and DN_RAW below follow.
 template <int WR, bool CHUNK, bool PAGED, int HD = D>
 __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
     DenseArgs a) {
@@ -241,7 +248,8 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
   // the tile stream: K tiles 0..ntile−1, then V tiles; tile s's packed
   // history bytes go to raw buffer s & 1 by cp.async one tile ahead
   // (16-byte copies where a packed row is whole 16-byte pieces, as at
-  // D = 128; 8-byte ones at D = 80, whose 40-byte rows are 8-aligned only)
+  // D = 32, 64 and 128; 8-byte ones at D = 80, whose 40-byte rows are
+  // 8-aligned only)
   constexpr int CB = (D / 2) % 16 == 0 ? 16 : 8;
   constexpr int CPR = D / 2 / CB, NCOPY = KT * CPR;
   auto prefetch = [&](int s) {
@@ -251,7 +259,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) dense_attention_kernel(
 #pragma unroll
     for (int u = 0; u < (NCOPY + DN_THREADS - 1) / DN_THREADS; ++u) {
       const int i = tid + u * DN_THREADS;
-      // unsigned, so CPR = 4 divides by a shift and a mask
+      // unsigned, so a power-of-two CPR divides by a shift and a mask
       const int j = static_cast<unsigned>(i) / CPR,
                 c = static_cast<unsigned>(i) % CPR, kl = k0 + j, tg = lo + kl;
       if ((NCOPY % DN_THREADS == 0 || i < NCOPY) && kl < nloc && tg < ctx) {
@@ -513,14 +521,42 @@ cudaError_t launch_dense(const DenseArgs& a, int b, int split, int smem,
                             dense_attention_kernel<WR, CHUNK, PAGED, HD>, a);
 }
 
+// The row tile (8, 16 or 32 rows) of head_dim HD's instantiation.
+template <bool CHUNK, bool PAGED, int HD>
+cudaError_t launch_dense_rows(const DenseArgs& a, int b, int rows, int split,
+                              int smem, cudaStream_t stream) {
+  return rows == 8 ? launch_dense<1, CHUNK, PAGED, HD>(a, b, split, smem,
+                                                      stream)
+         : rows == 16
+             ? launch_dense<2, CHUNK, PAGED, HD>(a, b, split, smem, stream)
+             : launch_dense<4, CHUNK, PAGED, HD>(a, b, split, smem, stream);
+}
+
+// The instantiation for head_dim d (head_dim_built(d) checked first).
+template <bool CHUNK, bool PAGED>
+cudaError_t launch_dense_d(const DenseArgs& a, int d, int b, int rows,
+                           int split, int smem, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_dense_rows<CHUNK, PAGED, 32>(a, b, rows, split,
+                                                        smem, stream);
+    case 64: return launch_dense_rows<CHUNK, PAGED, 64>(a, b, rows, split,
+                                                        smem, stream);
+    case 80: return launch_dense_rows<CHUNK, PAGED, 80>(a, b, rows, split,
+                                                        smem, stream);
+    default: return launch_dense_rows<CHUNK, PAGED, 128>(a, b, rows, split,
+                                                         smem, stream);
+  }
+}
+
 // The plan dense_plan (kernels/kv4_attention.py) worked out: rows per
 // block (8, 16 or 32), split (cluster size, 1..8), sstride (the score
-// rows' stride in floats), smem (dynamic shared bytes) for head_dim d;
-// scores in scratch (non-null) or in shared memory.
+// rows' stride in floats), smem (dynamic shared bytes) for head_dim d, a
+// built one; scores in scratch (non-null) or in shared memory.
 bool dense_plan_ok(int rows, int split, int sstride, int smem,
-                   bool scratch, int d = D) {
-  return (rows == 8 || rows == 16 || rows == 32) && split >= 1 &&
-         split <= 8 && sstride % 32 == 8 && smem <= DN_SMEM_MAX &&
+                   bool scratch, int d) {
+  return head_dim_built(d) && (rows == 8 || rows == 16 || rows == 32) &&
+         split >= 1 && split <= 8 && sstride % 32 == 8 &&
+         smem <= DN_SMEM_MAX &&
          smem == dn_fixed(d) + (scratch ? 0 : rows * sstride * 4);
 }
 

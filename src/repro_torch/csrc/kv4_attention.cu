@@ -19,31 +19,16 @@
 // of 4 KB, staged by cp.async one tile ahead; each key scored once on the
 // f64 tensor cores; the keys of a row split over a thread-block cluster
 // that dense_plan (kernels/kv4_attention.py) sizes on the host from
-// B·Hkv and T. Built for head_dim 128 and 80 (the paged kernels take 128
-// only). It computes K6's plain version, which is K10's, in exact
+// B·Hkv and T. Built for head_dim 32, 64, 80 and 128, as the paged
+// kernels are. It computes K6's plain version, which is K10's, in exact
 // arithmetic (f64 sums rounded once), so kernel and plain version agree
 // bit for bit.
 #include "dense_attention.cuh"
 
-namespace {
-
-// The row tile (8, 16 or 32 rows) of head_dim HD's instantiation.
-template <int HD>
-cudaError_t launch_k10(const DenseArgs& a, int b, int rows, int split,
-                       int smem, cudaStream_t stream) {
-  return rows == 8 ? launch_dense<1, false, false, HD>(a, b, split, smem,
-                                                       stream)
-         : rows == 16
-             ? launch_dense<2, false, false, HD>(a, b, split, smem, stream)
-             : launch_dense<4, false, false, HD>(a, b, split, smem, stream);
-}
-
-}  // namespace
-
 // q [B, Hq, D] (q_bf16: bf16, else f32); k/v uint8 [B, hkv, t_len, D/2];
 // scales/zeros f32 [hkv, D] (sb 0) or [B, hkv, D] (sb hkv·D); length [B]
-// int32 → out [B, Hq, D] f32. d is 128 or 80 (Zamba2's attention: its
-// 40-byte packed rows are staged by 8-byte copies), g ≥ 1 (any GQA
+// int32 → out [B, Hq, D] f32. d is 32, 64, 80 (Zamba2's attention: its
+// 40-byte packed rows are staged by 8-byte copies) or 128, g ≥ 1 (any GQA
 // group); every pointer is contiguous. The launch plan (dense_plan at C = 1
 // with one "page" of t_len keys, for this d) as dense_plan_ok says; scratch
 // null or f32 [B·hkv·tiles·split·rows·sstride].
@@ -53,16 +38,14 @@ extern "C" int kv4_decode_attention(
     const float* vs, const float* vz, int sb, const int* length, float* out,
     float* scratch, int b, int hkv, int g, int t_len, int d, int rows,
     int split, int sstride, int smem, cudaStream_t stream) {
-  if ((d != 128 && d != 80) || g < 1 ||
-      !dense_plan_ok(rows, split, sstride, smem, scratch, d))
+  if (g < 1 || !dense_plan_ok(rows, split, sstride, smem, scratch, d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
     const DenseArgs a{q, nullptr, nullptr, ks, kz, vs, vz, k_packed,
                       v_packed, nullptr, length, nullptr, out, scratch, 1, g,
                       hkv, 1, t_len, sstride, q_bf16, sb};
     const cudaError_t e =
-        d == 80 ? launch_k10<80>(a, b, rows, split, smem, stream)
-                : launch_k10<128>(a, b, rows, split, smem, stream);
+        launch_dense_d<false, false>(a, d, b, rows, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

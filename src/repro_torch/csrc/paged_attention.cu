@@ -76,11 +76,15 @@ namespace {
 constexpr int WQ_WCH = 64;   // items whose combine weights one pass stages
 constexpr int WQ_SELF = 2;           // kernels/paged_attention.py KIND_SELF
 constexpr int WQ_CAUSAL = 1 << 16;   // KIND_CAUSAL (any kind past WQ_SELF)
-// shared bytes besides the scores: the staged tile, two raw tiles, the
-// head's scales, the row reductions and the arrival flag
-constexpr int WQ_FIXED = DN_KV + DN_RAW + 4 * D * 4 + DN_MAXWR * 4 +
-                         4 * DN_MAXR * 4 + 16;                 // 78,608
-static_assert(WQ_WCH * DN_MAXR * 4 <= DN_KV, "combine weights fit");
+// shared bytes besides the scores at head_dim d: the staged tile, two raw
+// tiles, the head's scales, the row reductions and the arrival flag
+__host__ __device__ constexpr int wq_fixed(int d) {
+  return dn_kv(d) + dn_raw(d) + 4 * d * 4 + DN_MAXWR * 4 + 4 * DN_MAXR * 4 +
+         16;
+}
+static_assert(wq_fixed(128) == 78608 && wq_fixed(80) == 50192 &&
+              wq_fixed(64) == 40720 && wq_fixed(32) == 21776,
+              "smem layout (kernels/paged_attention.py:wq_fixed_smem)");
 
 // desc [W, 4], jobs [J, 4] (work_plan); q [B, C, Hq, D] f32 or bf16;
 // kn/vn f32 [B, C, Hkv, D] (K9 only); ks/kz/vs/vz f32 [Hkv, D] at batch
@@ -103,11 +107,18 @@ struct WqArgs {
 // row, t1): zeros (DECODE: −s_v·z_v) for tiles [t0, t1) of row `row`.
 // gridDim.x = J; the compute jobs come first, job j's partial in scratch
 // slot j. DECODE (K8): every item is a page, its partial in nibble space,
-// the V affine after the combine.
-template <int WR, bool DECODE>
+// the V affine after the combine. HD: the head_dim of this instantiation
+// (head_dim_built), which the block-scope D, SKV, DN_KV and DN_RAW follow.
+template <int WR, bool DECODE, int HD>
 __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
     WqArgs a) {
+  constexpr int D = HD, SKV = dn_skv(HD), DN_KV = dn_kv(HD),
+                DN_RAW = dn_raw(HD);
   constexpr int R = 8 * WR, WK = dn_wk(WR), NT = dn_threads(WR);
+  static_assert(D % 16 == 0 && WK * R * D <= KT * SKV &&
+                    WQ_WCH * DN_MAXR * 4 <= DN_KV && R * D % NT == 0,
+                "head_dim tiles; the warps' partial outputs and the "
+                "combine weights fit sKV; the combine's outputs per thread");
   constexpr long PSZ = R * (D + 2);         // floats of one partial
   extern __shared__ __align__(16) unsigned char smem[];
   double* sKV = reinterpret_cast<double*>(smem);            // [KT][SKV]
@@ -203,21 +214,27 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   auto dead = [&](int k) { return k >= wlim; };
 
   // the tile stream: K tiles 0..ntile−1, then V tiles; a page's packed
-  // bytes go to raw buffer s & 1 by cp.async one tile ahead, chunk keys
-  // are read straight from global memory when staged
+  // bytes go to raw buffer s & 1 by cp.async one tile ahead (16-byte
+  // copies where a packed row is whole 16-byte pieces, 8-byte ones for the
+  // 40-byte rows of D = 80), chunk keys are read straight from global
+  // memory when staged
+  constexpr int CB = (D / 2) % 16 == 0 ? 16 : 8;
+  constexpr int CPR = D / 2 / CB, NCOPY = KT * CPR;
   auto prefetch = [&](int s) {
     if (hist) {
       const int k0 = (s % ntile) * KT;
       const uint8_t* pool = s < ntile ? a.k_pool : a.v_pool;
       unsigned char* raw = sRaw + (s & 1) * KT * (D / 2);
 #pragma unroll
-      for (int u = 0; u < KT * 4 / NT; ++u) {
+      for (int u = 0; u < (NCOPY + NT - 1) / NT; ++u) {
         const int i = tid + u * NT;
-        const int j = i >> 2, c16 = i & 3, kl = k0 + j;
-        if (kl < nk) {
+        // unsigned, so a power-of-two CPR divides by a shift and a mask
+        const int j = static_cast<unsigned>(i) / CPR,
+                  c = static_cast<unsigned>(i) % CPR, kl = k0 + j;
+        if ((NCOPY % NT == 0 || i < NCOPY) && kl < nk) {
           const long off = ((static_cast<long>(page) * a.ps + kl) * a.hkv + h)
-                           * (D / 2) + 16 * c16;
-          cp_async<16>(raw + j * (D / 2) + 16 * c16, pool + off, true);
+                           * (D / 2) + CB * c;
+          cp_async<CB>(raw + j * (D / 2) + CB * c, pool + off, true);
         }
       }
     }
@@ -236,11 +253,13 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
       double* dst = sKV + j * SKV;
       if (kl >= nk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = 0.0;
+        for (int e = 0; e < (D + 31) / 32; ++e)
+          if (D % 32 == 0 || lane + 32 * e < D) dst[lane + 32 * e] = 0.0;
       } else if (hist) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
+        for (int e = 0; e < (D / 2 + 31) / 32; ++e) {
           const int d = lane + 32 * e;
+          if ((D / 2) % 32 && d >= D / 2) break;
           const unsigned byte = raw[j * (D / 2) + d];
           dst[d] = static_cast<double>(byte & 15u);
           dst[d + D / 2] = static_cast<double>(byte >> 4);
@@ -249,7 +268,9 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
         const float* src = (val ? a.vn : a.kn) +
             ((static_cast<long>(b) * a.c + kl) * a.hkv + h) * D;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[lane + 32 * e] = src[lane + 32 * e];
+        for (int e = 0; e < (D + 31) / 32; ++e)
+          if (D % 32 == 0 || lane + 32 * e < D)
+            dst[lane + 32 * e] = src[lane + 32 * e];
       }
     }
     __syncthreads();
@@ -274,7 +295,7 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   // masked to NEG_INF. Lane (gi, t) ends with keys gi, gi+8 of each
   // 16-key subtile × rows 2t, 2t+1 of the warp's 8.
   constexpr int NSUB = 4 / WK;       // 16-key subtiles of a tile per warp
-  static_assert(KT * 4 % NT == 0 && WK * R <= DN_MAXWR, "tiling");
+  static_assert(WK * R <= DN_MAXWR, "tiling");
   constexpr int NCH = 4 / NSUB;      // accumulator chains per subtile
   float mrow[2] = {NEG_INF, NEG_INF};
   {
@@ -498,25 +519,47 @@ __global__ void __launch_bounds__(dn_threads(WR)) prefill_wq_kernel(
   if (tid == 0 && cnt > 1) a.arrive[first] = 0;
 }
 
-template <int WR, bool DECODE = false>
+template <int WR, bool DECODE, int HD>
 cudaError_t launch_wq(const WqArgs& a, int njobs, int smem,
                       cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_wq_kernel<WR, DECODE>,
+      prefill_wq_kernel<WR, DECODE, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, DN_SMEM_MAX);
   if (attr != cudaSuccess) return attr;
-  prefill_wq_kernel<WR, DECODE><<<njobs, dn_threads(WR), smem, stream>>>(a);
+  prefill_wq_kernel<WR, DECODE, HD>
+      <<<njobs, dn_threads(WR), smem, stream>>>(a);
   return cudaSuccess;
+}
+
+// The row tile (8, 16 or 32 rows) of head_dim HD's instantiation.
+template <bool DECODE, int HD>
+cudaError_t launch_wq_rows(const WqArgs& a, int rows, int njobs, int smem,
+                           cudaStream_t stream) {
+  return rows == 8 ? launch_wq<1, DECODE, HD>(a, njobs, smem, stream)
+         : rows == 16 ? launch_wq<2, DECODE, HD>(a, njobs, smem, stream)
+                      : launch_wq<4, DECODE, HD>(a, njobs, smem, stream);
+}
+
+// The instantiation for head_dim d (head_dim_built(d) checked first).
+template <bool DECODE>
+cudaError_t launch_wq_d(const WqArgs& a, int d, int rows, int njobs,
+                        int smem, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_wq_rows<DECODE, 32>(a, rows, njobs, smem, stream);
+    case 64: return launch_wq_rows<DECODE, 64>(a, rows, njobs, smem, stream);
+    case 80: return launch_wq_rows<DECODE, 80>(a, rows, njobs, smem, stream);
+    default: return launch_wq_rows<DECODE, 128>(a, rows, njobs, smem, stream);
+  }
 }
 
 // The work_plan (kernels/paged_attention.py) of the jobs: rows per job (8,
 // 16 or 32), sstride the score rows' stride in floats (≥ every job's keys
-// rounded to 64, + 8), smem the dynamic shared bytes; scores in scratch
-// (non-null) or in shared memory.
-bool wq_plan_ok(int rows, int sstride, int smem, bool scratch) {
-  return (rows == 8 || rows == 16 || rows == 32) && sstride % 32 == 8 &&
-         smem <= DN_SMEM_MAX &&
-         smem == WQ_FIXED + (scratch ? 0 : rows * sstride * 4);
+// rounded to 64, + 8), smem the dynamic shared bytes at head_dim d, a
+// built one; scores in scratch (non-null) or in shared memory.
+bool wq_plan_ok(int rows, int sstride, int smem, bool scratch, int d) {
+  return head_dim_built(d) && (rows == 8 || rows == 16 || rows == 32) &&
+         sstride % 32 == 8 && smem <= DN_SMEM_MAX &&
+         smem == wq_fixed(d) + (scratch ? 0 : rows * sstride * 4);
 }
 
 }  // namespace
@@ -525,7 +568,7 @@ bool wq_plan_ok(int rows, int sstride, int smem, bool scratch) {
 // (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D]; ks/kz/vs/vz f32
 // [hkv, D]; pools uint8 [P, ps, hkv, D/2] → out f32 [B, C, Hq, D]. part,
 // arrive and scratch as WqArgs says; the plan (rows, sstride, smem) as
-// wq_plan_ok says. All contiguous; d must be 128.
+// wq_plan_ok says. All contiguous; d is 32, 64, 80 or 128.
 extern "C" int paged_kv4_prefill_wq(
     const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
     const float* kn, const float* vn, const float* ks, const float* kz,
@@ -533,16 +576,14 @@ extern "C" int paged_kv4_prefill_wq(
     const uint8_t* v_pool, float* out, float* part, int* arrive,
     float* scratch, int c, int g, int hkv, int ps, int d, int rows,
     int sstride, int smem, cudaStream_t stream) {
-  if (d != D || !wq_plan_ok(rows, sstride, smem, scratch))
+  if (!wq_plan_ok(rows, sstride, smem, scratch, d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (njobs > 0) {
     const WqArgs a{desc, jobs, q, kn, vn, ks, kz, vs, vz, k_pool, v_pool,
                    out, part, arrive, scratch, c, g, hkv, ps, sstride,
                    q_bf16, 0};
     const cudaError_t e =
-        rows == 8 ? launch_wq<1>(a, njobs, smem, stream)
-        : rows == 16 ? launch_wq<2>(a, njobs, smem, stream)
-                     : launch_wq<4>(a, njobs, smem, stream);
+        launch_wq_d<false>(a, d, rows, njobs, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -553,23 +594,21 @@ extern "C" int paged_kv4_prefill_wq(
 // (sb 0) or [B, hkv, D] (sb hkv·D); pools uint8 [P, ps, hkv, D/2] → out f32
 // [B, Hq, D]. part, arrive and scratch as WqArgs says; g ≥ 1 (any GQA
 // group: the plan's rows are 8, 16 or 32, several tiles past 32), the plan
-// as wq_plan_ok says. All contiguous; d must be 128.
+// as wq_plan_ok says. All contiguous; d is 32, 64, 80 or 128.
 extern "C" int paged_kv4_decode_wq(
     const int* desc, const int* jobs, int njobs, const void* q, int q_bf16,
     const float* ks, const float* kz, const float* vs, const float* vz,
     int sb, const uint8_t* k_pool, const uint8_t* v_pool, float* out,
     float* part, int* arrive, float* scratch, int g, int hkv, int ps, int d,
     int rows, int sstride, int smem, cudaStream_t stream) {
-  if (d != D || g < 1 || !wq_plan_ok(rows, sstride, smem, scratch))
+  if (g < 1 || !wq_plan_ok(rows, sstride, smem, scratch, d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (njobs > 0) {
     const WqArgs a{desc, jobs, q, nullptr, nullptr, ks, kz, vs, vz, k_pool,
                    v_pool, out, part, arrive, scratch, 1, g, hkv, ps,
                    sstride, q_bf16, sb};
     const cudaError_t e =
-        rows == 8 ? launch_wq<1, true>(a, njobs, smem, stream)
-        : rows == 16 ? launch_wq<2, true>(a, njobs, smem, stream)
-                     : launch_wq<4, true>(a, njobs, smem, stream);
+        launch_wq_d<true>(a, d, rows, njobs, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -578,7 +617,7 @@ extern "C" int paged_kv4_decode_wq(
 // q [B, C, Hq, D] (q_bf16: bf16, else f32); k/v_new f32 [B, C, hkv, D];
 // ks/kz/vs/vz f32 [hkv, D]; pools uint8 [P, ps, hkv, D/2]; tables int32
 // [B, np]; ctx/q_len int32 [B] → out f32 [B, C, Hq, D] (rows at or past
-// q_len·G: 0). All contiguous; d must be 128. The launch plan
+// q_len·G: 0). All contiguous; d is 32, 64, 80 or 128. The launch plan
 // (kernels/kv4_attention.py:dense_plan) as dense_plan_ok says; scratch is
 // null when the scores live in shared memory, else f32
 // [B·hkv·tiles·split·rows·sstride].
@@ -589,16 +628,14 @@ extern "C" int paged_kv4_prefill_dense(
     const int* ctx_lens, const int* q_lens, float* out, float* scratch, int b,
     int c, int g, int hkv, int np, int ps, int d, int rows, int split,
     int sstride, int smem, cudaStream_t stream) {
-  if (d != D || !dense_plan_ok(rows, split, sstride, smem, scratch))
+  if (!dense_plan_ok(rows, split, sstride, smem, scratch, d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && c > 0 && hkv > 0) {
     const DenseArgs a{q, kn, vn, ks, kz, vs, vz, k_pool, v_pool, tables,
                       ctx_lens, q_lens, out, scratch, c, g, hkv, np, ps,
                       sstride, q_bf16, 0};
     const cudaError_t e =
-        rows == 8 ? launch_dense<1, true>(a, b, split, smem, stream)
-        : rows == 16 ? launch_dense<2, true>(a, b, split, smem, stream)
-                     : launch_dense<4, true>(a, b, split, smem, stream);
+        launch_dense_d<true, true>(a, d, b, rows, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -12,7 +12,7 @@
 // page 0 and lie at or past length[b], so they are never read for their
 // values).
 //
-// Bound on the H100: bytes, 2·64 B of int4 K and V per valid key and kv
+// Bound on the H100: bytes, 2·D/2 B of int4 K and V per valid key and kv
 // head (~4 MB for one Llama-3-8B layer at B = 8 and ~512 tokens, ~1.3 µs at
 // 3.35 TB/s): at decode batch sizes the launch and the latency of a
 // block's phases decide the time. The first design gave each (b, kv head)
@@ -26,8 +26,9 @@
 
 // q [B, Hq, D] (q_bf16: bf16, else f32); pools uint8 [P, ps, hkv, D/2];
 // scales/zeros f32 [Hkv, D] (sb 0) or [B, Hkv, D] (sb Hkv·D); tables
-// [B, np] int32; length [B] int32 → out [B, Hq, D] f32. d must be 128,
-// g ≥ 1 (any GQA group: rows of 8, 16 or 32, several row tiles past 32);
+// [B, np] int32; length [B] int32 → out [B, Hq, D] f32. d is 32, 64, 80
+// or 128 (head_dim_built), g ≥ 1 (any GQA group: rows of 8, 16 or 32,
+// several row tiles past 32);
 // every pointer is contiguous. The launch plan
 // (kernels/kv4_attention.py:dense_plan at C = 1) as dense_plan_ok says;
 // scratch null or f32 [B·hkv·tiles·split·rows·sstride].
@@ -37,17 +38,14 @@ extern "C" int paged_kv4_decode(
     int sb, const int* tables, const int* length, float* out,
     float* scratch, int b, int hkv, int g, int np, int ps, int d, int rows,
     int split, int sstride, int smem, cudaStream_t stream) {
-  if (d != D || g < 1 ||
-      !dense_plan_ok(rows, split, sstride, smem, scratch))
+  if (g < 1 || !dense_plan_ok(rows, split, sstride, smem, scratch, d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && hkv > 0) {
     const DenseArgs a{q, nullptr, nullptr, ks, kz, vs, vz, k_pool, v_pool,
                       tables, length, nullptr, out, scratch, 1, g, hkv, np,
                       ps, sstride, q_bf16, sb};
     const cudaError_t e =
-        rows == 8 ? launch_dense<1, false>(a, b, split, smem, stream)
-        : rows == 16 ? launch_dense<2, false>(a, b, split, smem, stream)
-                     : launch_dense<4, false>(a, b, split, smem, stream);
+        launch_dense_d<false, true>(a, d, b, rows, split, smem, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -39,7 +39,7 @@ from repro_torch.kernels import _build
 __all__ = ["kv4_decode_attention_ref", "kv4_decode_attention",
            "shared_scales", "check_kv4_inputs", "exact", "contract", "exp",
            "row_sum", "softmax", "sqrt_d", "DensePlan", "dense_plan",
-           "round_up"]
+           "round_up", "HEAD_DIMS"]
 
 
 def exact(t: torch.Tensor) -> bool:
@@ -123,16 +123,16 @@ def shared_scales(scales, b: int, hkv: int, d: int):
             .contiguous() for s in scales], hkv * d
 
 
-def check_kv4_inputs(q, k, v, d: int, what: str, dims=(128,)):
-    """What every KV4 attention kernel takes: CUDA tensors, a head_dim it
-    is built for (``dims``: 128; K10 also 80), contiguous uint8 KV. Any
+def check_kv4_inputs(q, k, v, d: int, what: str):
+    """What every KV4 attention kernel (K6–K10) takes: CUDA tensors, a
+    head_dim it is built for (:data:`HEAD_DIMS`), contiguous uint8 KV. Any
     GQA group: the launch plans size the row tiles to C·G."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{what} kernel needs CUDA tensors ({name} is "
                              "not)")
-    if d not in dims:
-        built = " and ".join(map(str, dims))
+    if d not in HEAD_DIMS:
+        built = ", ".join(map(str, HEAD_DIMS[:-1])) + f" and {HEAD_DIMS[-1]}"
         raise ValueError(f"the kernel is built for head_dim {built}, got {d}")
     if (k.dtype != torch.uint8 or v.dtype != torch.uint8
             or not k.is_contiguous() or not v.is_contiguous()):
@@ -154,7 +154,9 @@ class DensePlan(NamedTuple):
 
 
 DENSE_KEY_TILE = 64          # keys per staged tile (csrc KT)
-K10_HEAD_DIMS = (80, 128)    # K10's instantiations (the paged kernels: 128)
+# the head_dims K6–K10 are instantiated for (csrc head_dim_built): the
+# smoke configs' 32, the TP test model's 64, Zamba2's 80, the 8B's 128
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def dense_fixed_smem(d: int = 128) -> int:
@@ -221,13 +223,12 @@ def kv4_decode_attention(q, k_packed, k_scale, k_zero, v_packed, v_scale,
                          v_zero, length) -> torch.Tensor:
     """The K10 kernel: same arguments as :func:`kv4_decode_attention_ref`
     (``length`` required) and its f32 result, bit for bit on the card. q
-    f32 or bf16; any Hq/Hkv; head_dim 128 or 80; T any length (keys at or
-    past ``min(length, T)`` are never read)."""
+    f32 or bf16; any Hq/Hkv; a head_dim of :data:`HEAD_DIMS`; T any length
+    (keys at or past ``min(length, T)`` are never read)."""
     b, hq, d = q.shape
     hkv, t = k_packed.shape[1], k_packed.shape[2]
     k_packed, v_packed = k_packed.contiguous(), v_packed.contiguous()
-    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention",
-                     K10_HEAD_DIMS)
+    check_kv4_inputs(q, k_packed, v_packed, d, "kv4_decode_attention")
     (ks, kz, vs, vz), sb = shared_scales(
         (k_scale, k_zero, v_scale, v_zero), b, hkv, d)
     q_bf16 = q.dtype == torch.bfloat16

@@ -275,8 +275,15 @@ class WorkPlan(NamedTuple):
     combine: CombinePlan
 
 
-WQ_FIXED_SMEM = 78608    # K9's shared bytes besides the scores (WQ_FIXED)
 WQ_ZERO_ROWS = 256       # query rows one zero job clears
+
+
+def wq_fixed_smem(d: int) -> int:
+    """Shared bytes of the work-queue kernel besides the scores at head_dim
+    d (csrc ``wq_fixed``: 78,608 at 128): the f64 K/V tile, two packed
+    tiles, the scales, the row reductions and the arrival flag."""
+    return (KA.DENSE_KEY_TILE * (d + 4) * 8 + 2 * KA.DENSE_KEY_TILE * (d // 2)
+            + 4 * d * 4 + 64 * 4 + 4 * 32 * 4 + 16)
 
 
 def work_plan(desc, num_rows: int, c: int, g: int, device) -> WorkPlan:
@@ -343,10 +350,11 @@ def _wq_buffers(plan: WorkPlan, keys: int, d: int, device):
     memory — and the partials' buffer, f32 [compute jobs][rows][D + 2])."""
     rows, nc = plan.rows, plan.ncompute
     sstride = KA.round_up(keys, KA.DENSE_KEY_TILE) + 8
-    smem = WQ_FIXED_SMEM + rows * sstride * 4
+    fixed = wq_fixed_smem(d)
+    smem = fixed + rows * sstride * 4
     scratch = None
     if smem > KA.DENSE_SMEM_MAX:
-        smem = WQ_FIXED_SMEM
+        smem = fixed
         scratch = torch.empty(nc * rows * sstride, dtype=torch.float32,
                               device=device)
     part = torch.empty(nc * rows * (d + 2), dtype=torch.float32,
@@ -363,10 +371,10 @@ def paged_kv4_prefill_attention_wq(q, k_new, v_new, k_pool, k_scale, k_zero,
     q_len·G; the rest of the output is finite: combined garbage or 0).
     ``plan`` is the :class:`WorkPlan` of these descriptors (:func:`work_plan`,
     built on the host); without one (or with a :class:`CombinePlan`) the
-    descriptors are read back to the host to build it. q f32 or bf16;
-    D = 128; the scores of one job stay in shared memory up to
-    max(ps, C) = 1,152 keys at 32-row tiles, beyond that in a scratch
-    buffer. Launches on the op's stream; the arrival counters are shared,
+    descriptors are read back to the host to build it. q f32 or bf16; a
+    head_dim of ``kv4_attention.HEAD_DIMS``; the scores of one job stay in
+    shared memory up to max(ps, C) = 1,152 keys at 32-row tiles and D =
+    128, beyond that in a scratch buffer. Launches on the op's stream; the arrival counters are shared,
     so two launches must not run at once on different streams."""
     b, c, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
@@ -463,8 +471,9 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
                                 v_pool, v_scale, v_zero, block_tables,
                                 ctx_lens, q_lens) -> torch.Tensor:
     """The K7 kernel: same arguments and result as the plain version (bit
-    for bit on the card), in one launch (:func:`kv4_attention.dense_plan`). Rows at or
-    past ``q_len·G`` come back 0."""
+    for bit on the card), in one launch (:func:`kv4_attention.dense_plan`).
+    A head_dim of ``kv4_attention.HEAD_DIMS``. Rows at or past ``q_len·G``
+    come back 0."""
     b, c, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_prefill_attention")
@@ -477,7 +486,7 @@ def paged_kv4_prefill_attention(q, k_new, v_new, k_pool, k_scale, k_zero,
     v_new = v_new.float().contiguous()
     ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
     ql = q_lens.to(device=dev, dtype=torch.int32).contiguous()
-    plan = KA.dense_plan(b, c, hq // hkv, hkv, tables.shape[1], ps)
+    plan = KA.dense_plan(b, c, hq // hkv, hkv, tables.shape[1], ps, d)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
@@ -520,8 +529,9 @@ def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
                                v_zero, block_tables, length) -> torch.Tensor:
     """The K6 kernel: same arguments and result as the plain version (bit
     for bit on the card), in one launch of the dense kernel K7 runs, at
-    C = 1 with no chunk keys (:func:`kv4_attention.dense_plan` sizes its cluster split).
-    Any Hq/Hkv (rows of 8, 16 or 32 sized to G); q f32 or bf16."""
+    C = 1 with no chunk keys (:func:`kv4_attention.dense_plan` sizes its
+    cluster split). Any Hq/Hkv (rows of 8, 16 or 32 sized to G); q f32 or
+    bf16; a head_dim of ``kv4_attention.HEAD_DIMS``."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     KA.check_kv4_inputs(q, k_pool, v_pool, d, "paged_kv4_decode_attention")
@@ -532,7 +542,7 @@ def paged_kv4_decode_attention(q, k_pool, k_scale, k_zero, v_pool, v_scale,
     length = length.to(device=dev, dtype=torch.int32).contiguous()
     q_bf16 = q.dtype == torch.bfloat16
     q = (q if q_bf16 else q.float()).contiguous()
-    plan = KA.dense_plan(b, 1, hq // hkv, hkv, tables.shape[1], ps)
+    plan = KA.dense_plan(b, 1, hq // hkv, hkv, tables.shape[1], ps, d)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
@@ -623,8 +633,9 @@ def paged_kv4_decode_attention_wq(q, k_pool, k_scale, k_zero, v_pool,
     row). ``plan`` is the :class:`WorkPlan` of these descriptors at C = 1
     (:func:`work_plan`, built on the host); without one (or with a
     :class:`CombinePlan`) the descriptors are read back to build it. q f32
-    or bf16; any Hq/Hkv; any page size (a job's scores stay in
-    shared memory up to 4,736 keys, beyond that in a scratch buffer). The
+    or bf16; any Hq/Hkv; a head_dim of ``kv4_attention.HEAD_DIMS``; any
+    page size (a job's scores stay in shared memory up to 4,736 keys at D =
+    128, beyond that in a scratch buffer). The
     arrival counters are K9's (one launch at a time per device)."""
     b, hq, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]

@@ -7,10 +7,11 @@ rank r owns ``cuda:r`` and its collectives go through NCCL, on the CPU
 through gloo. :func:`spawn` starts the ranks, which meet through a
 ``FileStore`` in a fresh temporary directory, and returns what each
 rank's function returned; :func:`make_local_mesh` then builds a rank's
-:class:`~repro_torch.parallel.mesh.Mesh` inside its process. Both are
-strict: a mesh larger than the visible cards, a rank that fails or exits
-early, and one that does not finish within the wall-clock limit raise,
-and no mesh is clamped to fit.
+:class:`~repro_torch.parallel.mesh.Mesh` inside its process, and
+:func:`make_replica_meshes` carves the ranks into one mesh per replica
+(``serving/replication.py``). All are strict: a mesh larger than the
+visible cards, a rank that fails or exits early, and one that does not
+finish within the wall-clock limit raise, and no mesh is clamped to fit.
 """
 
 from __future__ import annotations
@@ -27,12 +28,10 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.mesh import Mesh
+from repro_torch.parallel.mesh import Mesh, world_host_group
 
-__all__ = ["parse_mesh_arg", "make_local_mesh", "init_rank", "spawn",
-           "check_cards"]
-
-_HOST_GROUP: dict = {}
+__all__ = ["parse_mesh_arg", "make_local_mesh", "make_replica_meshes",
+           "init_rank", "spawn", "check_cards"]
 
 
 def parse_mesh_arg(spec: str) -> tuple[int, int]:
@@ -73,26 +72,57 @@ def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
         raise NotImplementedError(
             f"a data axis of {data} is not ported: tensor-parallel serving "
             f"takes --mesh 1xM (ROADMAP Queue 1: the data axis)")
+    world, rank, cuda = _world("make_local_mesh", data * model,
+                               f"mesh ({data}, {model})")
+    return Mesh(shape={"data": data, "model": model}, model_rank=rank,
+                group=dist.group.WORLD, host_group=world_host_group(),
+                device=(torch.device("cuda", rank) if cuda
+                        else torch.device("cpu")),
+                ranks=tuple(range(world)))
+
+
+def make_replica_meshes(replicas: int, model: int = 1) -> list:
+    """The world's ranks carved into ``replicas`` disjoint ``(1, model)``
+    meshes, replica i on ranks ``[i·model, (i+1)·model)`` (the
+    reference's ``make_replica_meshes``, each replica its own engine,
+    pool and scheduler). Every rank gets every replica's :class:`Mesh`
+    (its model group, NCCL on the card and gloo on the CPU, and a gloo
+    group over the same ranks), in replica order: creating a group is
+    collective, so every rank creates every one. The world must number
+    exactly ``replicas · model`` ranks, one card each on the card."""
+    if replicas < 1 or model < 1:
+        raise ValueError(f"replicas and model must be >= 1, got "
+                         f"{replicas} and {model}")
+    _, rank, cuda = _world("make_replica_meshes", replicas * model,
+                           f"{replicas} replica(s) x model={model}")
+    world_host_group()
+    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    meshes = []
+    for i in range(replicas):
+        ranks = tuple(range(i * model, (i + 1) * model))
+        group = dist.new_group(list(ranks))
+        host = (dist.new_group(list(ranks), backend="gloo") if cuda
+                else group)
+        meshes.append(Mesh(
+            shape={"data": 1, "model": model},
+            model_rank=ranks.index(rank) if rank in ranks else -1,
+            group=group, host_group=host, device=device, ranks=ranks))
+    return meshes
+
+
+def _world(what: str, need: int, shape: str) -> tuple:
+    """The process group's size, this rank and whether it runs NCCL,
+    checked to number exactly ``need`` ranks with a card each."""
     if not dist.is_initialized():
-        raise RuntimeError("make_local_mesh runs inside a rank: start the "
-                           "ranks with launch.mesh.spawn (or init_rank)")
+        raise RuntimeError(f"{what} runs inside a rank: start the ranks "
+                           "with launch.mesh.spawn (or init_rank)")
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"mesh ({data}, {model}) needs {data * model} "
-                         f"ranks, the process group has {world}")
-    rank = dist.get_rank()
+    if world != need:
+        raise ValueError(f"{shape} needs {need} ranks, the process group "
+                         f"has {world}")
     cuda = dist.get_backend() == "nccl"
     check_cards(world, "cuda" if cuda else "cpu")
-    if _HOST_GROUP.get("world") is not dist.group.WORLD:
-        # one per process group; every rank builds it in the same order
-        # (new_group is collective)
-        _HOST_GROUP["world"] = dist.group.WORLD
-        _HOST_GROUP["group"] = (dist.new_group(backend="gloo") if cuda
-                                else dist.group.WORLD)
-    return Mesh(shape={"data": data, "model": model}, model_rank=rank,
-                group=dist.group.WORLD, host_group=_HOST_GROUP["group"],
-                device=(torch.device("cuda", rank) if cuda
-                        else torch.device("cpu")))
+    return world, dist.get_rank(), cuda
 
 
 def init_rank(rank: int, world: int, store_path: str, device_type: str,

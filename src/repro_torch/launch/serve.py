@@ -22,17 +22,20 @@ grammar, e.g. ``"forward:step=3,action=nan;sample:nth=2"``) and
 ``--sanitize`` runs the step-boundary sanitizers after every step.
 ``--snapshot-every N`` rides a journaled :class:`~repro_torch.serving.
 recovery.RecoveryLog` along with the run (a full engine snapshot every N
-steps and a per-token event journal; the ``[recovery]`` line).
+steps and a per-token event journal; the ``[recovery]`` line), on one
+device or over ``--mesh 1xM`` (every rank's log in lockstep).
 
 Replicated serving (``serving/replication.py``): ``--replicas N`` runs N
-engine replicas on the one device behind a :class:`ReplicaGroup`
-(least-loaded routing, a health check every step, the RecoveryLog
-artifacts shipped after every healthy step, one set of weights shared by
-all), ``--failover standby|migrate`` picks the death policy and
-``--kill-replica-at STEP`` (``--kill-replica IDX``) arms the ``crash``
-fault on one replica; the summary prints the reference's ``[done]``,
-``[group]`` (failovers, migrations, health), ``[robust]``, ``[faults]``
-and ``[death]`` lines, then ``[states]``.
+engine replicas behind a :class:`ReplicaGroup` (least-loaded routing, a
+health check every step, the RecoveryLog artifacts shipped after every
+healthy step), on the one device sharing one set of weights, or with
+``--mesh 1xM`` (M > 1) each replica over its own M ranks (N·M processes,
+one card each: ``launch/mesh.py:make_replica_meshes``; the reference's
+``[mesh]`` line first). ``--failover standby|migrate`` picks the death
+policy and ``--kill-replica-at STEP`` (``--kill-replica IDX``) arms the
+``crash`` fault on one replica; the summary prints the reference's
+``[done]``, ``[group]`` (failovers, migrations, health), ``[robust]``,
+``[faults]`` and ``[death]`` lines, then ``[states]``.
 
 The summary prints the reference's ``[done]``, ``[cache]``, ``[robust]``,
 ``[slo]`` (TTFT and TPOT mean and p95 from the lifecycle stamps) and
@@ -55,8 +58,8 @@ them all, and so does a collective left waiting 600 s for the other
 ranks (the run's own limit is a day). ``--head-dim`` overrides the
 config's head_dim (the smoke configs' q_dim of 128 is one quant block,
 too narrow for row-parallel shards: ``--smoke --mesh 1x2 --head-dim
-64``). A data axis above 1, ``--replicas`` with a model axis above 1 and
-``--snapshot-every`` with one raise: not ported (ROADMAP Queue 1).
+64``). A data axis above 1 raises: not ported (ROADMAP Queue 1, item
+11).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -78,6 +81,9 @@ Usage:
       --mesh 1x4 --requests 8 --prompt-len 512 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch llama3_8b --smoke --mesh 1x2 --head-dim 64 --int4-fraction 1.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch llama3_8b --smoke --mesh 1x2 --head-dim 64 --int4-fraction 1.0 \\
+      --replicas 2 --failover migrate --kill-replica-at 4 --snapshot-every 2
 """
 
 from __future__ import annotations
@@ -95,7 +101,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ARCH_IDS
 from repro_torch.kernels import _build
-from repro_torch.launch.mesh import make_local_mesh, parse_mesh_arg, spawn
+from repro_torch.launch.mesh import (make_local_mesh, make_replica_meshes,
+                                     parse_mesh_arg, spawn)
 from repro_torch.models.lm import LM, QuantConfig
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 from repro_torch.serving.faults import Fault, FaultInjector
@@ -171,10 +178,11 @@ def _trace(args, cfg):
     return sp, [(i * args.arrival_every, p) for i, p in enumerate(prompts)]
 
 
-def _run_group(args, cfg, params, quant, ecfg, sp,
-               pending) -> ReplicaGroup:
-    """Serve the trace through a ReplicaGroup (``--replicas N``) and print
-    the reference's group summary → the group."""
+def _run_group(args, cfg, params, quant, ecfg, sp, pending, meshes=None,
+               param_axes=None) -> ReplicaGroup:
+    """Serve the trace through a ReplicaGroup (``--replicas N``; over
+    ``meshes`` on every rank of ``--mesh 1xM``) and print the reference's
+    group summary → the group."""
     faults = []
     for i in range(args.replicas):
         inj = (FaultInjector.from_spec(args.inject_faults)
@@ -185,7 +193,8 @@ def _run_group(args, cfg, params, quant, ecfg, sp,
     group = ReplicaGroup(
         cfg, params, quant, ecfg, replicas=args.replicas,
         failover=args.failover, snapshot_every=(args.snapshot_every or 4),
-        faults=faults, device=args.device)
+        faults=faults, device=args.device, meshes=meshes,
+        param_axes=param_axes)
 
     def stream_cb(ev):
         # the ordinal from the group's record: a migrated request's
@@ -208,8 +217,9 @@ def _run_group(args, cfg, params, quant, ecfg, sp,
                          on_event=stream_cb if args.stream else None)
         group.step()
         gsteps += 1
-    if torch.device(args.device).type == "cuda":
-        torch.cuda.synchronize(args.device)
+    device = params["embed"]["table"].device
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     dt = time.time() - t0
 
     total_tokens = sum(len(v) for v in group.delivered.values())
@@ -225,19 +235,20 @@ def _run_group(args, cfg, params, quant, ecfg, sp,
           f"replica_steps={c['replica_steps']} "
           f"dup_suppressed={c['duplicates_suppressed']} "
           f"internal_errors={c['internal_errors']} {health}", flush=True)
-    live = [r for r in group.replicas if r.alive]
-    print(f"[robust] failed="
-          f"{sum(r.engine.failed_count for r in live)} timed_out="
-          f"{sum(r.engine.timeout_count for r in live)} shed="
-          f"{sum(r.engine.shed_count for r in live)} rejected="
-          f"{sum(r.engine.rejected_count for r in live)} "
-          f"internal_errors={c['internal_errors']} sanitize_checks="
-          f"{sum(r.engine.sanitize_checks for r in live)}", flush=True)
-    for rep in group.replicas:
-        if rep.engine.faults.fired:
-            fired = [f"{p}:{a}@step{s}"
-                     for p, a, s in rep.engine.faults.fired]
-            print(f"[faults] replica {rep.idx}: fired {', '.join(fired)}",
+    stats = group.replica_stats()
+    live = [stats[r.idx] for r in group.replicas if r.alive]
+
+    def total(key):
+        return sum(st[key] for st in live)
+
+    print(f"[robust] failed={total('failed')} timed_out="
+          f"{total('timed_out')} shed={total('shed')} rejected="
+          f"{total('rejected')} internal_errors={c['internal_errors']} "
+          f"sanitize_checks={total('sanitize_checks')}", flush=True)
+    for idx, st in enumerate(stats):
+        if st["fired"]:
+            fired = [f"{p}:{a}@step{s}" for p, a, s in st["fired"]]
+            print(f"[faults] replica {idx}: fired {', '.join(fired)}",
                   flush=True)
     for idx, why, step in group.deaths:
         print(f"[death] replica {idx} at engine step {step} ({why})",
@@ -323,10 +334,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "off); with --replicas the group's interval "
                          "(default 4)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="run N engine replicas on the device behind a "
-                         "ReplicaGroup (weights shared, pools and "
-                         "scheduler per replica; least-loaded routing, "
-                         "health checks, failover)")
+                    help="run N engine replicas behind a ReplicaGroup "
+                         "(pools and scheduler per replica; least-loaded "
+                         "routing, health checks, failover): on the one "
+                         "device with the weights shared, or with --mesh "
+                         "1xM each over its own M ranks")
     ap.add_argument("--failover", default="migrate",
                     choices=["standby", "migrate"],
                     help="replica-death policy: promote an engine resumed "
@@ -374,33 +386,31 @@ def _init_line(args, cfg, t0: float, where: str) -> None:
 def main(argv=None):
     """Serve the synthetic trace and print the summary → the engine (the
     replica group with ``--replicas`` > 1; under ``--mesh 1xM``, M > 1,
-    every rank's ``Engine.counters()``)."""
+    every rank's ``Engine.counters()``, or with ``--replicas`` every
+    rank's ``ReplicaGroup.counters()``)."""
     args = build_parser().parse_args(argv)
     data, model = parse_mesh_arg(args.mesh)
     if data != 1:
         raise NotImplementedError(
             f"--mesh {args.mesh}: a data axis above 1 is not ported "
-            f"(ROADMAP Queue 1: the data axis); use --mesh 1xM")
-    if model > 1 and args.replicas > 1:
-        raise NotImplementedError(
-            "--replicas with --mesh 1xM (M > 1): replica groups over "
-            "per-replica meshes are not ported (ROADMAP Queue 1: replica "
-            "meshes)")
-    if model > 1 and args.snapshot_every:
-        raise NotImplementedError(
-            "--snapshot-every with --mesh 1xM (M > 1): a RecoveryLog over "
-            "a tensor-parallel engine is not ported (ROADMAP Queue 1: "
-            "recovery under TP)")
+            f"(ROADMAP Queue 1 item 11: the data axis); use --mesh 1xM")
     cfg, quant = _model(args)
     if model > 1:
         device = torch.device(args.device)
         if device.type == "cuda":
             _build.build()          # once, before the ranks start
-        print(f"[mesh] (data=1, model={model}) over {model} "
-              f"{device.type} rank(s)", flush=True)
-        return spawn(_serve_rank, model, (args,), device_type=device.type,
-                     timeout_s=24 * 3600.0, collective_timeout_s=600.0,
-                     threads=(max(1, torch.get_num_threads() // model)
+        world = model * max(args.replicas, 1)
+        if args.replicas > 1:
+            print(f"[mesh] {args.replicas} replica(s) x (data=1, "
+                  f"model={model}) over {world} {device.type} rank(s)",
+                  flush=True)
+        else:
+            print(f"[mesh] (data=1, model={model}) over {model} "
+                  f"{device.type} rank(s)", flush=True)
+        return spawn(_serve_rank, world, (args, model),
+                     device_type=device.type, timeout_s=24 * 3600.0,
+                     collective_timeout_s=600.0,
+                     threads=(max(1, torch.get_num_threads() // world)
                               if device.type == "cpu" else 0))
     t0 = time.time()
     params = LM(cfg).init(seed=args.seed, device=args.device)
@@ -415,12 +425,17 @@ def main(argv=None):
                   sp, pending)
 
 
-def _serve_rank(rank: int, world: int, device, args) -> dict:
-    """One rank of ``--mesh 1xM``: its shard of the seeded weights, the
-    same trace as every rank, the summary printed on rank 0 only →
-    ``Engine.counters()``."""
+def _serve_rank(rank: int, world: int, device, args, model: int) -> dict:
+    """One rank of ``--mesh 1xM`` (with ``--replicas N``, of N meshes of
+    M ranks): its shard of the seeded weights, the same trace as every
+    rank, the summary printed on rank 0 only → ``Engine.counters()`` (the
+    group's ``counters()``)."""
     cfg, quant = _model(args)
-    mesh = make_local_mesh(1, world)
+    if args.replicas > 1:
+        meshes = make_replica_meshes(args.replicas, model)
+        mesh = meshes[rank // model]
+    else:
+        mesh = make_local_mesh(1, world)
     quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \
         contextlib.nullcontext()
     with quiet:
@@ -431,6 +446,10 @@ def _serve_rank(rank: int, world: int, device, args) -> dict:
                  else str(device))
         _init_line(args, cfg, t0, f"{where} (rank {rank} of {world})")
         sp, pending = _trace(args, cfg)
+        if args.replicas > 1:
+            return _run_group(args, cfg, params, quant, _engine_config(args),
+                              sp, pending, meshes=meshes,
+                              param_axes=lm.axes(params)).counters()
         eng = Engine(cfg, params, quant, _engine_config(args), device=device,
                      mesh=mesh, param_axes=lm.axes(params))
         _serve(args, eng, sp, pending)

@@ -23,13 +23,17 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "reduce_partials", "host_all_gather", "broadcast_float",
-           "differing_ranks"]
+           "host_barrier", "differing_ranks", "world_host_group"]
+
+_WORLD_HOST: dict = {}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """One rank's view of a ``(data, model)`` mesh (``.shape`` and
-    ``.axis_names`` as JAX's ``Mesh`` has them)."""
+    ``.axis_names`` as JAX's ``Mesh`` has them). ``ranks``: the global
+    ranks of the model axis, in order (one replica's, under replica
+    meshes; ``model_rank`` is −1 on a rank outside them)."""
 
     shape: dict
     model_rank: int = 0
@@ -37,6 +41,7 @@ class Mesh:
     host_group: object = None    # gloo over the same ranks
     device: torch.device = torch.device("cpu")
     axis_names: tuple = ("data", "model")
+    ranks: tuple = ()
 
     @property
     def size(self) -> int:
@@ -69,6 +74,23 @@ def broadcast_float(x: float, mesh: Mesh) -> float:
     dist.broadcast(t, dist.get_global_rank(mesh.host_group, 0),
                    group=mesh.host_group)
     return float(t.item())
+
+
+def world_host_group():
+    """A gloo group over every rank of the process group (the world
+    itself under gloo), made once per process group; creating it is
+    collective, so every rank calls this at the same point."""
+    if _WORLD_HOST.get("world") is not dist.group.WORLD:
+        _WORLD_HOST["world"] = dist.group.WORLD
+        _WORLD_HOST["group"] = (dist.new_group(backend="gloo")
+                                if dist.get_backend() != "gloo"
+                                else dist.group.WORLD)
+    return _WORLD_HOST["group"]
+
+
+def host_barrier(mesh: Mesh) -> None:
+    """Wait until every rank of the mesh has come here (gloo)."""
+    dist.barrier(group=mesh.host_group)
 
 
 def differing_ranks(text: str, mesh: Mesh) -> list:

@@ -99,9 +99,10 @@ the mesh's bits (the TP tests' ``serial_seams``), and where a shard holds
 one block that is one device's own sum. Below ``int4_fraction=1.0`` a
 shard also rounds its own INT4/INT8 split, as the reference's
 ``shard_map`` does. An exception other than an injected fault is fatal
-to a rank under a mesh (:meth:`Engine._rank_local`). Not ported yet: MoE
-under a mesh (expert parallelism), a data axis above 1, replica groups
-over per-replica meshes and a ``RecoveryLog`` over a TP engine (ROADMAP
+to a rank under a mesh (:meth:`Engine._rank_local`). A ``RecoveryLog``
+rides along on every rank (``serving/recovery.py``), and replica groups
+take one mesh per replica (``serving/replication.py``). Not ported yet:
+MoE under a mesh (expert parallelism) and a data axis above 1 (ROADMAP
 Queue 1).
 
 FMPQ-planned params (``"perm"`` on a projection, ``LM.quantize(...,

@@ -38,6 +38,20 @@ atomic ``snapshot.json``, ``journal.jsonl`` appended each step;
 ``snapshot_write`` fault point tears the snapshot's temp file mid-write
 to show that the rename keeps the last good snapshot.
 
+Over a tensor-parallel engine (``Engine(mesh=)``, one process per rank,
+every rank running the same host program) every rank builds its log over
+its own engine and steps it in lockstep: ``Engine.snapshot(full=True)`` is
+a collective that gathers every rank's kv heads, so every rank holds the
+same snapshot and the same journal. Only model rank 0 writes the
+directory (the atomic rename kept); every rank then passes a barrier on
+the mesh's host group, so none goes on before the checkpoint exists. A
+torn ``snapshot_write`` fires on every rank at the same point: rank 0
+tears its temp file, and every rank raises the same ``InjectedFault``
+after the barrier, so the controllers never diverge. ``resume`` and
+``open_dir`` take ``mesh=``/``param_axes=`` for ``Engine.restore``: every
+rank restores the same blob and keeps its kv heads, and a blob of a mesh
+restores into one device, one device's into a mesh.
+
 ``serving/replication.py`` builds replica groups on exactly this pair:
 each replica ships ``(snapshot_blob, journal, steps)`` after every
 healthy step, and a death is recovered only from that shipped view.
@@ -49,6 +63,7 @@ import json
 import os
 from typing import Optional
 
+from repro_torch.parallel.mesh import host_barrier
 from repro_torch.serving.faults import InjectedFault
 
 __all__ = ["RecoveryLog", "ReplayMismatch"]
@@ -79,11 +94,10 @@ class RecoveryLog:
                  _snapshot: Optional[str] = None):
         if snapshot_every < 1:
             raise ValueError("snapshot_every must be >= 1")
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "a RecoveryLog over a tensor-parallel engine is not ported "
-                "(ROADMAP Queue 1: recovery under TP)")
         self.engine = engine
+        # under a mesh only model rank 0 writes the directory
+        self._mesh = getattr(engine, "mesh", None)
+        self._writes = self._mesh is None or self._mesh.model_rank == 0
         self.snapshot_every = snapshot_every
         self.dir = dir
         self.journal: list[dict] = list(_journal or [])
@@ -193,7 +207,7 @@ class RecoveryLog:
             new_entries.append(entry)
             fresh.append(ev)
         self.journaled_total += len(new_entries)
-        if self.dir is not None and new_entries:
+        if self.dir is not None and new_entries and self._writes:
             with open(os.path.join(self.dir, "journal.jsonl"), "a") as f:
                 for e in new_entries:
                     f.write(json.dumps(e) + "\n")
@@ -233,7 +247,8 @@ class RecoveryLog:
         between the snapshot and the crash re-run — their events are
         verified against the journal and NOT redelivered. ``engine_kw``
         goes to ``Engine.restore`` (``device``, ``clock``, ``faults``,
-        ``draft_source``)."""
+        ``draft_source``; ``mesh`` and ``param_axes`` on every rank of a
+        tensor-parallel engine)."""
         from repro_torch.serving.engine import Engine
         eng = Engine.restore(snapshot_blob, cfg, params, quant, ecfg,
                              **engine_kw)
@@ -260,25 +275,37 @@ class RecoveryLog:
         # snapshot (rename is atomic on POSIX). The snapshot_write fault
         # point simulates exactly that kill: a torn temp file, the
         # rename never reached — open_dir must still restore from the
-        # previous good snapshot.json.
+        # previous good snapshot.json. Under a mesh every rank checks the
+        # fault (the same schedule fires at the same point), rank 0
+        # writes, and every rank waits for the write before it goes on
+        # or raises.
         tmp = os.path.join(self.dir, "snapshot.json.tmp")
         fault = self.engine.faults.check("snapshot_write")
-        if fault is not None:
+        if self._writes:
             with open(tmp, "w") as f:
-                f.write(self._snapshot[: max(1, len(self._snapshot) // 2)])
+                f.write(self._snapshot if fault is None else
+                        self._snapshot[: max(1, len(self._snapshot) // 2)])
+            if fault is None:
+                os.replace(tmp, os.path.join(self.dir, "snapshot.json"))
+        self._written()
+        if fault is not None:
             raise InjectedFault(
                 "snapshot_write: killed mid-write (torn temp file)")
-        with open(tmp, "w") as f:
-            f.write(self._snapshot)
-        os.replace(tmp, os.path.join(self.dir, "snapshot.json"))
 
     def _rewrite_journal(self):
         # same atomicity contract as the snapshot: the compacted journal
         # replaces journal.jsonl via write-temp + rename, so a kill
         # mid-rewrite leaves the previous (superset) journal — replaying
         # against a superset only suppresses more, never redelivers
-        tmp = os.path.join(self.dir, "journal.jsonl.tmp")
-        with open(tmp, "w") as f:
-            for e in self.journal:
-                f.write(json.dumps(e) + "\n")
-        os.replace(tmp, os.path.join(self.dir, "journal.jsonl"))
+        if self._writes:
+            tmp = os.path.join(self.dir, "journal.jsonl.tmp")
+            with open(tmp, "w") as f:
+                for e in self.journal:
+                    f.write(json.dumps(e) + "\n")
+            os.replace(tmp, os.path.join(self.dir, "journal.jsonl"))
+        self._written()
+
+    def _written(self):
+        """Under a mesh, no rank goes on before rank 0's write is done."""
+        if self._mesh is not None:
+            host_barrier(self._mesh)

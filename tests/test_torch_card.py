@@ -334,10 +334,9 @@ def test_w4ax_archs_shapes_exact_on_card(n, k):
             "w4a8", m)
 
 
-def _dense_case(rng, ctx, qls, c, hq, hkv, ps, extra_pages=2):
+def _dense_case(rng, ctx, qls, c, hq, hkv, ps, extra_pages=2, d=128):
     """K7 inputs: one row per (history, q_len), its pages scattered over
     the pool, −1 past each row's pages; f32 query and chunk."""
-    d = 128
     need = [max(1, -(-(cx + ql) // ps)) for cx, ql in zip(ctx, qls)]
     num_pages = sum(need) + extra_pages
     tbl = np.full((len(ctx), max(need) + 1), -1, np.int32)
@@ -416,11 +415,10 @@ def test_dense_prefill_tiles_exact_on_card():
     _dense_exact(args, qls)
 
 
-def _wq_case(rng, ctx, qls, c, hq, hkv, ps, nb):
+def _wq_case(rng, ctx, qls, c, hq, hkv, ps, nb, d=128):
     """K9 inputs: one row per (history, q_len) — its pages scattered over
     the pool — plus q_len-0 pad rows up to ``nb``; bf16-valued queries as
     the engine hands them over."""
-    d = 128
     need = [max(1, -(-(cx + ql) // ps)) for cx, ql in zip(ctx, qls)]
     num_pages = sum(need) + 2
     tbl = np.full((len(ctx), max(need) + 1), -1, np.int32)
@@ -1011,16 +1009,19 @@ def test_converted_planned_params_quantize_each_input_once_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 4])
-def test_contiguous_decode_head_dim_80_exact_on_card(g):
+@pytest.mark.parametrize("d", [80, 64, 32])
+def test_contiguous_decode_head_dim_80_exact_on_card(g, d):
     """K10 at head_dim 80 (Zamba2's attention; 40-byte packed rows
-    staged by 8-byte copies) bit for bit against its plain version: T
-    even (1,024 holding 512–544 keys; 6,000), odd (487) and not a
-    multiple of the 64-key tile (70), lengths 1 and T, shared and
-    per-batch scales, f32 and bf16 queries, one launch a call."""
+    staged by 8-byte copies), and at the smoke configs' 32 and the TP test
+    model's 64 (16- and 32-byte rows), bit for bit against its plain
+    version: T even (1,024 holding 512–544 keys; 6,000), odd (487) and not
+    a multiple of the 64-key tile (70), lengths 1 and T, shared and
+    per-batch scales, f32 and bf16 queries, one launch a call; a width not
+    built (96) raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
-    rng = np.random.default_rng(240 + g)
-    hkv, d = 4, 80
+    rng = np.random.default_rng(240 + g + d)
+    hkv = 4
     for t, lens in ((1024, [512, 517, 526, 544]), (70, [70, 1, 33]),
                     (487, [487, 1, 486, 200]), (6000, [6000, 5999, 64])):
         b = len(lens)
@@ -1035,11 +1036,69 @@ def test_contiguous_decode_head_dim_80_exact_on_card(g):
             got = KA.kv4_decode_attention(*args)
             assert KA.kv4_decode_attention.launches == before + 1
             _exact(got, KA.kv4_decode_attention_ref(*args))
-    z = torch.zeros((1, 2, 8, 32), dtype=torch.uint8, device="cuda")
-    s = torch.ones((2, 1, 64), device="cuda")
-    with pytest.raises(ValueError, match="head_dim 80 and 128, got 64"):
+    z = torch.zeros((1, 2, 8, 48), dtype=torch.uint8, device="cuda")
+    s = torch.ones((2, 1, 96), device="cuda")
+    with pytest.raises(ValueError,
+                       match="head_dim 32, 64, 80 and 128, got 96"):
         KA.kv4_decode_attention(
-            torch.zeros((1, 2, 64), device="cuda"), z, s, s, z, s, s,
+            torch.zeros((1, 2, 96), device="cuda"), z, s, s, z, s, s,
+            torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 80])
+def test_paged_kernels_head_dims_exact_on_card(d, g):
+    """K6, K7, K8 and K9 at head_dim 32, 64 and 80 (packed rows of 16, 32
+    and 40 bytes; the last staged by 8-byte copies) bit for bit against
+    their plain versions on the valid rows: K6 and K8 over lengths 1,
+    ps−1, ps, ps+1, 487 and 6,000 and a row with no keys (K8: its empty
+    combine's affine), pages of 16 and 64 keys, shared and per-batch
+    scales; K7 and K9 at C = 1, 4 and 37 over rows with and without
+    history and q_len-0 rows; a width not built (96) raises in each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    rng = np.random.default_rng(300 + 10 * g + d)
+    hkv = 2
+    for ps in (16, 64):
+        lens = [1, ps - 1, ps, ps + 1, 487, 6000, 0]
+        pools, tbl, desc = _decode_pools(rng, lens, ps, hkv, d)
+        b = len(lens)
+        q = _cuda(rng.normal(size=(b, g * hkv, d)).astype(np.float32))
+        plan = PA.work_plan(desc, b * hkv, 1, g, "cuda")
+        for (ks, kz, vs, vz), qq in zip(_scale_sets(rng, b, hkv, d),
+                                        (q, q.bfloat16())):
+            k6 = (qq, pools[0], ks, kz, pools[1], vs, vz, _cuda(tbl),
+                  _cuda(np.asarray(lens, np.int32)))
+            got = PA.paged_kv4_decode_attention(*k6)
+            want = PA.paged_kv4_decode_attention_ref(*k6)
+            torch.cuda.synchronize()
+            valid = [i for i, n in enumerate(lens) if n]
+            assert torch.equal(got[valid], want[valid]), (
+                ps, float((got[valid] - want[valid]).abs().max()))
+            k8 = (qq, pools[0], ks, kz, pools[1], vs, vz, _cuda(desc))
+            _exact(PA.paged_kv4_decode_attention_wq(*k8, plan=plan),
+                   PA.paged_kv4_decode_attention_wq_ref(*k8, plan=plan))
+    for c, ctx, qls in ((1, [40, 0, 17, 5], [1, 1, 1, 0]),
+                        (4, [40, 0, 17, 5], [4, 3, 1, 0]),
+                        (37, [130, 0, 33], [37, 20, 0])):
+        _dense_exact(_dense_case(rng, ctx, qls, c, g * hkv, hkv, 16, d=d),
+                     qls)
+        args, desc = _wq_case(rng, ctx, qls, c, g * hkv, hkv, 16,
+                              len(ctx) + 1, d=d)
+        _wq_exact(args, desc, qls)
+    q = torch.zeros((1, 1, 2, 96), device="cuda")
+    pool = torch.zeros((4, 16, 2, 48), dtype=torch.uint8, device="cuda")
+    s = torch.ones((2, 1, 96), device="cuda")
+    desc = _cuda(build_work_queue(np.zeros((1, 1), np.int32), [3], 16, 2,
+                                  [1], pad_row=2))
+    with pytest.raises(ValueError, match="got 96"):
+        PA.paged_kv4_prefill_attention_wq(q, q[:, :, :2], q[:, :, :2], pool,
+                                          s, s, pool, s, s, desc)
+    with pytest.raises(ValueError, match="got 96"):
+        PA.paged_kv4_decode_attention(
+            q[0], pool, s, s, pool, s, s,
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
             torch.ones(1, dtype=torch.int32, device="cuda"))
 
 

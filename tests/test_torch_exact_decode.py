@@ -12,7 +12,8 @@ Here:
 * the plain version's float32 mode (the CPU default) against the
   reference's oracle and, on one case, its Pallas kernel in interpret
   mode, within 1e-4·max(1, max|ref|) (the two sides sum in other orders,
-  nothing more): pages of 16, 64 and 128 keys, shared and per-batch
+  nothing more): pages of 16, 64 and 128 keys, head_dim 128 and the
+  other widths the kernel is built for (32, 64, 80), shared and per-batch
   scales, a row with no items, pad items;
 * the exact mode (``exact=True``, the card's arithmetic) against an
   independent numpy float64 computation of the pre-fold, bit for bit, and
@@ -41,6 +42,14 @@ CASES = [  # (seed, ps, hq, hkv, lengths, per-batch scales)
     (2, 64, 4, 1, [1, 63, 64, 65, 487], True),
     (3, 128, 16, 2, [300, 129, 0, 128], True),  # pages of 128 keys
     (4, 128, 8, 8, [1, 700], False),            # G = 1
+]
+# the other head_dims the kernels are built for (+ d): the smoke configs'
+# 32, the TP test model's 64, Zamba2's 80
+HEAD_DIM_CASES = [
+    (6, 16, 8, 2, [40, 0, 17, 183], False, 32),
+    (7, 64, 4, 1, [1, 63, 64, 65, 487], True, 64),
+    (8, 16, 16, 2, [300, 129, 0, 128], True, 80),
+    (9, 128, 8, 8, [1, 700], False, 32),        # G = 1
 ]
 
 
@@ -85,18 +94,33 @@ def test_decode_wq_f32_matches_reference(seed, ps, hq, hkv, lengths,
                                          per_batch):
     """The plain version's float32 mode against the reference's oracle;
     the row with no items too (−s_v·z_v on both sides)."""
-    args = _case(seed, ps, hq, hkv, lengths, per_batch)
+    _f32_matches_reference(_case(seed, ps, hq, hkv, lengths, per_batch),
+                           hq, hkv, lengths)
+
+
+@pytest.mark.parametrize("seed,ps,hq,hkv,lengths,per_batch,d",
+                         HEAD_DIM_CASES)
+def test_decode_wq_f32_matches_reference_at_head_dims(seed, ps, hq, hkv,
+                                                      lengths, per_batch, d):
+    """As above at head_dim 32, 64 and 80 (packed rows of 16, 32 and 40
+    bytes)."""
+    _f32_matches_reference(_case(seed, ps, hq, hkv, lengths, per_batch, d),
+                           hq, hkv, lengths)
+
+
+def _f32_matches_reference(args, hq, hkv, lengths):
+    d = args[0].shape[-1]
     assert (args[-1][:, 2] == 0).any()                # pad items present
     want = np.asarray(J_K8(*[jnp.asarray(a) for a in args]))
     got = PA.paged_kv4_decode_attention_wq_ref(*[_t(a) for a in args])
     _close(got.numpy(), want)
     for bi, n in enumerate(lengths):
         if n == 0:                      # no items: the empty combine's affine
-            vs, vz = (np.broadcast_to(x, (len(lengths), hkv, 1, 128))[bi]
+            vs, vz = (np.broadcast_to(x, (len(lengths), hkv, 1, d))[bi]
                       for x in args[5:7])
             empty = np.repeat(F32(0) * vs - vs * vz, hq // hkv, 1)
             np.testing.assert_array_equal(got[bi].numpy(),
-                                          empty.reshape(hq, 128))
+                                          empty.reshape(hq, d))
 
 
 def test_decode_wq_ps128_matches_pallas_interpret():
@@ -109,13 +133,14 @@ def test_decode_wq_ps128_matches_pallas_interpret():
         *[_t(a) for a in args]).numpy(), want)
 
 
-@pytest.mark.parametrize("seed,ps,hq,hkv,lengths,per_batch", CASES)
+@pytest.mark.parametrize("seed,ps,hq,hkv,lengths,per_batch,d",
+                         [c + (128,) for c in CASES] + HEAD_DIM_CASES)
 def test_exact_decode_prefold_matches_numpy(seed, ps, hq, hkv, lengths,
-                                            per_batch):
+                                            per_batch, d):
     """q̃ = (q·s_k)·(1/√D) in two float32 roundings and c = f32(Σ_f64
-    q̃·z_k), bit for bit."""
-    q, _, ks, kz, *_ = _case(seed, ps, hq, hkv, lengths, per_batch)
-    b, _, d = q.shape
+    q̃·z_k), bit for bit, at every head_dim the kernels are built for."""
+    q, _, ks, kz, *_ = _case(seed, ps, hq, hkv, lengths, per_batch, d)
+    b = q.shape[0]
     g = hq // hkv
     qt2, c2 = PA.decode_prefold(_t(q), _t(ks), _t(kz), hkv, exact=True)
     ksb = np.broadcast_to(ks, (b, hkv, 1, d))
@@ -151,7 +176,20 @@ def test_decode_work_plan_runs_the_kernels_algorithm(seed, ps, hq, hkv,
     the kernel runs (each row's last job combines its items' exact
     partials, then the V affine; a zero job writes −s_v·z_v), every output
     row is written once and equals the exact plain op bit for bit."""
-    args = _case(seed, ps, hq, hkv, lengths, per_batch)
+    _runs_the_kernels_algorithm(
+        _case(seed, ps, hq, hkv, lengths, per_batch), hq, hkv, lengths)
+
+
+@pytest.mark.parametrize("seed,ps,hq,hkv,lengths,per_batch,d",
+                         HEAD_DIM_CASES)
+def test_decode_work_plan_runs_the_kernels_algorithm_at_head_dims(
+        seed, ps, hq, hkv, lengths, per_batch, d):
+    """As above at head_dim 32, 64 and 80."""
+    _runs_the_kernels_algorithm(
+        _case(seed, ps, hq, hkv, lengths, per_batch, d), hq, hkv, lengths)
+
+
+def _runs_the_kernels_algorithm(args, hq, hkv, lengths):
     q, kp, ks, kz, vp, vs, vz, desc = args
     b, _, d = q.shape
     g = hq // hkv

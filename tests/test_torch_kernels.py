@@ -115,6 +115,12 @@ WQ_CASES = [  # (hq, hkv, d, ps, ctx, q_lens, c, nb)
     (4, 1, 128, 32, [100, 33, 64, 5], [1, 1, 20, 8], 32, 4),
     (8, 8, 128, 64, [130, 0], [64, 64], 64, 2),
     (16, 4, 64, 16, [7, 200, 1], [3, 1, 16], 16, 8),    # 5 pad rows
+    # the other head_dims the kernels are built for: the smoke configs'
+    # 32 and Zamba2's 80 (and 64 above)
+    (8, 2, 32, 16, [40, 0, 17], [1, 12, 5], 16, 4),
+    (16, 2, 32, 32, [100, 33, 5], [1, 20, 8], 32, 4),
+    (4, 4, 80, 16, [70, 0, 33], [1, 16, 3], 16, 4),
+    (8, 1, 80, 64, [130, 0], [64, 40], 64, 2),
 ]
 
 

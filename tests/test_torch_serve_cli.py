@@ -152,13 +152,12 @@ def test_speculation_flag_prints_its_line():
 @pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--head-dim", "64"]])
 def test_unported_flags_are_refused(flag):
     """The tensor-parallel flags parse as the reference's do; what is not
-    ported with them (replica groups over per-replica meshes) is refused,
-    naming ROADMAP."""
+    ported with them (a data axis above 1) is refused, naming ROADMAP."""
     args = SERVE.build_parser().parse_args(COMMON + flag)
     assert (args.mesh, args.head_dim) == (
         ("1x2", 0) if flag[0] == "--mesh" else ("1x1", 64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SERVE.main(COMMON + ["--head-dim", "64", "--mesh", "1x2",
+        SERVE.main(COMMON + ["--head-dim", "64", "--mesh", "2x1",
                              "--replicas", "2", "--device", "cpu"])
 
 

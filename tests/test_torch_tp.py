@@ -6,6 +6,7 @@ processes' own failures. The engines under gloo are in
 """
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import pytest
 import torch
 from jax.sharding import Mesh as JMesh
 
+import _torch_durable_ranks as D
 import _torch_tp_ranks as R
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import get_smoke_config as jget_smoke_config
@@ -34,6 +36,7 @@ from repro_torch.models.lm import ENGINE_FAMILIES, LM, QuantConfig
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.serving import kv_cache as KVC
+from repro_torch.serving.api import SamplingParams
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.recovery import RecoveryLog
 from repro_torch.serving.replication import ReplicaGroup
@@ -348,24 +351,59 @@ def test_refuses_data_axis(smoke_params):
 
 
 def test_refuses_out_of_slice_combinations(smoke_params):
-    """A RecoveryLog over a TP engine and replica groups over meshes are
-    not ported; each raises naming ROADMAP."""
-    eng = _tp_engine(SMOKE64, smoke_params, pmesh(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecoveryLog(eng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplicaGroup(SMOKE64, smoke_params, QC, EngineConfig(), replicas=2,
-                     device="cpu", meshes=[pmesh(1), pmesh(1)])
+    """Once refused, now ported: a RecoveryLog over a TP engine and a
+    replica group over per-replica meshes, built in two gloo ranks (two
+    meshes of one rank each, through the real process groups), serve the
+    one-device log's and group's tokens."""
+    model = (SMOKE64, smoke_params, LM(SMOKE64).axes(smoke_params), QC)
+    got = LM_MESH.spawn(D.out_of_slice_calls, 2, (model,), threads=1,
+                        timeout_s=120.0)
+    eng = R._engine(model, None)
+    log = RecoveryLog(eng, snapshot_every=2)
+    D._submit(eng, SMOKE64.vocab_size)
+    want_log = D._streams(log.run())["tokens"]
+    group = ReplicaGroup(SMOKE64, smoke_params, QC, EngineConfig(**R.ENGINE),
+                         replicas=2, device="cpu")
+    rids = [group.submit(p, SamplingParams(max_new_tokens=D.MAX_NEW))
+            for p in R.prompts(SMOKE64.vocab_size, (10, 15, 7), seed=19)]
+    group.run()
+    assert len(want_log) == 3 and group.failovers == 0
+    for r in got:
+        assert r["log"] == want_log
+        assert r["group"] == {i: group.tokens_for(i) for i in rids}
+
+
+def _counts(text: str) -> list:
+    """The summary's count lines, without times and rates."""
+    return [re.sub(r" in [\d.]+s → [\d.]+ tok/s", "", ln)
+            for ln in text.splitlines()
+            if ln.startswith(("[done]", "[group]", "[robust]", "[death]",
+                              "[recovery]", "[states]", "  req "))]
 
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2x1"], ["--mesh", "1x2", "--replicas", "2"],
     ["--mesh", "1x2", "--snapshot-every", "2"]],
     ids=["data_axis", "replicas", "recovery"])
-def test_launcher_refuses_out_of_slice(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SERVE.main(["--arch", "llama3_8b", "--smoke", "--head-dim", "64",
-                    "--device", "cpu"] + flags)
+def test_launcher_refuses_out_of_slice(flags, capfd):
+    """A data axis above 1 is not ported and raises naming ROADMAP. The
+    two combinations once refused with it now serve: the replica group
+    over per-replica meshes and the RecoveryLog over the mesh exit with
+    the single-device launcher's counts."""
+    argv = ["--arch", "llama3_8b", "--smoke", "--head-dim", "64",
+            "--device", "cpu"]
+    if flags[1] == "2x1":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SERVE.main(argv + flags)
+        return
+    SERVE.main(argv + flags[2:])
+    single = capfd.readouterr().out
+    SERVE.main(argv + flags)
+    meshed = capfd.readouterr().out
+    want = _counts(single)
+    assert any(ln.startswith("[group]" if "--replicas" in flags
+                             else "[recovery]") for ln in want), single
+    assert _counts(meshed) == want
 
 
 def test_no_mesh_larger_than_the_cards():
