@@ -164,8 +164,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    capacity, which must drop some; (c) Moonlight-16B-A3B at full width
    and depth (48 layers) on the ``slice`` workload, with its launch
    calls a step, peak memory and packed bytes, and again under W4A16
-   (``weight_only``); (d) Qwen3-MoE at full width and 8 of its 94
-   layers (the depth printed with every number), the same; (e) W4A16 on
+   (``weight_only``) at its first 24 layers; (d) Qwen3-MoE at full width
+   and 4 of its 94 layers (the depth printed with every number), the
+   same (the two cuts, 48 → 24 and 8 → 4 layers, pay for the train
+   phase's mesh form); (e) W4A16 on
    Llama-3-8B; tokens/s of every run printed with the card's name and
    power limit.
 
@@ -220,15 +222,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    1,024 holding 512–544 keys; the K10 row's ``D=80`` entry, its
    launches from the Zamba2 run).
 16. train (after families, before archs): training, which launches none
-   of the port's kernels (fp params; the counts set to 0 before (a) and
-   read after it must all be 0): (a) Llama-3-8B at full width and 8 of
-   its 32 layers (f32 params, gradients and both AdamW moments, 44.7 GB;
-   full depth would need 128.5 GB) from ``LM.init_fp`` on the card, 6
-   steps of ``make_train_step`` at 8 × 1,024 tokens of the launcher's
-   synthetic stream, two loss chunks of 512, AdamW at lr 3e-4, weight
-   decay 0.1, a cosine schedule with warm-up 1: each step's loss, grad
-   norm and ms, the median step after the first, tokens/s, peak memory,
-   and a 7th step under ``torch.profiler`` (launch calls, busy share,
+   of the port's kernels (fp params; the counts set to 0 before (a)'s
+   8-layer run and read after it must all be 0): (a) this process as the
+   one rank of a real NCCL process group (a 1 × 1 mesh): at Llama-3-8B's
+   full width and 2 layers the mesh's ``make_train_step(mesh=)`` and the
+   plain ``make_train_step``, 2 steps each at 8 × 1,024 tokens of the
+   launcher's synthetic stream, must agree bit for bit (every step's
+   metrics, every param and both AdamW moments); then 8 of the 32 layers
+   (f32 params, gradients and both moments, 44.7 GB; full depth would
+   need 128.5 GB on one card) through the mesh, 2 steps, two loss chunks
+   of 512, AdamW at lr 3e-4, weight decay 0.1, a cosine schedule with
+   warm-up 1: each step's loss, grad norm and ms, tokens/s, peak memory,
+   and a 3rd step under ``torch.profiler`` (launch calls, busy share,
    top kernels, device time by kind); every loss finite and the last
    below the first; (b) one train step of each family's smoke model on
    the card and on the CPU from the same fp params and batch: loss, grad
@@ -236,7 +241,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``TRAIN_TOL``, the MoE's routing agreement printed; (c) the training
    launcher in a subprocess for 8 steps with a checkpoint every 4, then
    a second process resumed from step 4's checkpoint: the same step 4–7
-   lines and final checkpoint, bit for bit;
+   lines and final checkpoint, bit for bit. With four cards (else "not
+   run"; ``python3 chip_smoke.py --phases train`` on a four-card host):
+   (i) at Llama-3-8B width and 2 layers the meshes 2 × 2, 1 × 4 and
+   4 × 1, and Moonlight-16B-A3B's width at 1 × 4 (16 of its 64 experts a
+   rank), 2 steps each over four spawned ranks (NCCL), every rank's
+   metrics and the digest of each of its params and moments equal to
+   ``parallel.mesh.serial_train`` (the same mesh as threads on card 0);
+   (ii) Llama-3-8B at all 32 layers over 2 × 2, 8 × 1,024 tokens, 4
+   AdamW steps: step ms, tokens/s, peak memory per card (< 80 GB), the
+   collectives beside NCCL's own (the seam beside ``all_reduce``, the
+   FSDP gather beside ``all_gather_into_tensor``, the gradient's
+   all-to-all and rank-order sum beside ``reduce_scatter_tensor``), the
+   last step profiled on rank 0, every loss finite and every replicated
+   leaf identical on the ranks that hold it; (iii) the checkpoint written
+   from (ii) after step 2 (the params and AdamW state, or the params
+   alone where the disk cannot hold 96 GB) restored over 1 × 4, every
+   leaf gathered whole equal to the saved array bit for bit; (iv) the
+   launcher with ``--data 2 --model 2``, resumed from its own
+   checkpoint bit for bit, as (c);
 
 ``--phases times`` (not among the defaults) prints unchecked times of
 one projection input's act-quant (``ops.act_quant`` per channel range,
@@ -2632,7 +2655,11 @@ MOE_PARITY = (("moonshot_v1_16b_a3b", ("unified work_queue",
 MOONLIGHT_PACKED_GB = 16.3   # 13.3 GB of W4 experts, 0.8 GB of their
                              # scales, ~0.9 GB shared experts and
                              # attention, 1.34 GB bf16 embedding and head
-QWEN3_DEPTH = 8              # of 94 layers (~122 GB packed: not one card)
+QWEN3_DEPTH = 4              # of 94 layers (~122 GB packed: not one card;
+#                              8 until the train phase's mesh form took
+#                              the time)
+MOONLIGHT_W4A16_DEPTH = 24   # of 48: the W4A16 rerun of Moonlight's
+#                              weights (its W4Ax run stays at full depth)
 
 
 def expert_times(torch, Q, x, name: str, kern, ref, args) -> dict:
@@ -2873,9 +2900,14 @@ def phase_moe(torch, np, mods, KERNELS, get_config, AQ, WK, Q, rows,
     calls = moe_launch_calls(torch, np, mods, cfg, params)
     say(f"[moe] {cfg.name} × {cfg.num_layers} layers: {calls:.1f} kernel "
         f"launch calls a step (steps 5–6); packed {gb:.2f} GB | {smi}")
-    serve_llama(torch, np, mods, KERNELS, cfg, params, "slice", phase="moe",
-                quant_kw={"weight_only": True}, must=w4a16_must,
-                never=w4a16_never)
+    cut = dataclasses.replace(
+        cfg, num_layers=MOONLIGHT_W4A16_DEPTH,
+        name=f"{cfg.name} [{MOONLIGHT_W4A16_DEPTH} of {cfg.num_layers} "
+             f"layers]")
+    serve_llama(torch, np, mods, KERNELS, cut,
+                {**params, "blocks": params["blocks"][:cut.num_layers]},
+                "slice", phase="moe", quant_kw={"weight_only": True},
+                must=w4a16_must, never=w4a16_never)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3355,10 +3387,21 @@ def phase_famprof(torch, np, mods, get_config, smi):
 
 # ------------------------------------------------------------------ train
 
-TRAIN_DEPTH = 8          # of Llama-3-8B's 32 layers: f32 params, gradients
-#                          and both AdamW moments take 16 B a parameter,
-#                          128.5 GB at full depth, 44.7 GB at 8 layers
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 8, 1024, 512, 6
+TRAIN_DEPTH = 8          # of Llama-3-8B's 32 layers on one card: f32
+#                          params, gradients and both AdamW moments take
+#                          16 B a parameter, 128.5 GB at full depth, 44.7 GB
+#                          at 8 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 8, 1024, 512, 2
+TRAIN_DEEP_STEPS = 6     # (a) at TRAIN_DEPTH: a warm-up and 5 timed steps
+TRAIN_EXACT_DEPTH = 2    # the 1 × 1 mesh against make_train_step, and the
+#                          four-card meshes against serial_train
+TRAIN_MESHES = ((2, 2), (1, 4), (4, 1))   # (i) at Llama-3-8B width
+TRAIN_MOE_MESH = (1, 4)                   # (i) at Moonlight width
+# (ii): a warm-up and 5 timed steps, the checkpoint after them, then one
+# profiled step
+TRAIN_FULL_MESH, TRAIN_FULL_STEPS, TRAIN_CKPT_STEP = (2, 2), 7, 6
+TRAIN_RESTORE_MESH = (1, 4)                                         # (iii)
+TRAIN_COMM_REPS = 10     # timed calls of each collective in (ii)
 TRAIN_FAMILIES = ("llama3_8b", "moonshot_v1_16b_a3b", "zamba2_2p7b",
                   "rwkv6_1p6b", "llama3p2_vision_90b", "hubert_xlarge")
 TRAIN_SMOKE = (2, 24, 16)     # batch, tokens, loss chunk (two, one padded)
@@ -3374,89 +3417,494 @@ TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "matrix": 2e-2,
              "channel": 0.15, "gate": 0.5, "l2": 2e-2, "p_mean": 0.05}
 TRAIN_CLI = ("--arch", "llama3_8b", "--smoke", "--steps", "8",
              "--ckpt-every", "4", "--log-every", "1")
+TRAIN_METRICS = ("loss", "ce", "aux", "grad_norm", "lr")
 
 
-def train_full_width(torch, LM, KERNELS, get_config, smi) -> dict:
-    """(a) Llama-3-8B at full width and ``TRAIN_DEPTH`` layers: f32
-    params from ``init_fp`` on the card, ``TRAIN_STEPS`` steps of
-    ``make_train_step`` on the launcher's synthetic stream, AdamW
-    (lr 3e-4, weight decay 0.1, cosine schedule with warm-up 1), then one
-    step more under ``torch.profiler`` (launch calls, device busy share,
-    top kernels). Every loss finite, the last below the first; none of
-    the port's kernels launched (fp training runs no W4 projection and
-    no int4 cache)."""
-    from torch.profiler import ProfilerActivity, profile
+def leaf_digest(torch, t) -> tuple:
+    """An exact digest of a tensor's bits, on its device: the sums, mod
+    2⁶⁴ (integer sums do not depend on their order), of its 32-bit (or
+    16-bit) words and of each word times a position weight."""
+    flat = t.detach().reshape(-1)
+    w = {4: torch.int32, 2: torch.int16, 1: torch.int8}[flat.element_size()]
+    bits = flat.contiguous().view(w).long()
+    pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return (int(bits.sum()), int((bits * pos).sum()), tuple(t.shape))
 
+
+def state_digests(torch, state) -> list:
+    from repro_torch.training.checkpoint import flatten
+    return [(p, leaf_digest(torch, t)) for p, t in flatten(state)]
+
+
+def train_mesh_run(mesh, arch: str, depth: int, steps: int, batch: int,
+                   seq: int, timed: bool = False, total: int = 0,
+                   device=None) -> dict:
+    """``steps`` train steps of ``arch`` at full width and ``depth``
+    layers on this rank of ``mesh`` (None: ``make_train_step`` on one
+    device): ``init_fp(0)``'s shards, the launcher's stream of ``batch``
+    × ``seq`` tokens, AdamW at lr 3e-4 with weight decay 0.1 and a cosine
+    schedule (warm-up 1, over ``total`` steps, default ``steps``) on the
+    mesh's device (else ``device``) → each step's metrics (f32 bits) and
+    ms, the
+    digests of every param and both moments, the peak memory. The same
+    function runs in a spawned rank and in ``serial_train``'s threads."""
+    import torch
+
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.models.lm import LM
     from repro_torch.training import optimizer as OPT
     from repro_torch.training.train_loop import make_train_step
-    full = get_config("llama3_8b")
-    cfg = dataclasses.replace(full, num_layers=TRAIN_DEPTH)
-    tag = f"[train] {cfg.name} ({TRAIN_DEPTH} of {full.num_layers} layers)"
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
     lm = LM(cfg)
-    params = lm.init_fp(seed=0, device="cuda")
+    specs = lm.train_specs(mesh) if mesh is not None else None
+    params = lm.init_fp(seed=0, device=dev, mesh=mesh)
     state = OPT.adamw_init(params)
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in OPT.tree_leaves(params))
-    say(f"{tag}: {n / 1e6:.1f} M f32 parameters and both AdamW moments "
-        f"made in {time.perf_counter() - t0:.1f} s; with the gradients "
-        f"{16 * n / 1e9:.2f} GB of f32 state")
     step_fn = make_train_step(lm, OPT.AdamWConfig(
         lr=3e-4, weight_decay=0.1,
-        schedule=OPT.cosine_schedule(1, TRAIN_STEPS)),
-        loss_chunk=TRAIN_CHUNK)
-    data = SyntheticLMData(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH, seed=0))
-    for kern in KERNELS.values():
-        kern.launches = 0
-    losses, times = [], []
-    for step in range(TRAIN_STEPS):
-        batch = data.batch_for_step(step, "cuda")
-        torch.cuda.synchronize()
+        schedule=OPT.cosine_schedule(1, total or steps)),
+        loss_chunk=TRAIN_CHUNK, mesh=mesh, specs=specs)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch))
+    metrics, times = [], []
+    for step in range(steps):
+        b = data.batch_for_step(step, dev)
+        torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, batch)
-        torch.cuda.synchronize()
+        params, state, m = step_fn(params, state, b)
+        torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        say(f"{tag} step {step}: loss {losses[-1]:.6f} grad norm "
-            f"{float(m['grad_norm']):.6f} lr {float(m['lr']):.3e} "
-            f"{times[-1] * 1e3:.2f} ms")
-    launches = {name: k.launches for name, k in KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated()
-    med = statistics.median(times[1:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / med
-    batch = data.batch_for_step(TRAIN_STEPS, "cuda")
+        metrics.append(torch.stack([m[k].float() for k in TRAIN_METRICS])
+                       .view(torch.int32).tolist())
+    out = {"metrics": metrics, "ms": [t * 1e3 for t in times],
+           "digests": state_digests(torch, (params, state))}
+    if timed:
+        out.update(params=params, state=state, step_fn=step_fn, data=data,
+                   lm=lm, specs=specs)
+    return out
+
+
+def f32s(bits) -> list:
+    return np.array(bits, np.int32).view(np.float32).tolist()
+
+
+def train_one_card_rank(rank: int, world: int, device) -> dict:
+    """The default train (a), one rank of a real NCCL process group: at
+    ``TRAIN_EXACT_DEPTH`` layers the 1 × 1 mesh and
+    ``make_train_step``, ``TRAIN_STEPS`` steps each (their digests and
+    metrics); then at ``TRAIN_DEPTH`` layers ``TRAIN_DEEP_STEPS`` steps through
+    the mesh, the port's launch counts set to 0 just before and read just
+    after, and one more step under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training import optimizer as OPT
+    mesh = make_local_mesh(1, 1)
+    out = {}
+    out["s"] = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        t0 = time.perf_counter()
+        out[name] = train_mesh_run(m, "llama3_8b", TRAIN_EXACT_DEPTH,
+                                   TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                                   device=device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["s"][name] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    run = train_mesh_run(mesh, "llama3_8b", TRAIN_DEPTH, TRAIN_DEEP_STEPS,
+                         TRAIN_BATCH, TRAIN_SEQ, timed=True)
+    out["launches"] = {n: k.launches for n, k in ops.KERNELS.items()}
+    out["run_s"] = time.perf_counter() - t0
+    b = run["data"].batch_for_step(TRAIN_DEEP_STEPS, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, batch)
+        _, _, m = run["step_fn"](run["params"], run["state"], b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    calls = sum(e.count for e in prof.key_averages()
-                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    say(f"{tag}: B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, loss chunks of "
-        f"{TRAIN_CHUNK}: median step {med * 1e3:.2f} ms over steps 1–"
-        f"{TRAIN_STEPS - 1} (first {times[0] * 1e3:.2f} ms), {tok_s:.1f} "
-        f"tokens/s; peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} "
-        f"GB); {calls} kernel launch calls a step | {smi}")
-    say(f"{tag} profile of one step:\n" + profile_table(torch, prof, wall, 1))
-    say(f"{tag} device time by kind: {train_kinds(torch, prof)}")
-    say(f"{tag} launches {json.dumps(launches)}")
+    out["deep"] = {
+        "metrics": run["metrics"], "ms": run["ms"],
+        "profiled_loss": float(m["loss"]), "profiled_ms": wall * 1e3,
+        "peak": torch.cuda.max_memory_allocated(),
+        "params": sum(p.numel() for p in OPT.tree_leaves(run["params"])),
+        "calls": sum(e.count for e in prof.key_averages()
+                     if e.key.startswith(("cudaLaunchKernel",
+                                          "cuLaunchKernel"))),
+        "table": profile_table(torch, prof, wall, 1),
+        "kinds": train_kinds(torch, prof)}
+    out["s"]["deep"] = time.perf_counter() - t0
+    return out
+
+
+def train_one_card(torch, KERNELS, smi) -> dict:
+    """(a) on any card count: :func:`train_one_card_rank` in this process
+    as rank 0 of a one-rank NCCL process group (its own store, destroyed
+    after; a spawned rank would pay a new process and CUDA context, ~20
+    s on an H100); the 1 × 1 mesh must equal ``make_train_step`` bit for
+    bit (every step's metrics, every param and both moments), the 8-layer
+    run's losses finite and falling, none of the port's kernels
+    launched."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_rank
+    tag = f"[train] llama-3-8b ({TRAIN_DEPTH} of 32 layers, 1 x 1 mesh)"
+    tmp = tempfile.mkdtemp(prefix="train_nccl_")
+    try:
+        device = init_rank(0, 1, os.path.join(tmp, "store"), "cuda", 600.0)
+        res = train_one_card_rank(0, 1, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = res["mesh"], res["plain"]
+    same = a["metrics"] == b["metrics"] and a["digests"] == b["digests"]
+    say(f"[train] llama-3-8b at full width, {TRAIN_EXACT_DEPTH} layers, "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: the "
+        f"1 x 1 NCCL mesh against make_train_step: "
+        + ("every step's metrics and every param and AdamW moment (" +
+           f"{len(a['digests'])} leaves) bit for bit" if same else
+           "DIFFERENT") + f"; losses {[f32s(x)[0] for x in a['metrics']]}"
+        f"; seconds {json.dumps(res['s'])}")
+    if not same:
+        bad = [p for (p, x), (_, y) in zip(a["digests"], b["digests"])
+               if x != y]
+        fail(f"[train] the 1 x 1 mesh is not make_train_step: metrics "
+             f"{a['metrics']} vs {b['metrics']}; leaves {bad[:8]}")
+    d = res["deep"]
+    losses = [f32s(x)[0] for x in d["metrics"]] + [d["profiled_loss"]]
+    med = statistics.median(d["ms"][1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / med * 1e3
+    for step, (x, ms) in enumerate(zip(d["metrics"], d["ms"])):
+        loss, _, _, gnorm, lr = f32s(x)
+        say(f"{tag} step {step}: loss {loss:.6f} grad norm {gnorm:.6f} lr "
+            f"{lr:.3e} {ms:.2f} ms")
+    say(f"{tag}: {d['params'] / 1e6:.1f} M f32 parameters; B = "
+        f"{TRAIN_BATCH}, S = {TRAIN_SEQ}, loss chunks of {TRAIN_CHUNK}: "
+        f"median step {med:.2f} ms over steps 1–{TRAIN_DEEP_STEPS - 1} (first "
+        f"{d['ms'][0]:.2f} ms), {tok_s:.1f} tokens/s; peak memory "
+        f"{d['peak'] / 2**30:.2f} GiB ({d['peak'] / 1e9:.2f} GB); "
+        f"{d['calls']} kernel launch calls a step; the profiled step "
+        f"{d['profiled_ms']:.2f} ms | {smi}")
+    say(f"{tag} profile of one step:\n" + d["table"])
+    say(f"{tag} device time by kind: {d['kinds']}")
+    say(f"{tag} launches {json.dumps(res['launches'])}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{tag}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{tag}: the loss did not fall ({losses})")
-    if any(launches.values()):
-        fail(f"{tag}: a W4 kernel launched in fp training: {launches}")
-    del params, state, m, batch
-    return {"median_step_ms": med * 1e3, "tokens_per_s": tok_s,
-            "peak_bytes": peak, "launch_calls": calls, "losses": losses}
+    if any(res["launches"].values()):
+        fail(f"{tag}: a W4 kernel launched in fp training: "
+             f"{res['launches']}")
+    for k in KERNELS.values():
+        k.launches = 0
+    return {"median_step_ms": med, "tokens_per_s": tok_s,
+            "peak_bytes": d["peak"], "launch_calls": d["calls"],
+            "losses": losses}
+
+
+def comm_times(torch, mesh, shapes: dict) -> dict:
+    """Median CUDA-event ms (of ``TRAIN_COMM_REPS``) of the training
+    mesh's collectives at these f32 shapes beside NCCL's own: the model
+    seam (all-gather + rank-order sum) and ``all_reduce``; the FSDP
+    gather (all-gather + ``cat``) and ``all_gather_into_tensor``; the
+    FSDP gradient's all-to-all + rank-order sum and
+    ``reduce_scatter_tensor``."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import mesh as PM
+    from repro_torch.parallel import sharding as SH
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def med(fn):
+        ts = []
+        for _ in range(TRAIN_COMM_REPS + 2):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts[2:])
+
+    seam = torch.randn(shapes["seam"], generator=g, device=dev)
+    shard = torch.randn(shapes["shard"], generator=g, device=dev)
+    grad = torch.randn((shapes["shard"][0] * mesh.data_size,
+                        shapes["shard"][1]), generator=g, device=dev)
+    out_full = torch.empty_like(grad)
+    out_shard = torch.empty_like(shard)
+    acc = seam.clone()
+    return {
+        "seam_ms": med(lambda: PM.reduce_partials(seam, mesh)),
+        "all_reduce_ms": med(lambda: dist.all_reduce(acc, group=mesh.group)),
+        "fsdp_gather_ms": med(lambda: torch.cat(PM.axis_gather(
+            shard, mesh, "data"))),
+        "all_gather_into_tensor_ms": med(lambda: dist.all_gather_into_tensor(
+            out_full, shard, group=mesh.data_group)),
+        "fsdp_grad_ms": med(lambda: SH._sum_scatter(grad, 0, mesh, "data")),
+        "reduce_scatter_ms": med(lambda: dist.reduce_scatter_tensor(
+            out_shard, grad, group=mesh.data_group)),
+        "shapes": shapes}
+
+
+def train_four_rank(rank: int, world: int, device, ckpt: str) -> dict:
+    """One of four spawned ranks (NCCL) of the four-card train forms: (i)
+    each of ``TRAIN_MESHES`` at Llama-3-8B width and ``TRAIN_MOE_MESH`` at
+    Moonlight width, ``TRAIN_EXACT_DEPTH`` layers, ``TRAIN_STEPS`` steps
+    (metrics and digests, for ``serial_train``); (ii) Llama-3-8B at all
+    32 layers over ``TRAIN_FULL_MESH``, ``TRAIN_FULL_STEPS`` steps, the
+    state saved to ``ckpt`` after step ``TRAIN_CKPT_STEP``, every
+    replicated leaf's digest the same on every rank holding it, the
+    collectives timed, the last step profiled on rank 0; (iii) that
+    checkpoint restored over ``TRAIN_RESTORE_MESH``, every leaf gathered
+    whole and compared with the saved array on rank 0."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import mesh as PM
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as OPT
+    out = {"exact": {}}
+    for arch, mshape in ([("llama3_8b", m) for m in TRAIN_MESHES]
+                         + [("moonshot_v1_16b_a3b", TRAIN_MOE_MESH)]):
+        mesh = make_local_mesh(*mshape)
+        r = train_mesh_run(mesh, arch, TRAIN_EXACT_DEPTH, TRAIN_STEPS,
+                           TRAIN_BATCH, TRAIN_SEQ)
+        out["exact"][(arch, mshape)] = {"metrics": r["metrics"],
+                                        "digests": r["digests"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (ii) full depth
+    mesh = make_local_mesh(*TRAIN_FULL_MESH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_mesh_run(mesh, "llama3_8b", 32, TRAIN_CKPT_STEP,
+                         TRAIN_BATCH, TRAIN_SEQ, timed=True,
+                         total=TRAIN_FULL_STEPS)
+    params, state, step_fn = run["params"], run["state"], run["step_fn"]
+    specs = run["specs"]
+    tree_specs = (specs, OPT.state_specs(specs))
+    full = {"metrics": run["metrics"], "ms": run["ms"],
+            "made_and_run_s": time.perf_counter() - t0}
+    # the launcher's checkpoint (params and AdamW state: 16 B - 4 B of
+    # gradients = 12 B a parameter) where the disk holds it, else the
+    # params alone
+    need = 12 * sum(p.numel() for p in OPT.tree_leaves(params)) * mesh.world
+    full["free_bytes"] = shutil.disk_usage(ckpt).free
+    full["saved"] = ("params and AdamW state"
+                     if full["free_bytes"] > 1.1 * need else "params")
+    saved = (params, state) if full["saved"] != "params" else params
+    t0 = time.perf_counter()
+    CKPT.save(ckpt, TRAIN_CKPT_STEP, saved,
+              mesh, tree_specs if full["saved"] != "params" else specs)
+    full["save_s"] = time.perf_counter() - t0
+    del saved
+    dev = mesh.device
+    for step in range(TRAIN_CKPT_STEP, TRAIN_FULL_STEPS):
+        b = run["data"].batch_for_step(step, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = None
+        if step == TRAIN_FULL_STEPS - 1 and rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, state, m = step_fn(params, state, b)
+                torch.cuda.synchronize()
+        else:
+            params, state, m = step_fn(params, state, b)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full["metrics"].append(torch.stack(
+            [m[k].float() for k in TRAIN_METRICS]).view(torch.int32).tolist())
+        full["ms"].append(wall * 1e3)
+        if prof is not None:
+            full["table"] = profile_table(torch, prof, wall, 1)
+            full["kinds"] = train_kinds(torch, prof)
+    full["peak"] = torch.cuda.max_memory_allocated()
+    # every rank holding a leaf's shard holds the same bits
+    dig = torch.tensor([[d[0], d[1]] for _, d in
+                        state_digests(torch, (params, state))],
+                       dtype=torch.int64, device=dev)
+    got = PM.axis_gather(dig, mesh, "world")
+    bad = []
+    for i, spec in enumerate(CKPT.flatten_specs((params, state), tree_specs)):
+        for r in range(mesh.world):
+            d, m_ = divmod(r, mesh.size)
+            owner = ((d if "data" in spec else 0) * mesh.size
+                     + (m_ if "model" in spec else 0))
+            if not torch.equal(got[r][i], got[owner][i]):
+                bad.append((i, r))
+    full["replicated_bad"] = bad
+    full["leaves"] = len(dig)
+    del params, state, step_fn, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    full["comm"] = comm_times(torch, mesh, {"seam": (4 * TRAIN_SEQ, 4096),
+                                            "shard": (2048, 7168)})
+    out["full"] = full
+    # (iii) the step-2 checkpoint over another mesh
+    t0 = time.perf_counter()
+    rmesh = make_local_mesh(*TRAIN_RESTORE_MESH)
+    lm = LM(dataclasses.replace(get_config("llama3_8b"), num_layers=32))
+    rspecs = lm.train_specs(rmesh)
+    meta = lm.init_fp(device="meta")
+    rtree_specs = (rspecs, OPT.state_specs(rspecs))
+    full_tree = (meta, OPT.adamw_init(meta))
+    if full["saved"] == "params":
+        rtree_specs, full_tree = rspecs, meta
+    template = CKPT._unflatten(full_tree, [
+        torch.empty(SH.shard_shape(t.shape, sp, rmesh), dtype=t.dtype,
+                    device="meta")
+        for (_, t), sp in zip(CKPT.flatten(full_tree),
+                              CKPT.flatten_specs(full_tree, rtree_specs))])
+    tree, step = CKPT.restore(ckpt, template, device=dev,
+                              shardings=rtree_specs, mesh=rmesh)
+    restored = {"step": step, "read_s": time.perf_counter() - t0,
+                "leaves": 0, "differ": []}
+    path = os.path.join(ckpt, f"step_{step:08d}")
+    for i, ((p, t), sp) in enumerate(zip(
+            CKPT.flatten(tree), CKPT.flatten_specs(tree, rtree_specs))):
+        whole = SH.unshard(t, sp, rmesh)
+        if rank == 0:
+            saved = torch.from_numpy(np.array(np.load(
+                os.path.join(path, f"arr_{i:05d}.npy"), mmap_mode="r")))
+            saved = saved.to(dev)
+            ok = (saved.shape == whole.shape and saved.dtype == whole.dtype
+                  and torch.equal(saved.view(torch.int32) if
+                                  saved.dtype == torch.float32 else saved,
+                                  whole.view(torch.int32) if
+                                  whole.dtype == torch.float32 else whole))
+            if not ok:
+                restored["differ"].append(p)
+            restored["leaves"] += 1
+        del whole
+    restored["s"] = time.perf_counter() - t0
+    out["restore"] = restored
+    return out
+
+
+def train_four_card(torch, smi) -> dict:
+    """The four-card train forms (``--phases train`` with four cards;
+    else "not run"): :func:`train_four_rank` on four spawned ranks, then
+    (i) each exactness run again as ``serial_train``'s threads on card 0,
+    bit for bit; (ii), (iii) checked as its docstring says; (iv) the
+    launcher with ``--data 2 --model 2`` resumed from its own
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.mesh import serial_train
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        say(f"[train] four-card forms (i)–(iv): not run ({cards} visible "
+            f"card(s))")
+        return {}
+    # the cards' interconnect, beside the collectives' times in (ii)
+    try:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True, timeout=60)
+        topo = (topo.stdout.rstrip() if not topo.returncode else
+                f"not read: exit {topo.returncode}: {topo.stderr.strip()}")
+    except (OSError, subprocess.TimeoutExpired) as e:
+        topo = f"not read: {e}"
+    say(f"[train] interconnect (nvidia-smi topo -m):\n{topo}")
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=HERE / "build")
+    t0 = time.perf_counter()
+    try:
+        res = spawn(train_four_rank, 4, (root,), device_type="cuda",
+                    timeout_s=1800.0)
+    except (RuntimeError, TimeoutError) as e:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"[train] four ranks: {e}")
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"[time] train four ranks: {time.perf_counter() - t0:.1f} s")
+    # (i)
+    for (arch, mshape), r0 in res[0]["exact"].items():
+        t0 = time.perf_counter()
+        emu = serial_train(train_mesh_run, *mshape, "cuda:0",
+                           (arch, TRAIN_EXACT_DEPTH, TRAIN_STEPS,
+                            TRAIN_BATCH, TRAIN_SEQ), timeout_s=900.0)
+        bad = [r for r in range(4)
+               if res[r]["exact"][(arch, mshape)]["metrics"]
+               != emu[r]["metrics"]
+               or res[r]["exact"][(arch, mshape)]["digests"]
+               != emu[r]["digests"]]
+        say(f"[train] (i) {arch} at full width, {TRAIN_EXACT_DEPTH} layers, "
+            f"{mshape[0]} x {mshape[1]} over 4 cards against serial_train on "
+            f"one card ({time.perf_counter() - t0:.1f} s): "
+            + ("every rank's metrics and all of its "
+               f"{len(r0['digests'])} leaves bit for bit" if not bad
+               else f"ranks {bad} DIFFER")
+            + f"; losses {[f32s(x)[0] for x in r0['metrics']]}")
+        if bad:
+            fail(f"[train] (i) {arch} {mshape}: ranks {bad} are not "
+                 f"serial_train's")
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (ii)
+    f0 = res[0]["full"]
+    losses = [f32s(x)[0] for x in f0["metrics"]]
+    med = statistics.median(f0["ms"][1:TRAIN_CKPT_STEP])
+    tag = "[train] (ii) llama-3-8b, 32 layers, 2 x 2 over 4 cards"
+    for step, (x, ms) in enumerate(zip(f0["metrics"], f0["ms"])):
+        loss, _, _, gnorm, lr = f32s(x)
+        say(f"{tag} step {step}: loss {loss:.6f} grad norm {gnorm:.6f} lr "
+            f"{lr:.3e} {ms:.2f} ms" + (" (profiled)" if step ==
+                                       TRAIN_FULL_STEPS - 1 else ""))
+    peaks = [r["full"]["peak"] / 1e9 for r in res]
+    say(f"{tag}: B = {TRAIN_BATCH}, S = {TRAIN_SEQ}: median step "
+        f"{med:.2f} ms (steps 1–{TRAIN_CKPT_STEP - 1}, before the "
+        f"checkpoint), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s; peak memory "
+        f"per card {[round(p, 2) for p in peaks]} GB; weights made and "
+        f"{TRAIN_CKPT_STEP} steps {f0['made_and_run_s']:.1f} s; checkpoint "
+        f"of step {TRAIN_CKPT_STEP} ({f0['saved']}; "
+        f"{f0['free_bytes'] / 1e9:.1f} GB free on its disk) written in "
+        f"{f0['save_s']:.1f} s | {smi}")
+    say(f"{tag} collectives, rank 0, f32, median ms: "
+        f"{json.dumps(f0['comm'])}")
+    say(f"{tag} profile of step {TRAIN_FULL_STEPS - 1} on rank 0:\n"
+        + f0.get("table", "none"))
+    say(f"{tag} device time by kind: {f0.get('kinds')}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss {losses}")
+    if any(r["full"]["replicated_bad"] for r in res):
+        fail(f"{tag}: replicated leaves differ across ranks: "
+             f"{[r['full']['replicated_bad'][:4] for r in res]}")
+    say(f"{tag}: every replicated leaf ({f0['leaves']} leaves a rank) "
+        f"identical on the ranks that hold it")
+    if max(peaks) >= 80:
+        fail(f"{tag}: peak memory {peaks} GB")
+    # (iii)
+    r3 = res[0]["restore"]
+    say(f"[train] (iii) step {r3['step']} of (ii) restored over "
+        f"{TRAIN_RESTORE_MESH[0]} x {TRAIN_RESTORE_MESH[1]}: "
+        f"{r3['leaves']} leaves gathered whole, "
+        + ("each the saved array bit for bit" if not r3["differ"]
+           else f"DIFFERING {r3['differ'][:5]}")
+        + f" (read {r3['read_s']:.1f} s, all {r3['s']:.1f} s)")
+    if r3["differ"] or r3["step"] != TRAIN_CKPT_STEP or not r3["leaves"]:
+        fail(f"[train] (iii) the restored checkpoint differs: {r3}")
+    # (iv)
+    train_launcher(("--data", "2", "--model", "2"))
+    return {"median_step_ms": med, "peaks_gb": peaks, "losses": losses}
 
 
 def train_kinds(torch, prof) -> str:
@@ -3597,31 +4045,35 @@ def train_card_vs_cpu(torch, np, LM, get_smoke_config):
                  f"mean {dp_mean}·lr)")
 
 
-def train_launcher():
-    """(c) The training launcher in a subprocess on the card: 8 steps of
-    the smoke model with a checkpoint every 4, then a second process
-    that resumes from step 4's checkpoint alone: its step 4–7 lines and
-    its final checkpoint must equal the uninterrupted run's, bit for
-    bit."""
+def train_launcher(extra=()):
+    """(c) The training launcher in a subprocess on the card (with
+    ``extra``: ``--data 2 --model 2``, four ranks): 8 steps of the smoke
+    model with a checkpoint every 4, then a second process that resumes
+    from step 4's checkpoint alone: its step 4–7 lines and its final
+    checkpoint must equal the uninterrupted run's, bit for bit."""
     import tempfile
     pat = re.compile(r"^(step (\d+): loss=\S+ ce=\S+ gnorm=\S+) \(", re.M)
+    cli = TRAIN_CLI + tuple(extra)
+    tag = "train" + (" (iv)" if extra else "")
     with tempfile.TemporaryDirectory() as tmp:
         full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
-        a = _launch(TRAIN_CLI + ("--ckpt-dir", full), 300,
-                    "repro_torch.launch.train", "train")
+        a = _launch(cli + ("--ckpt-dir", full), 300,
+                    "repro_torch.launch.train", tag)
         os.makedirs(part)
         os.rename(os.path.join(full, "step_00000004"),
                   os.path.join(part, "step_00000004"))
-        b = _launch(TRAIN_CLI + ("--ckpt-dir", part), 300,
-                    "repro_torch.launch.train", "train")
+        b = _launch(cli + ("--ckpt-dir", part), 300,
+                    "repro_torch.launch.train", tag)
         lines_a = {int(m[2]): m[1] for m in pat.finditer(a)}
         lines_b = {int(m[2]): m[1] for m in pat.finditer(b)}
         if "[resume] restored step 4" not in b or sorted(lines_b) != [
                 4, 5, 6, 7] or sorted(lines_a) != list(range(8)):
-            fail(f"train: the resumed run's steps {sorted(lines_b)}, the "
+            fail(f"{tag}: the resumed run's steps {sorted(lines_b)}, the "
                  f"uninterrupted run's {sorted(lines_a)}")
+        if extra and "[mesh] (data=2, model=2) over 4 " not in a:
+            fail(f"{tag}: no [mesh] line")
         if any(lines_b[k] != lines_a[k] for k in lines_b):
-            fail("train: the resumed run's step 4–7 lines differ")
+            fail(f"{tag}: the resumed run's step 4–7 lines differ")
         arrays = []
         for d in (full, part):
             step = os.path.join(d, "step_00000008")
@@ -3631,20 +4083,21 @@ def train_launcher():
         same = [x.dtype == y.dtype and np.array_equal(x, y)
                 for x, y in zip(*arrays)]
         if not same or not all(same) or len(arrays[0]) != len(arrays[1]):
-            fail(f"train: the final checkpoints differ in "
+            fail(f"{tag}: the final checkpoints differ in "
                  f"{same.count(False)} of {len(same)} arrays")
-        say(f"[train] resumed from step 4: steps 4–7 and the final "
+        say(f"[{tag}] resumed from step 4: steps 4–7 and the final "
             f"checkpoint's {len(same)} arrays equal the uninterrupted run's "
             f"bit for bit")
 
 
 def phase_train(torch, np, mods, KERNELS, get_config, get_smoke_config,
                 smi) -> dict:
-    """The training slice on the card: (a) ``train_full_width``, (b)
-    ``train_card_vs_cpu``, (c) ``train_launcher``."""
+    """The training slice on the card: (a) ``train_one_card`` (the 1 × 1
+    NCCL mesh), (b) ``train_card_vs_cpu``, (c) ``train_launcher``, then
+    with four cards ``train_four_card`` ((i)–(iv))."""
     LM = mods[1]
     t0 = time.perf_counter()
-    out = train_full_width(torch, LM, KERNELS, get_config, smi)
+    out = train_one_card(torch, KERNELS, smi)
     gc.collect()
     torch.cuda.empty_cache()
     say(f"[time] train (a): {time.perf_counter() - t0:.1f} s")
@@ -3654,6 +4107,11 @@ def phase_train(torch, np, mods, KERNELS, get_config, get_smoke_config,
     t0 = time.perf_counter()
     train_launcher()
     say(f"[time] train (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    four = train_four_card(torch, smi)
+    if four:
+        out["four"] = four
+        say(f"[time] train (i)–(iv): {time.perf_counter() - t0:.1f} s")
     return out
 
 

@@ -1,8 +1,9 @@
 """Meshes over local ranks, and the processes that run them
 (``repro/launch/mesh.py``).
 
-Tensor-parallel serving runs one process per rank, every one running the
-same host program (as a multi-controller JAX program does): on the card
+Tensor-parallel serving and training over a ``(data, model)`` mesh run
+one process per rank, every one running the same host program (as a
+multi-controller JAX program does): on the card
 rank r owns ``cuda:r`` and its collectives go through NCCL, on the CPU
 through gloo. :func:`spawn` starts the ranks, which meet through a
 ``FileStore`` in a fresh temporary directory, and returns what each
@@ -11,7 +12,9 @@ rank's function returned; :func:`make_local_mesh` then builds a rank's
 :func:`make_replica_meshes` carves the ranks into one mesh per replica
 (``serving/replication.py``). All are strict: a mesh larger than the
 visible cards, a rank that fails or exits early, and one that does not
-finish within the wall-clock limit raise, and no mesh is clamped to fit.
+finish within the wall-clock limit raise, and no mesh is clamped to fit
+unless a launcher asks before it starts the ranks (:func:`fit_mesh`
+with ``allow_shrink``, as the trainer's does).
 """
 
 from __future__ import annotations
@@ -24,14 +27,15 @@ import shutil
 import tempfile
 import time
 import traceback
+import warnings
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import Mesh, world_host_group
 
-__all__ = ["parse_mesh_arg", "make_local_mesh", "make_replica_meshes",
-           "init_rank", "spawn", "check_cards"]
+__all__ = ["parse_mesh_arg", "fit_mesh", "make_local_mesh",
+           "make_replica_meshes", "init_rank", "spawn", "check_cards"]
 
 
 def parse_mesh_arg(spec: str) -> tuple[int, int]:
@@ -64,21 +68,70 @@ def check_cards(n: int, device_type: str) -> None:
                 f"are visible; no mesh is clamped to fit")
 
 
+def fit_mesh(data: int, model: int, device_type: str,
+             allow_shrink: bool = False) -> tuple[int, int]:
+    """The ``(data, model)`` mesh to run: the request itself, or, with
+    ``allow_shrink`` on the card when it needs more cards than are
+    visible, the reference's best-effort shrink (``data = min(data, n)``,
+    ``model = min(model, n // data)``) with a ``UserWarning`` naming the
+    effective mesh. On the CPU the ranks are gloo processes: nothing
+    shrinks."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got ({data}, {model})")
+    if allow_shrink and device_type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if data * model > n >= 1:
+            data = min(data, n)
+            model = min(model, max(1, n // data))
+            warnings.warn(f"make_local_mesh clamped to effective mesh "
+                          f"(data={data}, model={model}) over {n} "
+                          f"device(s)", UserWarning, stacklevel=2)
+    return data, model
+
+
 def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
     """This rank's ``(data, model)`` mesh over the ranks of the process
-    group (``init_rank``), which must number exactly ``data · model``.
-    A data axis above 1 is not ported (ROADMAP Queue 1)."""
-    if data != 1:
-        raise NotImplementedError(
-            f"a data axis of {data} is not ported: tensor-parallel serving "
-            f"takes --mesh 1xM (ROADMAP Queue 1: the data axis)")
+    group (``init_rank``), which must number exactly ``data · model``: a
+    launcher that shrinks a request (:func:`fit_mesh`) does so before it
+    starts the ranks. Rank r is ``(r // M,
+    r % M)``; every rank creates every row's model group and every
+    column's data group, in that order (creating a group is collective),
+    and a gloo twin of its model group for host state. An axis of the
+    whole world is the world's own group. Serving refuses a data axis
+    above 1 itself (ROADMAP Queue 1 item 11)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh runs inside a rank: start the "
+                           "ranks with launch.mesh.spawn (or init_rank)")
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got ({data}, {model})")
     world, rank, cuda = _world("make_local_mesh", data * model,
                                f"mesh ({data}, {model})")
-    return Mesh(shape={"data": data, "model": model}, model_rank=rank,
-                group=dist.group.WORLD, host_group=world_host_group(),
+    host = world_host_group()
+    d, m = divmod(rank, model)
+    rows = [tuple(range(i * model, (i + 1) * model)) for i in range(data)]
+    cols = [tuple(range(j, world, model)) for j in range(model)]
+
+    def groups(members: list, mine: tuple, with_host: bool):
+        if len(mine) == world:
+            return dist.group.WORLD, host
+        if len(mine) == 1:          # an axis of one rank never exchanges
+            return None, None
+        got = None
+        for ranks in members:
+            g = dist.new_group(list(ranks))
+            h = (dist.new_group(list(ranks), backend="gloo")
+                 if cuda and with_host else g)
+            if ranks == mine:
+                got = (g, h)
+        return got
+
+    group, host_group = groups(rows, rows[d], True)
+    data_group, _ = groups(cols, cols[m], False)
+    return Mesh(shape={"data": data, "model": model}, model_rank=m,
+                group=group, host_group=host_group,
                 device=(torch.device("cuda", rank) if cuda
                         else torch.device("cpu")),
-                ranks=tuple(range(world)))
+                ranks=rows[d], data_rank=d, data_group=data_group)
 
 
 def make_replica_meshes(replicas: int, model: int = 1) -> list:

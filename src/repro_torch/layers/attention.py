@@ -30,6 +30,7 @@ from repro_torch.kernels import kv4_attention as KA
 from repro_torch.kernels import ops
 from repro_torch.layers import common as C
 from repro_torch.layers import mlp as MLP
+from repro_torch.parallel import sharding as SH
 
 NEG_INF = -1e30
 CHUNK = 1024           # the reference's q_chunk and kv_chunk
@@ -156,17 +157,79 @@ def cross_attention(params, cfg: ModelConfig, x: torch.Tensor, ckv: dict,
 
 
 def attention_train(params, cfg: ModelConfig, x: torch.Tensor,
-                    positions=None, quant=None,
-                    kv_override=None) -> torch.Tensor:
+                    positions=None, quant=None, kv_override=None,
+                    mesh=None, spec=None) -> torch.Tensor:
     """Self-attention of x [B, S, d_model] → [B, S, d_model] (causal as
     the config says); with ``kv_override`` [B, T, d_model] the
-    cross-attention of x over it (:func:`cross_attention`)."""
+    cross-attention of x over it (:func:`cross_attention`). With a
+    training ``mesh`` whose model axis shards ``wo`` (``spec``: the
+    attention's param specs), :func:`_tp_attention`."""
+    if mesh is not None and mesh.size > 1 and spec["wo"]["w"][0] == "model":
+        return _tp_attention(params, cfg, x, mesh, spec)
     if kv_override is not None:
         out = cross_attention(params, cfg, x,
                               cross_kv(params, cfg, kv_override, quant), quant)
     else:
         out, _, _ = _self_attention(params, cfg, x, positions, quant)
     return C.linear(params["wo"], out, quant)
+
+
+def _tp_cols(p, spec, x, x_fan, full: int, cols: tuple, mesh):
+    """Output columns ``cols`` = (c0, c1) of one of q/k/v on this model
+    rank. A column-sharded projection runs on ``x_fan`` (its input's
+    gradient summed over the ranks); where its columns are not the ones
+    this rank needs (a head count the axis does not divide) its output is
+    gathered over the ranks, the gradient summed back. A replicated one
+    (its width not divisible) runs whole on every rank, its output's
+    gradient summed over the ranks (each rank uses its own heads)."""
+    c0, c1 = cols
+    if spec["w"][-1] != "model":
+        y = SH.fanout(C.linear(p, x), mesh, "model")
+        return y[..., c0:c1]
+    y = C.linear(p, x_fan)
+    n = full // mesh.size
+    if (c0, c1) == (mesh.model_rank * n, (mesh.model_rank + 1) * n):
+        return y
+    return SH.gather_cols(y, mesh, "sum")[..., c0:c1]
+
+
+def _tp_attention(params, cfg: ModelConfig, x: torch.Tensor, mesh, spec):
+    """Training attention over the mesh's model axis, ``wo`` sharded over
+    its K (``qdim``): this rank's Hq/M query heads and the kv heads they
+    use (every head where M does not divide Hq), RoPE and the f32
+    attention local; QK-norm scales' gradients summed over the ranks;
+    the output's columns of this rank's ``wo`` rows into the row-parallel
+    seam (:func:`common.row_linear`)."""
+    b, s, _ = x.shape
+    m, r, hd = mesh.size, mesh.model_rank, cfg.head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    g = hq // hkv
+    h0, h1 = ((r * hq // m, (r + 1) * hq // m) if hq % m == 0 else (0, hq))
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    if (h1 - h0) % g and g % (h1 - h0):
+        raise NotImplementedError(
+            f"{h1 - h0} query heads a rank do not cover whole kv groups of "
+            f"{g} (num_heads {hq}, num_kv_heads {hkv}, model axis {m})")
+    x_fan = SH.fanout(x, mesh, "model")
+    q = _tp_cols(params["wq"], spec["wq"], x, x_fan, cfg.q_dim,
+                 (h0 * hd, h1 * hd), mesh).reshape(b, s, h1 - h0, hd)
+    k, v = (_tp_cols(params[n], spec[n], x, x_fan, cfg.kv_dim,
+                     (k0 * hd, k1 * hd), mesh).reshape(b, s, k1 - k0, hd)
+            for n in ("wk", "wv"))
+    if cfg.qk_norm:
+        q = C.rmsnorm(q, SH.fanout(params["q_norm"]["scale"], mesh),
+                      cfg.norm_eps)
+        k = C.rmsnorm(k, SH.fanout(params["k_norm"]["scale"], mesh),
+                      cfg.norm_eps)
+    pos = _positions(x)
+    q = C.apply_rope(q, pos, cfg.rope_theta)
+    k = C.apply_rope(k, pos, cfg.rope_theta)
+    out = flash_attention(q, k, v, causal=cfg.causal).to(x.dtype)
+    out = out.reshape(b, s, (h1 - h0) * hd)
+    if (h0, h1) == (0, hq):          # every head here: this rank's columns
+        n = cfg.q_dim // m
+        out = out[..., r * n:(r + 1) * n]
+    return C.row_linear(params["wo"], out, mesh)
 
 
 def _check_fits(s: int, t: int):

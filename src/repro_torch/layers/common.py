@@ -7,6 +7,14 @@ Rounding points follow the reference: norms and RoPE compute in f32 and
 return the input dtype; every projection returns bf16 (a plain ``w``
 projection adds its bias ``b`` in bf16, a packed one in f32 before its
 one cast).
+
+Over a training mesh's model axis (``parallel/sharding.py``): a
+column-parallel projection is :func:`linear` on the rank's columns of its
+input's ``fanout``; a row-parallel one (:func:`row_linear`: ``wo``,
+``w_down``) sums the ranks' f32 partial products in rank order, adds its
+bias once and rounds to bf16 once; the embedding looks up by vocabulary
+range (:func:`vocab_embed`) and the head gathers its vocabulary columns
+(:func:`vocab_head`). On an axis of one rank each is the one-device op.
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ import math
 import torch
 
 from repro_torch.core import qlinear as QL
+from repro_torch.parallel import sharding as SH
 
 __all__ = ["row_mean", "rmsnorm", "layernorm", "apply_norm",
            "rope_frequencies", "apply_rope", "linear", "linears",
+           "row_linear", "vocab_embed", "vocab_head",
            "resolve_device", "no_tf32", "trunc_normal", "init_linear",
            "init_norm", "einsum_exact", "bmm_f32", "cumsum_xla"]
 
@@ -119,6 +129,72 @@ def linears(params_list, x: torch.Tensor, quant=None) -> list:
         return [y.to(torch.bfloat16)
                 for y in QL.qlinear_apply_many(specs, params_list, x)]
     return [linear(p, x, quant) for p in params_list]
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x [..., K] @ w [K, N], bf16 operands → f32: exact products summed
+    in f32 (on the card one cuBLAS call with f32 output; on the CPU f64
+    sums rounded once, as :func:`bmm_f32`). The backward is a bf16
+    matmul's: dx = dy·wᵀ and dw = xᵀ·dy in bf16 (the gradient of a
+    result rounded to bf16 afterwards is bf16-exact)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        y = (torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda
+             else (x2.double() @ w.double()).float())
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        dx = g @ w.t()
+        dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw
+
+
+def row_linear(params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A row-parallel fp projection over the mesh's model axis: this
+    rank's K-slice ``x`` times its rows of ``w`` in f32, the ranks'
+    partials summed in rank order (``SH.reduce_sum``), the bias added
+    once, one rounding to bf16. Without a model axis :func:`linear`."""
+    if mesh is None or mesh.size == 1:
+        return linear(params, x)
+    y = _MatmulF32.apply(x.to(torch.bfloat16),
+                         params["w"].to(torch.bfloat16))
+    y = SH.reduce_sum(y, mesh, "model")
+    if "b" in params:
+        y = y + params["b"].float()
+    return y.to(torch.bfloat16)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh=None):
+    """The bf16 embedding of ``tokens``. Over the mesh's model axis
+    ``table`` is this rank's vocabulary rows: a token outside them looks
+    up −0.0, and the ranks' lookups are summed in rank order — x + (−0) =
+    x, so the result is the one-device lookup bit for bit."""
+    if mesh is None or mesh.size == 1:
+        return table[tokens].to(torch.bfloat16)
+    n = table.shape[0]
+    local = tokens - mesh.model_rank * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], table[local.clamp(0, n - 1)],
+                       table.new_full((), -0.0))
+    return SH.reduce_sum(rows, mesh, "model").to(torch.bfloat16)
+
+
+def vocab_head(w: torch.Tensor, x: torch.Tensor, mesh=None):
+    """f32 logits of ``x`` under the head ``w`` [d, V]. Over the mesh's
+    model axis ``w`` holds this rank's vocabulary columns: each rank's
+    bf16 logits, gathered along the vocabulary (whose backward is this
+    rank's slice: the loss after it runs alike on every rank), then
+    f32."""
+    if mesh is None or mesh.size == 1:
+        return linear({"w": w}, x).float()
+    y = linear({"w": w}, SH.fanout(x, mesh, "model"))
+    return SH.gather_cols(y, mesh, "slice").float()
 
 
 # ------------------------------------------------------------- init

@@ -20,6 +20,7 @@ import struct
 import torch
 
 from repro_torch.layers import common as C
+from repro_torch.parallel import sharding as SH
 
 __all__ = ["mlp_apply", "silu_bf16", "gelu_bf16", "gelu_f32", "exp_xla",
            "silu_f32", "sigmoid_f32", "softplus_f32", "softmax_f32",
@@ -94,9 +95,16 @@ def gelu_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params, x: torch.Tensor, quant=None,
-              act: str = "swiglu") -> torch.Tensor:
+              act: str = "swiglu", mesh=None, spec=None) -> torch.Tensor:
     """SwiGLU (up and gate share one act-quant of x) or, under ``act=
-    "gelu"``, GELU of the up projection; then the down projection."""
+    "gelu"``, GELU of the up projection; then the down projection. With
+    a training ``mesh`` whose model axis shards ``w_down``'s K
+    (``spec``): up/gate on this rank's channels of ``fanout(x)``, the
+    down projection the row-parallel seam (``common.row_linear``)."""
+    tp = (mesh is not None and mesh.size > 1
+          and spec["w_down"]["w"][0] == "model")
+    if tp:
+        x = SH.fanout(x, mesh, "model")
     if act == "swiglu":
         up, gate = C.linears([params["w_up"], params["w_gate"]], x, quant)
         h = silu_bf16(gate) * up
@@ -104,6 +112,8 @@ def mlp_apply(params, x: torch.Tensor, quant=None,
         h = gelu_bf16(C.linear(params["w_up"], x, quant))
     else:
         raise ValueError(act)
+    if tp:
+        return C.row_linear(params["w_down"], h, mesh)
     return C.linear(params["w_down"], h, quant)
 
 
@@ -215,15 +225,18 @@ def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
     return ex / _row_sum(ex)
 
 
-def moe_route(params, tkn: torch.Tensor, cfg, quant=None):
+def moe_route(params, tkn: torch.Tensor, cfg, quant=None, logits=None):
     """The router of ``moe_apply``: tokens [T, d] → (probs [T, E] f32,
     gate_vals [T, k] renormalized, gate_idx [T, k]). The bf16 router's
-    logits in f32, softmax, the top k by a stable descending sort (so
-    among equal probabilities the lower expert comes first, as
-    ``jax.lax.top_k``; ``torch.topk`` promises no order for ties), each
-    row's k values divided by their sum taken from 0 in order."""
+    logits (or ``logits``, made by the caller) in f32, softmax, the top k
+    by a stable descending sort (so among equal probabilities the lower
+    expert comes first, as ``jax.lax.top_k``; ``torch.topk`` promises no
+    order for ties), each row's k values divided by their sum taken from
+    0 in order."""
     k = cfg.num_experts_per_tok
-    probs = softmax_f32(C.linear(params["router"], tkn, quant).float())
+    if logits is None:
+        logits = C.linear(params["router"], tkn, quant)
+    probs = softmax_f32(logits.float())
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k]
     total = torch.zeros_like(vals[:, 0])
@@ -256,7 +269,8 @@ def moe_dispatch(gate_idx: torch.Tensor, num_experts: int, cap: int):
                                     num_experts * cap)
 
 
-def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None):
+def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None,
+              mesh=None, spec=None):
     """x: [B, S, d] → (out [B, S, d] in x's dtype, the Switch aux loss):
     top-k routing with capacity ``max(int(capacity_factor·T·k/E), 4)``
     per expert, T = B·S (every row routed, padding included), as
@@ -274,12 +288,36 @@ def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None):
     ``segment_sum`` order) — a fixed sequence of gathers, no atomics —
     then the shared experts' output (``mlp_apply``) in f32. ``dropped``:
     a list the call appends its count of dropped (token, expert) pairs
-    to, as a 0-d tensor (no host sync)."""
+    to, as a 0-d tensor (no host sync).
+
+    With a training ``mesh`` whose model axis shards the expert stacks
+    (``spec``; experts over "model"), routing, capacity and dispatch run
+    alike on every model rank (the activations are replicated over the
+    axis); the router's logits are its column-parallel E/M slices
+    gathered; each rank runs its E/M experts on its rows of the buffer
+    and adds its own experts' terms (others' weigh nothing), and the
+    ranks' f32 partial sums meet in the seam (``SH.reduce_sum``). The
+    gate weights and the tokens go in through ``fanout``: their
+    gradients are summed over the ranks."""
     b, s, d = x.shape
     tkn = x.reshape(b * s, d)
     t, e, k = tkn.shape[0], cfg.num_experts, cfg.num_experts_per_tok
     dev = tkn.device
-    probs, gate_vals, gate_idx = moe_route(params, tkn, cfg, quant)
+    ep = mesh is not None and mesh.size > 1
+    if ep and spec["w_gate"]["w"][0] != "model":
+        raise NotImplementedError(
+            f"{e} experts do not split over a model axis of {mesh.size}: "
+            f"only expert parallelism is ported for training over a mesh")
+    if ep:
+        tkn_fan = SH.fanout(tkn, mesh, "model")
+        logits = C.linear(params["router"], tkn_fan, quant)
+        if spec["router"]["w"][-1] == "model":
+            logits = SH.gather_cols(logits, mesh, "slice")
+        probs, gate_vals, gate_idx = moe_route(params, tkn, cfg, quant,
+                                               logits)
+    else:
+        tkn_fan = tkn
+        probs, gate_vals, gate_idx = moe_route(params, tkn, cfg, quant)
 
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)
@@ -291,16 +329,24 @@ def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None):
     if dropped is not None:
         dropped.append((~keep).sum())
 
-    buf = tkn.new_zeros((e * cap + 1, d))
-    buf[slot] = tkn[order // k]                   # drops land on row e·cap
+    buf = tkn_fan.new_zeros((e * cap + 1, d))
+    buf[slot] = tkn_fan[order // k]               # drops land on row e·cap
     xe = buf[:e * cap].reshape(e, cap, d).to(torch.bfloat16)
+    e0, n_e = 0, e
+    if ep:
+        n_e = e // mesh.size
+        e0 = mesh.model_rank * n_e
+        xe = xe[e0:e0 + n_e]
+        gate_vals = SH.fanout(gate_vals, mesh, "model")
 
     gate, up = C.linears([params["w_gate"], params["w_up"]], xe, quant)
     h = _ftz(silu_f32(gate.float()) * _ftz(up.float())).to(torch.bfloat16)
-    ye = C.linear(params["w_down"], h, quant).reshape(e * cap, d)
+    ye = C.linear(params["w_down"], h, quant).reshape(n_e * cap, d)
 
-    gathered = torch.where(keep[:, None], ye[slot.clamp(max=e * cap - 1)],
-                           0.0)
+    mine = slot - e0 * cap
+    held = keep & (mine >= 0) & (mine < n_e * cap)
+    gathered = torch.where(held[:, None],
+                           ye[mine.clamp(0, n_e * cap - 1)], 0.0)
     weighted = _ftz(_ftz(gathered.float())
                     * gate_vals.reshape(-1)[order][:, None])
     # each token's entries in the sorted list, in ascending expert order
@@ -310,6 +356,11 @@ def moe_apply(params, x: torch.Tensor, cfg, quant=None, dropped=None):
     out = torch.zeros((t, d), dtype=torch.float32, device=dev)
     for j in range(k):
         out = _ftz(out + weighted[rank[:, j]])
+    if ep:
+        out = SH.reduce_sum(out, mesh, "model")
     if "shared" in params:
-        out = _ftz(out + mlp_apply(params["shared"], tkn, quant).float())
+        out = _ftz(out + mlp_apply(params["shared"], tkn, quant,
+                                   mesh=mesh if ep else None,
+                                   spec=spec.get("shared") if ep
+                                   else None).float())
     return out.reshape(b, s, d).to(x.dtype), aux

@@ -10,6 +10,8 @@ model's own forward over a contiguous cache::
     logits, aux = lm.train_logits(params, tokens, extra)  # [B, S, V] f32
     hidden, aux = lm.train_hidden(params, tokens, extra)  # differentiable
     fp = lm.init_fp(seed, device)      # f32 params, init's draws unquantized
+    fp = lm.init_fp(seed, device, mesh)   # one training rank's shards
+    specs = lm.train_specs(mesh)          # their TRAIN_RULES specs
 
 Families: ``dense`` and ``moe`` (attention + MLP or MoE layers),
 ``hybrid`` (Zamba2: groups of one shared attention block, always
@@ -49,7 +51,10 @@ and ``{"w_packed": uint8 [K/2, N], "w_scale": f32 [K/128, N]}`` after.
 annotates (``"embed"``, ``"qdim"``, ``"kvdim"``, ``"mlp"``, ``"vocab"``),
 per layer without the reference's leading ``"layers"``: tensor-parallel
 serving shards by them (``parallel/sharding.py``), and ``LM.init(...,
-mesh=)`` builds one rank's shard block by block.
+mesh=)`` builds one rank's shard block by block; training over a
+``(data, model)`` mesh shards the fp params by them under
+``TRAIN_RULES`` (``LM.init_fp(..., mesh=)``, ``LM.train_specs``) and
+``train_hidden(..., mesh=, specs=)`` runs one rank's part.
 The config adds: a ``"bias"`` to every norm under ``norm="layernorm"``, an
 f32 ``"b"`` [N] to ``wq``/``wk``/``wv`` under ``qkv_bias`` (kept through
 quantization), ``attn.q_norm``/``attn.k_norm`` (RMSNorm scales over
@@ -284,23 +289,45 @@ class LM:
         return (self.n_groups * self.self_per_group
                 if self.cfg.family == "vlm" else self.cfg.num_layers)
 
-    def init_fp(self, seed: int = 0, device="cuda") -> dict:
+    def init_fp(self, seed: int = 0, device="cuda", mesh=None) -> dict:
         """Random fp parameters on ``device``, the reference's unquantized
         tree (f32 embedding table or conv_pos, f32 head, f32 blocks, the
         hybrid's ``shared_attn``, the VLM's ``cross_blocks``): the draws
         of :meth:`init` in its order, so ``quantize(init_fp(s))`` equals
-        ``init(s)``. The parameters training updates."""
+        ``init(s)``. The parameters training updates. With a training
+        ``mesh`` (dense and moe) every rank draws the same tensors and
+        keeps its shard of each under ``TRAIN_RULES`` (:meth:`train_specs`),
+        block by block: no rank holds the whole model."""
         dev = C.resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        params = {**self.init_top(gen, dev),
-                  "blocks": [self.init_block(gen, dev)
-                             for _ in range(self._n_blocks())]}
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
+        if mesh is not None:
+            self._engine_family_only("training over a mesh", 16)
+
+        def keep(tree, axes):
+            if mesh is None:
+                return tree
+            return SH.shard_tree(tree, SH.tree_pspecs(
+                axes(tree), tree, mesh, SH.TRAIN_RULES), mesh)
+        params = keep(self.init_top(gen, dev), self.axes)
+        params["blocks"] = [keep(self.init_block(gen, dev), self._block_axes)
+                            for _ in range(self._n_blocks())]
         if self.cfg.family == "hybrid":
             params["shared_attn"] = self.init_shared_attn(gen, dev)
         if self.cfg.family == "vlm":
             params["cross_blocks"] = [self.init_cross_block(gen, dev)
                                       for _ in range(self.n_groups)]
         return params
+
+    def train_specs(self, mesh) -> dict:
+        """The spec of every tensor of :meth:`init_fp`'s tree on ``mesh``
+        under ``TRAIN_RULES`` (the reference's ``tree_pspecs(axes, params,
+        mesh, TRAIN_RULES)``; a dimension its axis does not divide stays
+        replicated), from the whole model's shapes (made on the meta
+        device). Dense and moe only."""
+        self._engine_family_only("training over a mesh", 16)
+        full = self.init_fp(device="meta")
+        return SH.tree_pspecs(self.axes(full), full, mesh, SH.TRAIN_RULES)
 
     def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random quantized parameters on ``device``, generated layer by
@@ -361,15 +388,16 @@ class LM:
         a packed projection's ``w_packed`` and ``w_scale`` take its
         weight's ``(K, N)`` axes, its bias ``b`` the N axis, norms
         ``("embed",)``, the embedding ``("vocab", "embed")`` and the head
-        ``("embed", "vocab")``. Dense and moe only (the mesh's)."""
+        ``("embed", "vocab")``; of whichever of those parts ``params``
+        holds. Dense and moe only (the mesh's)."""
         self._engine_family_only("LM.axes", 16)
-        return {
-            "embed": {"table": ("vocab", "embed")},
-            "final_norm": {k: ("embed",) for k in params["final_norm"]},
-            "lm_head": {k: ("embed", "vocab") if k == "w" else ("vocab",)
-                        for k in params["lm_head"]},
-            "blocks": [self._block_axes(b) for b in params["blocks"]],
-        }
+        top = {"embed": {"table": ("vocab", "embed")},
+               "final_norm": {k: ("embed",) for k in params.get(
+                   "final_norm", ())},
+               "lm_head": {k: ("embed", "vocab") if k == "w" else ("vocab",)
+                           for k in params.get("lm_head", ())}}
+        return {k: [self._block_axes(b) for b in v] if k == "blocks"
+                else top[k] for k, v in params.items()}
 
     # ------------------------------------------------------ offline PTQ
 
@@ -479,17 +507,20 @@ class LM:
                                  for _ in range(self.n_groups)]}
         return {}                                    # audio: an encoder
 
-    def _block(self, bp, x, mode: str, cache, aux, act: str | None = None):
+    def _block(self, bp, x, mode: str, cache, aux, act: str | None = None,
+               mesh=None, spec=None):
         """One layer (``_attn_mlp_block``): norm, attention (``train``,
         ``prefill`` or ``decode`` over the int4 or bf16 cache), residual,
         norm, the MLP (``act``, default the config's) or the MoE layer
-        (its aux added), residual."""
+        (its aux added), residual. ``mesh``/``spec``: a training mesh's
+        model axis and the block's param specs (its seams)."""
         cfg, rt = self.cfg, self._rt
         h = C.apply_norm(bp["attn_norm"], x, cfg.norm, cfg.norm_eps)
         new_cache = None
         q4 = cache is not None and "k_packed" in cache
         if mode == "train":
-            a = ATT.attention_train(bp["attn"], cfg, h, quant=rt)
+            a = ATT.attention_train(bp["attn"], cfg, h, quant=rt, mesh=mesh,
+                                    spec=spec and spec["attn"])
         elif mode == "prefill":
             fn = ATT.attention_prefill_q4 if q4 else ATT.attention_prefill
             a, new_cache = fn(bp["attn"], cfg, h, cache, quant=rt)
@@ -502,11 +533,22 @@ class LM:
         x = x + a
         h = C.apply_norm(bp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         if "moe" in bp:
-            y, l_aux = MLP.moe_apply(bp["moe"], h, cfg, rt)
+            y, l_aux = MLP.moe_apply(bp["moe"], h, cfg, rt, mesh=mesh,
+                                     spec=spec and spec["moe"])
             aux = aux + l_aux
         else:
-            y = MLP.mlp_apply(bp["mlp"], h, rt, act or cfg.mlp_act)
+            y = MLP.mlp_apply(bp["mlp"], h, rt, act or cfg.mlp_act,
+                              mesh=mesh, spec=spec and spec["mlp"])
         return x + y, new_cache, aux
+
+    def _mesh_block(self, bp, spec, x, aux, mesh):
+        """A training layer on one rank of ``mesh``: its params gathered
+        over the data axis (``SH.gather_params``, inside :func:`remat`,
+        so the backward gathers again), then :meth:`_block` with the
+        model axis's seams."""
+        x, _, aux = self._block(SH.gather_params(bp, spec, mesh), x, "train",
+                                None, aux, mesh=mesh, spec=spec)
+        return x, aux
 
     def _rwkv_block(self, bp, x, mode: str, c):
         """An RWKV-6 layer: LayerNorm, time-mix, residual, LayerNorm,
@@ -636,21 +678,61 @@ class LM:
         if not self.cfg.has_decode:
             raise ValueError("encoder-only model has no prefill/decode")
 
-    def train_hidden(self, params, tokens, extra=None):
+    def train_hidden(self, params, tokens, extra=None, mesh=None,
+                     specs=None):
         """The backbone up to and with the final norm → (hidden [B, S, d]
         bf16, aux), differentiable: with autograd on, the layers the
         reference checkpoints run under :func:`remat` (every layer of the
         stack; not the hybrid's shared attention block or the VLM's cross
         layers). ``extra``: ``{"frames"}`` (audio; ``tokens`` unused) or
-        ``{"image_embeds"}`` (vlm)."""
-        x, _, aux = self._layers(params, self._input(params, tokens, extra),
-                                 "train", extra=extra)
-        return self._final(params, x), aux
+        ``{"image_embeds"}`` (vlm). With a training ``mesh`` (dense and
+        moe; ``specs`` from :meth:`train_specs`, ``params`` this rank's
+        shards, ``tokens`` its data rows): every param gathered over the
+        data axis where it is used (a layer's inside its remat), the
+        embedding vocabulary-parallel (``common.vocab_embed``), each
+        layer's seams over the model axis."""
+        if mesh is None:
+            x, _, aux = self._layers(params, self._input(params, tokens,
+                                                         extra),
+                                     "train", extra=extra)
+            return self._final(params, x), aux
+        self._engine_family_only("training over a mesh", 16)
+        if self.cfg.family == "moe" and mesh.data_size > 1:
+            raise NotImplementedError(
+                "MoE training over a data axis above 1 is not ported: "
+                "capacity and dispatch over the global batch (ROADMAP "
+                "Queue 1 item 23); experts over the model axis train")
+        if tokens.is_cuda:
+            C.no_tf32()
+        table, vmesh = self._vocab_param(params, specs, "embed", "table",
+                                         mesh)
+        x = C.vocab_embed(table, tokens, vmesh)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bp, spec in zip(params["blocks"], specs["blocks"], strict=True):
+            x, aux = remat(self._mesh_block, bp, spec, x, aux, mesh)
+        norm = SH.gather_params(params["final_norm"], specs["final_norm"],
+                                mesh)
+        return C.apply_norm(norm, x, self.cfg.norm, self.cfg.norm_eps), aux
 
     def train_logits(self, params, tokens, extra=None):
         """tokens [B, S] → (logits [B, S, V] f32, the MoE aux loss)."""
         hidden, aux = self.train_hidden(params, tokens, extra)
         return self.head(params, hidden), aux
+
+    def mesh_head(self, params, specs, x, mesh):
+        """f32 logits of x on one rank of a training mesh: the head
+        gathered over the data axis, its vocabulary columns gathered over
+        the model axis (``common.vocab_head``)."""
+        w, vmesh = self._vocab_param(params, specs, "lm_head", "w", mesh)
+        return C.vocab_head(w, x, vmesh)
+
+    @staticmethod
+    def _vocab_param(params, specs, part: str, name: str, mesh):
+        """The embedding table or head gathered over the data axis, and
+        the mesh where its vocabulary is sharded over the model axis (else
+        None: a replicated vocabulary runs as on one device)."""
+        t = SH.gather_params(params[part], specs[part], mesh)[name]
+        return t, (mesh if "model" in specs[part][name] else None)
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache: dict,

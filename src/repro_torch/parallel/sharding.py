@@ -1,5 +1,5 @@
-"""Logical-axis → mesh-axis resolution for tensor-parallel serving (the
-serve path's part of ``repro/parallel/sharding.py``).
+"""Logical-axis → mesh-axis resolution (``repro/parallel/sharding.py``),
+and the collectives of training over a ``(data, model)`` mesh.
 
 A parameter's logical axes (``LM.axes``: ``"embed"``, ``"qdim"``,
 ``"kvdim"``, ``"mlp"``, ``"vocab"``, …) map through a rule table onto the
@@ -15,10 +15,30 @@ A dimension that its mesh axis does not divide stays replicated, and an
 axis already used by an earlier dimension is not used again.
 
 :func:`shard` then takes one rank's slice of a tensor: along each
-dimension its spec names "model", the rank's contiguous 1/M of it. A
-packed W4 weight ``[K/2, N]`` splits along K at whole 128-channel blocks
-when K/M is a multiple of 128 (each block is 64 packed rows), its scales
-``[K/128, N]`` likewise.
+dimension its spec names "model" (or "data"), the rank's contiguous 1/M
+(1/D) of it; :func:`unshard` gathers it back, exactly. A packed W4 weight
+``[K/2, N]`` splits along K at whole 128-channel blocks when K/M is a
+multiple of 128 (each block is 64 packed rows), its scales ``[K/128, N]``
+likewise. :func:`batch_rows` is ``batch_spec``: this data rank's
+contiguous rows of the global batch.
+
+Training's collectives are ``torch.autograd.Function``s, each the
+identity on an axis of one rank (so a 1 × 1 mesh computes the one-device
+step's ops), every sum over ranks an all-gather added in rank order
+(``parallel/mesh.py``):
+
+``gather_data``  FSDP: a param's "data" dimension all-gathered; backward:
+                 the data ranks' gradients summed in rank order, this
+                 rank's slice kept (an all-to-all of the slices).
+``fanout``       identity forward; backward: the axis's gradients summed
+                 in rank order (a column-parallel input over "model", a
+                 leaf replicated over "data").
+``reduce_sum``   forward: the axis's parts summed in rank order;
+                 backward: identity (the row-parallel seam).
+``gather_cols``  the model ranks' columns of an activation concatenated;
+                 backward: this rank's slice (``"slice"``, where what
+                 follows runs alike on every rank) or the ranks' gradients
+                 summed in rank order, then sliced (``"sum"``).
 """
 
 from __future__ import annotations
@@ -27,8 +47,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.parallel import mesh as PM
+
 __all__ = ["TRAIN_RULES", "SERVE_RULES", "spec_for_axes", "tree_pspecs",
-           "cache_pspecs", "shard", "shard_tree"]
+           "cache_pspecs", "shard", "shard_tree", "shard_shape", "unshard",
+           "batch_rows", "gather_data", "fanout", "reduce_sum",
+           "gather_cols", "gather_params"]
 
 TRAIN_RULES = {
     "embed": "data",
@@ -108,12 +132,138 @@ def cache_pspecs(cache_tree: dict, mesh) -> dict:
 
 def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's contiguous slice of ``t`` along every dimension its
-    spec shards over "model" (a copy; the full tensor can be freed)."""
+    spec shards over "model" or "data" (a copy; the full tensor can be
+    freed)."""
     for dim, ax in enumerate(spec):
-        if ax == "model":
-            n = t.shape[dim] // mesh.shape["model"]
-            t = t.narrow(dim, mesh.model_rank * n, n)
+        if ax in ("model", "data"):
+            n = t.shape[dim] // mesh.axis_size(ax)
+            t = t.narrow(dim, mesh.axis_rank(ax) * n, n)
     return t.contiguous()
+
+
+def shard_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of one rank's shard of a tensor of ``shape``."""
+    return tuple(n // mesh.axis_size(ax) if ax in ("model", "data") else n
+                 for n, ax in zip(shape, spec))
+
+
+def unshard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor of this rank's shard ``t`` (collective: every rank
+    of the mesh calls it with its shard of the same tensor)."""
+    for dim, ax in enumerate(spec):
+        if ax in ("model", "data"):
+            t = torch.cat(PM.axis_gather(t, mesh, ax), dim)
+    return t
+
+
+def batch_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's contiguous rows of the global batch ``t`` (the
+    reference's ``batch_spec``: the batch dimension over "data")."""
+    d = mesh.data_size
+    if t.shape[0] % d:
+        raise ValueError(f"a global batch of {t.shape[0]} rows does not "
+                         f"split over a data axis of {d}")
+    n = t.shape[0] // d
+    return t[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+
+
+# ------------------------------------------------ training collectives
+
+def _sum_scatter(g: torch.Tensor, dim: int, mesh, axis: str):
+    """Σ over the axis's ranks, in rank order, of their ``g``, sliced to
+    this rank's 1/n along ``dim``: each rank's slices swapped by one
+    all-to-all, then added in rank order."""
+    n = mesh.axis_size(axis)
+    parts = torch.stack(g.chunk(n, dim))
+    got = PM.axis_all_to_all(parts, mesh, axis)
+    return PM.rank_sum(list(got.unbind(0)))
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return torch.cat(PM.axis_gather(p, mesh, "data"), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_scatter(g, ctx.dim, ctx.mesh, "data"), None, None
+
+
+class _Fanout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return PM.rank_sum(PM.axis_gather(g, ctx.mesh, ctx.axis)), None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return PM.rank_sum(PM.axis_gather(x, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, backward):
+        ctx.mesh, ctx.how = mesh, backward
+        return torch.cat(PM.axis_gather(x, mesh, "model"), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if ctx.how == "sum":
+            return _sum_scatter(g, g.dim() - 1, mesh, "model"), None, None
+        n = g.shape[-1] // mesh.size
+        return (g.narrow(-1, mesh.model_rank * n, n).contiguous(), None,
+                None)
+
+
+def gather_data(p: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """FSDP: ``p``'s shards along ``dim`` over the data axis, whole."""
+    return p if mesh.data_size == 1 else _GatherData.apply(p, dim, mesh)
+
+
+def fanout(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x`` unchanged; its gradient the axis's gradients summed in rank
+    order."""
+    return x if mesh.axis_size(axis) == 1 else _Fanout.apply(x, mesh, axis)
+
+
+def reduce_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The axis's ``x`` summed in rank order; gradient passed through."""
+    return (x if mesh.axis_size(axis) == 1
+            else _ReduceSum.apply(x, mesh, axis))
+
+
+def gather_cols(x: torch.Tensor, mesh, backward: str) -> torch.Tensor:
+    """The model ranks' last-dimension columns of ``x``, concatenated in
+    rank order; backward ``"slice"`` or ``"sum"`` (module docstring)."""
+    return x if mesh.size == 1 else _GatherCols.apply(x, mesh, backward)
+
+
+def gather_params(tree, specs, mesh):
+    """A params tree as the forward uses it on this rank: each leaf's
+    "data" dimension gathered (:func:`gather_data`), a leaf without one
+    through ``fanout(·, "data")`` (its gradient summed over the data
+    ranks); the "model" dimensions stay sharded. Called inside
+    ``models.lm.remat``, so the backward gathers again and no whole layer
+    is kept for it."""
+    if isinstance(tree, dict):
+        return {k: gather_params(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, list):
+        return [gather_params(t, s, mesh) for t, s in zip(tree, specs)]
+    if "data" in specs:
+        return gather_data(tree, specs.index("data"), mesh)
+    return fanout(tree, mesh, "data")
 
 
 def shard_tree(params, specs, mesh):

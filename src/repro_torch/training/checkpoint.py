@@ -21,6 +21,17 @@ Layout::
   key path and shape, and puts the tensors on an explicit device;
 * :func:`cleanup` keeps the newest ``keep_last`` complete steps.
 
+From a ``(data, model)`` mesh (``mesh=``, ``specs=``: a spec per leaf),
+:func:`save` gathers every leaf whole on the caller's thread
+(``sharding.unshard``, collective), rank 0 writes, and every rank waits
+at the mesh's gloo barrier; :func:`save_async` gathers on the caller's
+thread and only rank 0's file writes run in the background (a collective
+from a second thread could interleave with the step's and deadlock
+NCCL). ``restore(..., shardings=specs, mesh=mesh)`` is the reference's
+elastic resharding: every rank reads each whole leaf (memory-mapped) and
+keeps its shard, so a directory written at D × M resumes at any D′ × M′,
+1 × 1 and one device included.
+
 Leaves are taken with dict keys sorted and lists by index, and the
 manifest names each by its key path in the port's own tree
 (``1/m/blocks/3/attn/wq/w``), not by the reference's treedef: the two
@@ -38,9 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch.layers.common import resolve_device
+from repro_torch.parallel import mesh as PM
+from repro_torch.parallel import sharding as SH
 
 __all__ = ["save", "save_async", "wait_async", "restore", "latest_step",
-           "cleanup", "flatten"]
+           "cleanup", "flatten", "flatten_specs"]
 
 
 def flatten(tree, prefix=""):
@@ -75,8 +88,40 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
-    """Blocking write with atomic commit → the step's directory."""
+def _whole(tree, mesh, specs):
+    """``tree``'s leaves gathered whole from the mesh's shards, one at a
+    time (every rank takes part), copied to the host on rank 0 → that
+    host tree on rank 0, None elsewhere."""
+    host = []
+    for (_, leaf), spec in zip(flatten(tree), flatten_specs(tree, specs),
+                               strict=True):
+        whole = SH.unshard(leaf, spec, mesh)
+        if mesh.rank == 0:
+            host.append(whole.detach().to("cpu", copy=True))
+        del whole
+    return _unflatten(tree, host) if mesh.rank == 0 else None
+
+
+def flatten_specs(tree, specs) -> list:
+    """The specs of :func:`flatten`'s leaves, in its order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree)
+                for s in flatten_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for t, sp in zip(tree, specs, strict=True)
+                for s in flatten_specs(t, sp)]
+    return [specs]
+
+
+def save(ckpt_dir: str, step: int, tree, mesh=None, specs=None) -> str:
+    """Blocking write with atomic commit → the step's directory. From a
+    ``mesh``: the leaves gathered whole, rank 0 writes, all wait."""
+    if mesh is not None:
+        whole = _whole(tree, mesh, specs)
+        if whole is not None:
+            save(ckpt_dir, step, whole)
+        PM.mesh_barrier(mesh)
+        return os.path.join(ckpt_dir, f"step_{step:08d}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -106,13 +151,20 @@ class _Writer:
     error: Exception | None = None
 
 
-def save_async(ckpt_dir: str, step: int, tree) -> threading.Thread:
+def save_async(ckpt_dir: str, step: int, tree, mesh=None,
+               specs=None) -> threading.Thread | None:
     """Wait for the previous background save, copy every tensor of
-    ``tree`` to host memory, then write the copy with :func:`save` on a
-    background thread."""
+    ``tree`` to host memory (from a ``mesh``: gathered whole, every rank
+    taking part), then write the copy with :func:`save` on a background
+    thread (rank 0's only)."""
     wait_async()
-    host = _unflatten(tree, [leaf.detach().to("cpu", copy=True)
-                             for _, leaf in flatten(tree)])
+    if mesh is not None:
+        host = _whole(tree, mesh, specs)
+        if host is None:
+            return None
+    else:
+        host = _unflatten(tree, [leaf.detach().to("cpu", copy=True)
+                                 for _, leaf in flatten(tree)])
 
     def run():
         try:
@@ -126,7 +178,8 @@ def save_async(ckpt_dir: str, step: int, tree) -> threading.Thread:
 
 
 def wait_async() -> None:
-    """Join the background save, if any; raise what it raised."""
+    """Join this process's background save, if any; raise what it
+    raised."""
     if _Writer.thread is not None:
         _Writer.thread.join()
         _Writer.thread = None
@@ -150,11 +203,14 @@ def _complete_steps(ckpt_dir: str) -> list:
 
 
 def restore(ckpt_dir: str, template, step: int | None = None,
-            device="cuda"):
+            device="cuda", shardings=None, mesh=None):
     """Read a checkpoint into the structure of ``template`` (its key
     paths and shapes must match: a mismatch raises ``ValueError``) →
     (tree of tensors on ``device``, step). ``step`` None: the
-    newest complete one."""
+    newest complete one. ``shardings``: a spec per leaf of ``template``
+    (this rank's shards on ``mesh``): each whole leaf is read
+    memory-mapped and this rank's shard kept; the shard's shape must be
+    the template's."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -167,20 +223,42 @@ def restore(ckpt_dir: str, template, step: int | None = None,
     if len(flat) != manifest["num_leaves"]:
         raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves, "
                          f"the template {len(flat)}")
+    specs = (flatten_specs(template, shardings) if shardings is not None
+             else [None] * len(flat))
     out = []
-    for i, ((tpath, tmpl), meta) in enumerate(zip(flat, manifest["leaves"])):
+    for i, ((tpath, tmpl), meta, spec) in enumerate(
+            zip(flat, manifest["leaves"], specs)):
         if tpath != meta["path"]:
             raise ValueError(f"leaf {i}: checkpoint {meta['path']!r}, "
                              f"template {tpath!r}")
-        if list(tmpl.shape) != meta["shape"]:
+        if spec is not None and len(spec) != len(meta["shape"]):
+            raise ValueError(f"leaf {i} ({tpath}): spec {spec} for a "
+                             f"checkpoint of shape {tuple(meta['shape'])}")
+        want = (SH.shard_shape(meta["shape"], spec, mesh)
+                if spec is not None else tuple(meta["shape"]))
+        if tuple(tmpl.shape) != want:
             raise ValueError(f"leaf {i} ({tpath}): checkpoint "
-                             f"{tuple(meta['shape'])}, template "
-                             f"{tuple(tmpl.shape)}")
-        t = torch.from_numpy(np.load(os.path.join(path, f"arr_{i:05d}.npy")))
+                             f"{tuple(meta['shape'])}"
+                             + (f" sharded {spec} to {want}"
+                                if spec is not None else "")
+                             + f", template {tuple(tmpl.shape)}")
+        arr = np.load(os.path.join(path, f"arr_{i:05d}.npy"),
+                      mmap_mode="r")
+        if spec is not None and want != tuple(meta["shape"]):
+            arr = arr[tuple(_shard_slice(n, ax, mesh)
+                            for n, ax in zip(arr.shape, spec))]
+        t = torch.from_numpy(np.array(arr, order="C"))
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
         out.append(t.to(dev))
     return _unflatten(template, out), step
+
+
+def _shard_slice(n: int, ax, mesh) -> slice:
+    if ax not in ("model", "data"):
+        return slice(None)
+    k = n // mesh.axis_size(ax)
+    return slice(mesh.axis_rank(ax) * k, (mesh.axis_rank(ax) + 1) * k)
 
 
 def cleanup(ckpt_dir: str, keep_last: int = 3) -> None:

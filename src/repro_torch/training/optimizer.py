@@ -18,6 +18,13 @@ the port's list of layers), ``b ** step`` (XLA's f32 ``pow`` against
 PyTorch's) and, for the schedule, XLA's f32 ``cos`` (it differs from
 PyTorch's in the last bit on ~5 % of angles). Each is one or two f32
 ulps of a scalar; the tests state the bound on the params that follows.
+
+Over a ``(data, model)`` mesh the leaves are this rank's shards (their
+specs from ``LM.train_specs``): :func:`global_norm` takes each leaf's
+per-shard sums of squares from every rank (one all-gather), adds a
+leaf's distinct shards in rank order (a leaf replicated over an axis
+counted once) and the leaves in the reference's order; AdamW, elementwise,
+then updates each shard as one device would.
 """
 
 from __future__ import annotations
@@ -28,8 +35,11 @@ from typing import Callable
 
 import torch
 
+from repro_torch.parallel import mesh as PM
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
-           "global_norm", "tree_leaves", "tree_map"]
+           "global_norm", "tree_leaves", "tree_map", "spec_leaves",
+           "shard_ranks", "state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,20 +53,38 @@ class AdamWConfig:
     schedule: Callable | None = None   # step → lr multiplier
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, is_leaf=lambda x: False) -> list:
     """The tensors of a tree of dicts, lists and tuples in the
     reference's leaf order: a dict's keys sorted, and a list of per-layer
     dicts walked path by path, each path over the layers in turn (the
-    order of the reference's stacked ``[L, ...]`` leaves)."""
+    order of the reference's stacked ``[L, ...]`` leaves). ``is_leaf``:
+    what else is a leaf (a spec tuple)."""
+    if is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree)
+                for leaf in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, list) and tree and isinstance(tree[0], dict):
         return [leaf for path in _paths(tree[0])
                 for leaf in tree_leaves([_get(layer, path)
-                                         for layer in tree])]
+                                         for layer in tree], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in tree_leaves(item)]
+        return [leaf for item in tree for leaf in tree_leaves(item, is_leaf)]
     return [tree]
+
+
+def spec_leaves(specs) -> list:
+    """A spec tree's specs in :func:`tree_leaves` order."""
+    return tree_leaves(specs, lambda x: isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x))
+
+
+def shard_ranks(spec: tuple, mesh) -> list:
+    """The mesh ranks that hold a leaf's distinct shards under ``spec``,
+    in rank order (one rank per replicated axis)."""
+    ds = range(mesh.data_size) if "data" in spec else (0,)
+    ms = range(mesh.size) if "model" in spec else (0,)
+    return [d * mesh.size + m for d in ds for m in ms]
 
 
 def _paths(tree: dict, prefix=()) -> list:
@@ -83,6 +111,12 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def state_specs(specs) -> dict:
+    """The specs of :func:`adamw_init`'s state: the moments' as the
+    params', the step count replicated."""
+    return {"m": specs, "v": specs, "step": ()}
+
+
 def adamw_init(params) -> dict:
     zeros = torch.zeros_like
     dev = tree_leaves(params)[0].device
@@ -90,23 +124,31 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """√(Σ over leaves of Σ g²) in f32: each leaf's squares summed by
     PyTorch, the leaves' sums added from 0 in the reference's leaf
-    order (:func:`tree_leaves`)."""
+    order (:func:`tree_leaves`). On a ``mesh`` each leaf's sum is its
+    distinct shards' sums added in rank order (module docstring)."""
+    sums = [torch.sum(torch.square(leaf.float()))
+            for leaf in tree_leaves(tree)]
+    if mesh is not None:
+        parts = PM.axis_gather(torch.stack(sums), mesh, "world")
+        sums = [PM.rank_sum([parts[r][i] for r in shard_ranks(spec, mesh)])
+                for i, spec in enumerate(spec_leaves(specs))]
     total = None
-    for leaf in tree_leaves(tree):
-        s = torch.sum(torch.square(leaf.float()))
+    for s in sums:
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, mesh=None,
+                 specs=None):
     """→ (params, state, metrics), params and state updated in place and
     returned. ``metrics``: ``grad_norm`` (before clipping) and ``lr``,
-    f32 0-d tensors."""
+    f32 0-d tensors. ``mesh``/``specs``: the leaves are shards
+    (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     # 0-d f32 constants made on the device (a fill, where torch.tensor

@@ -344,9 +344,12 @@ def test_refuses_partial_quant_blocks():
 
 
 def test_refuses_data_axis(smoke_params):
+    """Serving refuses a data axis above 1 (ROADMAP item 11);
+    ``make_local_mesh`` itself takes one now (training's), and only
+    refuses being called outside a rank."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _tp_engine(SMOKE64, smoke_params, pmesh(2, data=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="inside a rank"):
         LM_MESH.make_local_mesh(2, 1)
 
 
