@@ -60,7 +60,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    request must finish with 32 tokens, no failed or internal errors,
    every kernel of the path must have launched (launch counts reset just
    before), the fused act-quant exactly 4 × 32 × forwards times (one per
-   distinct projection input) and K1, K2 alone never;
+   distinct projection input) and K1, K2 alone never; the packed
+   weights' bytes on the card equal to the dry run's 1 × 1
+   ``SERVE_RULES`` params bytes (``launch/specs.py``, shapes made on the
+   meta device);
 5. baselines: the same weights and workload served in the reference's
    measured baselines — (a) split step, work queue; (b) split step,
    dense; (c) whole-prompt prefill, gather decode; (d) unified step,
@@ -235,7 +238,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    warm-up 1: each step's loss, grad norm and ms, tokens/s, peak memory,
    and a 3rd step under ``torch.profiler`` (launch calls, busy share,
    top kernels, device time by kind); every loss finite and the last
-   below the first; (b) one train step of each family's smoke model on
+   below the first; the dry run's one-rank trace of the same step at 1 ×
+   1 on the meta device (``launch/dryrun.py``): its arguments + temp
+   bytes within [0.8, 1.25] of the card's ``max_memory_allocated``; (b) one train step of each family's smoke model on
    the card and on the CPU from the same fp params and batch: loss, grad
    norm, AdamW's first moment leaf by leaf and the moved params within
    ``TRAIN_TOL``, the MoE's routing agreement printed; (c) the training
@@ -3393,6 +3398,7 @@ TRAIN_DEPTH = 8          # of Llama-3-8B's 32 layers on one card: f32
 #                          at 8 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 8, 1024, 512, 2
 TRAIN_DEEP_STEPS = 6     # (a) at TRAIN_DEPTH: a warm-up and 5 timed steps
+DRYRUN_RATIO = (0.8, 1.25)   # the dry run's args + temp over (a)'s peak
 TRAIN_EXACT_DEPTH = 2    # the 1 × 1 mesh against make_train_step, and the
 #                          four-card meshes against serial_train
 TRAIN_MESHES = ((2, 2), (1, 4), (4, 1))   # (i) at Llama-3-8B width
@@ -3543,6 +3549,54 @@ def train_one_card_rank(rank: int, world: int, device) -> dict:
     return out
 
 
+def dryrun_train_bytes() -> tuple:
+    """The dry run's one-rank trace (``launch/dryrun.py``, on the meta
+    device) of (a)'s deep step: Llama-3-8B at ``TRAIN_DEPTH`` layers on a
+    1 × 1 planning mesh, ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens, loss
+    chunks of ``TRAIN_CHUNK``, (a)'s AdamW → (argument bytes, temp bytes,
+    seconds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.mesh import planning_mesh
+    from repro_torch.training import optimizer as OPT
+    t0 = time.perf_counter()
+    mesh = planning_mesh({})
+    cell = SP.build_cell(
+        "llama3_8b", "train_4k", mesh,
+        cfg=dataclasses.replace(get_config("llama3_8b"),
+                                num_layers=TRAIN_DEPTH),
+        shape=ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    rank = DR.trace_rank(cell, mesh, loss_chunk=TRAIN_CHUNK,
+                         opt=OPT.AdamWConfig(
+                             lr=3e-4, weight_decay=0.1,
+                             schedule=OPT.cosine_schedule(
+                                 1, TRAIN_DEEP_STEPS)))
+    return (sum(cell.argument_bytes_by(mesh).values()), rank["temp_bytes"],
+            time.perf_counter() - t0)
+
+
+def check_params_bytes(params, smi):
+    """The packed Llama-3-8B's bytes on the card against the dry run's
+    1 × 1 ``SERVE_RULES`` params bytes (``launch/specs.py``, its shapes
+    made on the meta device): equal, exactly."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.lm import QuantConfig
+    from repro_torch.parallel.mesh import planning_mesh
+    mesh = planning_mesh({})
+    want = SP.build_cell("llama3_8b", "decode_32k", mesh,
+                         quant=QuantConfig(impl="ref")).argument_bytes_by(
+        mesh)["params"]
+    got = tree_bytes(params)
+    say(f"[slice] Llama-3-8B packed params on the card: {got} B; the dry "
+        f"run's 1 x 1 SERVE_RULES params: {want} B "
+        f"({'equal' if got == want else 'DIFFERENT'}) | {smi}")
+    if got != want:
+        fail(f"[slice] the params' bytes on the card ({got}) are not the "
+             f"dry run's ({want})")
+
+
 def train_one_card(torch, KERNELS, smi) -> dict:
     """(a) on any card count: :func:`train_one_card_rank` in this process
     as rank 0 of a one-rank NCCL process group (its own store, destroyed
@@ -3581,6 +3635,16 @@ def train_one_card(torch, KERNELS, smi) -> dict:
         fail(f"[train] the 1 x 1 mesh is not make_train_step: metrics "
              f"{a['metrics']} vs {b['metrics']}; leaves {bad[:8]}")
     d = res["deep"]
+    args_b, temp_b, dry_s = dryrun_train_bytes()
+    ratio = (args_b + temp_b) / d["peak"]
+    say(f"{tag}: the dry run's one-rank trace of the same step at 1 x 1 "
+        f"(meta device, {dry_s:.1f} s): arguments {args_b / 1e9:.4f} GB + "
+        f"temp {temp_b / 1e9:.4f} GB = {(args_b + temp_b) / 1e9:.4f} GB "
+        f"beside the card's max_memory_allocated {d['peak'] / 1e9:.4f} "
+        f"GB: ratio {ratio:.4f} | {smi}")
+    if not DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]:
+        fail(f"{tag}: the dry run's arguments + temp are {ratio:.4f} of "
+             f"the card's peak, outside {DRYRUN_RATIO}")
     losses = [f32s(x)[0] for x in d["metrics"]] + [d["profiled_loss"]]
     med = statistics.median(d["ms"][1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / med * 1e3
@@ -3609,7 +3673,7 @@ def train_one_card(torch, KERNELS, smi) -> dict:
         k.launches = 0
     return {"median_step_ms": med, "tokens_per_s": tok_s,
             "peak_bytes": d["peak"], "launch_calls": d["calls"],
-            "losses": losses}
+            "losses": losses, "dryrun_ratio": ratio}
 
 
 def comm_times(torch, mesh, shapes: dict) -> dict:
@@ -4989,6 +5053,7 @@ def main():
         torch.cuda.synchronize()
         say(f"[slice] Llama-3-8B random W4 weights ({cfg8b.num_layers} "
             f"layers) made in {time.perf_counter() - t0:.1f} s")
+        check_params_bytes(params, smi)
         for run in order:
             runs[run] = serve_llama(torch, np, mods, ops.KERNELS, cfg8b,
                                     params, run, args.profile)

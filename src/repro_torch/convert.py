@@ -123,18 +123,22 @@ def plan_from_jax(plan) -> fmpq.FMPQPlan:
         block_size=int(plan.block_size))
 
 
-def axes_from_jax(qaxes: dict, num_layers: int) -> dict:
-    """The reference's axes tree (tuples of axis names; ``blocks`` with a
-    leading ``"layers"``) → the port's (``blocks`` a list of
-    ``num_layers`` per-layer trees without it)."""
+def axes_from_jax(qaxes: dict, num_layers: int, num_cross: int = 0) -> dict:
+    """The reference's axes tree (tuples of axis names; ``blocks``, and
+    the VLM's ``cross_blocks``, with a leading ``"layers"``) → the port's
+    (``blocks`` a list of ``num_layers`` per-layer trees without it,
+    ``cross_blocks`` of ``num_cross``)."""
     def drop(ax):
         if isinstance(ax, dict):
             return {k: drop(v) for k, v in ax.items()}
         if tuple(ax[:1]) != ("layers",):
             raise ValueError(f"block axes {ax} lack the leading 'layers'")
         return tuple(ax[1:])
-    out = {k: _tree(v, tuple) for k, v in qaxes.items() if k != "blocks"}
-    out["blocks"] = [drop(qaxes["blocks"]) for _ in range(num_layers)]
+    counts = {"blocks": num_layers, "cross_blocks": num_cross}
+    out = {k: _tree(v, tuple) for k, v in qaxes.items() if k not in STACKED}
+    for key in STACKED:
+        if key in qaxes:
+            out[key] = [drop(qaxes[key]) for _ in range(counts[key])]
     return out
 
 

@@ -10,7 +10,9 @@ through gloo. :func:`spawn` starts the ranks, which meet through a
 rank's function returned; :func:`make_local_mesh` then builds a rank's
 :class:`~repro_torch.parallel.mesh.Mesh` inside its process, and
 :func:`make_replica_meshes` carves the ranks into one mesh per replica
-(``serving/replication.py``). All are strict: a mesh larger than the
+(``serving/replication.py``). :func:`make_production_mesh` is the
+reference's 16 × 16 or 2 × 16 × 16 mesh as a planning mesh (a shape for
+the dry run, ``launch/dryrun.py``: no card, no process group). All are strict: a mesh larger than the
 visible cards, a rank that fails or exits early, and one that does not
 finish within the wall-clock limit raise, and no mesh is clamped to fit
 unless a launcher asks before it starts the ranks (:func:`fit_mesh`
@@ -32,9 +34,10 @@ import warnings
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.mesh import Mesh, world_host_group
+from repro_torch.parallel.mesh import Mesh, planning_mesh, world_host_group
 
-__all__ = ["parse_mesh_arg", "fit_mesh", "make_local_mesh",
+__all__ = ["make_production_mesh", "parse_mesh_arg", "fit_mesh",
+           "make_local_mesh",
            "make_replica_meshes", "init_rank", "spawn", "check_cards"]
 
 
@@ -56,6 +59,15 @@ def parse_mesh_arg(spec: str) -> tuple[int, int]:
     if data < 1 or model < 1:
         raise ValueError(f"--mesh axes must be >= 1, got {spec!r}")
     return data, model
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as a planning mesh
+    (``parallel.mesh.planning_mesh``): 16 × 16 ``("data", "model")`` (256
+    chips) or 2 × 16 × 16 ``("pod", "data", "model")`` (512 chips). It
+    touches no card and no ``torch.distributed``."""
+    return planning_mesh({"pod": 2, "data": 16, "model": 16} if multi_pod
+                         else {"data": 16, "model": 16})
 
 
 def check_cards(n: int, device_type: str) -> None:

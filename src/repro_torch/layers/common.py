@@ -43,6 +43,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's form of a computation where the
+    card's and the CPU's differ (an f64 row sum, a cuBLAS call with f32
+    output, PyTorch's ``exp``): a CUDA tensor, or a meta one, since the
+    dry run (``launch/dryrun.py``) sizes the card's step, not the CPU's."""
+    return t.is_cuda or t.is_meta
+
+
 def no_tf32() -> None:
     """The port's f32 products (attention pre-fold, no-history flash
     attention, plain kernel versions) must run in full f32, as on the
@@ -59,7 +67,7 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     --phases specdiag``), while an f64 sum of these f32 values is exact
     or within f64 rounding, so a row's mean no longer depends on the
     batch. On the CPU the reference's f32 mean."""
-    if x.is_cuda:
+    if on_card(x):
         return (x.double().sum(-1, keepdim=True) / x.shape[-1]).float()
     return x.mean(-1, keepdim=True)
 
@@ -142,7 +150,7 @@ class _MatmulF32(torch.autograd.Function):
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
         x2 = x.reshape(-1, x.shape[-1])
-        y = (torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda
+        y = (torch.mm(x2, w, out_dtype=torch.float32) if on_card(x)
              else (x2.double() @ w.double()).float())
         return y.reshape(*x.shape[:-1], w.shape[-1])
 
@@ -239,7 +247,7 @@ def einsum_exact(spec: str, *ops: torch.Tensor) -> torch.Tensor:
     last bit or two of f32. PyTorch's bf16 ``einsum`` would round its
     result to bf16. On the card, where no reference runs, the einsum runs
     in f32 (TF32 off, :func:`no_tf32`): no f64 copies of the operands."""
-    if ops[0].is_cuda:
+    if on_card(ops[0]):
         return torch.einsum(spec, *(o.float() for o in ops))
     return torch.einsum(spec, *(o.double() for o in ops)).float()
 
@@ -250,7 +258,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=float32``. On the card one cuBLAS call that
     reads the bf16 operands as they are (``out_dtype``), on the CPU f64
     sums rounded once (:func:`einsum_exact`)."""
-    if a.is_cuda:
+    if on_card(a):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.double(), b.double()).float()
 

@@ -160,7 +160,7 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
     own ``exp`` differs in the last bit on 8.5 % of the arguments the
     tests draw). On the card, where no reference runs, PyTorch's ``exp``:
     one op, not the ~50 of the polynomial."""
-    if x.is_cuda:
+    if C.on_card(x):
         return torch.exp(x)
     x = _ftz(x).clamp(_EXP_LO, _EXP_HI)
     n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127, 127)
@@ -179,7 +179,7 @@ def silu_f32(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` on f32 as XLA's CPU computes it: x · (1 / (e^{−x} +
     1)), its ``exp`` (:func:`exp_xla`), subnormals flushed; on the card
     PyTorch's ``silu``."""
-    if x.is_cuda:
+    if C.on_card(x):
         return torch.nn.functional.silu(x)
     x = _ftz(x)
     return _ftz(x * _ftz(torch.reciprocal(exp_xla(-x) + 1)))
@@ -189,7 +189,7 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """Σ over the last axis, kept. On the CPU XLA's order for a row of
     f32: from 0 over each window of 32 in turn, then the windows' sums
     from 0. On the card an f64 sum rounded once (batch-invariant rows)."""
-    if x.is_cuda:
+    if C.on_card(x):
         return x.double().sum(-1, keepdim=True).float()
     total = x.new_zeros(x.shape[:-1])
     for lo in range(0, x.shape[-1], 32):
@@ -204,7 +204,7 @@ def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` on f32 as XLA's CPU computes it: 1 / (e^{−x} +
     1) with its ``exp``, subnormals flushed (bit for bit); on the card
     PyTorch's ``sigmoid``."""
-    if x.is_cuda:
+    if C.on_card(x):
         return torch.sigmoid(x)
     return _ftz(torch.reciprocal(exp_xla(-_ftz(x)) + 1))
 
@@ -261,7 +261,11 @@ def moe_dispatch(gate_idx: torch.Tensor, num_experts: int, cap: int):
     flat_e = gate_idx.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=num_experts)
+    # the pairs per expert, integer counts added by scatter_add_ (whose
+    # meta kernel the dry run needs; bincount has none)
+    counts = torch.zeros(num_experts, dtype=torch.int64,
+                         device=gate_idx.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=gate_idx.device) - starts[sorted_e]
     keep = pos < cap

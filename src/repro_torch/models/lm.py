@@ -149,7 +149,24 @@ PROJ_AXES = {"wq": ("embed", "qdim"), "wk": ("embed", "kvdim"),
 MOE_AXES = {"router": ("embed", "experts"),
             "w_gate": ("experts", "embed", "mlp"),
             "w_up": ("experts", "embed", "mlp"),
-            "w_down": ("experts", "mlp", "embed")}
+            "w_down": ("experts", "mlp", "embed"), "shared": PROJ_AXES}
+# the axes of every block's tensors, by key (``LM._block_axes``; a key
+# not named here, a norm or RWKV's token-shift mixes, is ``("embed",)``),
+# as the reference's ``init_attention``, ``init_mlp``, ``init_moe``,
+# ``init_rwkv6``, ``init_rwkv6_cmix`` and ``init_mamba2`` annotate them
+BLOCK_AXES = {
+    "attn": {**PROJ_AXES, "q_norm": (None,), "k_norm": (None,)},
+    "mlp": PROJ_AXES, "moe": MOE_AXES, "gate": (),
+    "tmix": {**{k: ("embed", "qdim") for k in ("w_r", "w_k", "w_v", "w_g")},
+             "w_o": ("qdim", "embed"), "decay_A": ("embed", None),
+             "decay_B": (None, "embed"), "bonus_u": (None, None)},
+    "cmix": {"w_k": ("embed", "mlp"), "w_v": ("mlp", "embed"),
+             "w_r": ("embed", "qdim")},
+    "mamba": {"in_proj": ("embed", "mlp"), "out_proj": ("mlp", "embed"),
+              "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+              "dt_bias": (None,), "A_log": (None,), "D": (None,),
+              "norm": ("mlp",)},
+}
 
 
 class LM:
@@ -364,40 +381,45 @@ class LM:
     # ---------------------------------------------------- logical axes
 
     @staticmethod
-    def _block_axes(tree: dict, proj_axes=PROJ_AXES) -> dict:
+    def _block_axes(tree: dict, table=None) -> dict:
+        """The axes of a block's tensors by the reference's tables
+        (:data:`BLOCK_AXES`): a projection's ``w``/``w_packed``/
+        ``w_scale``/``perm`` take its weight's axes and its bias ``b`` the
+        last, a norm's scale and bias its one axis; a key no table names
+        (a norm) ``("embed",)``."""
+        table = BLOCK_AXES if table is None else table
         out = {}
         for k, v in tree.items():
-            if k in proj_axes:
-                out[k] = {n: (proj_axes[k][-1],) if n == "b" else proj_axes[k]
-                          for n in v}
-            elif k == "moe":
-                out[k] = {n: LM._block_axes(sub) if n == "shared"
-                          else LM._block_axes({n: sub}, MOE_AXES)[n]
-                          for n, sub in v.items()}
-            elif k in ("q_norm", "k_norm"):     # over head_dim
-                out[k] = {n: (None,) for n in v}
+            rule = table.get(k, ("embed",))
+            if isinstance(rule, dict):
+                out[k] = LM._block_axes(v, rule)
             elif isinstance(v, dict):
-                out[k] = LM._block_axes(v)
-            else:                       # a norm's scale or bias
-                out[k] = ("embed",)
+                out[k] = {n: (rule[-1],) if n == "b" else rule for n in v}
+            else:
+                out[k] = rule
         return out
 
     def axes(self, params: dict) -> dict:
         """The logical axes of every tensor of ``params`` (fp or packed,
-        the reference's ``LM.quantize`` → ``qaxes`` without ``"layers"``):
-        a packed projection's ``w_packed`` and ``w_scale`` take its
-        weight's ``(K, N)`` axes, its bias ``b`` the N axis, norms
-        ``("embed",)``, the embedding ``("vocab", "embed")`` and the head
-        ``("embed", "vocab")``; of whichever of those parts ``params``
-        holds. Dense and moe only (the mesh's)."""
-        self._engine_family_only("LM.axes", 16)
+        every family: the reference's ``LM.init`` ``axes`` and
+        ``LM.quantize`` ``qaxes`` without ``"layers"``): a packed
+        projection's ``w_packed`` and ``w_scale`` take its weight's
+        ``(K, N)`` axes, its bias ``b`` the N axis, norms ``("embed",)``
+        (Mamba2's gated norm ``("mlp",)``), the embedding ``("vocab",
+        "embed")``, the audio ``conv_pos`` ``(None, "embed")`` and
+        ``("embed",)``, the head ``("embed", "vocab")``, the VLM's cross
+        gate ``()``; of whichever of those parts ``params`` holds."""
         top = {"embed": {"table": ("vocab", "embed")},
-               "final_norm": {k: ("embed",) for k in params.get(
-                   "final_norm", ())},
-               "lm_head": {k: ("embed", "vocab") if k == "w" else ("vocab",)
-                           for k in params.get("lm_head", ())}}
-        return {k: [self._block_axes(b) for b in v] if k == "blocks"
-                else top[k] for k, v in params.items()}
+               "conv_pos": {"w": (None, "embed"), "b": ("embed",)},
+               "final_norm": ("embed",), "lm_head": ("embed", "vocab"),
+               "shared_attn": BLOCK_AXES}
+        out = {}
+        for k, v in params.items():
+            if k in ("blocks", "cross_blocks"):
+                out[k] = [self._block_axes(b) for b in v]
+            else:
+                out[k] = self._block_axes({k: v}, top)[k]
+        return out
 
     # ------------------------------------------------------ offline PTQ
 

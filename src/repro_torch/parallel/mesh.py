@@ -20,13 +20,23 @@ with it the order of the sum, by size and topology).
 mesh as threads of one process on one device, their collectives exchanged
 in memory (:class:`ThreadComm`): the same code and the same rank-order
 sums, so a mesh of processes must give its bits exactly.
+
+A planning mesh (:func:`planning_mesh`) is a shape and nothing else: its
+axes may include ``"pod"`` (the reference's production meshes, 16 × 16
+and 2 × 16 × 16), it has no process group, and its rank's tensors lie on
+the meta device. The dry run sizes one rank's step on it with a
+:class:`CountingComm`, whose collectives hand the rank copies of its own
+part and tally each by kind, axis, count and bytes; a host exchange on
+it raises.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
+import math
 import threading
 import traceback
 
@@ -36,7 +46,8 @@ import torch.distributed as dist
 __all__ = ["Mesh", "reduce_partials", "rank_sum", "axis_gather",
            "axis_all_to_all", "host_all_gather", "broadcast_float",
            "host_barrier", "mesh_barrier", "differing_ranks",
-           "world_host_group", "ThreadComm", "serial_train"]
+           "world_host_group", "ThreadComm", "serial_train",
+           "CountingComm", "planning_mesh"]
 
 _WORLD_HOST: dict = {}
 
@@ -44,11 +55,13 @@ _WORLD_HOST: dict = {}
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """One rank's view of a ``(data, model)`` mesh (``.shape`` and
-    ``.axis_names`` as JAX's ``Mesh`` has them). ``ranks``: the global
+    ``.axis_names`` as JAX's ``Mesh`` has them; a planning mesh's may
+    also hold ``"pod"``). ``ranks``: the global
     ranks of the model axis, in order (one replica's, under replica
     meshes; ``model_rank`` is −1 on a rank outside them). ``comm``: a
-    :class:`ThreadComm` rank under
-    :func:`serial_train`, else None (``torch.distributed``)."""
+    :class:`ThreadComm` rank under :func:`serial_train`, a
+    :class:`CountingComm` on a planning mesh, else None
+    (``torch.distributed``)."""
 
     shape: dict
     model_rank: int = 0
@@ -71,7 +84,7 @@ class Mesh:
 
     @property
     def world(self) -> int:
-        return self.size * self.data_size
+        return self.size * self.data_size * int(self.shape.get("pod", 1))
 
     @property
     def rank(self) -> int:
@@ -112,8 +125,7 @@ def axis_all_to_all(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         return t
     t = t.contiguous()
     if mesh.comm is not None:
-        i = mesh.axis_rank(axis)
-        return torch.stack([p[i] for p in mesh.comm.all_gather(axis, t)])
+        return mesh.comm.all_to_all(axis, t)
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=_group(mesh, axis))
     return out
@@ -134,8 +146,15 @@ def reduce_partials(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return rank_sum(axis_gather(y, mesh, "model"))
 
 
+def _host(mesh: Mesh) -> None:
+    if isinstance(mesh.comm, CountingComm):
+        raise RuntimeError("a planning mesh has no host exchange: the dry "
+                           "run traces a rank's device work only")
+
+
 def host_all_gather(t: torch.Tensor, mesh: Mesh) -> list:
     """A host tensor from every rank, in rank order (gloo)."""
+    _host(mesh)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t, group=mesh.host_group)
@@ -144,6 +163,7 @@ def host_all_gather(t: torch.Tensor, mesh: Mesh) -> list:
 
 def broadcast_float(x: float, mesh: Mesh) -> float:
     """Rank 0's ``x`` on every rank."""
+    _host(mesh)
     t = torch.tensor([x], dtype=torch.float64)
     dist.broadcast(t, dist.get_global_rank(mesh.host_group, 0),
                    group=mesh.host_group)
@@ -165,6 +185,7 @@ def world_host_group():
 def host_barrier(mesh: Mesh) -> None:
     """Wait until every rank of the mesh's model axis has come here
     (gloo)."""
+    _host(mesh)
     dist.barrier(group=mesh.host_group)
 
 
@@ -232,11 +253,18 @@ class _RankComm:
     comm: ThreadComm
     r: int
 
-    def all_gather(self, axis: str, t: torch.Tensor) -> list:
+    def _exchange(self, axis: str):
         c, (d, m) = self.comm, divmod(self.r, self.comm.model)
-        ex, i = {"model": (c.rows[d], m), "data": (c.cols[m], d),
-                 "world": (c.whole, self.r)}[axis]
+        return {"model": (c.rows[d], m), "data": (c.cols[m], d),
+                "world": (c.whole, self.r)}[axis]
+
+    def all_gather(self, axis: str, t: torch.Tensor) -> list:
+        ex, i = self._exchange(axis)
         return ex.all_gather(i, t)
+
+    def all_to_all(self, axis: str, t: torch.Tensor) -> torch.Tensor:
+        ex, i = self._exchange(axis)
+        return torch.stack([p[i] for p in ex.all_gather(i, t)])
 
     def barrier(self) -> None:
         self.comm.whole.barrier.wait()
@@ -298,3 +326,74 @@ def serial_train(fn, data: int, model: int, device="cpu", args=(),
         raise RuntimeError(f"serial_train ({data} x {model}): a rank "
                            f"failed:\n{first[0][1]}") from first[0][0]
     return out
+
+
+# ------------------------------------------------------ the planning mesh
+
+class CountingComm:
+    """One rank's collectives on a planning mesh, without the others: an
+    all-gather gives the rank ``n`` copies of its own tensor and an
+    all-to-all one copy (the shapes and dtypes the real exchange gives,
+    on the rank's device, the meta device in the dry run), and each call
+    is tallied by kind (the reference's HLO names, ``"all-gather"`` and
+    ``"all-to-all"``; the port sums over ranks as all-gathers) and axis:
+    its count and its output bytes, as the reference's dry run counts
+    the output shapes of its collectives."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.counts = collections.Counter()
+        self.bytes = collections.Counter()
+
+    def _n(self, axis: str) -> int:
+        if axis == "world":
+            return math.prod(self.shape.values())
+        return int(self.shape[axis])
+
+    def _tally(self, kind: str, axis: str, nbytes: int) -> None:
+        self.counts[kind, axis] += 1
+        self.bytes[kind, axis] += nbytes
+
+    def all_gather(self, axis: str, t: torch.Tensor) -> list:
+        n = self._n(axis)
+        self._tally("all-gather", axis, n * t.nbytes)
+        return [t.clone() for _ in range(n)]
+
+    def all_to_all(self, axis: str, t: torch.Tensor) -> torch.Tensor:
+        self._tally("all-to-all", axis, t.nbytes)
+        return t.clone()
+
+    def barrier(self) -> None:
+        pass
+
+    def totals(self) -> dict:
+        """``{"bytes": {kind: n}, "counts": {kind: n}, "total_bytes",
+        "by_axis": {"kind axis": [count, bytes]}}``, every kind of the
+        reference's five present (0 where none ran)."""
+        kinds = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute")
+        out = {"bytes": dict.fromkeys(kinds, 0),
+               "counts": dict.fromkeys(kinds, 0)}
+        for (kind, axis), c in sorted(self.counts.items()):
+            out["counts"][kind] += c
+            out["bytes"][kind] += self.bytes[kind, axis]
+        out["total_bytes"] = sum(out["bytes"].values())
+        out["by_axis"] = {f"{k} {a}": [c, self.bytes[k, a]]
+                          for (k, a), c in sorted(self.counts.items())}
+        return out
+
+
+def planning_mesh(shape: dict, comm: CountingComm | None = None) -> Mesh:
+    """A shape-only mesh (``shape``: axis → size, e.g. ``{"pod": 2,
+    "data": 16, "model": 16}``; an axis left out has size 1, and "pod"
+    is named only when given): rank 0's view, no process group, tensors
+    on the meta device; ``comm`` counts its collectives (None: a mesh for
+    specs only)."""
+    for ax in shape:
+        if ax not in ("pod", "data", "model"):
+            raise ValueError(f"a planning mesh's axes are pod, data and "
+                             f"model, not {ax!r}")
+    shape = {"data": 1, "model": 1, **shape}
+    names = tuple(a for a in ("pod", "data", "model") if a in shape)
+    return Mesh(shape=shape, axis_names=names, device=torch.device("meta"),
+                ranks=tuple(range(shape["model"])), comm=comm)

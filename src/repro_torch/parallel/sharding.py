@@ -12,7 +12,10 @@ name or ``None`` (replicated), as JAX's ``PartitionSpec`` lists them:
                  N, row-parallel wo/w_down over their K).
 
 A dimension that its mesh axis does not divide stays replicated, and an
-axis already used by an earlier dimension is not used again.
+axis already used by an earlier dimension is not used again. The specs
+that :func:`batch_spec` and :func:`cache_pspecs` build may also hold a
+tuple of mesh axes, the dimension split over their product (the batch over
+``("pod", "data")``; a long cache's time axis over ``("data", "model")``).
 
 :func:`shard` then takes one rank's slice of a tensor: along each
 dimension its spec names "model" (or "data"), the rank's contiguous 1/M
@@ -43,6 +46,7 @@ step's ops), every sum over ranks an all-gather added in rank order
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -50,7 +54,8 @@ import torch
 from repro_torch.parallel import mesh as PM
 
 __all__ = ["TRAIN_RULES", "SERVE_RULES", "spec_for_axes", "tree_pspecs",
-           "cache_pspecs", "shard", "shard_tree", "shard_shape", "unshard",
+           "axes_size", "batch_spec", "cache_pspecs", "shard", "shard_tree",
+           "shard_shape", "unshard",
            "batch_rows", "gather_data", "fanout", "reduce_sum",
            "gather_cols", "gather_params"]
 
@@ -71,6 +76,16 @@ SERVE_RULES = {
     **TRAIN_RULES,
     "embed": None,          # replicate fan-in dims: no gather on decode path
 }
+
+
+def _members(mesh_axis) -> tuple:
+    return mesh_axis if isinstance(mesh_axis, tuple) else (mesh_axis,)
+
+
+def axes_size(mesh, mesh_axis) -> int:
+    """The ranks a spec entry splits a dimension over (1 for None)."""
+    return math.prod(int(mesh.shape[a]) for a in _members(mesh_axis)
+                     if a is not None)
 
 
 def spec_for_axes(axes: tuple, shape: tuple, mesh, rules: dict) -> tuple:
@@ -111,23 +126,96 @@ def _dim_axis(dim: int, mesh, axis: str) -> Optional[str]:
     return None
 
 
-def cache_pspecs(cache_tree: dict, mesh) -> dict:
-    """Specs of the paged serving cache's tensors (by name): the pools
-    ``k_pool``/``v_pool`` ``[L, P, ps, Hkv, D/2]`` shard ONLY over kv heads
-    (pages are a host-global namespace: block tables and work-queue
-    descriptors index the same physical pages on every shard), their
-    static per-channel ``k_scale``/``k_zero``/``v_scale``/``v_zero``
-    ``[Hkv, 1, D]`` to match; anything else is replicated."""
-    def leaf_spec(name, leaf):
-        shape = tuple(leaf.shape)
+def batch_spec(mesh) -> tuple:
+    """The batch dimension's spec entry, one tuple: ``(("pod", "data"),)``
+    when the mesh has a pod axis, else ``("data",)``."""
+    return (("pod", "data"),) if "pod" in mesh.axis_names else ("data",)
+
+
+def cache_pspecs(cache_tree: dict, mesh, *,
+                 seq_parallel: bool = False) -> dict:
+    """Specs of a cache's tensors, by the meaning of each leaf (the
+    reference's ``cache_pspecs`` rules; the port's contiguous leaves have
+    no leading layer axis, and its image K/V are head-major):
+
+    * the paged serving pools ``k_pool``/``v_pool`` ``[L, P, ps, Hkv,
+      D/2]`` shard ONLY over kv heads (pages are a host-global namespace:
+      block tables and work-queue descriptors index the same physical
+      pages on every shard), their static per-channel
+      ``k_scale``/``k_zero``/``v_scale``/``v_zero`` ``[Hkv, 1, D]`` to
+      match;
+    * q4 ``k_packed``/``v_packed`` ``[B, Hkv, T, D/2]`` and their scales
+      ``[B, Hkv, 1, D]``; bf16 ``k``/``v`` ``[B, T, Hkv, D]``; the VLM's
+      ``cross_kv`` ``k``/``v`` ``[B, Hkv, T_img, D]``; RWKV's ``s`` ``[B,
+      H, d, d]`` and shifts ``[B, 1, D]``; Mamba2's ``ssm`` ``[B, H, N,
+      P]`` and ``conv`` ``[B, K − 1, Ch]``; ``length`` ``[B]``: the batch
+      over :func:`batch_spec`'s axes where they divide it, heads (and
+      the conv's channels) over "model";
+    * the time axis of an attention cache: with ``seq_parallel`` (batch
+      1, long context) over "data" instead of the batch, and, where the
+      kv heads do not divide the model axis, over "model" too
+      (flash-decode over a time-sharded cache);
+    * anything else replicated.
+
+    ``cache_tree``: a dict of such leaves, nested in dicts and lists
+    (``LM.init_cache``'s tree, or the engine's flat dict of pools) →
+    the same structure of spec tuples."""
+    baxes = batch_spec(mesh)[0]
+
+    def t_axis(dim, h_ax):
+        axes = []
+        if seq_parallel and dim % mesh.shape["data"] == 0:
+            axes.append("data")
+        if (h_ax is None and "model" in mesh.axis_names
+                and dim % (mesh.shape["model"]
+                           * (mesh.shape["data"] if axes else 1)) == 0):
+            axes.append("model")
+        if not axes:
+            return None
+        return axes[0] if len(axes) == 1 else tuple(axes)
+
+    def leaf_spec(path, leaf):
+        name, shape = path[-1], tuple(leaf.shape)
+
+        def bdim(i=0):
+            if shape[i] % axes_size(mesh, baxes) == 0 and not seq_parallel:
+                return baxes
+            return None
+
+        def heads(i):
+            return _dim_axis(shape[i], mesh, "model")
+
         if name in ("k_pool", "v_pool"):
-            return (None, None, None, _dim_axis(shape[3], mesh, "model"),
-                    None)
-        if name in ("k_scale", "k_zero", "v_scale", "v_zero") \
-                and len(shape) == 3:
-            return (_dim_axis(shape[0], mesh, "model"), None, None)
+            return (None, None, None, heads(3), None)
+        if name in ("k_scale", "k_zero", "v_scale", "v_zero"):
+            if len(shape) == 3:                 # the pools' [Hkv, 1, D]
+                return (heads(0), None, None)
+            return (bdim(), heads(1), None, None)
+        if name in ("k_packed", "v_packed") or (
+                name in ("k", "v") and "cross_kv" in path):
+            h = heads(1)                        # [B, Hkv, T, ·]
+            return (bdim(), h, t_axis(shape[2], h), None)
+        if name in ("k", "v"):                  # [B, T, Hkv, D]
+            h = heads(2)
+            return (bdim(), t_axis(shape[1], h), h, None)
+        if name in ("s", "ssm"):
+            return (bdim(), heads(1), None, None)
+        if name == "conv":
+            return (bdim(), None, heads(2))
+        if name in ("shift_tm", "shift_cm"):
+            return (bdim(), None, None)
+        if name == "length":
+            return (bdim(),)
         return (None,) * len(shape)
-    return {k: leaf_spec(k, v) for k, v in cache_tree.items()}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path) for v in tree]
+        return leaf_spec(path, tree)
+
+    return walk(cache_tree, ())
 
 
 def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -142,9 +230,9 @@ def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def shard_shape(shape, spec: tuple, mesh) -> tuple:
-    """The shape of one rank's shard of a tensor of ``shape``."""
-    return tuple(n // mesh.axis_size(ax) if ax in ("model", "data") else n
-                 for n, ax in zip(shape, spec))
+    """The shape of one rank's shard of a tensor of ``shape`` (an entry a
+    mesh axis, a tuple of them, or None)."""
+    return tuple(n // axes_size(mesh, ax) for n, ax in zip(shape, spec))
 
 
 def unshard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

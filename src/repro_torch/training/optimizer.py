@@ -74,9 +74,9 @@ def tree_leaves(tree, is_leaf=lambda x: False) -> list:
 
 
 def spec_leaves(specs) -> list:
-    """A spec tree's specs in :func:`tree_leaves` order."""
-    return tree_leaves(specs, lambda x: isinstance(x, tuple) and all(
-        isinstance(e, (str, type(None))) for e in x))
+    """A spec tree's specs in :func:`tree_leaves` order (its tuples are
+    its specs; an entry may itself be a tuple of mesh axes)."""
+    return tree_leaves(specs, lambda x: isinstance(x, tuple))
 
 
 def shard_ranks(spec: tuple, mesh) -> list:

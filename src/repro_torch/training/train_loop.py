@@ -34,9 +34,11 @@ __all__ = ["cross_entropy", "chunked_lm_sums", "chunked_lm_loss",
 
 
 def _token_ce(logits, labels):
-    """logsumexp(logits) − the gold label's logit, per position."""
+    """logsumexp(logits) − the gold label's logit, per position (labels
+    of any integer type: the data stream's int64, the reference's int32
+    in the dry run)."""
     return (torch.logsumexp(logits, -1)
-            - torch.gather(logits, -1, labels[..., None])[..., 0])
+            - torch.gather(logits, -1, labels[..., None].long())[..., 0])
 
 
 def cross_entropy(logits, labels, mask=None):

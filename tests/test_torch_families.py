@@ -152,8 +152,9 @@ def test_cross_attention_pieces(quantized):
 
 @pytest.mark.parametrize("arch", DECODERS[:1] + ("hubert_xlarge",))
 def test_mesh_and_plans_refused(arch):
-    """``LM.init(mesh=)`` and FMPQ plans are the dense and moe families'
-    only, refused with the ROADMAP items that would add them."""
+    """``LM.init(mesh=)``, training over a mesh and FMPQ plans are the
+    dense and moe families' only, refused with the ROADMAP items that
+    would add them."""
     from repro_torch.parallel.mesh import Mesh
     from repro_torch.core import fmpq as F
     from repro_torch.configs.base import get_smoke_config
@@ -166,5 +167,8 @@ def test_mesh_and_plans_refused(arch):
     plan = F.plan_fmpq(np.ones(cfg.d_model))
     with pytest.raises(NotImplementedError, match="item 17"):
         lm.quantize(params, [{"wq": plan}] * len(params["blocks"]))
+    # the axes are every family's (the dry run's); training over a mesh
+    # stays refused
+    assert set(lm.axes(params)) == set(params)
     with pytest.raises(NotImplementedError, match="item 16"):
-        lm.axes(params)
+        lm.train_specs(Mesh(shape={"data": 1, "model": 2}, model_rank=0))

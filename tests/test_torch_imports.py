@@ -133,3 +133,41 @@ def test_other_family_modules_are_covered():
         assert PORT / rel in SCANNED
     assert {"repro_torch." + r[:-3].replace("/", ".") for r in new} <= set(
         _port_modules())
+
+
+def test_dryrun_modules_are_covered():
+    """The scan and the jax-blocked import above reach the dry run's
+    modules and the files it extends (the shapes, the planning mesh, the
+    cache specs, the axes of every family)."""
+    new = ("launch/dryrun.py", "launch/specs.py")
+    for rel in new + ("configs/base.py", "parallel/mesh.py",
+                      "parallel/sharding.py", "launch/mesh.py",
+                      "models/lm.py", "training/optimizer.py"):
+        assert PORT / rel in SCANNED
+    assert {"repro_torch." + r[:-3].replace("/", ".") for r in new} <= set(
+        _port_modules())
+
+
+def test_dryrun_runs_with_jax_blocked(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` in a process where
+    ``import jax`` fails: one smoke cell, a JSON record, no ``repro``
+    module loaded."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['dryrun', '--arch', 'llama3_8b', '--shape', "
+        "'decode_32k', '--smoke', '--mesh', '2x2', '--out', "
+        f"{str(tmp_path)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.dryrun', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not loaded, loaded\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert (tmp_path / "llama3_8b_decode_32k_2x2_split.json").is_file()
